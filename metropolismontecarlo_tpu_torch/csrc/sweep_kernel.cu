@@ -1,0 +1,448 @@
+// Whole-sweep Metropolis kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel metropolismontecarlo_tpu/ops/pallas/sweep_kernel.py
+// sweep_pallas / _make_kernel, base variant (one species block; no activity
+// mask, exchanges, TMMC, Widom or sorted slabs), with lj_shift "none" and
+// "linear".  Plain PyTorch twin: ops/cuda/sweep_kernel.py sweep_plain.
+//
+// What it computes: for one chain per thread block, M sequential molecule
+// moves.  Each move makes a translate or rotate proposal, sums the old and
+// new site energies (LJ from per-site tables plus real-space Coulomb:
+// ewald / wolf / wolf_ref / bare / none) over every atom, adds the
+// incremental S(k) and reciprocal energy delta (ewald), vetoes attractive
+// overlaps with a +1e30 penalty, takes the Metropolis decision and writes
+// the accepted move back.  Uniforms come from the caller, u (C, M, 10).
+//
+// What bounds it on this card: latency, not bytes.  The moves of a chain
+// form a dependent chain of 750 steps (at the 750-water flagship), each a
+// few microseconds of arithmetic over ~2300 atoms followed by a block-wide
+// reduction and a scalar decision; device memory is touched only to load
+// and store the chain state (~55 KB) and to read 40 B of uniforms per move.
+// The design: the whole chain state (x/y/z, COM, quaternions, S(k), the
+// per-atom type/charge/molecule rows and the k-vectors) lives in shared
+// memory for the whole sweep; the atom loop is strided over the block so
+// neighbouring threads read neighbouring words; one warp-shuffle reduction
+// plus one pass over the warp partials per move; the next move's uniforms
+// are prefetched during the current move; chains run in parallel across
+// blocks (2048 chains are ~8 waves at 2 blocks per SM).  Further latency
+// work (fewer barriers per move, warp-specialised proposals, several
+// chains per block) is left for later.
+//
+// Semantics kept from the TPU kernel: old atoms are read from the stored
+// coordinates, never rebuilt from COM + quaternion; new atoms are the
+// floor-wrapped new COM plus R(q_new) body (not wrapped per atom); pair
+// distances use the rintf minimum image with d^2 floored at 1e-4; pads
+// (molid < 0) and the molecule's own atoms are excluded; S(k) changes only
+// on accept; the energy statistic adds d_e by select, so a rejected move's
+// overflowed delta never enters.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+enum Coulomb { kNone = 0, kEwald = 1, kWolf = 2, kWolfRef = 3, kBare = 4 };
+
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kInvTwoPi = 0.15915494309189535f;
+constexpr int kStats = 6;
+constexpr int kUniforms = 10;
+constexpr int kMaxSmemBytes = 232448;
+
+// Shared-memory words of one block; ops/cuda/sweep_kernel.py smem_bytes
+// computes the same number.
+__host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
+                                                    int K, int T) {
+  return 6 * (size_t)A_pad + 7 * (size_t)M + 8 * (size_t)K +
+         4 * (size_t)P * T + 11 * (size_t)P + 80;
+}
+
+__device__ inline float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// R(q) b, the same expansion as the TPU kernel's rot_apply.
+__device__ inline void rot_apply(float w, float x, float y, float z, float bx,
+                                 float by, float bz, float* o) {
+  const float ww = w * w, xx = x * x, yy = y * y, zz = z * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  o[0] = (ww + xx - yy - zz) * bx + 2.0f * ((xy - wz) * by + (xz + wy) * bz);
+  o[1] = (ww - xx + yy - zz) * by + 2.0f * ((xy + wz) * bx + (yz - wx) * bz);
+  o[2] = (ww - xx - yy + zz) * bz + 2.0f * ((xz - wy) * bx + (yz + wx) * by);
+}
+
+__global__ void sweep_kernel(
+    const float* __restrict__ coords_in, const float* __restrict__ com_in,
+    const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
+    const float* __restrict__ box_in, const float* __restrict__ temp_in,
+    const float* __restrict__ drmax_in, const float* __restrict__ dphi_in,
+    const float* __restrict__ u_in, const float* __restrict__ body,
+    const float* __restrict__ qp, const float* __restrict__ eps_pt,
+    const float* __restrict__ sig2_pt, const float* __restrict__ lam1_pt,
+    const float* __restrict__ lam2_pt, const int* __restrict__ has_lj,
+    const int* __restrict__ has_q, const int* __restrict__ tid_row,
+    const int* __restrict__ molid_row, const float* __restrict__ q_row,
+    const float* __restrict__ kvec, const float* __restrict__ kw,
+    float* __restrict__ coords_out, float* __restrict__ com_out,
+    float* __restrict__ quat_out, float* __restrict__ sfac_out,
+    float* __restrict__ stats_out, int M, int P, int A_pad, int K, int T,
+    int coulomb, int lj_linear, int use_rot, float rc2, float qrc2,
+    float kappa_l, float d2_overlap, float p_translate, float factor) {
+  extern __shared__ float smem[];
+  float* sx = smem;
+  float* sy = sx + A_pad;
+  float* sz = sy + A_pad;
+  float* sq = sz + A_pad;
+  int* stid = reinterpret_cast<int*>(sq + A_pad);
+  int* smol = stid + A_pad;
+  float* scom = reinterpret_cast<float*>(smol + A_pad);  // (M, 3)
+  float* squat = scom + 3 * M;                           // (M, 4)
+  float* ssre = squat + 4 * M;
+  float* ssim = ssre + K;
+  float* scfac = ssim + K;
+  float* sdre = scfac + K;
+  float* sdim = sdre + K;
+  float* skx = sdim + K;
+  float* sky = skx + K;
+  float* skz = sky + K;
+  float* seps = skz + K;          // (P, T)
+  float* ssig2 = seps + P * T;
+  float* slam1 = ssig2 + P * T;
+  float* slam2 = slam1 + P * T;
+  float* sbody = slam2 + P * T;   // (P, 3)
+  float* sqp = sbody + 3 * P;
+  int* slj = reinterpret_cast<int*>(sqp + P);
+  int* sqf = slj + P;
+  float* sold = reinterpret_cast<float*>(sqf + P);  // (P, 3)
+  float* snew = sold + 3 * P;                        // (P, 3)
+  float* su = snew + 3 * P;     // 2 x 16: double-buffered uniforms
+  float* sred = su + 32;        // one partial sum per warp
+  float* sdec = sred + 32;      // 16 words: proposal scalars + decision
+
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
+
+  const float* cin = coords_in + (size_t)c * 3 * A_pad;
+  for (int j = tid; j < A_pad; j += nt) {
+    sx[j] = cin[j];
+    sy[j] = cin[A_pad + j];
+    sz[j] = cin[2 * A_pad + j];
+    sq[j] = q_row[j];
+    stid[j] = tid_row[j];
+    smol[j] = molid_row[j];
+  }
+  for (int i = tid; i < 3 * M; i += nt) scom[i] = com_in[(size_t)c * 3 * M + i];
+  for (int i = tid; i < 4 * M; i += nt) squat[i] = quat_in[(size_t)c * 4 * M + i];
+
+  const float box = box_in[c];
+  const float inv_box = 1.0f / box;
+  const float kappa = kappa_l * inv_box;
+  const float temp = temp_in[c];
+  const float dr_max = drmax_in[c];
+  const float dphi_max = dphi_in[c];
+  const bool ewald = coulomb == kEwald;
+  for (int k = tid; k < K; k += nt) {
+    ssre[k] = sfac_in[((size_t)c * K + k) * 2];
+    ssim[k] = sfac_in[((size_t)c * K + k) * 2 + 1];
+    const float kx = kvec[3 * k], ky = kvec[3 * k + 1], kz = kvec[3 * k + 2];
+    skx[k] = kx;
+    sky[k] = ky;
+    skz[k] = kz;
+    if (ewald) {
+      const float tpl = kTwoPi * inv_box;
+      const float kt2 = tpl * tpl * (kx * kx + ky * ky + kz * kz);
+      const float vol = box * box * box;
+      scfac[k] = kw[k] * (kTwoPi / vol) * expf(-kt2 / (4.0f * kappa * kappa)) / kt2;
+    }
+  }
+  for (int i = tid; i < P * T; i += nt) {
+    seps[i] = 4.0f * eps_pt[i];
+    ssig2[i] = sig2_pt[i];
+    slam1[i] = lam1_pt[i];
+    slam2[i] = lam2_pt[i];
+  }
+  for (int i = tid; i < 3 * P; i += nt) sbody[i] = body[i];
+  for (int i = tid; i < P; i += nt) {
+    sqp[i] = qp[i];
+    slj[i] = has_lj[i];
+    sqf[i] = has_q[i] && coulomb != kNone;
+  }
+  float sh_w = 0.0f;
+  if (coulomb == kWolf) {
+    const float qrc = sqrtf(qrc2);
+    sh_w = erfcf(kappa * qrc) / qrc;
+  }
+  const bool split_cut = qrc2 != rc2;
+  const float* u_chain = u_in + (size_t)c * M * kUniforms;
+  if (tid < kUniforms) su[tid] = u_chain[tid];
+  __syncthreads();
+
+  // stats: energy delta, acc/att [trans, rot], and a decision fingerprint
+  // (the sum of m + 1 over accepted moves) that tells a chain whose accept
+  // sequence diverged from one that only matches in its counts
+  float st_e = 0.0f, st_acc_t = 0.0f, st_acc_r = 0.0f, st_att_t = 0.0f,
+        st_att_r = 0.0f, st_fp = 0.0f;
+
+  for (int m = 0; m < M; ++m) {
+    const float* um = su + (m & 1) * 16;
+    // prefetch the next move's uniforms into the other buffer (its last
+    // reader, thread 0 at move m-1, finished before the barrier that
+    // closed move m-1)
+    if (tid >= 32 && tid < 32 + kUniforms && m + 1 < M)
+      su[((m + 1) & 1) * 16 + tid - 32] = u_chain[(size_t)(m + 1) * kUniforms + tid - 32];
+
+    if (tid == 0) {
+      const float* cm = scom + 3 * m;
+      const float* q0 = squat + 4 * m;
+      float tsel = 1.0f;
+      float q1[4] = {q0[0], q0[1], q0[2], q0[3]};
+      if (use_rot) {
+        tsel = um[0] < p_translate ? 1.0f : 0.0f;
+        const float e1 = fmaxf(um[5], 1e-12f), e2 = um[6];
+        const float e3 = fmaxf(um[7], 1e-12f), e4 = um[8];
+        const float r1 = sqrtf(-2.0f * logf(e1));
+        const float r2 = sqrtf(-2.0f * logf(e3));
+        float s2, c2, s4, c4;
+        sincosf(kTwoPi * (e2 - rintf(e2)), &s2, &c2);
+        sincosf(kTwoPi * (e4 - rintf(e4)), &s4, &c4);
+        const float g1 = r1 * c2, g2 = r1 * s2, g3 = r2 * c4;
+        const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
+        const float half = 0.5f * ((2.0f * um[9] - 1.0f) * dphi_max);
+        float sh, rw;
+        sincosf(half, &sh, &rw);
+        sh = sh * gn;
+        const float rx = sh * g1, ry = sh * g2, rz = sh * g3;
+        const float w0 = q0[0], x0 = q0[1], y0 = q0[2], z0 = q0[3];
+        const float nw = rw * w0 - rx * x0 - ry * y0 - rz * z0;
+        const float nx = rw * x0 + rx * w0 + ry * z0 - rz * y0;
+        const float ny = rw * y0 - rx * z0 + ry * w0 + rz * x0;
+        const float nz = rw * z0 + rx * y0 - ry * x0 + rz * w0;
+        const float qn = rsqrtf(nw * nw + nx * nx + ny * ny + nz * nz);
+        if (tsel == 0.0f) {
+          q1[0] = nw * qn;
+          q1[1] = nx * qn;
+          q1[2] = ny * qn;
+          q1[3] = nz * qn;
+        }
+      }
+      float nc[3];
+      for (int d = 0; d < 3; ++d) {
+        const float v = cm[d] + tsel * (um[1 + d] - 0.5f) * dr_max;
+        nc[d] = v - box * floorf(v * inv_box);
+      }
+      const int a0 = m * P;
+      for (int p = 0; p < P; ++p) {
+        sold[3 * p] = sx[a0 + p];
+        sold[3 * p + 1] = sy[a0 + p];
+        sold[3 * p + 2] = sz[a0 + p];
+        float o[3] = {0.0f, 0.0f, 0.0f};
+        if (P > 1)
+          rot_apply(q1[0], q1[1], q1[2], q1[3], sbody[3 * p], sbody[3 * p + 1],
+                    sbody[3 * p + 2], o);
+        for (int d = 0; d < 3; ++d) snew[3 * p + d] = nc[d] + o[d];
+      }
+      for (int d = 0; d < 3; ++d) sdec[d] = nc[d];
+      for (int i = 0; i < 4; ++i) sdec[3 + i] = q1[i];
+      sdec[7] = tsel;
+    }
+    __syncthreads();
+
+    // ---- old and new site sums over the atom lanes ----
+    float part = 0.0f;
+    for (int j = tid; j < A_pad; j += nt) {
+      const int mj = smol[j];
+      if (mj < 0 || mj == m) continue;
+      const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
+      const int tj = stid[j];
+      for (int p = 0; p < P; ++p) {
+        const bool lj = slj[p] != 0;
+        const bool uq = sqf[p] != 0;
+        const float eps4 = lj ? seps[p * T + tj] : 0.0f;
+        const float sig2 = lj ? ssig2[p * T + tj] : 0.0f;
+        const float l1 = lj ? slam1[p * T + tj] : 0.0f;
+        const float l2 = lj ? slam2[p * T + tj] : 0.0f;
+        const float qq = (factor * sqp[p]) * qj;
+        for (int s = 0; s < 2; ++s) {
+          const float* a = (s ? snew : sold) + 3 * p;
+          float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
+          dx -= box * rintf(dx * inv_box);
+          dy -= box * rintf(dy * inv_box);
+          dz -= box * rintf(dz * inv_box);
+          const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+          const bool m_lj = d2 < rc2;
+          const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
+          const float inv_r = rsqrtf(d2);
+          const float inv_d2 = inv_r * inv_r;
+          float contrib = 0.0f;
+          if (lj && m_lj) {
+            const float s2 = sig2 * inv_d2;
+            const float s6 = s2 * s2 * s2;
+            float pot = eps4 * (s6 * s6 - s6);
+            if (lj_linear) pot += l1 + l2 * sqrtf(d2);
+            contrib = pot;
+          }
+          if (uq && m_qq) {
+            const float r = d2 * inv_r;
+            float cp;
+            if (coulomb == kBare)
+              cp = qq * inv_r;
+            else if (coulomb == kWolf)
+              cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
+            else
+              cp = qq * (erfcf(kappa * r) * inv_r);
+            if (s == 1 && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
+            contrib += cp;
+          }
+          part += s ? contrib : -contrib;
+        }
+      }
+    }
+
+    // ---- incremental S(k) and the reciprocal energy delta ----
+    if (ewald) {
+      const float tpl = kTwoPi * inv_box;
+      for (int k = tid; k < K; k += nt) {
+        const float kx = skx[k], ky = sky[k], kz = skz[k];
+        float dre = 0.0f, dim = 0.0f;
+        for (int s = 0; s < 2; ++s) {
+          const float* a = s ? snew : sold;
+          for (int p = 0; p < P; ++p) {
+            if (!sqf[p]) continue;
+            float ph = tpl * (kx * a[3 * p] + ky * a[3 * p + 1] + kz * a[3 * p + 2]);
+            ph -= kTwoPi * rintf(ph * kInvTwoPi);
+            float sn, cs;
+            sincosf(ph, &sn, &cs);
+            const float qps = s ? sqp[p] : -sqp[p];
+            dre += qps * cs;
+            dim += qps * sn;
+          }
+        }
+        sdre[k] = dre;
+        sdim[k] = dim;
+        const float cross = 2.0f * (ssre[k] * dre + ssim[k] * dim) + dre * dre + dim * dim;
+        part += factor * (scfac[k] * cross);
+      }
+    }
+
+    part = warp_sum(part);
+    if (lane == 0) sred[warp] = part;
+    __syncthreads();
+
+    if (tid == 0) {
+      float d_e = 0.0f;
+      for (int w = 0; w < nwarps; ++w) d_e += sred[w];
+      const float beta_de = d_e / temp;
+      // the overlap penalty makes beta_de huge: exp(-beta_de) == 0 rejects
+      const bool accept = (beta_de < 0.0f) || (um[4] < expf(-beta_de));
+      const float tsel = sdec[7];
+      st_att_t += tsel;
+      st_att_r += 1.0f - tsel;
+      if (accept) {
+        st_e += d_e;
+        st_acc_t += tsel;
+        st_acc_r += 1.0f - tsel;
+        st_fp += (float)(m + 1);
+        for (int d = 0; d < 3; ++d) scom[3 * m + d] = sdec[d];
+        for (int i = 0; i < 4; ++i) squat[4 * m + i] = sdec[3 + i];
+        const int a0 = m * P;
+        for (int p = 0; p < P; ++p) {
+          sx[a0 + p] = snew[3 * p];
+          sy[a0 + p] = snew[3 * p + 1];
+          sz[a0 + p] = snew[3 * p + 2];
+        }
+      }
+      sdec[8] = accept ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+    if (ewald && sdec[8] != 0.0f) {
+      // each thread adds the deltas of the k-vectors it computed
+      for (int k = tid; k < K; k += nt) {
+        ssre[k] += sdre[k];
+        ssim[k] += sdim[k];
+      }
+    }
+  }
+  __syncthreads();
+
+  float* cout = coords_out + (size_t)c * 3 * A_pad;
+  for (int j = tid; j < A_pad; j += nt) {
+    cout[j] = sx[j];
+    cout[A_pad + j] = sy[j];
+    cout[2 * A_pad + j] = sz[j];
+  }
+  for (int i = tid; i < 3 * M; i += nt) com_out[(size_t)c * 3 * M + i] = scom[i];
+  for (int i = tid; i < 4 * M; i += nt) quat_out[(size_t)c * 4 * M + i] = squat[i];
+  for (int k = tid; k < K; k += nt) {
+    sfac_out[((size_t)c * K + k) * 2] = ssre[k];
+    sfac_out[((size_t)c * K + k) * 2 + 1] = ssim[k];
+  }
+  if (tid == 0) {
+    float* st = stats_out + (size_t)c * kStats;
+    st[0] = st_e;
+    st[1] = st_acc_t;
+    st[2] = st_acc_r;
+    st[3] = st_att_t;
+    st[4] = st_att_r;
+    st[5] = st_fp;
+  }
+}
+
+}  // namespace
+
+extern "C" size_t mmc_sweep_smem_bytes(int M, int P, int A_pad, int K, int T) {
+  return sizeof(float) * sweep_smem_floats(M, P, A_pad, K, T);
+}
+
+extern "C" const char* mmc_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Launches one sweep (grid = C chains) on `stream`; returns the CUDA error
+// code of the launch (0 on success).  All pointers are device pointers to
+// contiguous f32 (int32 for the flag and row tables) tensors.
+extern "C" int mmc_sweep_launch(
+    const void* coords, const void* com, const void* quat, const void* sfac,
+    const void* box, const void* temp, const void* drmax, const void* dphi,
+    const void* u, const void* body, const void* qp, const void* eps_pt,
+    const void* sig2_pt, const void* lam1_pt, const void* lam2_pt,
+    const void* has_lj, const void* has_q, const void* tid_row,
+    const void* molid_row, const void* q_row, const void* kvec, const void* kw,
+    void* coords_out, void* com_out, void* quat_out, void* sfac_out,
+    void* stats_out, int C, int M, int P, int A_pad, int K, int T, int coulomb,
+    int lj_linear, int use_rot, int threads, float rc2, float qrc2,
+    float kappa_l, float d2_overlap, float p_translate, float factor,
+    void* stream) {
+  const size_t smem = mmc_sweep_smem_bytes(M, P, A_pad, K, T);
+  if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > 1024 ||
+      threads % 32 != 0 || C < 1 || M < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  sweep_kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(coords), static_cast<const float*>(com),
+      static_cast<const float*>(quat), static_cast<const float*>(sfac),
+      static_cast<const float*>(box), static_cast<const float*>(temp),
+      static_cast<const float*>(drmax), static_cast<const float*>(dphi),
+      static_cast<const float*>(u), static_cast<const float*>(body),
+      static_cast<const float*>(qp), static_cast<const float*>(eps_pt),
+      static_cast<const float*>(sig2_pt), static_cast<const float*>(lam1_pt),
+      static_cast<const float*>(lam2_pt), static_cast<const int*>(has_lj),
+      static_cast<const int*>(has_q), static_cast<const int*>(tid_row),
+      static_cast<const int*>(molid_row), static_cast<const float*>(q_row),
+      static_cast<const float*>(kvec), static_cast<const float*>(kw),
+      static_cast<float*>(coords_out), static_cast<float*>(com_out),
+      static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
+      static_cast<float*>(stats_out), M, P, A_pad, K, T, coulomb, lj_linear,
+      use_rot, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
+  return static_cast<int>(cudaGetLastError());
+}

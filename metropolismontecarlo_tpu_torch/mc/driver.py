@@ -1,0 +1,288 @@
+"""Chain-parallel MC driver (counterpart of
+metropolismontecarlo_tpu/mc/driver.py, NVT whole-sweep route).
+
+C independent chains advance in lockstep.  `sweep` is one call of the
+whole-sweep op (the CUDA kernel on the card, its plain version on the
+CPU); `run_steps` loops sweeps with optional step-size adaptation;
+`run_block` adds the block-end recompute that checks the accumulated
+energy's drift and resynchronises energy, virial and S(k).
+
+Not ported yet, and refused when asked for: NPT volume moves, neighbour
+lists, species-blocked mixtures, sorted slabs, Widom sampling,
+pressure_fd, tensor-parallel recomputes and the per-move (jnp or
+delta-energy kernel) paths.
+"""
+
+import dataclasses
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from metropolismontecarlo_tpu_torch.mc.adjust import adjust_dmax
+from metropolismontecarlo_tpu_torch.mc.moves import (
+    check_mega_supported,
+    make_mega_sweep_fn,
+)
+from metropolismontecarlo_tpu_torch.models.energy import energy_breakdown
+from metropolismontecarlo_tpu_torch.models.system import SimState
+from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+from metropolismontecarlo_tpu_torch.ops.quaternions import (
+    fit_quaternions,
+    random_quaternion,
+    rotate_vectors,
+)
+from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+
+
+def _auto_recompute_chunk(system, dtype, budget_bytes=8 << 30):
+    """Chains per chunk of the dense full-energy recompute: ~48 live
+    (A, A) temporaries per chain (the (A, A, 3) displacement grids count
+    three each) against a fixed memory budget, clamped to [1, 64]."""
+    A = system.n_atoms_padded
+    item = torch.finfo(dtype).bits // 8
+    return int(max(1, min(64, budget_bytes // (48 * A * A * item))))
+
+
+class MonteCarlo:
+    """System + RunParams bundled into the chain-parallel NVT loop.
+
+    Usage:
+        mc = MonteCarlo(system, params, device="cuda", generator=gen)
+        state = mc.init_state(com0, box=box0, n_chains=2048)
+        state, metrics = mc.run_block(state, n_steps=100, adjust=True)
+    """
+
+    def __init__(self, system, params, device="cpu", generator=None,
+                 dtype=torch.float32, recompute_chunk="auto", tp_mesh=None):
+        """device: where state and kernels live.  generator: the
+        torch.Generator (on `device`) behind every random draw; a fresh
+        one seeded 0 when None.  recompute_chunk: chains per step of the
+        chunked full-energy recompute ("auto": from a memory model).
+        tp_mesh (tensor-parallel recomputes) is not ported and raises.
+        Every sweep runs the whole-sweep kernel (the JAX package's "mega"
+        route), the only route ported."""
+        self.device = torch.device(device)
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, state on "
+                             f"{self.device}")
+        self.generator = generator
+        if dtype != torch.float32:
+            raise ValueError("the whole-sweep path runs in float32")
+        if tp_mesh is not None:
+            raise NotImplementedError("tensor-parallel recomputes are not "
+                                      "ported yet")
+        if params.pressure is not None or params.p_volume > 0.0:
+            raise NotImplementedError("NPT volume moves are not ported yet")
+        if params.nlist_width > 0:
+            raise NotImplementedError("neighbour lists are not ported yet")
+        self.system = system
+        self.params = params
+        self.dtype = dtype
+        if recompute_chunk in ("auto", None):
+            recompute_chunk = _auto_recompute_chunk(system, dtype)
+        self.recompute_chunk = recompute_chunk
+        if params.coulomb == "ewald":
+            self.kvecs, self.kweights = ewald_ops.make_kvectors(
+                params.nk, params.ksq_max, strict=True)
+        else:
+            self.kvecs, self.kweights = None, None
+        self._sweep_full = make_mega_sweep_fn(
+            system, params, self.kvecs, self.kweights, self.device)
+        self.tables = self._sweep_full.tables
+
+    def _check_min_image(self, box):
+        """r_cut <= box/2, else pair sums silently miss second images;
+        params.strict_min_image=False downgrades to a warning."""
+        max_cut = float(max(self.params.r_cut, self.params.qq_cut))
+        bmin = float(torch.min(box))
+        if bmin + 1e-6 < 2.0 * max_cut:
+            msg = (f"minimum image violated: box {bmin:.4f} < 2 * cutoff "
+                   f"{max_cut} - enlarge the system or shrink "
+                   f"r_cut/qq_r_cut (or set strict_min_image=False to "
+                   f"sample the truncated-nearest-image model)")
+            if self.params.strict_min_image:
+                raise ValueError(msg)
+            warnings.warn(msg, stacklevel=3)
+
+    # ---------------- state construction ----------------
+
+    def build_coords(self, com, quat):
+        """Atoms r = com + R(q) b: com (..., M, 3), quat (..., M, 4) ->
+        (..., 3, A_pad) with zero lane padding."""
+        body = torch.tensor(np.array(self.system.body), dtype=com.dtype,
+                            device=com.device)
+        atoms = com[..., :, None, :] + rotate_vectors(quat, body)
+        if self.system.uniform_width:
+            flat = atoms.reshape(atoms.shape[:-3] + (self.system.n_atoms, 3))
+        else:
+            mol, slot = self.system.atom_mol_slot
+            flat = atoms[..., mol, slot, :]
+        out = flat.transpose(-1, -2)
+        pad = self.system.n_atoms_padded - self.system.n_atoms
+        return torch.nn.functional.pad(out, (0, pad)).contiguous()
+
+    def _new_state(self, com, quat, box):
+        C = com.shape[0]
+        p, dev, dt = self.params, self.device, self.dtype
+
+        def full(v):
+            return torch.full((C,), v, dtype=dt, device=dev)
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return SimState(
+            com=com, quat=quat, coords=self.build_coords(com, quat), box=box,
+            sfac=zeros(C, 1, 2), energy=zeros(C), virial=zeros(C),
+            temp=full(p.temperature),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+            dr_max=full(p.dr_max), dphi_max=full(p.dphi_max),
+            dv_max=full(p.dv_max), acc=zeros(C, 3, dtype=torch.int32),
+            att=zeros(C, 3, dtype=torch.int32),
+            nbr=zeros(C, 1, 1, dtype=torch.int32),
+            nbr_needed=zeros(C, dtype=torch.int32))
+
+    def init_state(self, com, quat=None, box=None, n_chains=None):
+        """SimState from com (M, 3) or (C, M, 3); quat likewise, or None
+        for random orientations drawn from the driver's generator; box a
+        scalar or (C,)."""
+        M = self.system.n_mol
+        com = torch.as_tensor(np.asarray(com), dtype=self.dtype,
+                              device=self.device)
+        if com.dim() == 2:
+            if n_chains is None:
+                raise ValueError("n_chains required when replicating one "
+                                 "config")
+            com = com[None].expand(n_chains, M, 3)
+        com = com.contiguous()
+        C = com.shape[0]
+        if quat is None:
+            quat = random_quaternion(self.generator, (C, M), dtype=self.dtype,
+                                     device=self.device)
+        else:
+            quat = torch.as_tensor(np.asarray(quat), dtype=self.dtype,
+                                   device=self.device)
+            if quat.dim() == 2:
+                quat = quat[None].expand(C, M, 4)
+            quat = quat.contiguous()
+        box = torch.as_tensor(np.asarray(box), dtype=self.dtype,
+                              device=self.device)
+        box = torch.broadcast_to(box.reshape(-1), (C,)).contiguous()
+        self._check_min_image(box)
+        check_mega_supported(self.system, self.params, float(torch.min(box)),
+                             com[0, :, 2].double().cpu().numpy())
+        return self.resync(self._new_state(com, quat, box))
+
+    def init_from_coords(self, coords, com, box, n_chains):
+        """Replicate one explicit atom configuration across chains, with
+        per-molecule quaternions Kabsch-fitted to the body template and
+        the atoms rebuilt as com + R(q) body."""
+        M = self.system.n_mol
+        coords_np = np.asarray(coords, np.float64).reshape(
+            self.system.n_atoms, 3)
+        com_np = np.asarray(com, np.float64)
+        box_np = float(np.asarray(box).reshape(-1)[0])
+        body_np = np.asarray(self.system.body, np.float64)
+        quat_np = np.zeros((M, 4))
+        for _, m0, m1, p, a0 in self.system.species_slices:
+            c = coords_np[a0:a0 + (m1 - m0) * p].reshape(m1 - m0, p, 3)
+            rel = c - com_np[m0:m1, None, :]
+            rel -= box_np * np.round(rel / box_np)  # heal PBC-split molecules
+            quat_np[m0:m1] = fit_quaternions(body_np[m0:m1, :p], rel)
+        return self.init_state(com_np, quat_np, box_np, n_chains)
+
+    # ---------------- full recompute / resync ----------------
+
+    def full_energy(self, state):
+        """Chunked full-system energy over chains: (C,) totals, virials
+        and (C, K, 2) structure factors ((C, 1, 2) zeros without Ewald)."""
+        A = self.system.n_atoms
+
+        def one(coords_t, com, box):
+            out = energy_breakdown(self.system, self.params,
+                                   coords_t[:, :, :A].transpose(1, 2), com,
+                                   box, self.kvecs, self.kweights)
+            return out["total"], out["w"], out["sfac"]
+
+        return chunked_map(one, self.recompute_chunk, state.coords,
+                           state.com, state.box)
+
+    def resync(self, state):
+        """Replace the carried energy/virial/S(k) with a recompute."""
+        e, w, sfac = self.full_energy(state)
+        if self.params.coulomb != "ewald":
+            sfac = state.sfac
+        return dataclasses.replace(state, energy=e, virial=w, sfac=sfac)
+
+    # ---------------- sweeps ----------------
+
+    def sweep(self, state):
+        """One sweep: every molecule attempted once, in storage order."""
+        return self._sweep_full(state, self.generator)
+
+    def run_steps(self, state, n_steps, adjust=False):
+        """n_steps sweeps; with adjust, steer the step sizes toward the
+        target acceptance after every sweep and reset the counters."""
+        p = self.params
+        for _ in range(n_steps):
+            state = self.sweep(state)
+            if adjust:
+                dr = adjust_dmax(state.dr_max, state.acc[:, 0],
+                                 state.att[:, 0], p.move_accept,
+                                 state.box / 2.0)
+                dphi = adjust_dmax(state.dphi_max, state.acc[:, 1],
+                                   state.att[:, 1], p.move_accept, math.pi)
+                dv = adjust_dmax(state.dv_max, state.acc[:, 2],
+                                 state.att[:, 2], p.move_accept, 1.0)
+                state = dataclasses.replace(
+                    state, dr_max=dr, dphi_max=dphi, dv_max=dv,
+                    acc=torch.zeros_like(state.acc),
+                    att=torch.zeros_like(state.att))
+        return state
+
+    def pressure_fd(self, state, rel_eps=1e-4):
+        raise NotImplementedError("pressure_fd is not ported yet")
+
+    def widom(self, state, *args, **kwargs):
+        raise NotImplementedError("Widom sampling is not ported yet")
+
+    def widom_mega(self, state, *args, **kwargs):
+        raise NotImplementedError("Widom sampling is not ported yet")
+
+    # ---------------- blocks ----------------
+
+    def run_block(self, state, n_steps, adjust=False, drift_tol=None):
+        """n_steps sweeps, then the recompute-vs-accumulated drift check
+        and resync.  Returns (state, metrics dict of host floats)."""
+        acc0, att0 = state.acc, state.att
+        state = self.run_steps(state, n_steps, adjust)
+        e, w, sfac = self.full_energy(state)
+        drift = torch.max(torch.abs(e - state.energy)
+                          / torch.clamp_min(torch.abs(e), 1.0))
+        metrics = {
+            "energy_mean": float(torch.mean(e)),
+            "energy_min": float(torch.min(e)),
+            "energy_max": float(torch.max(e)),
+            "virial_mean": float(torch.mean(w)),
+            "drift_max_rel": float(drift),
+            "dr_max_mean": float(torch.mean(state.dr_max)),
+            "dphi_max_mean": float(torch.mean(state.dphi_max)),
+        }
+        if not adjust:
+            ratio = (state.acc - acc0) / torch.clamp_min(state.att - att0, 1)
+            metrics["acc_trans"] = float(torch.mean(ratio[:, 0]))
+            metrics["acc_rot"] = float(torch.mean(ratio[:, 1]))
+            metrics["acc_vol"] = float(torch.mean(ratio[:, 2]))
+        if self.params.coulomb != "ewald":
+            sfac = state.sfac
+        state = dataclasses.replace(state, energy=e, virial=w, sfac=sfac)
+        if drift_tol is not None and metrics["drift_max_rel"] > drift_tol:
+            raise RuntimeError(
+                f"energy drift {metrics['drift_max_rel']:.3e} exceeds "
+                f"{drift_tol}")
+        return state, metrics

@@ -1,0 +1,66 @@
+"""Rigid 3-site water builders: SPC/E and TIP3P (counterpart of
+metropolismontecarlo_tpu/models/water.py)."""
+
+import functools
+
+import numpy as np
+
+from metropolismontecarlo_tpu_torch.models.system import System
+
+# SPC/E (Berendsen et al. 1987; NIST SRSW constants)
+SPCE_SIGMA_OO = 3.16555789      # Angstrom
+SPCE_EPS_OO = 78.19743111       # K
+SPCE_Q_O = -0.8476
+SPCE_Q_H = 0.4238
+SPCE_R_OH = 1.0
+SPCE_THETA = 109.47
+MASS_O = 15.999
+MASS_H = 1.008
+
+# TIP3P (Jorgensen 1983), GROMACS water.top values
+TIP3P_SIGMA_OO = 3.15061
+TIP3P_EPS_OO = 0.6364 * 120.272236695
+TIP3P_Q_O = -0.834
+TIP3P_Q_H = 0.417
+TIP3P_R_OH = 0.9572
+TIP3P_THETA = 104.52
+
+
+def water_body_frame(r_oh, theta_deg):
+    """(O, H, H) template with the COM at the origin; O on the -z side,
+    the H's symmetric in the xz-plane."""
+    th = np.deg2rad(theta_deg) / 2.0
+    pts = np.stack([np.zeros(3),
+                    np.array([r_oh * np.sin(th), 0.0, r_oh * np.cos(th)]),
+                    np.array([-r_oh * np.sin(th), 0.0, r_oh * np.cos(th)])])
+    m = np.array([MASS_O, MASS_H, MASS_H])
+    return pts - (pts * m[:, None]).sum(0) / m.sum()
+
+
+def _water_system(n_mol, sigma, eps, q_o, q_h, r_oh, theta, name):
+    def rows(v, dtype=None):
+        return np.broadcast_to(np.asarray(v, dtype), (n_mol,)
+                               + np.shape(v)).copy()
+
+    return System(
+        n_mol=n_mol, atoms_per_mol=3,
+        body=rows(water_body_frame(r_oh, theta)),
+        masses=rows([MASS_O, MASS_H, MASS_H]),
+        charges=rows([q_o, q_h, q_h]),
+        type_ids=rows([0, 1, 1], np.int32),
+        eps_table=np.array([[eps, 0.0], [0.0, 0.0]]),
+        sig_table=np.array([[sigma, 1.0], [1.0, 1.0]]),
+        name=name,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def spce_system(n_mol):
+    return _water_system(n_mol, SPCE_SIGMA_OO, SPCE_EPS_OO, SPCE_Q_O,
+                         SPCE_Q_H, SPCE_R_OH, SPCE_THETA, "spce")
+
+
+@functools.lru_cache(maxsize=None)
+def tip3p_system(n_mol):
+    return _water_system(n_mol, TIP3P_SIGMA_OO, TIP3P_EPS_OO, TIP3P_Q_O,
+                         TIP3P_Q_H, TIP3P_R_OH, TIP3P_THETA, "tip3p")

@@ -1,0 +1,182 @@
+"""Ewald summation (counterpart of metropolismontecarlo_tpu/ops/ewald.py).
+
+k-vector table and coefficients, the direct structure factor, the
+reciprocal energy, real-space sum, self and intramolecular terms, and
+the exact molecular virials.  The JAX package's eik-recurrence
+structure_factor is a later port; `structure_factor` here is the direct
+form (structure_factor_direct there), which the recurrence is gated to
+equal.
+
+Conventions: kappa = kappa_L / box; 0 < |k|^2 < ksq_max in integer
+units; energies in Kelvin via COULOMB_FACTOR.  `box` and `kappa` are
+tensors of the batch shape (...) of the other arguments (0-d for one
+configuration).
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from metropolismontecarlo_tpu_torch.ops.pbc import batch_view, min_image
+from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
+
+_TWO_OVER_RTPI = 1.1283791670955126  # 2/sqrt(pi)
+
+
+def make_kvectors(nk=5, ksq_max=27, strict=True):
+    """Half-space integer k-vectors: kx in [0, nk], ky/kz in [-nk, nk],
+    0 < |k|^2 < ksq_max (<= when not strict); weight 2 for kx > 0.
+    Returns (kvecs (K, 3) int32, weights (K,) float64) numpy."""
+    ks, ws = [], []
+    for kx in range(0, nk + 1):
+        for ky in range(-nk, nk + 1):
+            for kz in range(-nk, nk + 1):
+                k2 = kx * kx + ky * ky + kz * kz
+                if k2 == 0:
+                    continue
+                if (k2 < ksq_max) if strict else (k2 <= ksq_max):
+                    ks.append((kx, ky, kz))
+                    ws.append(2.0 if kx > 0 else 1.0)
+    return np.asarray(ks, dtype=np.int32), np.asarray(ws, dtype=np.float64)
+
+
+def require_full_f32_matmul(t):
+    """Raise unless f32 matrix products on t's CUDA device run in full
+    f32: TF32 keeps ~3 decimal digits, which corrupts S(k) phases."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 must be False: the "
+            "structure-factor products need full f32")
+
+
+def cfac_coeffs(kvecs, weights, kappa, box):
+    """w (2 pi / V) exp(-k~^2 / 4 kappa^2) / k~^2 with k~ = 2 pi k / box.
+    kvecs (K, 3), weights (K,) tensors -> (..., K)."""
+    kappa, box = batch_view(kappa, 1), batch_view(box, 1)
+    k2 = torch.sum(kvecs.to(weights.dtype) ** 2, dim=-1)
+    kt2 = (2.0 * math.pi / box) ** 2 * k2
+    vol = box**3
+    return weights * (2.0 * math.pi / vol) * torch.exp(
+        -kt2 / (4.0 * kappa**2)) / kt2
+
+
+def _phases(coords, kvecs, box):
+    """(2 pi / box) k . r: coords (..., A, 3) -> (..., A, K)."""
+    require_full_f32_matmul(coords)
+    kmat = kvecs.to(coords.dtype)
+    return (2.0 * math.pi / batch_view(box, 2)) \
+        * torch.einsum("...ad,kd->...ak", coords, kmat)
+
+
+def structure_factor(coords, charges, kvecs, box):
+    """S(k) = sum_i q_i exp(i k~ . r_i) as (..., K, 2) [re, im].
+    coords (..., A, 3); charges (A,) or (..., A)."""
+    phase = _phases(coords, kvecs, box)
+    q = torch.broadcast_to(charges.to(coords.dtype), phase.shape[:-1])
+    re = torch.einsum("...a,...ak->...k", q, torch.cos(phase))
+    im = torch.einsum("...a,...ak->...k", q, torch.sin(phase))
+    return torch.stack([re, im], dim=-1)
+
+
+def recip_energy(sfac, cfac, factor=COULOMB_FACTOR):
+    """factor sum_k cfac_k |S(k)|^2; sfac (..., K, 2), cfac (..., K)."""
+    return factor * torch.sum(cfac * torch.sum(sfac * sfac, dim=-1), dim=-1)
+
+
+def real_space_sum(d2, qq, mask, kappa, factor=COULOMB_FACTOR):
+    """factor sum qq erfc(kappa r)/r over masked pairs of the trailing
+    two axes."""
+    kappa = batch_view(kappa, 2)
+    d2s = torch.where(mask, d2, torch.ones_like(d2))
+    r = torch.sqrt(d2s)
+    term = qq * torch.special.erfc(kappa * r) / r
+    return factor * torch.sum(torch.where(mask, term, 0.0), dim=(-1, -2))
+
+
+def real_space_virial(d2, qq, dot_ij_ab, mask, kappa, style, qq_cut=None,
+                      factor=COULOMB_FACTOR):
+    """Exact molecular virial W = -3V dU/dV of the real-space sum (force
+    term plus the kappa = kappa_L/box chain-rule term; Wolf adds the
+    shift's kappa term).  dot_ij_ab is r_ij_com . r_ab per pair."""
+    kappa = batch_view(kappa, 2)
+    d2s = torch.where(mask, d2, torch.ones_like(d2))
+    r = torch.sqrt(d2s)
+    gauss = torch.exp(-(kappa * kappa) * d2s)
+    if style == "bare":
+        w = qq * dot_ij_ab / (d2s * r)
+    else:
+        w = qq * (dot_ij_ab * (torch.special.erfc(kappa * r) / (d2s * r)
+                               + kappa * _TWO_OVER_RTPI * gauss / d2s)
+                  - kappa * _TWO_OVER_RTPI * gauss)
+        if style == "wolf":
+            w = w + qq * kappa * _TWO_OVER_RTPI \
+                * torch.exp(-(kappa * qq_cut) ** 2)
+        elif style != "ewald":
+            raise ValueError(style)
+    return factor * torch.sum(torch.where(mask, w, 0.0), dim=(-1, -2))
+
+
+def recip_virial(sfac, cfac, coords, com_of_atom, charges, kvecs, box,
+                 factor=COULOMB_FACTOR):
+    """Exact molecular virial of the reciprocal sum:
+    W = E_recip - 2 factor sum_k cfac_k Im[conj(S_k) T_k] with
+    T_k = sum_a q_a (k~ . d_a) exp(i k~ . r_a), d_a the min-imaged offset
+    of atom a from its molecule's COM.  coords/com_of_atom (..., A, 3)."""
+    d = min_image(coords - com_of_atom, batch_view(box, 2))
+    phase = _phases(coords, kvecs, box)
+    kdotd = _phases(d, kvecs, box)
+    q = torch.broadcast_to(charges.to(coords.dtype), phase.shape[:-1])
+    t_re = torch.einsum("...a,...ak->...k", q, kdotd * torch.cos(phase))
+    t_im = torch.einsum("...a,...ak->...k", q, kdotd * torch.sin(phase))
+    im_sbar_t = sfac[..., 0] * t_im - sfac[..., 1] * t_re
+    return recip_energy(sfac, cfac, factor) \
+        - 2.0 * factor * torch.sum(cfac * im_sbar_t, dim=-1)
+
+
+def _intra_pairs(coords_mp, charges_mp, box):
+    """Upper-triangle intramolecular d2 and qq: coords_mp (..., M, P, 3)."""
+    dr = min_image(coords_mp[..., :, None, :] - coords_mp[..., None, :, :],
+                   batch_view(box, 4))
+    d2 = torch.clamp_min(torch.sum(dr * dr, dim=-1), 1e-12)
+    qq = charges_mp[..., :, None] * charges_mp[..., None, :]
+    P = coords_mp.shape[-2]
+    iu = torch.triu(torch.ones((P, P), dtype=torch.bool,
+                               device=coords_mp.device), diagonal=1)
+    return d2, qq, iu
+
+
+def ewald_intra(coords_mp, charges_mp, kappa, box, factor=COULOMB_FACTOR):
+    """NIST-convention intramolecular correction
+    -factor sum_mol sum_{i<j} q_i q_j erf(kappa r_ij)/r_ij."""
+    d2, qq, iu = _intra_pairs(coords_mp, charges_mp, box)
+    r = torch.sqrt(d2)
+    erf = 1.0 - torch.special.erfc(batch_view(kappa, 3) * r)
+    term = torch.where(iu, qq * erf / r, 0.0)
+    return -factor * torch.sum(term, dim=(-1, -2, -3))
+
+
+def ewald_intra_kappa(coords_mp, charges_mp, kappa, box,
+                      factor=COULOMB_FACTOR):
+    """kappa dE_intra/dkappa = -factor (2k/sqrt(pi)) sum qq e^{-k^2 r^2}."""
+    d2, qq, iu = _intra_pairs(coords_mp, charges_mp, box)
+    k3 = batch_view(kappa, 3)
+    term = torch.where(iu, qq * torch.exp(-(k3 * k3) * d2), 0.0)
+    return -factor * kappa * _TWO_OVER_RTPI \
+        * torch.sum(term, dim=(-1, -2, -3))
+
+
+def ewald_self(charges, kappa, factor=COULOMB_FACTOR):
+    """-factor kappa/sqrt(pi) sum q_i^2."""
+    return -factor * kappa / math.sqrt(math.pi) \
+        * torch.sum(charges * charges, dim=-1)
+
+
+def surface_term(coords, com_of_atom, charges, box, factor=COULOMB_FACTOR):
+    """Vacuum-boundary dipole term factor 2 pi/(3V) |M|^2 with
+    M = sum_i q_i (r_i - R_mol(i)) min-imaged."""
+    d = min_image(coords - com_of_atom, batch_view(box, 2))
+    m = torch.einsum("...a,...ad->...d",
+                     torch.broadcast_to(charges.to(coords.dtype),
+                                        d.shape[:-1]), d)
+    return factor * 2.0 * math.pi / (3.0 * box**3) * torch.sum(m * m, dim=-1)
