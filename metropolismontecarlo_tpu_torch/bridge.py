@@ -29,9 +29,10 @@ def system_from_numpy(fields):
     return System(**kw)
 
 
-def state_from_numpy(arrays, device="cpu"):
-    """SimState from a mapping of field name to numpy array (the JAX
-    SimState's fields; its `key` is ignored).  dtypes are kept."""
+def state_from_numpy(arrays, device):
+    """SimState on `device` from a mapping of field name to numpy array
+    (the JAX SimState's fields; its `key` is ignored).  dtypes are
+    kept."""
     missing = [f for f in _STATE_FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"state arrays lack fields {missing}")

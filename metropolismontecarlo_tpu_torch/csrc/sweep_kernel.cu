@@ -1,12 +1,15 @@
 // Whole-sweep Metropolis kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel metropolismontecarlo_tpu/ops/pallas/sweep_kernel.py
-// sweep_pallas / _make_kernel, base variant (one species block; no activity
+// sweep_pallas / _make_kernel, base and species-block variants (no activity
 // mask, exchanges, TMMC, Widom or sorted slabs), with lj_shift "none" and
 // "linear".  Plain PyTorch twin: ops/cuda/sweep_kernel.py sweep_plain.
 //
-// What it computes: for one chain per thread block, M sequential molecule
-// moves.  Each move makes a translate or rotate proposal, sums the old and
+// What it computes: for one chain per thread block, M sequential moves of
+// the species block whose molecules are [m_start, m_start + M) (global
+// indices) and whose atoms start at column a_start, P atoms each.  A
+// uniform system is one block (m_start = a_start = 0); a mixture runs one
+// launch per block, each over the full atom planes.  Each move makes a translate or rotate proposal, sums the old and
 // new site energies (LJ from per-site tables plus real-space Coulomb:
 // ewald / wolf / wolf_ref / bare / none) over every atom, adds the
 // incremental S(k) and reciprocal energy delta (ewald), vetoes attractive
@@ -18,9 +21,10 @@
 // few microseconds of arithmetic over ~2300 atoms followed by a block-wide
 // reduction and a scalar decision; device memory is touched only to load
 // and store the chain state (~55 KB) and to read 40 B of uniforms per move.
-// The design: the whole chain state (x/y/z, COM, quaternions, S(k), the
-// per-atom type/charge/molecule rows and the k-vectors) lives in shared
-// memory for the whole sweep; the atom loop is strided over the block so
+// The design: the whole chain state (x/y/z, all M_total COM and quaternion
+// rows, S(k), the per-atom type/charge/molecule rows and the k-vectors)
+// lives in shared memory for the whole sweep -- every block's launch loads
+// and stores all of it, so launches chain without a merge step; the atom loop is strided over the block so
 // neighbouring threads read neighbouring words; one warp-shuffle reduction
 // plus one pass over the warp partials per move; the next move's uniforms
 // are prefetched during the current move; chains run in parallel across
@@ -28,7 +32,9 @@
 // work (fewer barriers per move, warp-specialised proposals, several
 // chains per block) is left for later.
 //
-// Semantics kept from the TPU kernel: old atoms are read from the stored
+// Semantics kept from the TPU kernel: the molecule-id mask and the COM,
+// quaternion and uniform rows use the global index m_start + m, the atom
+// columns a_start + m * P; old atoms are read from the stored
 // coordinates, never rebuilt from COM + quaternion; new atoms are the
 // floor-wrapped new COM plus R(q_new) body (not wrapped per atom); pair
 // distances use the rintf minimum image with d^2 floored at 1e-4; pads
@@ -50,8 +56,8 @@ constexpr int kStats = 6;
 constexpr int kUniforms = 10;
 constexpr int kMaxSmemBytes = 232448;
 
-// Shared-memory words of one block; ops/cuda/sweep_kernel.py smem_bytes
-// computes the same number.
+// Shared-memory words of one block (M = M_total, the COM/quaternion rows
+// held); ops/cuda/sweep_kernel.py smem_bytes computes the same number.
 __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
                                                     int K, int T) {
   return 6 * (size_t)A_pad + 7 * (size_t)M + 8 * (size_t)K +
@@ -88,8 +94,8 @@ __global__ void sweep_kernel(
     const float* __restrict__ kvec, const float* __restrict__ kw,
     float* __restrict__ coords_out, float* __restrict__ com_out,
     float* __restrict__ quat_out, float* __restrict__ sfac_out,
-    float* __restrict__ stats_out, int M, int P, int A_pad, int K, int T,
-    int coulomb, int lj_linear, int use_rot, float rc2, float qrc2,
+    float* __restrict__ stats_out, int M, int M_total, int m_start,
+    int a_start, int P, int A_pad, int K, int T, int coulomb, int lj_linear, int use_rot, float rc2, float qrc2,
     float kappa_l, float d2_overlap, float p_translate, float factor) {
   extern __shared__ float smem[];
   float* sx = smem;
@@ -98,9 +104,9 @@ __global__ void sweep_kernel(
   float* sq = sz + A_pad;
   int* stid = reinterpret_cast<int*>(sq + A_pad);
   int* smol = stid + A_pad;
-  float* scom = reinterpret_cast<float*>(smol + A_pad);  // (M, 3)
-  float* squat = scom + 3 * M;                           // (M, 4)
-  float* ssre = squat + 4 * M;
+  float* scom = reinterpret_cast<float*>(smol + A_pad);  // (M_total, 3)
+  float* squat = scom + 3 * M_total;                     // (M_total, 4)
+  float* ssre = squat + 4 * M_total;
   float* ssim = ssre + K;
   float* scfac = ssim + K;
   float* sdre = scfac + K;
@@ -138,8 +144,10 @@ __global__ void sweep_kernel(
     stid[j] = tid_row[j];
     smol[j] = molid_row[j];
   }
-  for (int i = tid; i < 3 * M; i += nt) scom[i] = com_in[(size_t)c * 3 * M + i];
-  for (int i = tid; i < 4 * M; i += nt) squat[i] = quat_in[(size_t)c * 4 * M + i];
+  for (int i = tid; i < 3 * M_total; i += nt)
+    scom[i] = com_in[(size_t)c * 3 * M_total + i];
+  for (int i = tid; i < 4 * M_total; i += nt)
+    squat[i] = quat_in[(size_t)c * 4 * M_total + i];
 
   const float box = box_in[c];
   const float inv_box = 1.0f / box;
@@ -180,17 +188,18 @@ __global__ void sweep_kernel(
     sh_w = erfcf(kappa * qrc) / qrc;
   }
   const bool split_cut = qrc2 != rc2;
-  const float* u_chain = u_in + (size_t)c * M * kUniforms;
+  const float* u_chain = u_in + ((size_t)c * M_total + m_start) * kUniforms;
   if (tid < kUniforms) su[tid] = u_chain[tid];
   __syncthreads();
 
   // stats: energy delta, acc/att [trans, rot], and a decision fingerprint
-  // (the sum of m + 1 over accepted moves) that tells a chain whose accept
+  // (the sum of the global index + 1 over accepted moves) that tells a chain whose accept
   // sequence diverged from one that only matches in its counts
   float st_e = 0.0f, st_acc_t = 0.0f, st_acc_r = 0.0f, st_att_t = 0.0f,
         st_att_r = 0.0f, st_fp = 0.0f;
 
   for (int m = 0; m < M; ++m) {
+    const int mg = m_start + m;  // global molecule index
     const float* um = su + (m & 1) * 16;
     // prefetch the next move's uniforms into the other buffer (its last
     // reader, thread 0 at move m-1, finished before the barrier that
@@ -199,8 +208,8 @@ __global__ void sweep_kernel(
       su[((m + 1) & 1) * 16 + tid - 32] = u_chain[(size_t)(m + 1) * kUniforms + tid - 32];
 
     if (tid == 0) {
-      const float* cm = scom + 3 * m;
-      const float* q0 = squat + 4 * m;
+      const float* cm = scom + 3 * mg;
+      const float* q0 = squat + 4 * mg;
       float tsel = 1.0f;
       float q1[4] = {q0[0], q0[1], q0[2], q0[3]};
       if (use_rot) {
@@ -237,7 +246,7 @@ __global__ void sweep_kernel(
         const float v = cm[d] + tsel * (um[1 + d] - 0.5f) * dr_max;
         nc[d] = v - box * floorf(v * inv_box);
       }
-      const int a0 = m * P;
+      const int a0 = a_start + m * P;
       for (int p = 0; p < P; ++p) {
         sold[3 * p] = sx[a0 + p];
         sold[3 * p + 1] = sy[a0 + p];
@@ -258,7 +267,7 @@ __global__ void sweep_kernel(
     float part = 0.0f;
     for (int j = tid; j < A_pad; j += nt) {
       const int mj = smol[j];
-      if (mj < 0 || mj == m) continue;
+      if (mj < 0 || mj == mg) continue;
       const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
       const int tj = stid[j];
       for (int p = 0; p < P; ++p) {
@@ -348,10 +357,10 @@ __global__ void sweep_kernel(
         st_e += d_e;
         st_acc_t += tsel;
         st_acc_r += 1.0f - tsel;
-        st_fp += (float)(m + 1);
-        for (int d = 0; d < 3; ++d) scom[3 * m + d] = sdec[d];
-        for (int i = 0; i < 4; ++i) squat[4 * m + i] = sdec[3 + i];
-        const int a0 = m * P;
+        st_fp += (float)(mg + 1);
+        for (int d = 0; d < 3; ++d) scom[3 * mg + d] = sdec[d];
+        for (int i = 0; i < 4; ++i) squat[4 * mg + i] = sdec[3 + i];
+        const int a0 = a_start + m * P;
         for (int p = 0; p < P; ++p) {
           sx[a0 + p] = snew[3 * p];
           sy[a0 + p] = snew[3 * p + 1];
@@ -377,8 +386,10 @@ __global__ void sweep_kernel(
     cout[A_pad + j] = sy[j];
     cout[2 * A_pad + j] = sz[j];
   }
-  for (int i = tid; i < 3 * M; i += nt) com_out[(size_t)c * 3 * M + i] = scom[i];
-  for (int i = tid; i < 4 * M; i += nt) quat_out[(size_t)c * 4 * M + i] = squat[i];
+  for (int i = tid; i < 3 * M_total; i += nt)
+    com_out[(size_t)c * 3 * M_total + i] = scom[i];
+  for (int i = tid; i < 4 * M_total; i += nt)
+    quat_out[(size_t)c * 4 * M_total + i] = squat[i];
   for (int k = tid; k < K; k += nt) {
     sfac_out[((size_t)c * K + k) * 2] = ssre[k];
     sfac_out[((size_t)c * K + k) * 2 + 1] = ssim[k];
@@ -404,8 +415,9 @@ extern "C" const char* mmc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches one sweep (grid = C chains) on `stream`; returns the CUDA error
-// code of the launch (0 on success).  All pointers are device pointers to
+// Launches one sweep of one species block (grid = C chains) on `stream`;
+// returns the CUDA error code of the launch (0 on success).  com/quat/u
+// hold all M_total molecules' rows.  All pointers are device pointers to
 // contiguous f32 (int32 for the flag and row tables) tensors.
 extern "C" int mmc_sweep_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
@@ -415,13 +427,14 @@ extern "C" int mmc_sweep_launch(
     const void* has_lj, const void* has_q, const void* tid_row,
     const void* molid_row, const void* q_row, const void* kvec, const void* kw,
     void* coords_out, void* com_out, void* quat_out, void* sfac_out,
-    void* stats_out, int C, int M, int P, int A_pad, int K, int T, int coulomb,
-    int lj_linear, int use_rot, int threads, float rc2, float qrc2,
-    float kappa_l, float d2_overlap, float p_translate, float factor,
-    void* stream) {
-  const size_t smem = mmc_sweep_smem_bytes(M, P, A_pad, K, T);
+    void* stats_out, int C, int M, int M_total, int m_start, int a_start,
+    int P, int A_pad, int K, int T, int coulomb, int lj_linear, int use_rot,
+    int threads, float rc2, float qrc2, float kappa_l, float d2_overlap,
+    float p_translate, float factor, void* stream) {
+  const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T);
   if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > 1024 ||
-      threads % 32 != 0 || C < 1 || M < 1)
+      threads % 32 != 0 || C < 1 || M < 1 || m_start < 0 || a_start < 0 ||
+      m_start + M > M_total || a_start + M * P > A_pad)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -442,7 +455,8 @@ extern "C" int mmc_sweep_launch(
       static_cast<const float*>(kvec), static_cast<const float*>(kw),
       static_cast<float*>(coords_out), static_cast<float*>(com_out),
       static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
-      static_cast<float*>(stats_out), M, P, A_pad, K, T, coulomb, lj_linear,
-      use_rot, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
+      static_cast<float*>(stats_out), M, M_total, m_start, a_start, P, A_pad,
+      K, T, coulomb, lj_linear, use_rot, rc2, qrc2, kappa_l, d2_overlap,
+      p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

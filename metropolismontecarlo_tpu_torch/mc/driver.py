@@ -1,16 +1,24 @@
 """Chain-parallel MC driver (counterpart of
-metropolismontecarlo_tpu/mc/driver.py, NVT whole-sweep route).
+metropolismontecarlo_tpu/mc/driver.py, NVT routes).
 
-C independent chains advance in lockstep.  `sweep` is one call of the
-whole-sweep op (the CUDA kernel on the card, its plain version on the
-CPU); `run_steps` loops sweeps with optional step-size adaptation;
+C independent chains advance in lockstep.  `sweep` moves every molecule
+once, in storage order, by one of three routes (the JAX package's
+"mega", "tpu" and jnp routes):
+
+* "sweep": one whole-sweep kernel launch per species block;
+* "move": one delta-energy kernel launch per molecule move;
+* "plain": per-move plain tensor code, for the conventions neither kernel
+  runs (com/first cutoffs, the linear shift with several templates per
+  block, the Ewald surface term, float64).
+
+On the card the kernels run; on the CPU the same route runs their plain
+versions.  `run_steps` loops sweeps with optional step-size adaptation;
 `run_block` adds the block-end recompute that checks the accumulated
 energy's drift and resynchronises energy, virial and S(k).
 
 Not ported yet, and refused when asked for: NPT volume moves, neighbour
-lists, species-blocked mixtures, sorted slabs, Widom sampling,
-pressure_fd, tensor-parallel recomputes and the per-move (jnp or
-delta-energy kernel) paths.
+lists, sorted slabs, Widom sampling, pressure_fd and tensor-parallel
+recomputes.
 """
 
 import dataclasses
@@ -23,7 +31,10 @@ import torch
 from metropolismontecarlo_tpu_torch.mc.adjust import adjust_dmax
 from metropolismontecarlo_tpu_torch.mc.moves import (
     check_mega_supported,
+    delta_kernel_supported,
+    draw_uniforms,
     make_mega_sweep_fn,
+    make_sweep_fn,
 )
 from metropolismontecarlo_tpu_torch.models.energy import energy_breakdown
 from metropolismontecarlo_tpu_torch.models.system import SimState
@@ -45,25 +56,59 @@ def _auto_recompute_chunk(system, dtype, budget_bytes=8 << 30):
     return int(max(1, min(64, budget_bytes // (48 * A * A * item))))
 
 
+ROUTES = ("auto", "sweep", "move", "plain")
+
+
+def choose_route(system, params, dtype, kernel):
+    """The sweep route for `kernel` ("auto" | "sweep" | "move" | "plain"),
+    as the JAX driver picks between "mega", "tpu" and jnp: "auto" takes
+    the whole sweep for species-uniform systems, else the per-move kernel
+    where it runs the conventions, else plain.  A forced kernel route that
+    cannot run the configuration raises."""
+    sweep_ok = (params.cutoff_mode == "site" and dtype == torch.float32
+                and params.lj_shift in ("none", "linear")
+                and not params.ewald_surface and system.species_uniform)
+    move_ok = delta_kernel_supported(params, dtype)
+    if kernel == "auto":
+        return "sweep" if sweep_ok else "move" if move_ok else "plain"
+    if kernel == "sweep" and not sweep_ok:
+        raise ValueError("the whole-sweep route requires a species-uniform "
+                         "system, site cutoff, none/linear LJ shift, "
+                         "float32 and no Ewald surface term")
+    if kernel == "move" and not move_ok:
+        raise ValueError("the per-move kernel route requires site cutoff, "
+                         "unshifted LJ, float32 and no Ewald surface term")
+    if kernel not in ROUTES:
+        raise ValueError(f"kernel must be one of {ROUTES}, got {kernel!r}")
+    return kernel
+
+
 class MonteCarlo:
     """System + RunParams bundled into the chain-parallel NVT loop.
 
     Usage:
-        mc = MonteCarlo(system, params, device="cuda", generator=gen)
+        mc = MonteCarlo(system, params, generator=gen)   # on the card
         state = mc.init_state(com0, box=box0, n_chains=2048)
         state, metrics = mc.run_block(state, n_steps=100, adjust=True)
     """
 
-    def __init__(self, system, params, device="cpu", generator=None,
-                 dtype=torch.float32, recompute_chunk="auto", tp_mesh=None):
-        """device: where state and kernels live.  generator: the
+    def __init__(self, system, params, device="cuda", generator=None,
+                 dtype=torch.float32, recompute_chunk="auto", tp_mesh=None,
+                 kernel="auto"):
+        """device: where state and kernels live, the card unless the
+        caller passes "cpu" (then every kernel runs its plain version);
+        without a CUDA device a "cuda" request raises.  generator: the
         torch.Generator (on `device`) behind every random draw; a fresh
         one seeded 0 when None.  recompute_chunk: chains per step of the
         chunked full-energy recompute ("auto": from a memory model).
         tp_mesh (tensor-parallel recomputes) is not ported and raises.
-        Every sweep runs the whole-sweep kernel (the JAX package's "mega"
-        route), the only route ported."""
+        kernel: the sweep route, see choose_route; self.route holds the
+        choice.  The kernel routes run float32; "plain" also float64."""
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: MonteCarlo runs on the GPU by default; pass "
+                "device='cpu' to run the kernels' plain versions on the CPU")
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
@@ -71,8 +116,8 @@ class MonteCarlo:
             raise ValueError(f"generator on {generator.device}, state on "
                              f"{self.device}")
         self.generator = generator
-        if dtype != torch.float32:
-            raise ValueError("the whole-sweep path runs in float32")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {dtype}: float32 or float64")
         if tp_mesh is not None:
             raise NotImplementedError("tensor-parallel recomputes are not "
                                       "ported yet")
@@ -91,9 +136,22 @@ class MonteCarlo:
                 params.nk, params.ksq_max, strict=True)
         else:
             self.kvecs, self.kweights = None, None
-        self._sweep_full = make_mega_sweep_fn(
-            system, params, self.kvecs, self.kweights, self.device)
-        self.tables = self._sweep_full.tables
+        self.route = choose_route(system, params, dtype, kernel)
+        if self.route == "sweep":
+            self._sweep_full = make_mega_sweep_fn(
+                system, params, self.kvecs, self.kweights, self.device)
+            self.tables = self._sweep_full.tables
+            self.move_bodies = ()
+        else:
+            # one body per species block: each has its own static atom
+            # count and offset, so a ragged mixture pays per-move work
+            # proportional to that species' size
+            self._sweep_full, self.tables = None, ()
+            self.move_bodies = tuple(
+                (sl[1], sl[2],
+                 make_sweep_fn(system, params, self.kvecs, self.kweights,
+                               self.device, dtype, self.route == "move", sl))
+                for sl in system.species_slices)
 
     def _check_min_image(self, box):
         """r_cut <= box/2, else pair sums silently miss second images;
@@ -162,8 +220,7 @@ class MonteCarlo:
         com = com.contiguous()
         C = com.shape[0]
         if quat is None:
-            quat = random_quaternion(self.generator, (C, M), dtype=self.dtype,
-                                     device=self.device)
+            quat = random_quaternion(self.generator, (C, M), dtype=self.dtype)
         else:
             quat = torch.as_tensor(np.asarray(quat), dtype=self.dtype,
                                    device=self.device)
@@ -174,8 +231,10 @@ class MonteCarlo:
                               device=self.device)
         box = torch.broadcast_to(box.reshape(-1), (C,)).contiguous()
         self._check_min_image(box)
-        check_mega_supported(self.system, self.params, float(torch.min(box)),
-                             com[0, :, 2].double().cpu().numpy())
+        if self.route == "sweep":
+            check_mega_supported(self.system, self.params,
+                                 float(torch.min(box)),
+                                 com[0, :, 2].double().cpu().numpy())
         return self.resync(self._new_state(com, quat, box))
 
     def init_from_coords(self, coords, com, box, n_chains):
@@ -222,8 +281,22 @@ class MonteCarlo:
     # ---------------- sweeps ----------------
 
     def sweep(self, state):
-        """One sweep: every molecule attempted once, in storage order."""
-        return self._sweep_full(state, self.generator)
+        """One sweep: every molecule attempted once, in storage order, on
+        uniforms (C, M, 10) drawn once from the generator (the per-move
+        routes hand molecule m its row u[:, m])."""
+        if self.route == "sweep":
+            return self._sweep_full(state, self.generator)
+        C, M = state.com.shape[:2]
+        u = draw_uniforms(C, M, self.generator, state.com.device).to(
+            self.dtype)
+        # the bodies update com/quat/coords in place: work on copies
+        state = dataclasses.replace(state, com=state.com.clone(),
+                                    quat=state.quat.clone(),
+                                    coords=state.coords.clone())
+        for m0, m1, body in self.move_bodies:
+            for m in range(m0, m1):
+                state, _ = body(state, m, u[:, m])
+        return state
 
     def run_steps(self, state, n_steps, adjust=False):
         """n_steps sweeps; with adjust, steer the step sizes toward the

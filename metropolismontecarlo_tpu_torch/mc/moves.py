@@ -1,26 +1,38 @@
-"""Whole-sweep move path (counterpart of the single-species-block part of
-metropolismontecarlo_tpu/mc/moves.py make_mega_sweep_fn).
+"""Move paths (counterpart of metropolismontecarlo_tpu/mc/moves.py).
 
-Builds the sweep's constant tables from a System (per-site LJ rows,
-charges, body frame, the shared per-atom rows, k-vectors), draws the
-sweep's uniforms from the driver's torch.Generator, calls the sweep op
-(ops/cuda/sweep_kernel.py), and folds its statistics into the state:
-energy, acc/att [trans, rot] and the move counter.
+* The whole-sweep route, `make_mega_sweep_fn`: builds each species
+  block's constant tables (per-site LJ rows, charges, body frame) and the
+  shared per-atom rows and k-vectors, draws the sweep's uniforms once as
+  (C, M, 10), and launches the sweep op once per block in storage order,
+  threading coordinates, COM, quaternions and S(k) from launch to launch
+  and summing the statistics.
+* The per-move route, `make_sweep_fn`: one molecule move of every chain
+  per call, for one species block.  Its proposal reads the same 10
+  uniform columns with the same formulas as the sweep kernel, so both
+  routes follow one trajectory on one set of uniforms.  The pair energy
+  comes from the delta-energy op (kernel branch: site cutoff, unshifted
+  LJ, f32, no Ewald surface term) or from plain tensor code
+  (`pair_energy_rows`: every cutoff mode, the linear shift, the surface
+  term, float64).
 
-Not ported yet, and refused rather than skipped: several species blocks
-(one kernel call per block) and the sorted-slab windows.  `slab_config`
-is ported so that a configuration the JAX package would run with slabs
-raises NotImplementedError here.
+Not ported yet, and refused rather than skipped: the sorted-slab windows
+(`slab_config` is ported so that a configuration the JAX package would
+run with slabs raises NotImplementedError) and neighbour lists.
 """
 
 import dataclasses
+import math
 import os
 
 import numpy as np
 import torch
 
+from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as delta_op
 from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sweep_op
 from metropolismontecarlo_tpu_torch.ops.lj import _shift_coeffs
+from metropolismontecarlo_tpu_torch.ops.pbc import min_image
+from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
 
 
 def _round_up(x, m):
@@ -28,7 +40,7 @@ def _round_up(x, m):
 
 
 def kernel_coulomb(params):
-    """Coulomb style of the kernel ('wolf_ref': the reference convention's
+    """Coulomb style of the kernels ('wolf_ref': the reference convention's
     unshifted erfc pair form, whose global constant cancels in deltas)."""
     if params.coulomb == "wolf" and params.wolf_style != "pairwise":
         return "wolf_ref"
@@ -91,43 +103,37 @@ def slab_config(system, params, box_hint, z_hint=None):
 
 
 def check_mega_supported(system, params, box_hint=None, z_hint=None):
-    """Raise unless the ported whole-sweep path runs this configuration."""
+    """Raise unless the ported whole-sweep route runs this configuration."""
     if not system.species_uniform or params.cutoff_mode != "site" \
             or params.lj_shift not in ("none", "linear") \
             or params.ewald_surface:
         raise ValueError("the whole-sweep path requires a species-uniform "
                          "system, site cutoff, none/linear LJ shift and no "
                          "Ewald surface term")
-    if len(system.species_slices) > 1:
-        raise NotImplementedError(
-            "species-blocked (ragged mixture) sweeps are not ported yet")
     if slab_config(system, params, box_hint, z_hint) is not None:
         raise NotImplementedError(
             "this configuration would run with sorted-slab windows, which "
             "are not ported yet (set slab_mode='off' to run it dense)")
 
 
-def sweep_tables(system, params, kvecs, kweights, device):
-    """SweepTables of the single species block, on `device`."""
-    (_, m0, m1, P, _), = system.species_slices
-    n_types = system.eps_table.shape[0]
-    et = np.asarray(system.eps_table, np.float32)
-    st = np.asarray(system.sig_table, np.float32)
-    tids = np.asarray(system.type_ids)[m0, :P]
-    eps_pt, sig2_pt = et[tids], st[tids] ** 2                     # (P, T)
-    lam1_pt = np.zeros((P, n_types), np.float32)
-    lam2_pt = np.zeros((P, n_types), np.float32)
-    if params.lj_shift == "linear":
-        l1, l2 = _shift_coeffs(params.r_cut / st[tids])
-        # pre-scaled: the in-kernel shift is eps * (l1 + l2 * r / sigma)
-        lam1_pt = et[tids] * l1
-        lam2_pt = et[tids] * l2 / st[tids]
-    qs = np.asarray(system.charges)[m0, :P]
+def _shared_rows(system):
+    """(A_pad,) int32 type ids and molecule ids (pads -1) and f32 charges
+    (pads 0), numpy."""
     A_pad = system.n_atoms_padded
     tid_row = np.full(A_pad, -1, np.int32)
     tid_row[:system.n_atoms] = system.flat(system.type_ids)
     q_row = np.zeros(A_pad, np.float32)
     q_row[:system.n_atoms] = system.flat(system.charges)
+    return tid_row, system.mol_of_atom_padded.astype(np.int32), q_row
+
+
+def sweep_tables(system, params, kvecs, kweights, device):
+    """One SweepTables per species block (its template is the block's
+    first molecule), on `device`; the shared rows and k-vectors are one
+    set of tensors."""
+    n_types = system.eps_table.shape[0]
+    et = np.asarray(system.eps_table, np.float32)
+    st = np.asarray(system.sig_table, np.float32)
     if kvecs is not None:
         kvec, kw = np.asarray(kvecs, np.float32), np.asarray(kweights)
     else:
@@ -139,19 +145,34 @@ def sweep_tables(system, params, kvecs, kweights, device):
     def i32(x):
         return torch.tensor(np.asarray(x, np.int32), device=device)
 
-    return sweep_op.SweepTables(
-        M=m1 - m0, P=P, coulomb=kernel_coulomb(params),
-        lj_shift=params.lj_shift,
-        use_rot=bool(P > 1 and params.p_translate < 1.0),
-        rc2=float(params.r_cut ** 2), qrc2=float(params.qq_cut ** 2),
-        kappa_l=float(params.kappa_L), d2_overlap=float(params.d2_overlap),
-        p_translate=float(params.p_translate),
-        body=f32(system.body[m0, :P]), qp=f32(qs), eps=f32(eps_pt),
-        sig2=f32(sig2_pt), lam1=f32(lam1_pt), lam2=f32(lam2_pt),
-        has_lj=i32([np.any(et[t] != 0.0) for t in tids]),
-        has_q=i32(qs != 0.0), tid_row=i32(tid_row),
-        molid_row=i32(system.mol_of_atom_padded), q_row=f32(q_row),
-        kvec=f32(kvec), kw=f32(kw))
+    tid_row, molid_row, q_row = _shared_rows(system)
+    shared = dict(tid_row=i32(tid_row), molid_row=i32(molid_row),
+                  q_row=f32(q_row), kvec=f32(kvec), kw=f32(kw))
+    out = []
+    for _, m0, m1, P, a0 in system.species_slices:
+        tids = np.asarray(system.type_ids)[m0, :P]
+        eps_pt, sig2_pt = et[tids], st[tids] ** 2                 # (P, T)
+        lam1_pt = np.zeros((P, n_types), np.float32)
+        lam2_pt = np.zeros((P, n_types), np.float32)
+        if params.lj_shift == "linear":
+            l1, l2 = _shift_coeffs(params.r_cut / st[tids])
+            # pre-scaled: the in-kernel shift is eps * (l1 + l2 * r / sigma)
+            lam1_pt = et[tids] * l1
+            lam2_pt = et[tids] * l2 / st[tids]
+        qs = np.asarray(system.charges)[m0, :P]
+        out.append(sweep_op.SweepTables(
+            M=m1 - m0, m_start=m0, a_start=a0, P=P,
+            coulomb=kernel_coulomb(params), lj_shift=params.lj_shift,
+            use_rot=bool(P > 1 and params.p_translate < 1.0),
+            rc2=float(params.r_cut ** 2), qrc2=float(params.qq_cut ** 2),
+            kappa_l=float(params.kappa_L),
+            d2_overlap=float(params.d2_overlap),
+            p_translate=float(params.p_translate),
+            body=f32(system.body[m0, :P]), qp=f32(qs), eps=f32(eps_pt),
+            sig2=f32(sig2_pt), lam1=f32(lam1_pt), lam2=f32(lam2_pt),
+            has_lj=i32([np.any(et[t] != 0.0) for t in tids]),
+            has_q=i32(qs != 0.0), **shared))
+    return tuple(out)
 
 
 def draw_uniforms(n_chains, n_moves, generator, device):
@@ -161,10 +182,23 @@ def draw_uniforms(n_chains, n_moves, generator, device):
                       device=device)
 
 
+def sweep_blocks(op, coords, com, quat, sfac, box, temp, dr_max, dphi_max,
+                 u, tables):
+    """One sweep over every species block: `op` (sweep_op.sweep or
+    sweep_op.sweep_plain) once per block in storage order, each launch
+    taking the state the previous one left; the stats (C, 6) summed."""
+    stats = None
+    for t in tables:
+        coords, com, quat, sfac, st = op(coords, com, quat, sfac, box, temp,
+                                         dr_max, dphi_max, u, t)
+        stats = st if stats is None else stats + st
+    return coords, com, quat, sfac, stats
+
+
 def make_mega_sweep_fn(system, params, kvecs, kweights, device,
                        box_hint=None, z_hint=None):
-    """Returns sweep_full(state, generator) -> state: one whole-sweep
-    kernel call.  sweep_full.tables holds the SweepTables."""
+    """Returns sweep_full(state, generator) -> state: one sweep-kernel
+    launch per species block.  sweep_full.tables holds the SweepTables."""
     check_mega_supported(system, params, box_hint, z_hint)
     tables = sweep_tables(system, params, kvecs, kweights, device)
     M = system.n_mol
@@ -174,12 +208,10 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
         C = state.com.shape[0]
         u = draw_uniforms(C, M, generator, state.com.device)
         f32 = torch.float32
-        coords, com, quat, sfac, stats = sweep_op.sweep(
-            state.coords.to(f32).contiguous(), state.com.to(f32).contiguous(),
-            state.quat.to(f32).contiguous(), state.sfac.to(f32).contiguous(),
-            state.box.to(f32).contiguous(), state.temp.to(f32).contiguous(),
-            state.dr_max.to(f32).contiguous(),
-            state.dphi_max.to(f32).contiguous(), u, tables)
+        coords, com, quat, sfac, stats = sweep_blocks(
+            sweep_op.sweep, *(x.to(f32).contiguous() for x in (
+                state.coords, state.com, state.quat, state.sfac, state.box,
+                state.temp, state.dr_max, state.dphi_max)), u, tables)
         zero = torch.zeros_like(stats[:, 1])
         acc_d = torch.stack([stats[:, 1], stats[:, 2], zero], 1).to(
             torch.int32)
@@ -196,3 +228,307 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
 
     sweep_full.tables = tables
     return sweep_full
+
+
+# ---------------- per-move route ----------------------------------------
+
+
+def _coulomb_pair(qq, r, kappa, params):
+    """Per-pair Coulomb energies of the plain branch (the reference Wolf
+    convention's global constant cancels in per-move deltas)."""
+    if params.coulomb == "ewald":
+        return qq * torch.special.erfc(kappa * r) / r
+    if params.coulomb == "wolf":
+        if params.wolf_style == "pairwise":
+            shift = torch.special.erfc(kappa * params.qq_cut) / params.qq_cut
+            return qq * (torch.special.erfc(kappa * r) / r - shift)
+        return qq * torch.special.erfc(kappa * r) / r
+    if params.coulomb == "bare":
+        return qq / r
+    raise ValueError(params.coulomb)
+
+
+def delta_kernel_supported(params, dtype):
+    """Whether the delta-energy kernel branch runs these conventions."""
+    return (params.cutoff_mode == "site" and params.lj_shift == "none"
+            and dtype == torch.float32 and not params.ewald_surface)
+
+
+class MoveBody:
+    """One molecule move of every chain, for one species block (see
+    make_sweep_fn).  Tensors are (C, ...) batched over chains."""
+
+    def __init__(self, system, params, kvecs, kweights, device, dtype,
+                 use_kernel, species):
+        M, A, A_pad = system.n_mol, system.n_atoms, system.n_atoms_padded
+        if species is None:
+            if not system.uniform_width:
+                raise ValueError("ragged systems need per-species bodies")
+            species = ("all", 0, M, system.atoms_per_mol, 0)
+        _, m0, m1, P, a0 = species
+        if use_kernel and not delta_kernel_supported(params, dtype):
+            raise ValueError("the delta-energy kernel requires site cutoff, "
+                             "unshifted LJ, float32 and no Ewald surface "
+                             "term")
+        if params.nlist_width > 0:
+            raise NotImplementedError("neighbour lists are not ported yet")
+        self.params, self.dtype, self.use_kernel = params, dtype, use_kernel
+        self.M, self.m0, self.m1, self.P = M, m0, m1, P
+        self.off0 = a0 - m0 * P       # first atom of molecule m: off0 + m P
+
+        def t(x, dt=dtype):   # System arrays are read-only numpy: copy
+            return torch.tensor(np.array(x), dtype=dt, device=device)
+
+        self.body = t(np.asarray(system.body)[:, :P])              # (M, P, 3)
+        self.charges_mp = t(np.asarray(system.charges)[:, :P])     # (M, P)
+        tid_row, molid_row, q_row = _shared_rows(system)
+        q_flat = np.zeros(A_pad)
+        q_flat[:A] = system.flat(system.charges)
+        self.charges_flat = t(q_flat)                              # (A_pad,)
+        self.mol_of_atom = t(molid_row, torch.long)
+        self.first_atom = t(system.mol_a0, torch.long)             # (M,)
+        self.tid_safe = t(np.maximum(tid_row, 0), torch.long)
+        self.eps_t = t(system.eps_table)
+        self.sig2_t = t(system.sig_table) ** 2
+        self.tid_mp = t(np.asarray(system.type_ids)[:, :P], torch.long)
+        self.kv = None if kvecs is None else t(kvecs, torch.int32)
+        self.kw = None if kweights is None else t(kweights)
+        self.use_rot = P > 1 and params.p_translate < 1.0
+        if use_kernel:
+            self._kernel_tables(system, device, tid_row, molid_row, q_row)
+
+    def _kernel_tables(self, system, device, tid_row, molid_row, q_row):
+        """Per-molecule (R, T) LJ rows, (R,) charges and row flags of this
+        block's molecules (rows [P old; P new; pad], R = round_up(2P, 8)),
+        and the shared rows, for the delta-energy op."""
+        P, m0, m1 = self.P, self.m0, self.m1
+        R = _round_up(2 * P, delta_op.ROW_GROUP)
+        et = np.asarray(system.eps_table, np.float32)
+        st2 = np.asarray(system.sig_table, np.float32) ** 2
+        tids = np.asarray(system.type_ids)[m0:m1, :P]
+        qs = np.asarray(system.charges, np.float32)[m0:m1, :P]
+        eps = np.zeros((m1 - m0, R, et.shape[0]), np.float32)
+        sig2 = np.zeros_like(eps)
+        q8 = np.zeros((m1 - m0, R), np.float32)
+        has_lj = np.zeros((m1 - m0, R), np.int32)
+        has_q = np.zeros((m1 - m0, R), np.int32)
+        for half in (slice(0, P), slice(P, 2 * P)):
+            eps[:, half] = et[tids]
+            sig2[:, half] = st2[tids]
+            q8[:, half] = qs
+            has_lj[:, half] = np.any(et[tids] != 0.0, axis=-1)
+            has_q[:, half] = qs != 0.0
+
+        def dev(x):
+            return torch.tensor(x, device=device)
+
+        self.n_rows = R
+        self.eps_rows, self.sig2_rows, self.q8_rows = dev(eps), dev(sig2), \
+            dev(q8)
+        self.has_lj_rows, self.has_q_rows = dev(has_lj), dev(has_q)
+        self.tid_row, self.molid_row, self.q_row = dev(tid_row), \
+            dev(molid_row), dev(q_row)
+        p = self.params
+        self.delta_params = delta_op.DeltaParams(
+            coulomb=kernel_coulomb(p), rc2=float(p.r_cut ** 2),
+            qrc2=float(p.qq_cut ** 2), kappa_l=float(p.kappa_L),
+            d2_overlap=float(p.d2_overlap), wolf_rc=float(p.qq_cut))
+
+    def propose(self, com, quat, coords, box, u, dr_max, dphi_max, m):
+        """The move of molecule m on uniforms u (C, 10), read as the sweep
+        kernel reads them: u0 < p_translate translates by (u1..3 - 0.5)
+        dr_max, else rotates (sweep_kernel.propose_rotation); u4 is the
+        acceptance draw.  Returns the proposal dict (the JAX
+        propose_full's keys, with u_acc in place of its key)."""
+        P = self.P
+        com_m, quat_m = com[:, m].clone(), quat[:, m].clone()
+        a = self.off0 + m * P
+        ra_old = coords[:, :, a:a + P].transpose(1, 2).clone()     # (C, P, 3)
+        if self.use_rot:
+            tsel = (u[:, 0:1] < self.params.p_translate).to(com.dtype)
+            rot_q = sweep_op.propose_rotation(*quat_m.split(1, -1), u,
+                                              dphi_max)
+            quat_new = torch.where(tsel > 0.0, quat_m, torch.cat(rot_q, 1))
+        else:
+            tsel = torch.ones_like(u[:, 0:1])
+            quat_new = quat_m
+        box_c = box[:, None]
+        com_new = com_m + tsel * (u[:, 1:4] - 0.5) * dr_max[:, None]
+        com_new = com_new - box_c * torch.floor(com_new * (1.0 / box_c))
+        if P > 1:
+            b = self.body[m]
+            rot = sweep_op.rot_apply(*quat_new.split(1, -1), b[:, 0], b[:, 1],
+                                     b[:, 2])
+            ra_new = com_new[:, None, :] + torch.stack(rot, dim=-1)
+        else:
+            ra_new = com_new[:, None, :]
+        return dict(com_m=com_m, quat_m=quat_m, ra_old=ra_old,
+                    is_trans=tsel[:, 0] > 0.0, com_new=com_new,
+                    quat_new=quat_new, ra_new=ra_new, u_acc=u[:, 4])
+
+    def pair_energy_rows(self, ra2p, key_old, key_new, com, coords, m, box,
+                         kappa):
+        """Plain branch: stacked old/new pair energies.  ra2p (C, 2P, 3),
+        key_old/key_new (C, 3) cutoff keys (COM or first atom), com
+        (C, M, 3), coords (C, 3, A_pad), box/kappa (C,).  Returns
+        (d_e (C,), overlap (C,) bool)."""
+        p, P = self.params, self.P
+        dtype = coords.dtype
+        b4 = box[:, None, None, None]
+        dr = min_image(ra2p.transpose(1, 2)[:, :, :, None]
+                       - coords[:, :, None, :], b4)            # (C, 3, 2P, A)
+        d2 = torch.clamp_min(torch.sum(dr * dr, dim=1), 1e-4)  # (C, 2P, A)
+        other = (self.mol_of_atom != m) & (self.mol_of_atom >= 0)
+        rc2, qrc2 = p.r_cut ** 2, p.qq_cut ** 2
+        if p.cutoff_mode == "site":
+            mask_lj = other & (d2 < rc2)
+            mask_qq = mask_lj if p.qq_r_cut is None else other & (d2 < qrc2)
+        else:
+            keys = com if p.cutoff_mode == "com" \
+                else coords[:, :, self.first_atom].transpose(1, 2)
+            kpts = torch.stack([key_old, key_new], dim=1)          # (C, 2, 3)
+            d2m = torch.sum(min_image(kpts[:, :, None, :] - keys[:, None],
+                                      b4) ** 2, dim=-1)            # (C, 2, M)
+            halves = torch.arange(2, device=d2.device).repeat_interleave(P)
+            mol = self.mol_of_atom.clamp(min=0)
+            mask_lj = other & (d2m < rc2)[:, :, mol][:, halves]
+            mask_qq = mask_lj if p.qq_r_cut is None \
+                else other & (d2m < qrc2)[:, :, mol][:, halves]
+        d2s = torch.where(mask_lj | mask_qq, d2, torch.ones((), dtype=dtype,
+                                                            device=d2.device))
+        tm = self.tid_mp[m]                                        # (P,)
+        eps2 = self.eps_t[tm][:, self.tid_safe].repeat(2, 1)       # (2P, A)
+        sig2 = self.sig2_t[tm][:, self.tid_safe].repeat(2, 1)
+        s2 = sig2 / d2s
+        s6 = s2 * s2 * s2
+        pot = 4.0 * eps2 * (s6 * s6 - s6)
+        if p.lj_shift == "linear":
+            sig = torch.sqrt(sig2)
+            lam1, lam2 = _shift_coeffs(p.r_cut / sig)
+            pot = pot + eps2 * (lam1 + lam2 * torch.sqrt(d2s) / sig)
+        e_lj = torch.sum(torch.where(mask_lj, pot, 0.0), dim=-1)   # (C, 2P)
+        d_e = e_lj[:, P:].sum(-1) - e_lj[:, :P].sum(-1)
+        overlap = torch.zeros_like(d_e, dtype=torch.bool)
+        if p.coulomb != "none":
+            qq2 = (self.charges_mp[m][:, None]
+                   * self.charges_flat[None, :]).repeat(2, 1)      # (2P, A)
+            cpair = _coulomb_pair(qq2, torch.sqrt(d2s), kappa[:, None, None],
+                                  p)
+            e_coul = COULOMB_FACTOR * torch.sum(
+                torch.where(mask_qq, cpair, 0.0), dim=-1)
+            d_e = d_e + e_coul[:, P:].sum(-1) - e_coul[:, :P].sum(-1)
+            bad = (d2 < p.d2_overlap) & (qq2 < 0.0) & mask_qq
+            overlap = bad[:, P:].flatten(1).any(-1)
+        return d_e, overlap
+
+    def delta_args(self, pr, coords, box, m):
+        """The delta-energy op's arguments for the move of molecule m:
+        rows [P old; P new; pad] of the proposal as (C, R) planes, the
+        molecule's tables and the shared rows."""
+        P, R = self.P, self.n_rows
+        ra = torch.cat([pr["ra_old"], pr["ra_new"]], dim=1)        # (C, 2P, 3)
+        if R > 2 * P:
+            # pad rows have zero flags and tables; any position does
+            ra = torch.cat([ra, ra[:, :1].expand(-1, R - 2 * P, -1)], dim=1)
+        mx, my, mz = (ra[..., d].contiguous() for d in range(3))
+        i = m - self.m0
+        return (coords[:, 0], coords[:, 1], coords[:, 2], mx, my, mz, box, m,
+                self.eps_rows[i], self.sig2_rows[i], self.q8_rows[i],
+                self.has_lj_rows[i], self.has_q_rows[i], self.tid_row,
+                self.molid_row, self.q_row, self.delta_params)
+
+    def kernel_delta(self, pr, coords, box, m):
+        """Kernel branch: the proposal's rows through the delta-energy op.
+        Returns (d_e (C,), overlap (C,) bool)."""
+        P = self.P
+        e_lj, e_coul, ovr = delta_op.delta_energy(
+            *self.delta_args(pr, coords, box, m))
+        new, old = slice(P, 2 * P), slice(0, P)
+        d_e = e_lj[:, new].sum(-1) - e_lj[:, old].sum(-1)
+        if self.params.coulomb != "none":
+            d_e = d_e + COULOMB_FACTOR * (e_coul[:, new].sum(-1)
+                                          - e_coul[:, old].sum(-1))
+        return d_e, ovr[:, new].sum(-1) > 0.0
+
+    def finalize(self, com, quat, coords, box, sfac, energy, temp, pr, d_e,
+                 ovr, m):
+        """Ewald reciprocal (and surface) delta, the Metropolis test and
+        the state update.  pr is a proposal dict from `propose` or made
+        elsewhere with its keys.  Writes the accepted move into com, quat
+        and coords IN PLACE (the caller owns copies); returns (com, quat,
+        coords, sfac, energy, is_trans, accept)."""
+        p = self.params
+        if p.coulomb == "ewald":
+            q_m = self.charges_mp[m]
+            dsfac = ewald_ops.delta_structure_factor(
+                pr["ra_old"], pr["ra_new"], q_m, self.kv, box)     # (C, K, 2)
+            cf = ewald_ops.cfac_coeffs(self.kv, self.kw, p.kappa_L / box, box)
+            d_e = d_e + ewald_ops.recip_energy_delta(sfac, dsfac, cf)
+            if p.ewald_surface:
+                # dipole delta: E = c |M|^2, c = factor 2 pi / (3 V); M from
+                # the state, the moved molecule's dipole swapped old -> new
+                com_all = com[:, self.mol_of_atom.clamp(0, self.M - 1)]
+                m_tot = ewald_ops.surface_dipole(
+                    coords.transpose(1, 2), com_all, self.charges_flat, box)
+                mu_old = ewald_ops.surface_dipole(
+                    pr["ra_old"], pr["com_m"][:, None, :], q_m, box)
+                mu_new = ewald_ops.surface_dipole(
+                    pr["ra_new"], pr["com_new"][:, None, :], q_m, box)
+                m_new = m_tot - mu_old + mu_new
+                c_surf = COULOMB_FACTOR * 2.0 * math.pi / (3.0 * box ** 3)
+                d_e = d_e + c_surf * (torch.sum(m_new * m_new, -1)
+                                      - torch.sum(m_tot * m_tot, -1))
+        else:
+            dsfac = None
+        beta_de = d_e / temp
+        accept = ((beta_de < 0.0) | (pr["u_acc"] < torch.exp(-beta_de))) \
+            & ~ovr
+        acc = accept[:, None]
+        com[:, m] = torch.where(acc, pr["com_new"], pr["com_m"])
+        quat[:, m] = torch.where(acc, pr["quat_new"], pr["quat_m"])
+        a = self.off0 + m * self.P
+        coords[:, :, a:a + self.P] = torch.where(
+            acc[:, :, None], pr["ra_new"], pr["ra_old"]).transpose(1, 2)
+        if dsfac is not None:
+            sfac = torch.where(acc[:, :, None], sfac + dsfac, sfac)
+        energy = torch.where(accept, energy + d_e, energy)
+        return com, quat, coords, sfac, energy, pr["is_trans"], accept
+
+    def __call__(self, state, m, u):
+        """Move molecule m (global index, in this block) of every chain on
+        uniforms u (C, 10).  Updates state.com/quat/coords in place; returns
+        (state, accept (C,) bool)."""
+        pr = self.propose(state.com, state.quat, state.coords, state.box, u,
+                          state.dr_max, state.dphi_max, m)
+        if self.use_kernel:
+            d_e, ovr = self.kernel_delta(pr, state.coords, state.box, m)
+        else:
+            first = self.params.cutoff_mode == "first"
+            key_old = pr["ra_old"][:, 0] if first else pr["com_m"]
+            key_new = pr["ra_new"][:, 0] if first else pr["com_new"]
+            d_e, ovr = self.pair_energy_rows(
+                torch.cat([pr["ra_old"], pr["ra_new"]], dim=1), key_old,
+                key_new, state.com, state.coords, m, state.box,
+                self.params.kappa_L / state.box)
+        com, quat, coords, sfac, energy, is_trans, accept = self.finalize(
+            state.com, state.quat, state.coords, state.box, state.sfac,
+            state.energy, state.temp, pr, d_e.to(self.dtype), ovr, m)
+        it, ac = is_trans.to(torch.int32), accept.to(torch.int32)
+        zero = torch.zeros_like(it)
+        return dataclasses.replace(
+            state, com=com, quat=quat, coords=coords, sfac=sfac,
+            energy=energy, step=state.step + 1,
+            att=state.att + torch.stack([it, 1 - it, zero], 1),
+            acc=state.acc + torch.stack([it * ac, (1 - it) * ac, zero], 1)
+        ), accept
+
+
+def make_sweep_fn(system, params, kvecs, kweights, device,
+                  dtype=torch.float32, use_kernel=False, species=None):
+    """The per-move route of one species block (a System.species_slices
+    entry; None: the whole uniform-width system as one block): a MoveBody,
+    called as body(state, m, u_m) -> (state, accept) for m in [m0, m1).
+    use_kernel takes the delta-energy op for the pair sums (raising where
+    delta_kernel_supported is false), else the plain pair_energy_rows."""
+    return MoveBody(system, params, kvecs, kweights, device, dtype,
+                    use_kernel, species)

@@ -1,16 +1,18 @@
 """Whole-sweep Metropolis op: the CUDA kernel's wrapper and its plain
 PyTorch version (counterpart of metropolismontecarlo_tpu/ops/pallas/
-sweep_kernel.py sweep_pallas, base variant: one species block, no
+sweep_kernel.py sweep_pallas, base and species-block variants: no
 activity mask, exchanges, TMMC, Widom or sorted slabs).
 
-One call runs M sequential molecule moves on every chain.  Each move: a
+One call runs the M sequential moves of one species block (global
+molecules [m_start, m_start + M), atoms from column a_start, P each) on
+every chain; a mixture makes one call per block, threading the state.  Each move: a
 translate or rotate proposal, old and new site sums of LJ plus real-space
 Coulomb (ewald / wolf / wolf_ref / bare / none) over all atoms, the
 incremental S(k) and reciprocal energy delta (ewald), the overlap veto,
 the Metropolis test, and the write-back of the accepted move.
 
-Random numbers come from outside: u (C, M, 10) uniforms in [0, 1) whose
-columns are [selector, dx, dy, dz, accept, e1, e2, e3, e4, angle] (the
+Random numbers come from outside: u (C, M_total, 10) uniforms in [0, 1),
+one row per molecule of the whole system, whose columns are [selector, dx, dy, dz, accept, e1, e2, e3, e4, angle] (the
 TPU kernel's u[:, 0:10]).  The kernel and sweep_plain read the same u,
 so the two can be compared trajectory by trajectory.
 
@@ -29,7 +31,7 @@ from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
 
 N_UNIFORMS = 10
 # stats columns: [energy delta, acc_trans, acc_rot, att_trans, att_rot,
-# decision fingerprint = sum of (m + 1) over accepted moves]
+# decision fingerprint = sum of (global m + 1) over accepted moves]
 N_STATS = 6
 MAX_SITES = 16
 MAX_SMEM_BYTES = 232448   # 227 KB, a Hopper block's dynamic shared memory
@@ -44,7 +46,8 @@ _INV_TWO_PI = 1.0 / _TWO_PI
 class SweepTables:
     """Per-system constants of the sweep (built by mc.moves.sweep_tables).
 
-    Scalars: M molecules swept, P sites per molecule, coulomb style (a
+    Scalars: M molecules swept, from global index m_start, whose atoms
+    start at column a_start, P sites per molecule, coulomb style (a
     COULOMB_CODES key), lj_shift ("none" | "linear"), use_rot, squared
     LJ and Coulomb cutoffs, kappa_L, the overlap distance^2 and
     p_translate.  Tensors (f32 unless noted, all on one device):
@@ -55,6 +58,8 @@ class SweepTables:
     kw (K,)."""
 
     M: int
+    m_start: int
+    a_start: int
     P: int
     coulomb: str
     lj_shift: str
@@ -85,27 +90,33 @@ class SweepTables:
 
 
 def smem_bytes(M, P, A_pad, K, T):
-    """Dynamic shared memory of one block; must match sweep_smem_floats
-    in csrc/sweep_kernel.cu."""
+    """Dynamic shared memory of one block, M the COM/quaternion rows held
+    (all molecules of the system); must match sweep_smem_floats in
+    csrc/sweep_kernel.cu."""
     return 4 * (6 * A_pad + 7 * M + 8 * K + 4 * P * T + 11 * P + 80)
 
 
 def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
                   t):
     C, three, A_pad = coords.shape
+    M_total = com.shape[1]
     K = sfac.shape[1]
     T = t.eps.shape[1]
     if three != 3:
         raise ValueError(f"coords must be (C, 3, A_pad), got {coords.shape}")
-    if t.P > MAX_SITES or t.M * t.P > A_pad:
-        raise ValueError(f"sweep supports P <= {MAX_SITES} sites within "
-                         f"A_pad atoms (P={t.P}, M={t.M}, A_pad={A_pad})")
+    if t.P > MAX_SITES or t.a_start + t.M * t.P > A_pad or t.m_start < 0 \
+            or t.a_start < 0 or t.m_start + t.M > M_total:
+        raise ValueError(
+            f"sweep supports P <= {MAX_SITES} sites, a block within the "
+            f"A_pad atoms and M_total molecules (P={t.P}, M={t.M}, "
+            f"m_start={t.m_start}, a_start={t.a_start}, A_pad={A_pad}, "
+            f"M_total={M_total})")
     tensors = dict(t.tensors(), coords=coords, com=com, quat=quat, sfac=sfac,
                    box=box, temp=temp, dr_max=dr_max, dphi_max=dphi_max, u=u)
     shapes = dict(
-        coords=(C, 3, A_pad), com=(C, t.M, 3), quat=(C, t.M, 4),
+        coords=(C, 3, A_pad), com=(C, M_total, 3), quat=(C, M_total, 4),
         sfac=(C, K, 2), box=(C,), temp=(C,), dr_max=(C,), dphi_max=(C,),
-        u=(C, t.M, N_UNIFORMS), body=(t.P, 3), qp=(t.P,), eps=(t.P, T),
+        u=(C, M_total, N_UNIFORMS), body=(t.P, 3), qp=(t.P,), eps=(t.P, T),
         sig2=(t.P, T), lam1=(t.P, T), lam2=(t.P, T), has_lj=(t.P,),
         has_q=(t.P,), tid_row=(A_pad,), molid_row=(A_pad,), q_row=(A_pad,),
         kvec=(K, 3), kw=(K,))
@@ -124,11 +135,11 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
 
 
 def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables):
-    """One sweep of tables.M moves per chain.
+    """One sweep of the species block's tables.M moves per chain.
 
-    coords (C, 3, A_pad), com (C, M, 3), quat (C, M, 4), sfac (C, K, 2),
-    box/temp/dr_max/dphi_max (C,), u (C, M, 10); all f32, contiguous, on
-    one device.  Returns new (coords, com, quat, sfac, stats (C, 6)).
+    coords (C, 3, A_pad), com (C, M_total, 3), quat (C, M_total, 4), sfac
+    (C, K, 2), box/temp/dr_max/dphi_max (C,), u (C, M_total, 10); all f32,
+    contiguous, on one device.  Returns new (coords, com, quat, sfac, stats (C, 6)).
     CUDA tensors launch the kernel (and count it in sweep.launches); CPU
     tensors run sweep_plain; any other device raises."""
     _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
@@ -148,12 +159,12 @@ sweep.launches = 0
 def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
     lib = _library()
     C, _, A_pad = coords.shape
-    K, T = sfac.shape[1], t.eps.shape[1]
-    nbytes = smem_bytes(t.M, t.P, A_pad, K, T)
+    M_total, K, T = com.shape[1], sfac.shape[1], t.eps.shape[1]
+    nbytes = smem_bytes(M_total, t.P, A_pad, K, T)
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"chain state needs {nbytes} B of shared memory, "
                          f"over the {MAX_SMEM_BYTES} B a block may use")
-    if lib.mmc_sweep_smem_bytes(t.M, t.P, A_pad, K, T) != nbytes:
+    if lib.mmc_sweep_smem_bytes(M_total, t.P, A_pad, K, T) != nbytes:
         raise RuntimeError("csrc/sweep_kernel.cu and smem_bytes disagree "
                            "on the shared-memory layout")
     outs = (torch.empty_like(coords), torch.empty_like(com),
@@ -165,7 +176,8 @@ def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
         t.qp, t.eps, t.sig2, t.lam1, t.lam2, t.has_lj, t.has_q, t.tid_row,
         t.molid_row, t.q_row, t.kvec, t.kw) + outs]
     err = lib.mmc_sweep_launch(
-        *ptrs, C, t.M, t.P, A_pad, K, T, COULOMB_CODES[t.coulomb],
+        *ptrs, C, t.M, M_total, t.m_start, t.a_start, t.P, A_pad, K, T,
+        COULOMB_CODES[t.coulomb],
         int(t.lj_shift == "linear"), int(t.use_rot), THREADS,
         t.rc2, t.qrc2, t.kappa_l, t.d2_overlap, t.p_translate,
         COULOMB_FACTOR, torch.cuda.current_stream(coords.device).cuda_stream)
@@ -185,7 +197,7 @@ def _library():
 
     lib = load_library("sweep_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_sweep_launch.argtypes = [vp] * 27 + [ci] * 10 + [cf] * 6 + [vp]
+    lib.mmc_sweep_launch.argtypes = [vp] * 27 + [ci] * 13 + [cf] * 6 + [vp]
     lib.mmc_sweep_launch.restype = ci
     lib.mmc_sweep_smem_bytes.argtypes = [ci] * 5
     lib.mmc_sweep_smem_bytes.restype = ctypes.c_size_t
@@ -194,7 +206,7 @@ def _library():
     return lib
 
 
-def _rot_apply(w, x, y, z, bx, by, bz):
+def rot_apply(w, x, y, z, bx, by, bz):
     """R(q) b for quaternion columns (C, 1) and body rows (P,): the
     kernel's expansion, term for term."""
     ww, xx, yy, zz = w * w, x * x, y * y, z * z
@@ -204,6 +216,31 @@ def _rot_apply(w, x, y, z, bx, by, bz):
     oy = (ww - xx + yy - zz) * by + 2.0 * ((xy + wz) * bx + (yz - wx) * bz)
     oz = (ww - xx - yy + zz) * bz + 2.0 * ((xz - wy) * bx + (yz + wx) * by)
     return ox, oy, oz
+
+
+def propose_rotation(w0, x0, y0, z0, um, dphi_max):
+    """The kernel's rotation proposal for quaternion columns (C, 1),
+    uniforms um (C, 10) (columns 5-9) and dphi_max (C,): the normalised
+    product of a rotation by (2 u9 - 1) dphi_max about a Box-Muller axis
+    with q0, as four (C, 1) columns."""
+    e1 = torch.clamp_min(um[:, 5:6], 1e-12)
+    e3 = torch.clamp_min(um[:, 7:8], 1e-12)
+    e2, e4 = um[:, 6:7], um[:, 8:9]
+    r1 = torch.sqrt(-2.0 * torch.log(e1))
+    r2 = torch.sqrt(-2.0 * torch.log(e3))
+    a2 = _TWO_PI * (e2 - torch.round(e2))
+    a4 = _TWO_PI * (e4 - torch.round(e4))
+    g1, g2, g3 = r1 * torch.cos(a2), r1 * torch.sin(a2), r2 * torch.cos(a4)
+    gn = torch.rsqrt(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20)
+    half = 0.5 * ((2.0 * um[:, 9:10] - 1.0) * dphi_max[:, None])
+    sh, rw = torch.sin(half) * gn, torch.cos(half)
+    rx, ry, rz = sh * g1, sh * g2, sh * g3
+    nw = rw * w0 - rx * x0 - ry * y0 - rz * z0
+    nx = rw * x0 + rx * w0 + ry * z0 - rz * y0
+    ny = rw * y0 - rx * z0 + ry * w0 + rz * x0
+    nz = rw * z0 + rx * y0 - ry * x0 + rz * w0
+    qn = torch.rsqrt(nw * nw + nx * nx + ny * ny + nz * nz)
+    return nw * qn, nx * qn, ny * qn, nz * qn
 
 
 def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
@@ -242,44 +279,26 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
                         device=coords.device)
 
     for m in range(t.M):
-        um = u[:, m]
-        w0, x0, y0, z0 = quat[:, m, 0:1], quat[:, m, 1:2], quat[:, m, 2:3], \
-            quat[:, m, 3:4]
+        mg = t.m_start + m                                        # global
+        um = u[:, mg]
+        w0, x0, y0, z0 = quat[:, mg, 0:1], quat[:, mg, 1:2], \
+            quat[:, mg, 2:3], quat[:, mg, 3:4]
         if t.use_rot:
             tsel = (um[:, 0:1] < t.p_translate).to(coords.dtype)
-            e1 = torch.clamp_min(um[:, 5:6], 1e-12)
-            e3 = torch.clamp_min(um[:, 7:8], 1e-12)
-            e2, e4 = um[:, 6:7], um[:, 8:9]
-            r1 = torch.sqrt(-2.0 * torch.log(e1))
-            r2 = torch.sqrt(-2.0 * torch.log(e3))
-            a2 = _TWO_PI * (e2 - torch.round(e2))
-            a4 = _TWO_PI * (e4 - torch.round(e4))
-            g1, g2, g3 = r1 * torch.cos(a2), r1 * torch.sin(a2), \
-                r2 * torch.cos(a4)
-            gn = torch.rsqrt(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20)
-            half = 0.5 * ((2.0 * um[:, 9:10] - 1.0) * dphi_max[:, None])
-            sh, rw = torch.sin(half) * gn, torch.cos(half)
-            rx, ry, rz = sh * g1, sh * g2, sh * g3
-            nw = rw * w0 - rx * x0 - ry * y0 - rz * z0
-            nx = rw * x0 + rx * w0 + ry * z0 - rz * y0
-            ny = rw * y0 - rx * z0 + ry * w0 + rz * x0
-            nz = rw * z0 + rx * y0 - ry * x0 + rz * w0
-            qn = torch.rsqrt(nw * nw + nx * nx + ny * ny + nz * nz)
             trans = tsel > 0.0
-            w1 = torch.where(trans, w0, nw * qn)
-            x1 = torch.where(trans, x0, nx * qn)
-            y1 = torch.where(trans, y0, ny * qn)
-            z1 = torch.where(trans, z0, nz * qn)
+            rot_q = propose_rotation(w0, x0, y0, z0, um, dphi_max)
+            w1, x1, y1, z1 = (torch.where(trans, a, b) for a, b in
+                              zip((w0, x0, y0, z0), rot_q))
         else:
             tsel = torch.ones_like(um[:, 0:1])
             w1, x1, y1, z1 = w0, x0, y0, z0
-        ncom = com[:, m] + tsel * (um[:, 1:4] - 0.5) * dr_max[:, None]
+        ncom = com[:, mg] + tsel * (um[:, 1:4] - 0.5) * dr_max[:, None]
         ncom = ncom - box_c * torch.floor(ncom * inv_box)        # (C, 3)
 
-        a0 = m * P
+        a0 = t.a_start + m * P
         old = coords[:, :, a0:a0 + P].clone()                    # (C, 3, P)
         if P > 1:
-            rot = _rot_apply(w1, x1, y1, z1, bx, by, bz)
+            rot = rot_apply(w1, x1, y1, z1, bx, by, bz)
             new = torch.stack([ncom[:, d:d + 1] + rot[d] for d in range(3)],
                               dim=1)
         else:
@@ -293,7 +312,7 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
                 dd * inv_box[:, :, None])
             d2 = dd * dd if d2 is None else d2 + dd * dd
         d2 = torch.clamp_min(d2, 1e-4)
-        other = valid & (t.molid_row != m)
+        other = valid & (t.molid_row != mg)
         mask_lj = other & (d2 < t.rc2)
         mask_qq = other & (d2 < t.qrc2) if t.qrc2 != t.rc2 else mask_lj
         inv_r = torch.rsqrt(d2)
@@ -334,10 +353,10 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
         beta_de = d_e / temp_c[:, 0]
         accept = (beta_de < 0.0) | (um[:, 4] < torch.exp(-beta_de))
         acc = accept[:, None]
-        com[:, m] = torch.where(acc, ncom, com[:, m])
+        com[:, mg] = torch.where(acc, ncom, com[:, mg])
         if t.use_rot:
-            quat[:, m] = torch.where(acc, torch.cat([w1, x1, y1, z1], 1),
-                                     quat[:, m])
+            quat[:, mg] = torch.where(acc, torch.cat([w1, x1, y1, z1], 1),
+                                      quat[:, mg])
         coords[:, :, a0:a0 + P] = torch.where(acc[:, :, None], new, old)
         if ewald:
             sre = torch.where(acc, sre + ds_re, sre)
@@ -346,5 +365,5 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
         af = accept.to(coords.dtype)
         stats += torch.stack([torch.where(accept, d_e, 0.0), af * ts,
                               af * (1.0 - ts), ts, 1.0 - ts,
-                              af * float(m + 1)], dim=1)
+                              af * float(mg + 1)], dim=1)
     return coords, com, quat, torch.stack([sre, sim], dim=-1), stats

@@ -79,9 +79,24 @@ def structure_factor(coords, charges, kvecs, box):
     return torch.stack([re, im], dim=-1)
 
 
+def delta_structure_factor(ra_old, ra_new, charges, kvecs, box):
+    """S(k) change of one moved molecule, S_new - S_old: ra_old/ra_new
+    (..., P, 3), charges (..., P) or (P,) -> (..., K, 2).  O(P K)."""
+    return structure_factor(ra_new, charges, kvecs, box) \
+        - structure_factor(ra_old, charges, kvecs, box)
+
+
 def recip_energy(sfac, cfac, factor=COULOMB_FACTOR):
     """factor sum_k cfac_k |S(k)|^2; sfac (..., K, 2), cfac (..., K)."""
     return factor * torch.sum(cfac * torch.sum(sfac * sfac, dim=-1), dim=-1)
+
+
+def recip_energy_delta(sfac_old, dsfac, cfac, factor=COULOMB_FACTOR):
+    """E_fourier(S_old + dS) - E_fourier(S_old), computed stably as
+    factor sum_k cfac (2 S_old . dS + |dS|^2)."""
+    cross = 2.0 * torch.sum(sfac_old * dsfac, dim=-1) \
+        + torch.sum(dsfac * dsfac, dim=-1)
+    return factor * torch.sum(cfac * cross, dim=-1)
 
 
 def real_space_sum(d2, qq, mask, kappa, factor=COULOMB_FACTOR):
@@ -172,11 +187,17 @@ def ewald_self(charges, kappa, factor=COULOMB_FACTOR):
         * torch.sum(charges * charges, dim=-1)
 
 
-def surface_term(coords, com_of_atom, charges, box, factor=COULOMB_FACTOR):
-    """Vacuum-boundary dipole term factor 2 pi/(3V) |M|^2 with
-    M = sum_i q_i (r_i - R_mol(i)) min-imaged."""
+def surface_dipole(coords, com_of_atom, charges, box):
+    """Total dipole M = sum_i q_i (r_i - R_mol(i)) (..., 3), the offsets
+    min-imaged: translation-invariant per molecule, hence continuous
+    under periodic wrapping.  coords/com_of_atom (..., A, 3)."""
     d = min_image(coords - com_of_atom, batch_view(box, 2))
-    m = torch.einsum("...a,...ad->...d",
-                     torch.broadcast_to(charges.to(coords.dtype),
-                                        d.shape[:-1]), d)
+    q = torch.broadcast_to(charges.to(coords.dtype), d.shape[:-1])
+    return torch.sum(q[..., None] * d, dim=-2)
+
+
+def surface_term(coords, com_of_atom, charges, box, factor=COULOMB_FACTOR):
+    """Vacuum-boundary dipole term factor 2 pi/(3V) |M|^2, M the
+    surface_dipole."""
+    m = surface_dipole(coords, com_of_atom, charges, box)
     return factor * 2.0 * math.pi / (3.0 * box**3) * torch.sum(m * m, dim=-1)

@@ -55,10 +55,11 @@ def quat_mul(a, b):
     )
 
 
-def random_quaternion(generator, shape=(), dtype=torch.float32, device="cpu"):
-    """Uniform random unit quaternions on S^3 (Shoemake), (*shape, 4)."""
+def random_quaternion(generator, shape=(), dtype=torch.float32):
+    """Uniform random unit quaternions on S^3 (Shoemake), (*shape, 4), on
+    the generator's device."""
     u = torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
-                   device=device)
+                   device=generator.device)
     u1, u2, u3 = u.unbind(-1)
     a, b = torch.sqrt(1.0 - u1), torch.sqrt(u1)
     t2, t3 = 2.0 * math.pi * u2, 2.0 * math.pi * u3

@@ -162,7 +162,7 @@ def test_bridge_round_trip():
         "nbr": np.zeros((2, 1, 1), np.int32),
         "nbr_needed": np.zeros(2, np.int32),
     }
-    back = bridge.state_to_numpy(bridge.state_from_numpy(arrays))
+    back = bridge.state_to_numpy(bridge.state_from_numpy(arrays, "cpu"))
     assert set(back) == set(arrays) - {"key"}
     for k, v in back.items():
         assert v.dtype == arrays[k].dtype and v.shape == arrays[k].shape, k

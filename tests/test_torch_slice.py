@@ -38,7 +38,7 @@ def test_slice_matches_jax_mega_interpret(monkeypatch):
                           box=12.0, n_chains=8)
     mc_t = MonteCarlo(spce_system(8), RunParams(**kw), device="cpu")
     s_t = bridge.state_from_numpy(
-        {f: np.asarray(getattr(s_j, f)) for f in s_j._fields})
+        {f: np.asarray(getattr(s_j, f)) for f in s_j._fields}, "cpu")
     monkeypatch.setattr(
         moves_t, "draw_uniforms",
         lambda C, M, gen, dev: torch.zeros((C, M, 10), device=dev))
@@ -117,21 +117,28 @@ def test_lj256_acceptance_anchor():
 def test_unported_routes_raise():
     system = spce_system(8)
     with pytest.raises(NotImplementedError):
-        MonteCarlo(system, RunParams(pressure=1.0, p_volume=0.1))
+        MonteCarlo(system, RunParams(pressure=1.0, p_volume=0.1),
+                   device="cpu")
     with pytest.raises(NotImplementedError):
-        MonteCarlo(system, RunParams(nlist_width=8))
+        MonteCarlo(system, RunParams(nlist_width=8), device="cpu")
     with pytest.raises(NotImplementedError):
-        MonteCarlo(system, RunParams(), tp_mesh=object())
-    mc = MonteCarlo(system, RunParams(coulomb="wolf"))
+        MonteCarlo(system, RunParams(), device="cpu", tp_mesh=object())
+    mc = MonteCarlo(system, RunParams(coulomb="wolf"), device="cpu")
     for name in ("pressure_fd", "widom", "widom_mega"):
         with pytest.raises(NotImplementedError):
             getattr(mc, name)(None)
     # a 750-water box where the JAX package's forced slab mode applies
     big = spce_system(750)
-    mc = MonteCarlo(big, RunParams(slab_mode="force", dr_max=0.3))
+    mc = MonteCarlo(big, RunParams(slab_mode="force", dr_max=0.3),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="sorted-slab"):
         mc.init_state(np.zeros((750, 3)), box=40.0, n_chains=1)
+    # species-blocked mixtures now run: one whole-sweep launch per block
     mixed = dataclasses.replace(
         system, species=(("a", 4, 3), ("b", 4, 3)))
-    with pytest.raises(NotImplementedError, match="species-blocked"):
-        MonteCarlo(mixed, RunParams())
+    mc = MonteCarlo(mixed, RunParams(r_cut=5.0), device="cpu")
+    assert mc.route == "sweep" and len(mc.tables) == 2
+    state = mc.init_state(cubic_lattice(8, 12.0), box=12.0, n_chains=2)
+    state, m = mc.run_block(state, 1)
+    assert int(state.step) == 8 and int(state.att.sum()) == 16
+    assert m["drift_max_rel"] < 1e-4

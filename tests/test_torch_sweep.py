@@ -129,7 +129,8 @@ def test_sweep_plain_matches_jax_interpret_kernel(case, coulomb,
         kv, kwt = make_kvectors(params_t.nk, params_t.ksq_max)
     s = _start(build_t(n), box, params_t, kv, kwt)
     ref = _run_jax(build_j(n), params_j, kv, kwt, s)
-    out = _run_port(sweep_tables(build_t(n), params_t, kv, kwt, "cpu"), s)
+    (tables,) = sweep_tables(build_t(n), params_t, kv, kwt, "cpu")
+    out = _run_port(tables, s)
 
     np.testing.assert_array_equal(out["acc"], ref["acc"])
     np.testing.assert_array_equal(out["att"], ref["att"])
@@ -151,7 +152,7 @@ def _small_inputs():
     system = water_t.spce_system(8)
     params = RunParams(temperature=300.0, r_cut=5.0, coulomb="wolf",
                        strict_min_image=False)
-    tables = sweep_tables(system, params, None, None, "cpu")
+    (tables,) = sweep_tables(system, params, None, None, "cpu")
     s = _start(system, 12.0, params, None, None)
     t = {k: torch.tensor(v) for k, v in s.items()}
     args = [t["coords"], t["com"], t["quat"], t["sfac"], t["box"], t["temp"],
