@@ -35,6 +35,7 @@ from metropolismontecarlo_tpu_torch.mc.moves import (
     draw_uniforms,
     make_mega_sweep_fn,
     make_sweep_fn,
+    mega_supported,
 )
 from metropolismontecarlo_tpu_torch.models.energy import energy_breakdown
 from metropolismontecarlo_tpu_torch.models.system import SimState
@@ -65,9 +66,7 @@ def choose_route(system, params, dtype, kernel):
     the whole sweep for species-uniform systems, else the per-move kernel
     where it runs the conventions, else plain.  A forced kernel route that
     cannot run the configuration raises."""
-    sweep_ok = (params.cutoff_mode == "site" and dtype == torch.float32
-                and params.lj_shift in ("none", "linear")
-                and not params.ewald_surface and system.species_uniform)
+    sweep_ok = mega_supported(system, params, dtype)
     move_ok = delta_kernel_supported(params, dtype)
     if kernel == "auto":
         return "sweep" if sweep_ok else "move" if move_ok else "plain"

@@ -102,14 +102,19 @@ def slab_config(system, params, box_hint, z_hint=None):
                 r_half=float(r_half), A=A, A_store=_round_up(A + W, 128))
 
 
+def mega_supported(system, params, dtype=torch.float32):
+    """Whether the whole-sweep kernel route runs these conventions."""
+    return (system.species_uniform and params.cutoff_mode == "site"
+            and params.lj_shift in ("none", "linear")
+            and dtype == torch.float32 and not params.ewald_surface)
+
+
 def check_mega_supported(system, params, box_hint=None, z_hint=None):
     """Raise unless the ported whole-sweep route runs this configuration."""
-    if not system.species_uniform or params.cutoff_mode != "site" \
-            or params.lj_shift not in ("none", "linear") \
-            or params.ewald_surface:
-        raise ValueError("the whole-sweep path requires a species-uniform "
-                         "system, site cutoff, none/linear LJ shift and no "
-                         "Ewald surface term")
+    if not mega_supported(system, params):
+        raise ValueError("the whole-sweep route requires a species-uniform "
+                         "system, site cutoff, none/linear LJ shift, "
+                         "float32 and no Ewald surface term")
     if slab_config(system, params, box_hint, z_hint) is not None:
         raise NotImplementedError(
             "this configuration would run with sorted-slab windows, which "
@@ -254,7 +259,7 @@ def delta_kernel_supported(params, dtype):
             and dtype == torch.float32 and not params.ewald_surface)
 
 
-class MoveBody:
+class _MoveBody:
     """One molecule move of every chain, for one species block (see
     make_sweep_fn).  Tensors are (C, ...) batched over chains."""
 
@@ -526,9 +531,11 @@ class MoveBody:
 def make_sweep_fn(system, params, kvecs, kweights, device,
                   dtype=torch.float32, use_kernel=False, species=None):
     """The per-move route of one species block (a System.species_slices
-    entry; None: the whole uniform-width system as one block): a MoveBody,
-    called as body(state, m, u_m) -> (state, accept) for m in [m0, m1).
+    entry; None: the whole uniform-width system as one block), called as
+    body(state, m, u_m) -> (state, accept) for m in [m0, m1); its methods
+    propose, delta_args, kernel_delta, pair_energy_rows and finalize are
+    the steps of a move.
     use_kernel takes the delta-energy op for the pair sums (raising where
     delta_kernel_supported is false), else the plain pair_energy_rows."""
-    return MoveBody(system, params, kvecs, kweights, device, dtype,
-                    use_kernel, species)
+    return _MoveBody(system, params, kvecs, kweights, device, dtype,
+                     use_kernel, species)

@@ -64,3 +64,32 @@ def spce_system(n_mol):
 def tip3p_system(n_mol):
     return _water_system(n_mol, TIP3P_SIGMA_OO, TIP3P_EPS_OO, TIP3P_Q_O,
                          TIP3P_Q_H, TIP3P_R_OH, TIP3P_THETA, "tip3p")
+
+
+# TraPPE united-atom methane (Martin & Siepmann 1998)
+CH4_EPS = 148.0                 # K
+CH4_SIGMA = 3.73                # Angstrom
+MASS_CH4 = 16.043
+
+
+def spce_methane_system(n_w, n_ch4):
+    """A ragged mixture: n_w SPC/E waters (P = 3) followed by n_ch4
+    one-site TraPPE methanes (P = 1), so the methane block's first atom
+    column differs from m_start * P.  Types [O, H, CH4] with
+    Lorentz-Berthelot cross terms."""
+    w = spce_system(n_w)
+    M = n_w + n_ch4
+    body, masses, charges = (np.zeros((M, 3, 3)), np.zeros((M, 3)),
+                             np.zeros((M, 3)))
+    type_ids = np.zeros((M, 3), np.int32)
+    body[:n_w], masses[:n_w], charges[:n_w] = w.body, w.masses, w.charges
+    type_ids[:n_w] = w.type_ids
+    masses[n_w:, 0], type_ids[n_w:, 0] = MASS_CH4, 2
+    eps = np.array([SPCE_EPS_OO, 0.0, CH4_EPS])
+    sig = np.array([SPCE_SIGMA_OO, 1.0, CH4_SIGMA])
+    eps_t = np.sqrt(eps[:, None] * eps[None, :])
+    sig_t = np.where(eps_t > 0.0, 0.5 * (sig[:, None] + sig[None, :]), 1.0)
+    return System(n_mol=M, atoms_per_mol=3, body=body, masses=masses,
+                  charges=charges, type_ids=type_ids, eps_table=eps_t,
+                  sig_table=sig_t, name="spce+ch4",
+                  species=(("spce", n_w, 3), ("ch4", n_ch4, 1)))

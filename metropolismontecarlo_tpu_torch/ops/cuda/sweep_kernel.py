@@ -243,10 +243,16 @@ def propose_rotation(w0, x0, y0, z0, um, dphi_max):
     return nw * qn, nx * qn, ny * qn, nz * qn
 
 
-def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
+def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
+                magnitude=False):
     """Plain PyTorch version of the kernel: a Python loop over the M
     molecules, vectorised over chains, f32 throughout.  Same arguments
-    and results as `sweep`."""
+    and results as `sweep`.  With magnitude, stats gains a seventh column:
+    the sum over accepted moves of the magnitudes of the terms their
+    energy deltas add up (each old and new row's r^-12 and r^-6 LJ terms,
+    linear shift and Coulomb pair terms, each k-vector's reciprocal
+    term), the scale of the energy delta's f32 rounding, for holding
+    another route's energy delta against this one's."""
     coords, com, quat = coords.clone(), com.clone(), quat.clone()
     sre, sim = sfac[..., 0].clone(), sfac[..., 1].clone()
     C, _, A_pad = coords.shape
@@ -275,7 +281,7 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
     sign = torch.cat([-torch.ones(P), torch.ones(P)]).to(coords)  # (2P,)
     valid = t.molid_row >= 0
     bx, by, bz = t.body[:, 0], t.body[:, 1], t.body[:, 2]
-    stats = torch.zeros((C, N_STATS), dtype=torch.float32,
+    stats = torch.zeros((C, N_STATS + int(magnitude)), dtype=torch.float32,
                         device=coords.device)
 
     for m in range(t.M):
@@ -320,9 +326,16 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
         s2 = sig2 * inv_d2
         s6 = s2 * s2 * s2
         pot = eps4 * (s6 * s6 - s6)
+        if magnitude:
+            lj_mag = eps4.abs() * (s6 * s6 + s6)
         if t.lj_shift == "linear":
-            pot = pot + (lam1 + lam2 * torch.sqrt(d2))
+            shift = lam1 + lam2 * torch.sqrt(d2)
+            pot = pot + shift
+            if magnitude:
+                lj_mag = lj_mag + shift.abs()
         contrib = torch.where(mask_lj, pot, 0.0)
+        if magnitude:
+            mag = torch.where(mask_lj, lj_mag, 0.0).sum((1, 2))
         if use_q:
             r = d2 * inv_r
             kr = kappa[:, :, None] * r
@@ -335,6 +348,8 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
             veto = new_row & (d2 < t.d2_overlap) & (qq < 0.0)
             cp = torch.where(veto, 1e30, cp)
             contrib = contrib + torch.where(mask_qq, cp, 0.0)
+            if magnitude:
+                mag = mag + torch.where(mask_qq, cp.abs(), 0.0).sum((1, 2))
         d_e = (contrib.sum(-1) * sign).sum(-1)                   # (C,)
 
         if ewald:
@@ -349,6 +364,8 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
             cross = 2.0 * (sre * ds_re + sim * ds_im) \
                 + ds_re * ds_re + ds_im * ds_im
             d_e = d_e + COULOMB_FACTOR * (cfac * cross).sum(-1)
+            if magnitude:
+                mag = mag + COULOMB_FACTOR * (cfac * cross.abs()).sum(-1)
 
         beta_de = d_e / temp_c[:, 0]
         accept = (beta_de < 0.0) | (um[:, 4] < torch.exp(-beta_de))
@@ -363,7 +380,9 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
             sim = torch.where(acc, sim + ds_im, sim)
         ts = tsel[:, 0]
         af = accept.to(coords.dtype)
-        stats += torch.stack([torch.where(accept, d_e, 0.0), af * ts,
-                              af * (1.0 - ts), ts, 1.0 - ts,
-                              af * float(mg + 1)], dim=1)
+        cols = [torch.where(accept, d_e, 0.0), af * ts, af * (1.0 - ts), ts,
+                1.0 - ts, af * float(mg + 1)]
+        if magnitude:
+            cols.append(torch.where(accept, mag, 0.0))
+        stats += torch.stack(cols, dim=1)
     return coords, com, quat, torch.stack([sre, sim], dim=-1), stats

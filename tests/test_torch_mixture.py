@@ -4,7 +4,7 @@ mixture (float64, rtol 1e-9), and the species-block sweep (sweep_plain,
 one call per block) against the JAX whole-sweep Pallas kernel run by the
 TPU interpreter.
 
-The ragged mixture is chip_smoke.ragged_system: SPC/E waters (P = 3)
+The ragged mixture is models.water.spce_methane_system: SPC/E waters (P = 3)
 next to united-atom methane sites (P = 1, TraPPE CH4), so that a block's
 first atom column a_start differs from m_start * P.
 
@@ -29,11 +29,11 @@ from metropolismontecarlo_tpu.models.system import SimState as SimStateJ
 from metropolismontecarlo_tpu.models.system import System as SystemJ
 from metropolismontecarlo_tpu.ops.ewald import make_kvectors
 from metropolismontecarlo_tpu.ops.quaternions import quat_to_rot
-from chip_smoke import ragged_system
 from metropolismontecarlo_tpu_torch.mc.moves import sweep_blocks, sweep_tables
 from metropolismontecarlo_tpu_torch.models import energy as energy_t
 from metropolismontecarlo_tpu_torch.models import linear as linear_t
 from metropolismontecarlo_tpu_torch.models.system import RunParams
+from metropolismontecarlo_tpu_torch.models.water import spce_methane_system
 from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sweep_op
 
 
@@ -41,7 +41,7 @@ def _pair(name):
     """(port System, JAX System) of a test mixture."""
     if name == "co2_n2":
         return linear_t.co2_n2_system(6, 4), linear_j.co2_n2_system(6, 4)
-    sys_t = ragged_system(6, 6)
+    sys_t = spce_methane_system(6, 6)
     return sys_t, SystemJ(**{f.name: getattr(sys_t, f.name)
                              for f in dataclasses.fields(sys_t)})
 

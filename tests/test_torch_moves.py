@@ -35,13 +35,17 @@ from metropolismontecarlo_tpu.ops.pallas.delta_energy import (
     delta_energy_pallas,
 )
 from metropolismontecarlo_tpu.ops.quaternions import quat_to_rot
-from chip_smoke import ragged_system
 from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
 from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo, choose_route
-from metropolismontecarlo_tpu_torch.mc.moves import make_sweep_fn
+from metropolismontecarlo_tpu_torch.mc.moves import (
+    check_mega_supported,
+    make_sweep_fn,
+    mega_supported,
+)
 from metropolismontecarlo_tpu_torch.models import linear as linear_t
 from metropolismontecarlo_tpu_torch.models.energy import energy_breakdown
 from metropolismontecarlo_tpu_torch.models.system import RunParams
+from metropolismontecarlo_tpu_torch.models.water import spce_methane_system
 from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as delta_op
 
 COULOMB = {"ewald": dict(coulomb="ewald"), "wolf": dict(coulomb="wolf"),
@@ -368,7 +372,7 @@ def test_move_and_sweep_routes_share_a_trajectory(name):
     op) and the whole-sweep route (one call per species block) take the
     same decisions, f32 on the CPU."""
     system = linear_t.co2_n2_system(16, 16) if name == "co2_n2" \
-        else ragged_system(16, 16)
+        else spce_methane_system(16, 16)
     params = RunParams(temperature=240.0, r_cut=5.0, coulomb="ewald", nk=3,
                        ksq_max=9, dr_max=0.3, dphi_max=0.3)
     runs = {}
@@ -411,6 +415,30 @@ def test_route_choice():
             (mix, site, f64, "move"), (mix, site, f32, "tpu")):
         with pytest.raises(ValueError):
             choose_route(system, params, dtype, kernel)
+
+
+@pytest.mark.parametrize("case", ["mixture", "one_block", "com", "first",
+                                  "linear", "surface"])
+def test_sweep_route_choice_and_refusal_agree(case):
+    """choose_route's "sweep" and the whole-sweep route's own check accept
+    and refuse the same configurations."""
+    mix = linear_t.co2_n2_system(4, 4)
+    system = dataclasses.replace(mix, species=None) if case == "one_block" \
+        else mix
+    params = RunParams(**{"com": dict(cutoff_mode="com"),
+                          "first": dict(cutoff_mode="first"),
+                          "linear": dict(lj_shift="linear"),
+                          "surface": dict(ewald_surface=True)}.get(case, {}))
+    ok = mega_supported(system, params, torch.float32)
+    assert ok == (case in ("mixture", "linear"))
+    if ok:
+        assert choose_route(system, params, torch.float32, "sweep") == "sweep"
+        check_mega_supported(system, params)
+    else:
+        with pytest.raises(ValueError):
+            choose_route(system, params, torch.float32, "sweep")
+        with pytest.raises(ValueError):
+            check_mega_supported(system, params)
 
 
 def test_plain_route_runs_float64():

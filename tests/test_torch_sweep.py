@@ -172,6 +172,21 @@ def test_sweep_wrapper_runs_plain_on_cpu_without_counting():
     assert sweep_op.sweep.launches == before
 
 
+def test_sweep_plain_magnitude_column():
+    """magnitude=True leaves the six stats columns and the state as they
+    were and adds the accepted moves' term magnitudes, which bound the
+    summed energy delta."""
+    args, tables = _small_inputs()
+    plain = sweep_op.sweep_plain(*args, tables)
+    mag = sweep_op.sweep_plain(*args, tables, magnitude=True)
+    for g, w in zip(mag[:4], plain[:4]):
+        assert torch.equal(g, w)
+    assert mag[4].shape == (C, sweep_op.N_STATS + 1)
+    assert torch.equal(mag[4][:, :sweep_op.N_STATS], plain[4])
+    assert bool((mag[4][:, 6] >= plain[4][:, 0].abs()).all())
+    assert bool((mag[4][:, 6] > 0.0).all())
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "device"])
 def test_sweep_wrapper_rejects_bad_inputs(bad):
     args, tables = _small_inputs()
