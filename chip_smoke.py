@@ -34,6 +34,27 @@ Phase 5  the per-move route: the same mixture as one block of differing
          path's arguments (2048 chains x 2304 lanes x 8 rows), and one
          launch and one plain call of it timed.
 
+Phase 2 also holds the kernel's activity, exchange and Widom arguments
+against sweep_plain (64 chains, shared uniforms and Philox scores): the
+activity mask alone with about half the slots inactive; exchange attempts
+for SPC/E/Ewald (with ghosts), the linear-shift triatomic, one-site LJ
+with the tail correction (wc != 0), SPC/E with both Wolf styles, a full
+and an empty chain among each; the two-block CO2/N2 case with (3, 2)
+attempts; ghosts alone for SPC/E/Ewald and LJ.
+Phase 6  the muVT main path: capacity-512 SPC/E, Ewald, 25 A, T = 500 K,
+         z = 2.2e-4, p_exchange 0.3, 256 molecules at the start, 2048
+         chains through MolGCMC(mega="full").run_block: one launch per
+         cycle of 512 moves + 219 exchange attempts; the S(k) and drift
+         gates, both exchange acceptances in (0, 1); then mega=True (kernel
+         sweeps with the activity mask + plain exchange steps) from the same
+         start, whose chain-mean N must agree with the full route's; one
+         cycle and one masked sweep against sweep_plain, and timed.
+Phase 7  a closed form through the kernel: the ideal rigid rotor (eps = q =
+         0), capacity 64, box 8, z = 0.039: N is Poisson(z V = 19.97).
+Phase 8  Widom: 256 SPC/E at phase 6's density and temperature, NVT;
+         widom_mega(64) (a sweep and 64 ghosts per launch) against widom()
+         on the same states; drift gate and attempt count after it.
+
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
 by equal acc/att counts and an equal decision fingerprint (the sum of
@@ -47,13 +68,18 @@ Delta-energy kernel vs plain: the move's energy change (new rows - old
 rows) within 1e-5 of the move's energy scale (the rows' |LJ| sums plus
 their Coulomb term magnitudes), each row's e_coul within 1e-5 of its
 term magnitudes (CUDA's erfcf against torch's erfc, f32), overlap counts
-equal.  Every
+equal.  With exchanges and ghosts the same rule holds, the decision
+counts including the exchange counters; matched chains also have equal
+activity planes, quaternions within 1e-3 and Widom sums within 1e-3
+(relative: w = exp(-du / T) turns an error of du into that error over T
+of w; measured ~3e-5 for water at 500 K).  Every
 phase raises on failure, so the script exits non-zero; the
 line before the last lists every kernel with its launches on its main
 path, error, time, plain time and bound; the last line of a passing run
 is the device JSON.
 """
 
+import argparse
 import concurrent.futures
 import dataclasses
 import functools
@@ -62,6 +88,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -70,6 +97,7 @@ MATCH_FRACTION = 0.98
 POS_TOL = 1e-3
 ENERGY_REL_TOL = 1e-5      # of the energy scale of a move or a sweep
 SFAC_REL_TOL = 1e-4
+SFAC_ABS_TOL = 1e-4        # carried S(k) against its recompute, muVT blocks
 DRIFT_TOL = 2e-3
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -85,6 +113,10 @@ OPS_GEOMETRY, OPS_LJ, OPS_COULOMB = 20, 8, 17
 # (~8), the two accumulations; per k-vector and move: the energy cross
 # term (8)
 OPS_K_SITE, OPS_K_MOVE = 20, 8
+# per candidate slot of a deletion pick: 10 Philox rounds of two 32 x 32
+# products (high and low words), three xors and two key additions
+OPS_PHILOX = 90
+WIDOM_REL_TOL = 1e-3
 
 SRC = "metropolismontecarlo_tpu_torch/csrc"
 PALLAS = "metropolismontecarlo_tpu/ops/pallas"
@@ -183,6 +215,170 @@ def compare(tag, mc, state, gen):
     print(f"phase {tag}: acc/att {k[4][:, 1:5].sum(0).tolist()}")
     return _check_match(tag, C, same, (k[0], k[1], k[3], k[4]),
                         (p[0], p[1], p[3], p[4]), p[4][:, op.N_STATS])
+
+
+def _exchange_consts(system, params, kvecs, kweights, box):
+    """Per species block (si, wc): the self + intra constant and the
+    quadratic-in-N coefficient (reference Wolf c Q^2 plus the LJ tail) of
+    the exchange energy, each (C,)."""
+    from metropolismontecarlo_tpu_torch.mc.widom import make_pose_eval
+
+    out = []
+    for b in range(len(system.species_slices)):
+        ev = make_pose_eval(system, params, kvecs, kweights, box.device,
+                            torch.float32, species=b)
+        out.append((ev.self_intra(box).contiguous(),
+                    (ev.wolf_const_coeff(box) * ev.q_t_tot ** 2
+                     + ev.lrc_self_coeff(box)).contiguous()))
+    return out
+
+
+def run_variant(op_fn, args, tables, act, actm, n_exchs, n_widoms, uxs, z,
+                consts, seed):
+    """One launch per species block of the sweep op `op_fn` with the
+    activity planes and each block's attempts, threading the state; returns
+    (coords, com, quat, sfac, stats summed, act, actm, wid (C, blocks, 2))."""
+    args = list(args)
+    stats, wids = None, []
+    for b, t in enumerate(tables):
+        extra = {}
+        if n_exchs[b] or n_widoms[b]:
+            extra = dict(n_exch=n_exchs[b], n_widom=n_widoms[b], ux=uxs[b],
+                         z=z, si=consts[b][0], wc=consts[b][1], seed=seed + b)
+        out = op_fn(*args, t, act=act, actm=actm, **extra)
+        args[:4], (st, act, actm, wid) = out[:4], out[4:]
+        stats = st if stats is None else stats + st
+        wids.append(wid)
+    return tuple(args[:4]) + (stats, act, actm, torch.stack(wids, 1))
+
+
+def compare_variant(tag, system, args, tables, act, actm, n_exchs, n_widoms,
+                    uxs, z, consts, seed):
+    """The kernel against sweep_plain on the same arguments with activity
+    planes, exchange attempts and ghosts; returns the largest coordinate
+    difference on matched chains."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    rest = (tables, act, actm, n_exchs, n_widoms, uxs, z, consts, seed)
+    k = run_variant(op.sweep, args, *rest)
+    p = run_variant(functools.partial(op.sweep_plain, magnitude=True), args,
+                    *rest)
+    torch.cuda.synchronize()
+    C = act.shape[0]
+    same = (k[4][:, 1:] == p[4][:, 1:op.N_STATS]).all(dim=1)
+    print(f"phase {tag}: acc/att moves {k[4][:, 1:5].sum(0).tolist()}, "
+          f"acc ins/del, att ins {k[4][:, 5:8].sum(0).tolist()}, "
+          f"N {actm.sum(1).mean().item():.2f} -> "
+          f"{k[6].sum(1).mean().item():.2f}")
+    # inactive slots hold stale coordinates on both sides: compared too
+    pos = _check_match(tag, C, same, (k[0], k[1], k[3], k[4]),
+                       (p[0], p[1], p[3], p[4]), p[4][:, op.N_STATS])
+    q_err = float((k[2] - p[2])[same].abs().max())
+    planes_equal = torch.equal(k[5][same], p[5][same]) \
+        and torch.equal(k[6][same], p[6][same])
+    w_rel = float(((k[7] - p[7]).abs()
+                   / p[7].abs().clamp_min(1e-30))[same].max())
+    print(f"phase {tag}: quat err {q_err:.3e}, activity planes equal "
+          f"{planes_equal}, Widom sums rel err {w_rel:.3e} (largest sum "
+          f"{float(p[7].max()):.3e})")
+    if not (q_err <= POS_TOL and planes_equal and w_rel <= WIDOM_REL_TOL
+            and bool(torch.isfinite(k[7]).all())):
+        raise AssertionError(f"{tag}: the two disagree")
+    return pos
+
+
+def phase2_variants(dev):
+    """The activity, exchange and Widom arguments of the sweep kernel
+    against sweep_plain, 64 chains each."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+    )
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.models.monatomic import (
+        lj_box_for_density,
+        lj_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.polyatomic import (
+        mossa_params,
+        triatomic_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+
+    C = 64
+    box_w = 25.0 * (64 / 512) ** (1 / 3)        # phase 6's slot density
+    box_lj = lj_box_for_density(256, 0.4)
+    box_tri = (256 / 0.15) ** (1 / 3)
+    box_mix = 37.0 * (64 / 750) ** (1 / 3)
+
+    def water(**kw):
+        return RunParams(**dict(dict(
+            temperature=500.0, r_cut=6.0, coulomb="ewald", p_translate=0.5,
+            dr_max=0.4, dphi_max=0.4, use_lrc=False), **kw))
+
+    lj = RunParams(temperature=1.2, r_cut=2.5, coulomb="none",
+                   p_translate=1.0, dr_max=0.3, use_lrc=True,
+                   slab_mode="off")
+    tri = dataclasses.replace(mossa_params(), temperature=1.5)
+    # (tag, system, box, params, n_exch, n_widom per block)
+    cases = [
+        ("use_act spce64 ewald", spce_system(64), box_w, water(), (0,), (0,)),
+        ("n_exch+n_widom spce64 ewald", spce_system(64), box_w, water(),
+         (8,), (4,)),
+        ("n_exch triatomic256 linear", triatomic_system(256), box_tri, tri,
+         (8,), (0,)),
+        ("n_exch+n_widom lj256 lrc", lj_system(256), box_lj, lj, (8,), (4,)),
+        # Wolf's self term makes a molecule ~45,000 K cheaper: 5000 K keeps
+        # the activity that balances it inside f32
+        ("n_exch spce64 wolf", spce_system(64), box_w,
+         water(coulomb="wolf", temperature=5000.0), (8,), (0,)),
+        ("n_exch spce64 wolf ref", spce_system(64), box_w,
+         water(coulomb="wolf", wolf_style="ref", temperature=5000.0), (8,),
+         (0,)),
+        ("n_exch co2/n2 32+32 two blocks", co2_n2_system(32, 32), box_mix,
+         mixture_params(r_cut=7.0, temperature=400.0), (3, 2), (0, 0)),
+        ("n_widom spce64 ewald", spce_system(64), box_w, water(), (0,), (6,)),
+        ("n_widom lj256 lrc", lj_system(256), box_lj, lj, (0,), (6,)),
+    ]
+    err = 0.0
+    for i, (tag, system, box, params, n_exchs, n_widoms) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        mc = MonteCarlo(system, params, device=dev, generator=gen,
+                        kernel="sweep")
+        M = system.n_mol
+        quat = diagonal_quats(M) if "co2" in tag else None
+        state = mc.init_state(cubic_lattice(M, box), quat=quat, box=box,
+                              n_chains=C)
+        # about half the slots active, each chain its own mask; chain 0
+        # full and chain 1 empty
+        active = torch.rand((C, M), generator=gen, device=dev) < 0.5
+        active[0], active[1] = True, False
+        act, actm = activity_planes(system, active)
+        sfac = state.sfac
+        if params.coulomb == "ewald":
+            kv = torch.tensor(mc.kvecs, dtype=torch.int32, device=dev)
+            q = mc.tables[0].q_row[None, :] * act
+            sfac = ewald_ops.structure_factor(
+                state.coords.transpose(1, 2), q, kv, state.box)
+        u = draw_uniforms(C, M, gen, dev)
+        uxs = [draw_exchange_uniforms(C, ne + nw, gen, dev)
+               for ne, nw in zip(n_exchs, n_widoms)]
+        args = _sweep_args(dataclasses.replace(state, sfac=sfac), u)
+        consts = _exchange_consts(system, params, mc.kvecs, mc.kweights,
+                                  state.box)
+        # an activity near (N / V) exp(si / T) accepts insertions and
+        # deletions alike
+        z = 0.5 * M / len(mc.tables) / box ** 3 \
+            * torch.exp(consts[0][0] / params.temperature)
+        err = max(err, compare_variant(
+            f"2 {tag}", system, args, mc.tables, act, actm, n_exchs,
+            n_widoms, uxs, z.contiguous(), consts, 1000 + i))
+    return err
 
 
 def diagonal_quats(n_mol):
@@ -362,22 +558,40 @@ def _cutoff_fraction(system, state, r_cut, n=4):
     return float((d2 < r_cut ** 2)[:, other].float().mean())
 
 
-def sweep_bound(system, tables, state, frac):
+def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
+                n_widoms=None, n_del=0.0):
     """The least time (ms) one sweep could take on this card, and what
     sets it: each input and output moved once against the operations the
-    pair and k-space sums need (see OPS_*)."""
+    pair and k-space sums need (see OPS_*).  With an activity mask,
+    n_active[b] is the mean number of active molecules of block b: only
+    they move and only their atoms are neighbours.  n_exchs[b] / n_widoms[b]
+    attempts and ghosts each sum one pose against the active atoms and
+    every k-vector; n_del deletion attempts per chain (this run's count)
+    each score the active slots with Philox."""
     C, M = state.com.shape[:2]
     A, A_pad, K = system.n_atoms, state.coords.shape[-1], state.sfac.shape[1]
     nbytes = 4 * C * (2 * 3 * A_pad + 2 * 7 * M + 2 * 2 * K + 10 * M + 10)
+    if n_active is not None:
+        n_att = sum(n_exchs) + sum(n_widoms)
+        nbytes += 4 * C * (2 * (A_pad + M) + 8 * n_att + 5)
+        A = sum(n * t.P for n, t in zip(n_active, tables))
     ops = 0.0
-    for t in tables:
+    for b, t in enumerate(tables):
         lj = t.has_lj.sum().item()
         qf = t.has_q.sum().item() if t.coulomb != "none" else 0
-        per_move = 2 * (A - t.P) * (t.P * OPS_GEOMETRY + frac * (
+        per_pose = (A - t.P) * (t.P * OPS_GEOMETRY + frac * (
             lj * OPS_LJ + qf * OPS_COULOMB))
+        per_move = 2 * per_pose
+        k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) \
+            if t.coulomb == "ewald" else 0
         if t.coulomb == "ewald":
             per_move += K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE)
-        ops += C * t.M * per_move
+        moves = t.M if n_active is None else n_active[b]
+        ops += C * moves * per_move
+        if n_active is not None:
+            ops += C * (n_exchs[b] + n_widoms[b]) * (per_pose + k_pose)
+    if n_active is not None:
+        ops += C * n_del * sum(n_active) * OPS_PHILOX
     return _bound(nbytes, ops)
 
 
@@ -557,7 +771,7 @@ def phase5(dev, mc4, state4, blocks=((2, False),)):
     move_sweep_s = time.perf_counter() - t0
     acc, att = (s.acc - state.acc).float(), (s.att - state.att).float()
     mv = torch.cat([acc[:, :2], att[:, :2], fp[:, None]], 1)
-    same = (mv == k[4][:, 1:]).all(dim=1)
+    same = (mv == k[4][:, [1, 2, 3, 4, op.N_STATS - 1]]).all(dim=1)
     print(f"phase5 per-move sweep: {move_sweep_s:.3f} s for {M} moves; "
           f"acc/att {mv[:, :4].sum(0).tolist()} vs whole sweep "
           f"{k[4][:, 1:5].sum(0).tolist()}")
@@ -585,32 +799,381 @@ def phase5(dev, mc4, state4, blocks=((2, False),)):
     return launches, err, err_d, ms, plain_ms, bound_ms, bound_by
 
 
+def _n_stats(state):
+    """(mean, standard error over chains) of the chains' molecule count."""
+    n = state.active.sum(1).double()
+    return float(n.mean()), float(n.std() / math.sqrt(n.numel()))
+
+
+def _active_cutoff_fraction(state, P, r_cut, n=4):
+    """Share of the pairs of active atoms of different molecules within
+    r_cut, from the first n chains."""
+    fr = []
+    for c in range(n):
+        on = state.active[c].repeat_interleave(P)
+        x = state.coords[c, :, :on.numel()][:, on].T                # (a, 3)
+        d = x[:, None, :] - x[None, :, :]
+        d = d - state.box[c] * torch.round(d / state.box[c])
+        mol = torch.arange(state.active.shape[1],
+                           device=x.device).repeat_interleave(P)[on]
+        other = mol[:, None] != mol[None, :]
+        if bool(other.any()):
+            fr.append(float(((d * d).sum(-1) < r_cut ** 2)[other].float()
+                            .mean()))
+    return sum(fr) / max(len(fr), 1)
+
+
+def muvt_blocks(tag, g, st, cycles, apc, launches_per_cycle):
+    """run_blocks of a MolGCMC with the S(k), drift and acceptance gates
+    and the launch count; returns (state, launches, [(N mean, s.e.)])."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    op.sweep.launches = 0
+    trace = []
+    for n_cyc in cycles:
+        t0 = time.perf_counter()
+        st, stats = g.run_block(st, n_cyc * apc)
+        torch.cuda.synchronize()
+        print(f"phase{tag} run_block({n_cyc} cycles): "
+              f"{time.perf_counter() - t0:.2f} s, " + ", ".join(
+                  f"{k} {v:.6g}" for k, v in stats.items()))
+        if not stats["sfac_err_max"] < SFAC_ABS_TOL:
+            raise AssertionError(f"S(k) error {stats['sfac_err_max']}")
+        if not stats["drift_max_rel"] < DRIFT_TOL:
+            raise AssertionError(f"drift {stats['drift_max_rel']}")
+        for k in ("acc_trans", "acc_rot", "acc_insert", "acc_delete"):
+            if not 0.0 < stats[k] < 1.0:
+                raise AssertionError(f"{k} = {stats[k]}")
+        trace.append(_n_stats(st))
+    launches = op.sweep.launches
+    if launches != launches_per_cycle * sum(cycles):
+        raise AssertionError(f"{launches} launches for {sum(cycles)} cycles")
+    print(f"phase{tag} main path: {sum(cycles)} cycles, {launches} kernel "
+          f"launches, N " + ", ".join(f"{m:.3f} +- {e:.3f}"
+                                      for m, e in trace))
+    return st, launches, trace
+
+
+def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
+                 z_val, consts):
+    """One launch of the sweep kernel with the activity planes of `st` (a
+    MolGCMCState or a SimState with every slot active) and n_exch attempts
+    and n_widom ghosts: held against sweep_plain, then both timed, with
+    the bound of this run's work."""
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+    )
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    C, M = st.com.shape[:2]
+    dev = st.com.device
+    active = getattr(st, "active", None)
+    if active is None:
+        active = torch.ones((C, M), dtype=torch.bool, device=dev)
+    act, actm = activity_planes(system, active)
+    ones = torch.ones((C,), device=dev)
+    f32 = torch.float32
+    args = [x.to(f32).contiguous() for x in (st.coords, st.com, st.quat,
+                                             st.sfac, st.box)] + [
+        params.temperature * ones, params.dr_max * ones,
+        params.dphi_max * ones, draw_uniforms(C, M, gen, dev)]
+    uxs = [draw_exchange_uniforms(C, n_exch + n_widom, gen, dev)]
+    rest = (mc_tables, act, actm, (n_exch,), (n_widom,), uxs, z_val * ones,
+            consts, 77)
+    err = compare_variant(f"{tag} kernel vs plain", system, args, *rest)
+    out = run_variant(op.sweep, args, *rest)                        # warm
+    ms = _time_ms(lambda: run_variant(op.sweep, args, *rest), 3)
+    plain_ms = _time_ms(lambda: run_variant(op.sweep_plain, args, *rest), 1)
+    n_del = n_exch - float(out[4][:, 7].mean())
+    view = SimpleNamespace(active=active, coords=st.coords, box=st.box,
+                           com=st.com, sfac=st.sfac)
+    frac = _active_cutoff_fraction(view, mc_tables[0].P, params.r_cut)
+    n_act = float(actm.sum(1).mean())
+    bound_ms, bound_by = sweep_bound(system, mc_tables, view, frac,
+                                     (n_act,), (n_exch,), (n_widom,), n_del)
+    print(f"phase{tag} one launch, {C} chains, {n_act:.1f} of {M} slots "
+          f"active, {M} moves + {n_exch} attempts ({n_del:.1f} deletions) + "
+          f"{n_widom} ghosts: kernel {ms:.3f} ms, sweep_plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{frac:.4f} of active pairs within the cutoff)")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def attempt_costs(system, params, tables, st, gen, n_exch, consts):
+    """What an exchange attempt and its Philox scores cost: the kernel
+    timed on one state with every attempt an insertion (no scores drawn)
+    and with every attempt a deletion (one Philox word per active slot),
+    all refused (an extreme activity at a temperature that switches the
+    energies off) so that N stays put, against the masked sweep alone."""
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+    )
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    C, M = st.com.shape[:2]
+    dev = st.com.device
+    act, actm = activity_planes(system, st.active)
+    ones = torch.ones((C,), device=dev)
+    # T = 1e9 K: beta du vanishes, so ln(z V) = -73 (insertions) or +86
+    # (deletions) decides against ln u = -1e-6, whatever the pose; every
+    # move is accepted, in all three launches alike
+    args = [x.float().contiguous() for x in (st.coords, st.com, st.quat,
+                                             st.sfac, st.box)] + [
+        1e9 * ones, params.dr_max * ones, params.dphi_max * ones,
+        draw_uniforms(C, M, gen, dev)]
+    ux = draw_exchange_uniforms(C, n_exch, gen, dev)
+    ms = {}
+    for name, kind, z_val, n in (("moves", 0.0, 1.0, 0),
+                                 ("insert", 0.1, 1e-36, n_exch),
+                                 ("delete", 0.9, 1e33, n_exch)):
+        ux_k = ux.clone()
+        ux_k[:, :, 0] = kind
+        ux_k[:, :, 7] = 0.999999
+        rest = (tables, act, actm, (n,), (0,), [ux_k], z_val * ones, consts,
+                78)
+        out = run_variant(op.sweep, args, *rest)                    # warm
+        if float(out[4][:, 5:7].sum()) != 0.0:
+            raise AssertionError(f"{name}: an attempt was accepted")
+        ms[name] = _time_ms(lambda: run_variant(op.sweep, args, *rest), 3)
+    n_act = float(actm.sum(1).mean())
+    per_ins = (ms["insert"] - ms["moves"]) / n_exch
+    per_del = (ms["delete"] - ms["moves"]) / n_exch
+    print(f"phase6 attempt costs at {n_act:.1f} active slots, {C} chains: "
+          f"moves alone {ms['moves']:.3f} ms, + {n_exch} refused insertions "
+          f"{ms['insert']:.3f} ms ({1e3 * per_ins:.2f} us each), + {n_exch} "
+          f"refused deletions {ms['delete']:.3f} ms ({1e3 * per_del:.2f} us "
+          f"each): a deletion's slot scores (Philox) and old-pose read cost "
+          f"{1e3 * (per_del - per_ins):+.2f} us against an insertion's "
+          f"trial pose")
+
+
+def phase6(dev, cap=512, box=25.0, chains=2048, n_init=256, r_cut=10.0,
+           cycles=(2, 2, 2), chunk=16):
+    from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMC
+    from metropolismontecarlo_tpu_torch.mc.moves import sweep_tables
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    z, px = 2.2e-4, 0.3
+    params = RunParams(temperature=500.0, r_cut=r_cut, cutoff_mode="site",
+                       coulomb="ewald", nk=5, ksq_max=27, p_translate=0.5,
+                       dr_max=0.4, dphi_max=0.4, use_lrc=False)
+    system = spce_system(cap)
+    x_per = max(1, int(round(cap * px / (1.0 - px))))
+    apc = cap + x_per
+
+    def build(mega, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return gen, MolGCMC(system, params, activity=z, p_exchange=px,
+                            dtype=torch.float32, chunk=chunk, mega=mega,
+                            device=dev, generator=gen)
+
+    gen, g = build("full", 2029)
+    t0 = time.perf_counter()
+    st0 = g.init(box=box, n_init=n_init, n_chains=chains)
+    torch.cuda.synchronize()
+    print(f"phase6 init: {time.perf_counter() - t0:.2f} s, capacity {cap}, "
+          f"A_pad={st0.coords.shape[-1]}, K={st0.sfac.shape[1]}, x_per="
+          f"{x_per}, E/N mean {float(st0.energy.mean()) / n_init:.2f} K")
+    st, launches, n_full = muvt_blocks("6 full", g, st0, cycles, apc, 1)
+
+    # the hybrid composition from the same start: the same Markov kernel
+    # in distribution, so N after the same number of cycles must agree
+    _, g_h = build(True, 2030)
+    _, launches_h, n_hyb = muvt_blocks("6 hybrid", g_h, st0, cycles, apc, 1)
+    for (m_f, e_f), (m_h, e_h) in zip(n_full, n_hyb):
+        tol = 4.0 * math.hypot(e_f, e_h)
+        print(f"phase6 N full {m_f:.3f} vs hybrid {m_h:.3f}: difference "
+              f"{m_f - m_h:+.3f}, 4 combined standard errors {tol:.3f}")
+        if not abs(m_f - m_h) < tol:
+            raise AssertionError("full and hybrid N disagree")
+
+    kv, kw = make_kvectors(params.nk, params.ksq_max)
+    tables = sweep_tables(system, params, kv, kw, dev)
+    consts = _exchange_consts(system, params, kv, kw, st.box)
+    # N falls from the start's 256 during the blocks: the cycle is timed at
+    # both ends, the path's last state going into the result line
+    time_variant("6 full cycle at the start", system, params, tables, st0,
+                 gen, x_per, 0, z, consts)
+    attempt_costs(system, params, tables, st0, gen, x_per, consts)
+    full = time_variant("6 full cycle", system, params, tables, st, gen,
+                        x_per, 0, z, consts)
+    masked = time_variant("6 masked sweep", system, params, tables, st, gen,
+                          0, 0, z, consts)
+    return (launches,) + full, (launches_h,) + masked
+
+
+def phase7(dev, cap=64, box=8.0, z=0.039, chains=512, blocks=8, cycles=10):
+    """The ideal rigid rotor through the in-kernel exchanges: N is
+    Poisson(z V).  Gates from the sample count: blocks x chains samples
+    count as a quarter as many independent ones (blocks are `cycles`
+    cycles apart); the mean within 4 standard errors of z V, var/mean
+    within 4 sqrt(2 / n_eff) of 1."""
+    from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMC
+    from metropolismontecarlo_tpu_torch.models.polyatomic import (
+        triatomic_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    params = RunParams(temperature=1.5, r_cut=2.5, cutoff_mode="site",
+                       coulomb="none", p_translate=0.5, dr_max=1.0,
+                       dphi_max=1.0, use_lrc=False, strict_min_image=False)
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    g = MolGCMC(triatomic_system(cap, eps=0.0), params, activity=z,
+                p_exchange=0.5, dtype=torch.float32, mega="full", device=dev,
+                generator=gen)
+    st = g.init(box=box, n_init=10, n_chains=chains)
+    apc = cap + max(1, round(cap * 0.5 / 0.5))
+    op.sweep.launches = 0
+    st, _ = g.run_block(st, cycles * apc)                     # equilibrate
+    ns = []
+    for _ in range(blocks):
+        st, stats = g.run_block(st, cycles * apc, drift_tol=1e-3)
+        if stats["full_frac"] != 0.0:
+            raise AssertionError("a chain reached capacity")
+        ns.append(st.active.sum(1).double())
+    if op.sweep.launches != (blocks + 1) * cycles:
+        raise AssertionError(f"{op.sweep.launches} launches")
+    ns = torch.cat(ns)
+    zv = z * box ** 3
+    n_eff = ns.numel() / 4.0
+    mean, var = float(ns.mean()), float(ns.var())
+    sem = math.sqrt(var / n_eff)
+    ratio_tol = 4.0 * math.sqrt(2.0 / n_eff)
+    print(f"phase7 ideal rotor: z V = {zv:.3f}, {ns.numel()} samples: <N> = "
+          f"{mean:.3f} +- {sem:.3f} (gate 4 s.e. = {4 * sem:.3f}), var/mean "
+          f"= {var / mean:.4f} (gate 1 +- {ratio_tol:.4f})")
+    if not (abs(mean - zv) < 4.0 * sem
+            and abs(var / mean - 1.0) < ratio_tol):
+        raise AssertionError("N is not Poisson(z V)")
+    return op.sweep.launches
+
+
+def phase8(dev, n_mol=256, box=25.0, chains=2048, r_cut=10.0, calls=6,
+           n_per_sweep=64):
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    params = RunParams(temperature=500.0, r_cut=r_cut, coulomb="ewald",
+                       nk=5, ksq_max=27, p_translate=0.5, dr_max=0.4,
+                       dphi_max=0.4, use_lrc=False)
+    system = spce_system(n_mol)
+    gen = torch.Generator(device=dev).manual_seed(2032)
+    mc = MonteCarlo(system, params, device=dev, generator=gen)
+    state = mc.init_state(cubic_lattice(n_mol, box), box=box, n_chains=chains)
+    state, m = mc.run_block(state, 10)
+    print(f"phase8 equilibration: drift {m['drift_max_rel']:.3e}, acc "
+          f"{m['acc_trans']:.3f}/{m['acc_rot']:.3f}, E/N "
+          f"{m['energy_mean'] / n_mol:.2f} K")
+    op.sweep.launches = 0
+    b_k, b_p = [], []
+    for _ in range(calls):
+        att0 = state.att.clone()
+        state, out = mc.widom_mega(state, n_per_sweep=n_per_sweep)
+        if not bool(((state.att - att0).sum(1) == n_mol).all()):
+            raise AssertionError("att did not grow by M")
+        b_k.append(out["boltzmann_mean"].double())
+        b_p.append(mc.widom(state, n_per_sweep)["boltzmann_mean"].double())
+    launches = op.sweep.launches
+    if launches != calls:
+        raise AssertionError(f"{launches} launches for {calls} calls")
+    state, m = mc.run_block(state, 0)
+    if not m["drift_max_rel"] <= DRIFT_TOL:
+        raise AssertionError(f"drift {m['drift_max_rel']} after widom_mega")
+
+    def beta_mu(bs):
+        b = torch.stack(bs).mean(0)                  # per chain, over calls
+        mean = float(b.mean())
+        se = float(b.std() / math.sqrt(b.numel()))
+        return -math.log(mean), se / mean
+
+    (mu_k, se_k), (mu_p, se_p) = beta_mu(b_k), beta_mu(b_p)
+    tol = 4.0 * math.hypot(se_k, se_p)
+    print(f"phase8 beta mu_ex: widom_mega {mu_k:.4f} +- {se_k:.4f}, widom "
+          f"{mu_p:.4f} +- {se_p:.4f} ({calls} x {n_per_sweep} ghosts x "
+          f"{chains} chains each), difference {mu_k - mu_p:+.4f}, 4 combined "
+          f"standard errors {tol:.4f}; drift after {m['drift_max_rel']:.3e}")
+    if not (math.isfinite(mu_k) and abs(mu_k - mu_p) < tol):
+        raise AssertionError("widom_mega and widom disagree")
+    consts = _exchange_consts(system, params, mc.kvecs, mc.kweights,
+                              state.box)
+    timing = time_variant("8 sweep + ghosts", system, params, mc.tables,
+                          state, gen, 0, n_per_sweep, 1.0, consts)
+    return (launches,) + timing
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8",
+                    help="comma-separated phases to run after 0 and 1 "
+                         "(default: all; the result lines are printed only "
+                         "when all ran)")
+    want = {int(x) for x in ap.parse_args().phases.split(",") if x}
     name, smi = phase0()
     t_start = time.perf_counter()
     phase1()
     dev = torch.device("cuda", 0)
-    err2, err_d = phase2(dev)
-    l3, err3, ms3, plain3, bound3, by3 = phase3(dev)
-    l4, err4, ms4, plain4, bound4, by4, mc4, state4 = phase4(dev)
-    l5, err5, err_d5, ms5, plain5, bound5, by5 = phase5(dev, mc4, state4)
+    if 2 in want:
+        err2, err_d = phase2(dev)
+        err2x = phase2_variants(dev)
+    if 3 in want:
+        # earlier main paths at reduced depth: the script's time goes to
+        # the new phases (phase 3 keeps its 10-sweep adjust block, which
+        # takes the lattice start away from E = 0)
+        l3, err3, ms3, plain3, bound3, by3 = phase3(
+            dev, blocks=((10, True), (2, False), (2, False)))
+    if want & {4, 5}:
+        l4, err4, ms4, plain4, bound4, by4, mc4, state4 = phase4(
+            dev, blocks=((4, True), (2, False), (2, False)))
+    if 5 in want:
+        l5, err5, err_d5, ms5, plain5, bound5, by5 = phase5(
+            dev, mc4, state4, blocks=((1, False),))
+    if 6 in want:
+        ((l6, err6, ms6, plain6, bound6, by6),
+         (l6h, err6h, ms6h, plain6h, bound6h, by6h)) = phase6(dev)
+    if 7 in want:
+        l7 = phase7(dev)
+    if 8 in want:
+        l8, err8, ms8, plain8, bound8, by8 = phase8(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
+    if want != {2, 3, 4, 5, 6, 7, 8}:
+        print("chip_smoke: a partial run (--phases) prints no result",
+              file=sys.stderr)
+        sys.exit(1)
     sweep_src = f"{SRC}/sweep_kernel.cu"
+    sweep_row = dict(route="cuda", source=sweep_src,
+                     replaces=f"{PALLAS}/sweep_kernel.py:903",
+                     library_ms=None)
     print(json.dumps({"kernels": [
-        {"name": "sweep_kernel", "route": "cuda", "source": sweep_src,
-         "replaces": f"{PALLAS}/sweep_kernel.py:903", "launches": l3,
-         "max_abs_err": max(err2, err3), "ms": ms3, "plain_ms": plain3,
-         "bound_ms": bound3, "bound_by": by3, "library_ms": None},
-        {"name": "sweep_kernel[species blocks]", "route": "cuda",
-         "source": sweep_src, "replaces": f"{PALLAS}/sweep_kernel.py:903",
-         "launches": l4, "max_abs_err": max(err2, err4, err5), "ms": ms4,
-         "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
-         "library_ms": None},
+        dict(sweep_row, name="sweep_kernel", launches=l3,
+             max_abs_err=max(err2, err3), ms=ms3, plain_ms=plain3,
+             bound_ms=bound3, bound_by=by3),
+        dict(sweep_row, name="sweep_kernel[species blocks]", launches=l4,
+             max_abs_err=max(err2, err4, err5), ms=ms4, plain_ms=plain4,
+             bound_ms=bound4, bound_by=by4),
         {"name": "delta_energy", "route": "cuda",
          "source": f"{SRC}/delta_energy.cu",
          "replaces": f"{PALLAS}/delta_energy.py:159", "launches": l5,
          "max_abs_err": max(err_d, err_d5), "ms": ms5, "plain_ms": plain5,
-         "bound_ms": bound5, "bound_by": by5, "library_ms": None}]}))
+         "bound_ms": bound5, "bound_by": by5, "library_ms": None},
+        dict(sweep_row, name="sweep_kernel[use_act]", launches=l6h,
+             max_abs_err=max(err2x, err6h), ms=ms6h, plain_ms=plain6h,
+             bound_ms=bound6h, bound_by=by6h),
+        dict(sweep_row, name="sweep_kernel[n_exch]", launches=l6 + l7,
+             max_abs_err=max(err2x, err6), ms=ms6, plain_ms=plain6,
+             bound_ms=bound6, bound_by=by6),
+        dict(sweep_row, name="sweep_kernel[n_widom]", launches=l8,
+             max_abs_err=max(err2x, err8), ms=ms8, plain_ms=plain8,
+             bound_ms=bound8, bound_by=by8)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -11,10 +11,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMCState
 from metropolismontecarlo_tpu_torch.models.system import SimState, System
 
 _SYSTEM_FIELDS = tuple(f.name for f in dataclasses.fields(System))
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+_GCMC_FIELDS = tuple(f.name for f in dataclasses.fields(MolGCMCState))
 
 
 def system_from_numpy(fields):
@@ -44,3 +46,21 @@ def state_to_numpy(state):
     """{field: numpy array} for every SimState field."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in _STATE_FIELDS}
+
+
+def gcmc_state_from_numpy(arrays, device):
+    """MolGCMCState on `device` from a mapping of field name to numpy
+    array (the JAX MolGCMCState's fields; its `key` is ignored).  dtypes
+    are kept."""
+    missing = [f for f in _GCMC_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"state arrays lack fields {missing}")
+    return MolGCMCState(**{
+        f: torch.as_tensor(np.array(arrays[f]), device=device)
+        for f in _GCMC_FIELDS})
+
+
+def gcmc_state_to_numpy(state):
+    """{field: numpy array} for every MolGCMCState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _GCMC_FIELDS}

@@ -1,9 +1,11 @@
 // Whole-sweep Metropolis kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel metropolismontecarlo_tpu/ops/pallas/sweep_kernel.py
-// sweep_pallas / _make_kernel, base and species-block variants (no activity
-// mask, exchanges, TMMC, Widom or sorted slabs), with lj_shift "none" and
-// "linear".  Plain PyTorch twin: ops/cuda/sweep_kernel.py sweep_plain.
+// sweep_pallas / _make_kernel: the base and species-block variants, the
+// activity mask (use_act), the in-kernel grand-canonical exchange attempts
+// (n_exch) and the Widom ghost insertions (n_widom), with lj_shift "none"
+// and "linear" (no TMMC deposits or sorted slabs).  Plain PyTorch twin:
+// ops/cuda/sweep_kernel.py sweep_plain.
 //
 // What it computes: for one chain per thread block, M sequential moves of
 // the species block whose molecules are [m_start, m_start + M) (global
@@ -41,10 +43,35 @@
 // (molid < 0) and the molecule's own atoms are excluded; S(k) changes only
 // on accept; the energy statistic adds d_e by select, so a rejected move's
 // overflowed delta never enters.
+//
+// Activity (use_act): act (C, A_pad) is 1 on the atoms of active molecule
+// slots and 0 on inactive slots and pads, actm (C, M_total) the same per
+// molecule.  An inactive slot's move is a null move (the block skips it: one
+// chain per block makes the gate block-uniform) and is not counted as an
+// attempt; inactive neighbour lanes add exactly 0.
+//
+// Exchanges (n_exch > 0, needs use_act): after the moves, n_exch attempts on
+// uniforms ux (C, n_exch + n_widom, 8) = [type, x, y, z, u1, th2, th3,
+// accept].  type < 0.5 inserts into the first free slot of this block at a
+// uniform position with a Shoemake quaternion, else deletes the active slot
+// of this block with the largest score (ties to the lower index); the
+// scores are Philox4x32-10 words keyed by (seed, chain) with counter (slot,
+// attempt, 0, 0), which sweep_plain reproduces bit for bit.  The TPU
+// kernel picks slots by full-row one-hot reductions; here a block max
+// reduction over 64-bit keys finds the slot and its columns are read
+// directly.  du = +-u_pair +- si + wc (2 n sgn + 1) + dU_recip against the
+// live S(k), accepted in log space with the muVT rule; the +1e30 overlap
+// veto applies to insertions only; n counts this block's active slots;
+// insertion at n = M and deletion at n = 0 are refused.
+//
+// Widom (n_widom > 0, needs use_act): after moves and exchanges, n_widom
+// ghost insertions with the same pose and energy code and no writes; wid
+// (C, 2) receives sum w and sum w^2, w = exp(-du_ins / T).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -52,21 +79,49 @@ enum Coulomb { kNone = 0, kEwald = 1, kWolf = 2, kWolfRef = 3, kBare = 4 };
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvTwoPi = 0.15915494309189535f;
-constexpr int kStats = 6;
+constexpr int kStats = 9;
 constexpr int kUniforms = 10;
+constexpr int kExchUniforms = 8;
 constexpr int kMaxSmemBytes = 232448;
 
 // Shared-memory words of one block (M = M_total, the COM/quaternion rows
 // held); ops/cuda/sweep_kernel.py smem_bytes computes the same number.
 __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
-                                                    int K, int T) {
+                                                    int K, int T, int use_act) {
   return 6 * (size_t)A_pad + 7 * (size_t)M + 8 * (size_t)K +
-         4 * (size_t)P * T + 11 * (size_t)P + 80;
+         4 * (size_t)P * T + 12 * (size_t)P + 144 +
+         (use_act ? (size_t)A_pad + (size_t)M : 0);
 }
 
 __device__ inline float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
+}
+
+__device__ inline unsigned long long warp_max_u64(unsigned long long v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+// First output word of Philox4x32-10 (Salmon et al., SC 2011) for counter
+// (c0, c1, 0, 0) and key (k0, k1).
+__device__ inline uint32_t philox_word(uint32_t c0, uint32_t c1, uint32_t k0,
+                                       uint32_t k1) {
+  uint32_t c2 = 0u, c3 = 0u;
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
 }
 
 // R(q) b, the same expansion as the TPU kernel's rot_apply.
@@ -80,6 +135,10 @@ __device__ inline void rot_apply(float w, float x, float y, float z, float bx,
   o[2] = (ww - xx - yy + zz) * bz + 2.0f * ((xz - wy) * bx + (yz + wx) * by);
 }
 
+// kAct: the activity-mask instantiation (use_act), which alone carries the
+// exchange attempts and the ghosts; the other keeps the fixed-N sweep's
+// inner loop and register count free of them.
+template <bool kAct>
 __global__ void sweep_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
@@ -92,13 +151,21 @@ __global__ void sweep_kernel(
     const int* __restrict__ has_q, const int* __restrict__ tid_row,
     const int* __restrict__ molid_row, const float* __restrict__ q_row,
     const float* __restrict__ kvec, const float* __restrict__ kw,
+    const float* __restrict__ act_in, const float* __restrict__ actm_in,
+    const float* __restrict__ ux_in, const float* __restrict__ z_in,
+    const float* __restrict__ si_in, const float* __restrict__ wc_in,
     float* __restrict__ coords_out, float* __restrict__ com_out,
     float* __restrict__ quat_out, float* __restrict__ sfac_out,
-    float* __restrict__ stats_out, int M, int M_total, int m_start,
-    int a_start, int P, int A_pad, int K, int T, int coulomb, int lj_linear, int use_rot, float rc2, float qrc2,
-    float kappa_l, float d2_overlap, float p_translate, float factor) {
+    float* __restrict__ stats_out, float* __restrict__ act_out,
+    float* __restrict__ actm_out, float* __restrict__ wid_out, int M,
+    int M_total, int m_start, int a_start, int P, int A_pad, int K, int T,
+    int coulomb, int lj_linear, int use_rot, int n_exch, int n_widom,
+    unsigned int seed, float rc2, float qrc2, float kappa_l,
+    float d2_overlap, float p_translate, float factor) {
   extern __shared__ float smem[];
-  float* sx = smem;
+  // 32 x 8-byte slots of the slot-pick reduction first: 8-byte aligned
+  unsigned long long* sred64 = reinterpret_cast<unsigned long long*>(smem);
+  float* sx = smem + 64;
   float* sy = sx + A_pad;
   float* sz = sy + A_pad;
   float* sq = sz + A_pad;
@@ -127,6 +194,8 @@ __global__ void sweep_kernel(
   float* su = snew + 3 * P;     // 2 x 16: double-buffered uniforms
   float* sred = su + 32;        // one partial sum per warp
   float* sdec = sred + 32;      // 16 words: proposal scalars + decision
+  float* sact = sdec + 16;      // (A_pad) atom activity, with use_act
+  float* sactm = sact + A_pad;  // (M_total) slot activity, with use_act
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -143,7 +212,11 @@ __global__ void sweep_kernel(
     sq[j] = q_row[j];
     stid[j] = tid_row[j];
     smol[j] = molid_row[j];
+    if (kAct) sact[j] = act_in[(size_t)c * A_pad + j];
   }
+  if (kAct)
+    for (int i = tid; i < M_total; i += nt)
+      sactm[i] = actm_in[(size_t)c * M_total + i];
   for (int i = tid; i < 3 * M_total; i += nt)
     scom[i] = com_in[(size_t)c * 3 * M_total + i];
   for (int i = tid; i < 4 * M_total; i += nt)
@@ -195,8 +268,10 @@ __global__ void sweep_kernel(
   // stats: energy delta, acc/att [trans, rot], and a decision fingerprint
   // (the sum of the global index + 1 over accepted moves) that tells a chain whose accept
   // sequence diverged from one that only matches in its counts
+  // (accepted exchanges add slot + 1, deletions M_total more)
   float st_e = 0.0f, st_acc_t = 0.0f, st_acc_r = 0.0f, st_att_t = 0.0f,
-        st_att_r = 0.0f, st_fp = 0.0f;
+        st_att_r = 0.0f, st_fp = 0.0f, st_acc_i = 0.0f, st_acc_d = 0.0f,
+        st_att_i = 0.0f;
 
   for (int m = 0; m < M; ++m) {
     const int mg = m_start + m;  // global molecule index
@@ -206,6 +281,12 @@ __global__ void sweep_kernel(
     // closed move m-1)
     if (tid >= 32 && tid < 32 + kUniforms && m + 1 < M)
       su[((m + 1) & 1) * 16 + tid - 32] = u_chain[(size_t)(m + 1) * kUniforms + tid - 32];
+    if (kAct && sact[a_start + m * P] == 0.0f) {
+      // inactive slot: a null move, not an attempt (the barrier orders the
+      // prefetch above before the next move's reads)
+      __syncthreads();
+      continue;
+    }
 
     if (tid == 0) {
       const float* cm = scom + 3 * mg;
@@ -268,6 +349,7 @@ __global__ void sweep_kernel(
     for (int j = tid; j < A_pad; j += nt) {
       const int mj = smol[j];
       if (mj < 0 || mj == mg) continue;
+      if (kAct && sact[j] == 0.0f) continue;
       const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
       const int tj = stid[j];
       for (int p = 0; p < P; ++p) {
@@ -380,12 +462,249 @@ __global__ void sweep_kernel(
   }
   __syncthreads();
 
+  float wsum = 0.0f, wsum2 = 0.0f;
+  if (kAct && (n_exch > 0 || n_widom > 0)) {
+    const float beta = 1.0f / temp;
+    const float si_c = si_in[c], wc_c = wc_in[c];
+    const float lnzv = n_exch > 0 ? logf(z_in[c] * box * box * box) : 0.0f;
+    const float* ux_chain = ux_in + (size_t)c * (n_exch + n_widom) * kExchUniforms;
+    float* ux = su;  // this attempt's 8 uniforms
+
+    // n: this block's active slots, counted once and then tracked
+    float cnt = 0.0f;
+    for (int i = tid; i < M; i += nt) cnt += sactm[m_start + i] > 0.5f ? 1.0f : 0.0f;
+    cnt = warp_sum(cnt);
+    if (lane == 0) sred[warp] = cnt;
+    __syncthreads();
+    float n_act = 0.0f;
+    for (int w = 0; w < nwarps; ++w) n_act += sred[w];
+    __syncthreads();
+
+    // The pose in snew against every active atom of other molecules than
+    // `excl` (sgn * pair sum), plus the reciprocal delta of adding (sgn =
+    // +1) or removing (-1) its charges against the live S(k); leaves the
+    // pose's structure-factor row in sdre/sdim.  One thread's partial sum.
+    auto pose_part = [&](int excl, bool veto, float sgn) -> float {
+      float pair = 0.0f;
+      for (int j = tid; j < A_pad; j += nt) {
+        const int mj = smol[j];
+        if (mj < 0 || mj == excl || sact[j] == 0.0f) continue;
+        const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
+        const int tj = stid[j];
+        for (int p = 0; p < P; ++p) {
+          const bool lj = slj[p] != 0;
+          const bool uq = sqf[p] != 0;
+          const float qq = (factor * sqp[p]) * qj;
+          const float* a = snew + 3 * p;
+          float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
+          dx -= box * rintf(dx * inv_box);
+          dy -= box * rintf(dy * inv_box);
+          dz -= box * rintf(dz * inv_box);
+          const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+          const bool m_lj = d2 < rc2;
+          const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
+          const float inv_r = rsqrtf(d2);
+          const float inv_d2 = inv_r * inv_r;
+          float contrib = 0.0f;
+          if (lj && m_lj) {
+            const float s2 = ssig2[p * T + tj] * inv_d2;
+            const float s6 = s2 * s2 * s2;
+            float pot = seps[p * T + tj] * (s6 * s6 - s6);
+            if (lj_linear) pot += slam1[p * T + tj] + slam2[p * T + tj] * sqrtf(d2);
+            contrib = pot;
+          }
+          if (uq && m_qq) {
+            const float r = d2 * inv_r;
+            float cp;
+            if (coulomb == kBare)
+              cp = qq * inv_r;
+            else if (coulomb == kWolf)
+              cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
+            else
+              cp = qq * (erfcf(kappa * r) * inv_r);
+            if (veto && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
+            contrib += cp;
+          }
+          pair += contrib;
+        }
+      }
+      float part = sgn * pair;
+      if (ewald) {
+        const float tpl = kTwoPi * inv_box;
+        for (int k = tid; k < K; k += nt) {
+          const float kx = skx[k], ky = sky[k], kz = skz[k];
+          float dre = 0.0f, dim = 0.0f;
+          for (int p = 0; p < P; ++p) {
+            if (!sqf[p]) continue;
+            float ph = tpl * (kx * snew[3 * p] + ky * snew[3 * p + 1] + kz * snew[3 * p + 2]);
+            ph -= kTwoPi * rintf(ph * kInvTwoPi);
+            float sn, cs;
+            sincosf(ph, &sn, &cs);
+            dre += sqp[p] * cs;
+            dim += sqp[p] * sn;
+          }
+          sdre[k] = dre;
+          sdim[k] = dim;
+          const float cross = 2.0f * sgn * (ssre[k] * dre + ssim[k] * dim) + dre * dre + dim * dim;
+          part += factor * (scfac[k] * cross);
+        }
+      }
+      return part;
+    };
+
+    // Thread 0: the trial pose of uniforms ux[1..6] (uniform position,
+    // Shoemake quaternion; identity for P = 1) into snew and sdec[0..6].
+    auto trial_pose = [&]() {
+      float q[4] = {1.0f, 0.0f, 0.0f, 0.0f};
+      if (P > 1) {
+        const float u1 = ux[4];
+        float s2, c2, s3, c3;
+        sincosf(kTwoPi * (ux[5] - rintf(ux[5])), &s2, &c2);
+        sincosf(kTwoPi * (ux[6] - rintf(ux[6])), &s3, &c3);
+        const float r1 = sqrtf(fmaxf(1.0f - u1, 0.0f)), r2 = sqrtf(u1);
+        q[0] = r1 * s2;
+        q[1] = r1 * c2;
+        q[2] = r2 * s3;
+        q[3] = r2 * c3;
+      }
+      for (int d = 0; d < 3; ++d) sdec[d] = ux[1 + d] * box;
+      for (int i = 0; i < 4; ++i) sdec[3 + i] = q[i];
+      for (int p = 0; p < P; ++p) {
+        float o[3] = {0.0f, 0.0f, 0.0f};
+        if (P > 1)
+          rot_apply(q[0], q[1], q[2], q[3], sbody[3 * p], sbody[3 * p + 1],
+                    sbody[3 * p + 2], o);
+        for (int d = 0; d < 3; ++d) snew[3 * p + d] = sdec[d] + o[d];
+      }
+    };
+
+    for (int xi = 0; xi < n_exch; ++xi) {
+      if (tid < kExchUniforms) ux[tid] = ux_chain[(size_t)xi * kExchUniforms + tid];
+      __syncthreads();
+      const bool is_ins = ux[0] < 0.5f;
+      const float sgn = is_ins ? 1.0f : -1.0f;
+
+      // slot pick: the first free slot (insertion) or the active slot with
+      // the largest score, the lower index on a tie (deletion), as the
+      // maximum of 64-bit keys (score, ~slot); 0 marks no candidate
+      unsigned long long best = 0ull;
+      for (int i = tid; i < M; i += nt) {
+        const int slot = m_start + i;
+        const bool on = sactm[slot] > 0.5f;
+        unsigned long long key = 0ull;
+        if (is_ins && !on) {
+          key = (1ull << 32) | (0xFFFFFFFFu - (uint32_t)slot);
+        } else if (!is_ins && on) {
+          const uint32_t bits = philox_word((uint32_t)slot, (uint32_t)xi, seed, (uint32_t)c) >> 8;
+          key = ((unsigned long long)(bits + 1u) << 32) | (0xFFFFFFFFu - (uint32_t)slot);
+        }
+        best = key > best ? key : best;
+      }
+      best = warp_max_u64(best);
+      if (lane == 0) sred64[warp] = best;
+      __syncthreads();
+      best = 0ull;
+      for (int w = 0; w < nwarps; ++w) best = sred64[w] > best ? sred64[w] : best;
+      // no candidate (a full or an empty block): any slot of the block, the
+      // attempt is refused below
+      const int slot = best ? (int)(0xFFFFFFFFu - (uint32_t)(best & 0xFFFFFFFFull)) : m_start;
+      const int a0 = a_start + (slot - m_start) * P;
+
+      if (tid == 0) {
+        if (is_ins) {
+          trial_pose();
+        } else {
+          for (int p = 0; p < P; ++p) {
+            snew[3 * p] = sx[a0 + p];
+            snew[3 * p + 1] = sy[a0 + p];
+            snew[3 * p + 2] = sz[a0 + p];
+          }
+        }
+      }
+      __syncthreads();
+
+      // excl = slot serves both branches: the insertion slot is inactive
+      float part = pose_part(slot, is_ins, sgn);
+      part = warp_sum(part);
+      if (lane == 0) sred[warp] = part;
+      __syncthreads();
+
+      if (tid == 0) {
+        float du = 0.0f;
+        for (int w = 0; w < nwarps; ++w) du += sred[w];
+        du += si_c * sgn + wc_c * (2.0f * n_act * sgn + 1.0f);
+        const float ln_acc = (is_ins ? lnzv - logf(n_act + 1.0f)
+                                     : logf(fmaxf(n_act, 1.0f)) - lnzv) - beta * du;
+        const bool can = is_ins ? n_act < (float)M - 0.5f : n_act > 0.5f;
+        const float ln_u = logf(fmaxf(ux[7], 1e-30f));
+        const bool ok = can && ln_u < ln_acc;
+        st_att_i += is_ins ? 1.0f : 0.0f;
+        if (ok) {
+          st_e += du;
+          st_fp += (float)(slot + 1 + (is_ins ? 0 : M_total));
+          const float on = is_ins ? 1.0f : 0.0f;
+          sactm[slot] = on;
+          for (int p = 0; p < P; ++p) sact[a0 + p] = on;
+          if (is_ins) {
+            st_acc_i += 1.0f;
+            for (int p = 0; p < P; ++p) {
+              sx[a0 + p] = snew[3 * p];
+              sy[a0 + p] = snew[3 * p + 1];
+              sz[a0 + p] = snew[3 * p + 2];
+            }
+            for (int d = 0; d < 3; ++d) scom[3 * slot + d] = sdec[d];
+            if (P > 1)
+              for (int i = 0; i < 4; ++i) squat[4 * slot + i] = sdec[3 + i];
+          } else {
+            st_acc_d += 1.0f;
+          }
+        }
+        sdec[8] = ok ? 1.0f : 0.0f;
+      }
+      __syncthreads();
+      if (sdec[8] != 0.0f) {
+        n_act += sgn;
+        if (ewald)
+          for (int k = tid; k < K; k += nt) {
+            ssre[k] += sgn * sdre[k];
+            ssim[k] += sgn * sdim[k];
+          }
+      }
+    }
+
+    for (int wi = 0; wi < n_widom; ++wi) {
+      __syncthreads();  // the last reader of ux and sred is done
+      if (tid < kExchUniforms) ux[tid] = ux_chain[(size_t)(n_exch + wi) * kExchUniforms + tid];
+      __syncthreads();
+      if (tid == 0) trial_pose();
+      __syncthreads();
+      float part = pose_part(-2, true, 1.0f);
+      part = warp_sum(part);
+      if (lane == 0) sred[warp] = part;
+      __syncthreads();
+      if (tid == 0) {
+        float du = 0.0f;
+        for (int w = 0; w < nwarps; ++w) du += sred[w];
+        du += si_c + wc_c * (2.0f * n_act + 1.0f);
+        // a vetoed ghost carries +1e30: w = 0
+        const float w = expf(-beta * du);
+        wsum += w;
+        wsum2 += w * w;
+      }
+    }
+    __syncthreads();
+  }
+
   float* cout = coords_out + (size_t)c * 3 * A_pad;
   for (int j = tid; j < A_pad; j += nt) {
     cout[j] = sx[j];
     cout[A_pad + j] = sy[j];
     cout[2 * A_pad + j] = sz[j];
+    if (kAct) act_out[(size_t)c * A_pad + j] = sact[j];
   }
+  if (kAct)
+    for (int i = tid; i < M_total; i += nt)
+      actm_out[(size_t)c * M_total + i] = sactm[i];
   for (int i = tid; i < 3 * M_total; i += nt)
     com_out[(size_t)c * 3 * M_total + i] = scom[i];
   for (int i = tid; i < 4 * M_total; i += nt)
@@ -401,14 +720,22 @@ __global__ void sweep_kernel(
     st[2] = st_acc_r;
     st[3] = st_att_t;
     st[4] = st_att_r;
-    st[5] = st_fp;
+    st[5] = st_acc_i;
+    st[6] = st_acc_d;
+    st[7] = st_att_i;
+    st[8] = st_fp;
+    if (kAct) {
+      wid_out[(size_t)c * 2] = wsum;
+      wid_out[(size_t)c * 2 + 1] = wsum2;
+    }
   }
 }
 
 }  // namespace
 
-extern "C" size_t mmc_sweep_smem_bytes(int M, int P, int A_pad, int K, int T) {
-  return sizeof(float) * sweep_smem_floats(M, P, A_pad, K, T);
+extern "C" size_t mmc_sweep_smem_bytes(int M, int P, int A_pad, int K, int T,
+                                       int use_act) {
+  return sizeof(float) * sweep_smem_floats(M, P, A_pad, K, T, use_act);
 }
 
 extern "C" const char* mmc_cuda_error_string(int code) {
@@ -416,9 +743,11 @@ extern "C" const char* mmc_cuda_error_string(int code) {
 }
 
 // Launches one sweep of one species block (grid = C chains) on `stream`;
-// returns the CUDA error code of the launch (0 on success).  com/quat/u
+// returns the CUDA error code of the launch (0 on success).  com/quat/u/actm
 // hold all M_total molecules' rows.  All pointers are device pointers to
-// contiguous f32 (int32 for the flag and row tables) tensors.
+// contiguous f32 (int32 for the flag and row tables) tensors; act, actm,
+// act_out, actm_out and wid_out are read and written only with use_act, ux,
+// z, si and wc only with n_exch + n_widom > 0 (which needs use_act).
 extern "C" int mmc_sweep_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* box, const void* temp, const void* drmax, const void* dphi,
@@ -426,22 +755,27 @@ extern "C" int mmc_sweep_launch(
     const void* sig2_pt, const void* lam1_pt, const void* lam2_pt,
     const void* has_lj, const void* has_q, const void* tid_row,
     const void* molid_row, const void* q_row, const void* kvec, const void* kw,
-    void* coords_out, void* com_out, void* quat_out, void* sfac_out,
-    void* stats_out, int C, int M, int M_total, int m_start, int a_start,
-    int P, int A_pad, int K, int T, int coulomb, int lj_linear, int use_rot,
+    const void* act, const void* actm, const void* ux, const void* z,
+    const void* si, const void* wc, void* coords_out, void* com_out,
+    void* quat_out, void* sfac_out, void* stats_out, void* act_out,
+    void* actm_out, void* wid_out, int C, int M, int M_total, int m_start,
+    int a_start, int P, int A_pad, int K, int T, int coulomb, int lj_linear,
+    int use_rot, int use_act, int n_exch, int n_widom, unsigned int seed,
     int threads, float rc2, float qrc2, float kappa_l, float d2_overlap,
     float p_translate, float factor, void* stream) {
-  const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T);
+  const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T, use_act);
   if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > 1024 ||
       threads % 32 != 0 || C < 1 || M < 1 || m_start < 0 || a_start < 0 ||
-      m_start + M > M_total || a_start + M * P > A_pad)
+      m_start + M > M_total || a_start + M * P > A_pad || n_exch < 0 ||
+      n_widom < 0 || ((n_exch > 0 || n_widom > 0) && !use_act))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = use_act ? sweep_kernel<true> : sweep_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  sweep_kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coords), static_cast<const float*>(com),
       static_cast<const float*>(quat), static_cast<const float*>(sfac),
       static_cast<const float*>(box), static_cast<const float*>(temp),
@@ -453,10 +787,14 @@ extern "C" int mmc_sweep_launch(
       static_cast<const int*>(has_q), static_cast<const int*>(tid_row),
       static_cast<const int*>(molid_row), static_cast<const float*>(q_row),
       static_cast<const float*>(kvec), static_cast<const float*>(kw),
+      static_cast<const float*>(act), static_cast<const float*>(actm),
+      static_cast<const float*>(ux), static_cast<const float*>(z),
+      static_cast<const float*>(si), static_cast<const float*>(wc),
       static_cast<float*>(coords_out), static_cast<float*>(com_out),
       static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
-      static_cast<float*>(stats_out), M, M_total, m_start, a_start, P, A_pad,
-      K, T, coulomb, lj_linear, use_rot, rc2, qrc2, kappa_l, d2_overlap,
-      p_translate, factor);
+      static_cast<float*>(stats_out), static_cast<float*>(act_out),
+      static_cast<float*>(actm_out), static_cast<float*>(wid_out), M, M_total,
+      m_start, a_start, P, A_pad, K, T, coulomb, lj_linear, use_rot, n_exch,
+      n_widom, seed, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

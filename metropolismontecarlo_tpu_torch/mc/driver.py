@@ -16,9 +16,11 @@ versions.  `run_steps` loops sweeps with optional step-size adaptation;
 `run_block` adds the block-end recompute that checks the accumulated
 energy's drift and resynchronises energy, virial and S(k).
 
+`widom` samples ghost insertions in plain tensor code, `widom_mega` runs
+a sweep and the ghosts inside one sweep-kernel launch (mc/widom.py).
+
 Not ported yet, and refused when asked for: NPT volume moves, neighbour
-lists, sorted slabs, Widom sampling, pressure_fd and tensor-parallel
-recomputes.
+lists, sorted slabs, pressure_fd and tensor-parallel recomputes.
 """
 
 import dataclasses
@@ -36,6 +38,11 @@ from metropolismontecarlo_tpu_torch.mc.moves import (
     make_mega_sweep_fn,
     make_sweep_fn,
     mega_supported,
+)
+from metropolismontecarlo_tpu_torch.mc.widom import (
+    make_mega_widom_fn,
+    make_widom_fn,
+    mu_excess,
 )
 from metropolismontecarlo_tpu_torch.models.energy import energy_breakdown
 from metropolismontecarlo_tpu_torch.models.system import SimState
@@ -135,6 +142,8 @@ class MonteCarlo:
                 params.nk, params.ksq_max, strict=True)
         else:
             self.kvecs, self.kweights = None, None
+        self._widom_fns, self._widom_mega_fn, self._widom_mega_n = \
+            {}, None, None
         self.route = choose_route(system, params, dtype, kernel)
         if self.route == "sweep":
             self._sweep_full = make_mega_sweep_fn(
@@ -320,11 +329,44 @@ class MonteCarlo:
     def pressure_fd(self, state, rel_eps=1e-4):
         raise NotImplementedError("pressure_fd is not ported yet")
 
-    def widom(self, state, *args, **kwargs):
-        raise NotImplementedError("Widom sampling is not ported yet")
+    def widom(self, state, n_insertions=64, species=0):
+        """Widom test-particle insertion (mc/widom.py): n_insertions
+        uniform ghost poses of the given species per chain, drawn from
+        this object's generator.  Returns a dict with boltzmann_mean (C,),
+        <exp(-beta dU)> over this sample (the quantity to average over a
+        run, then pass to mu_excess), and mu_ex (C,), -kT ln of this
+        sample's mean (diagnostic: the log of a noisy mean is biased)."""
+        entry = self._widom_fns.get(species)
+        if entry is None:
+            _, entry = make_widom_fn(
+                self.system, self.params, self.kvecs, self.kweights,
+                self.device, dtype=self.dtype, species=species,
+                chunk=self.recompute_chunk)
+            self._widom_fns[species] = entry
+        b = entry(state, self.generator, int(n_insertions))
+        return {"boltzmann_mean": b, "mu_ex": mu_excess(b, state.temp)}
 
-    def widom_mega(self, state, *args, **kwargs):
-        raise NotImplementedError("Widom sampling is not ported yet")
+    def widom_mega(self, state, n_per_sweep=64):
+        """Widom sampling inside the sweep kernel: advances the state by
+        one whole sweep and evaluates n_per_sweep ghost insertions in the
+        same launch (mc/widom.py make_mega_widom_fn; needs the "sweep"
+        route and one species).  Returns (state', dict) with widom()'s
+        keys; the sweep and the Boltzmann factors use
+        params.temperature."""
+        if self.route != "sweep":
+            raise ValueError(
+                "widom_mega requires the whole-sweep route (this MonteCarlo "
+                f"runs route {self.route!r}); use widom() for the plain "
+                "path")
+        n = int(n_per_sweep)
+        if self._widom_mega_fn is None or self._widom_mega_n != n:
+            self._widom_mega_fn = make_mega_widom_fn(
+                self.system, self.params, self.kvecs, self.kweights, n,
+                self.device)
+            self._widom_mega_n = n
+        state2, b = self._widom_mega_fn(state, self.generator)
+        return state2, {"boltzmann_mean": b,
+                        "mu_ex": mu_excess(b, self.params.temperature)}
 
     # ---------------- blocks ----------------
 

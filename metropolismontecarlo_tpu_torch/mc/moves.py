@@ -5,7 +5,10 @@
   shared per-atom rows and k-vectors, draws the sweep's uniforms once as
   (C, M, 10), and launches the sweep op once per block in storage order,
   threading coordinates, COM, quaternions and S(k) from launch to launch
-  and summing the statistics.
+  and summing the statistics.  With with_activity it returns the
+  fluctuating-N variants on the MolGCMCState layout instead: `sweep_act`
+  (activity-masked moves) or, with n_exch / n_widom, `sweep_x` (moves,
+  then in-kernel exchange attempts and Widom ghosts per block).
 * The per-move route, `make_sweep_fn`: one molecule move of every chain
   per call, for one species block.  Its proposal reads the same 10
   uniform columns with the same formulas as the sweep kernel, so both
@@ -200,19 +203,80 @@ def sweep_blocks(op, coords, com, quat, sfac, box, temp, dr_max, dphi_max,
     return coords, com, quat, sfac, stats
 
 
+def draw_exchange_uniforms(n_chains, n_attempts, generator, device):
+    """The exchange attempts' and ghosts' uniforms, (C, n, 8) f32 in
+    [0, 1)."""
+    return torch.rand((n_chains, n_attempts, sweep_op.N_EXCH_UNIFORMS),
+                      generator=generator, dtype=torch.float32,
+                      device=device)
+
+
+def activity_planes(system, active):
+    """The sweep op's f32 activity planes of a (C, M) bool slot mask: act
+    (C, A_pad), 1 on the atoms of active slots and 0 on inactive slots
+    and lane pads, and actm (C, M)."""
+    actm = active.to(torch.float32).contiguous()
+    act = torch.zeros((active.shape[0], system.n_atoms_padded),
+                      dtype=torch.float32, device=active.device)
+    act[:, :system.n_atoms] = torch.cat(
+        [actm[:, m0:m1].repeat_interleave(p, dim=1)
+         for _, m0, m1, p, _ in system.species_slices], dim=1)
+    return act, actm
+
+
 def make_mega_sweep_fn(system, params, kvecs, kweights, device,
-                       box_hint=None, z_hint=None):
+                       box_hint=None, z_hint=None, with_activity=False,
+                       n_exch=0, tmmc_exch=False, n_widom=0):
     """Returns sweep_full(state, generator) -> state: one sweep-kernel
-    launch per species block.  sweep_full.tables holds the SweepTables."""
+    launch per species block.  sweep_full.tables holds the SweepTables.
+
+    with_activity=True returns instead the fluctuating-N variant
+    `sweep_act(com, quat, coords, active, box, sfac, generator) -> (com,
+    quat, coords, sfac, d_e, acc, att)` on the molecular-GCMC state layout
+    (mc/gcmc_mol.MolGCMCState fields): inactive slots neither move nor
+    add to any pair energy, so one call is a valid fixed-N sweep between
+    exchange steps.  The sweep runs at params.temperature / dr_max /
+    dphi_max.
+
+    With n_exch or n_widom (an int, or one count per species block) the
+    callable is `sweep_x` with three more arguments (see there): when
+    every count is 0 it is the 7-argument sweep_act, so a caller passing
+    computed counts branches on any(counts)."""
     check_mega_supported(system, params, box_hint, z_hint)
+    slices = system.species_slices
+    nb = len(slices)
+    n_exchs = (n_exch,) * nb if isinstance(n_exch, int) else tuple(n_exch)
+    n_widoms = (n_widom,) * nb if isinstance(n_widom, int) \
+        else tuple(n_widom)
+    if any(n_exchs) or any(n_widoms):
+        if not with_activity:
+            raise ValueError("in-kernel exchanges/Widom require "
+                             "with_activity")
+        if len(n_exchs) != nb or len(n_widoms) != nb:
+            raise ValueError("n_exch/n_widom must be an int or one count "
+                             "per species block")
+        if tmmc_exch:
+            raise NotImplementedError(
+                "in-kernel TMMC deposits (the sweep kernel's tmmc variant) "
+                "are not ported yet")
+        if nb > 1:
+            # the in-kernel exchange constant tracks only the own block's
+            # count; a charged species' reference-Wolf global term couples
+            # the counts
+            qs_tot = [float(np.sum(np.asarray(system.charges)[m0]))
+                      for _, m0, _, _, _ in slices]
+            if params.coulomb == "wolf" and any(abs(q) > 1e-5
+                                                for q in qs_tot):
+                raise ValueError("multi-block in-kernel exchanges need "
+                                 "charge-neutral species under wolf")
     tables = sweep_tables(system, params, kvecs, kweights, device)
     M = system.n_mol
     ewald = params.coulomb == "ewald"
+    f32 = torch.float32
 
     def sweep_full(state, generator):
         C = state.com.shape[0]
         u = draw_uniforms(C, M, generator, state.com.device)
-        f32 = torch.float32
         coords, com, quat, sfac, stats = sweep_blocks(
             sweep_op.sweep, *(x.to(f32).contiguous() for x in (
                 state.coords, state.com, state.quat, state.sfac, state.box,
@@ -232,7 +296,100 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
             att=state.att + att_d)
 
     sweep_full.tables = tables
-    return sweep_full
+    if not with_activity:
+        return sweep_full
+
+    def planes(com, quat, coords, active, box, sfac):
+        """The kernel's f32 arguments of a MolGCMCState's fields, with
+        the activity planes per atom (C, A_pad) and per slot (C, M)."""
+        act, actm = activity_planes(system, active)
+        ones = torch.ones((com.shape[0],), dtype=f32, device=com.device)
+        return [x.to(f32).contiguous() for x in (coords, com, quat, sfac,
+                                                 box)] + [
+            params.temperature * ones, params.dr_max * ones,
+            params.dphi_max * ones], act, actm
+
+    def sweep_act(com, quat, coords, active, box, sfac, generator):
+        """One activity-masked sweep: com (C, M, 3), quat (C, M, 4),
+        coords (C, 3, A_pad), active (C, M) bool, box (C,), sfac
+        (C, K, 2); one launch per species block.  Returns (com, quat,
+        coords, sfac, d_e, acc, att) in f32: d_e (C,) the summed
+        accepted energy delta, acc/att (C, 2) accepted/attempted
+        [translate, rotate] (attempts count active slots only)."""
+        args, act, actm = planes(com, quat, coords, active, box, sfac)
+        u = draw_uniforms(com.shape[0], M, generator, com.device)
+        stats = None
+        for t in tables:
+            out = sweep_op.sweep(*args, u, t, act=act, actm=actm)
+            args[:4], (st, act, actm, _) = out[:4], out[4:]
+            stats = st if stats is None else stats + st
+        coords_o, com_o, quat_o, sfac_o = args[:4]
+        return (com_o, quat_o, coords_o, sfac_o, stats[:, 0], stats[:, 1:3],
+                stats[:, 3:5])
+
+    sweep_act.tables = tables
+    if not any(n_exchs) and not any(n_widoms):
+        return sweep_act
+
+    launch = [0]
+
+    def sweep_x(com, quat, coords, active, box, sfac, generator, zact, si,
+                wc, lrc_cross=None):
+        """One launch per species block = [the block's activity-masked
+        moves + n_exchs[b] exchange attempts of that species + n_widoms[b]
+        ghost insertions].  zact/si/wc: per-chain (C,) activity, self +
+        intra exchange constant and quadratic-in-N coefficient (reference
+        Wolf c Q^2 and the LJ tail), plain tensors for one block, one per
+        block (tuple/list) otherwise; lrc_cross[b] (C,): the cross-species
+        tail coefficient 2 g_bo N_o folded into si from the live counts.
+        Returns (com, quat, coords, active, sfac, d_e, acc, att[, wid]):
+        active the updated (C, M) bool mask, acc/att (C, 2 + 2 n_blocks)
+        f32 [translate, rotate, then per block insert, delete]; with any
+        n_widom, wid (C, n_blocks, 2) = each block's [sum w, sum w^2]."""
+        C = com.shape[0]
+        z_b, si_b, wc_b = ((x,) if nb == 1 and not isinstance(
+            x, (tuple, list)) else tuple(x) for x in (zact, si, wc))
+        args, act, actm = planes(com, quat, coords, active, box, sfac)
+        u = draw_uniforms(C, M, generator, com.device)
+        stats = torch.zeros((C, sweep_op.N_STATS), dtype=f32,
+                            device=com.device)
+        xacc, xatt, wids = [], [], []
+        for b, t in enumerate(tables):
+            extra = {}
+            if n_exchs[b] or n_widoms[b]:
+                si_eff = si_b[b].to(f32)
+                if lrc_cross is not None and nb > 1:
+                    _, m0, m1, _, _ = slices[b]
+                    n_oth = actm.sum(1) - actm[:, m0:m1].sum(1)
+                    si_eff = si_eff + 2.0 * lrc_cross[b].to(f32) * n_oth
+                # the deletion scores' stream: one seed per launch
+                seed = (generator.initial_seed() * 0x9E3779B1
+                        + launch[0]) & 0xFFFFFFFF
+                launch[0] += 1
+                extra = dict(
+                    n_exch=n_exchs[b], n_widom=n_widoms[b], seed=seed,
+                    ux=draw_exchange_uniforms(C, n_exchs[b] + n_widoms[b],
+                                              generator, com.device),
+                    z=z_b[b].to(f32).contiguous(),
+                    si=si_eff.contiguous(),
+                    wc=wc_b[b].to(f32).contiguous())
+            out = sweep_op.sweep(*args, u, t, act=act, actm=actm, **extra)
+            args[:4], (st, act, actm, wid) = out[:4], out[4:]
+            # per-species exchange counters: each launch's own columns
+            xacc += [st[:, 5], st[:, 6]]
+            xatt += [st[:, 7], float(n_exchs[b]) - st[:, 7]]
+            wids.append(wid)
+            stats = stats + st
+        coords_o, com_o, quat_o, sfac_o = args[:4]
+        res = (com_o, quat_o, coords_o, actm > 0.5, sfac_o, stats[:, 0],
+               torch.stack([stats[:, 1], stats[:, 2]] + xacc, dim=1),
+               torch.stack([stats[:, 3], stats[:, 4]] + xatt, dim=1))
+        if any(n_widoms):
+            res = res + (torch.stack(wids, dim=1),)
+        return res
+
+    sweep_x.tables = tables
+    return sweep_x
 
 
 # ---------------- per-move route ----------------------------------------

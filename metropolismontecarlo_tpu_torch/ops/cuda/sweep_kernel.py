@@ -1,7 +1,8 @@
 """Whole-sweep Metropolis op: the CUDA kernel's wrapper and its plain
 PyTorch version (counterpart of metropolismontecarlo_tpu/ops/pallas/
-sweep_kernel.py sweep_pallas, base and species-block variants: no
-activity mask, exchanges, TMMC, Widom or sorted slabs).
+sweep_kernel.py sweep_pallas: the base and species-block variants, the
+activity mask, the in-kernel exchange attempts and the Widom ghosts; no
+TMMC deposits or sorted slabs).
 
 One call runs the M sequential moves of one species block (global
 molecules [m_start, m_start + M), atoms from column a_start, P each) on
@@ -11,10 +12,26 @@ Coulomb (ewald / wolf / wolf_ref / bare / none) over all atoms, the
 incremental S(k) and reciprocal energy delta (ewald), the overlap veto,
 the Metropolis test, and the write-back of the accepted move.
 
+With an activity mask (act (C, A_pad) per atom, actm (C, M_total) per
+molecule slot, f32 1/0) an inactive slot's move is a null move that
+counts as no attempt and inactive atoms add exactly 0 to every pair sum.
+After the moves the same call can run n_exch grand-canonical exchange
+attempts of this block's species (50/50 insertion into the first free
+slot at a uniform pose / deletion of a uniform active slot, the muVT
+acceptance in log space; the state's activity planes change) and then
+n_widom ghost insertions that touch no state and deposit sum w and
+sum w^2 of w = exp(-dU_ins / T).
+
 Random numbers come from outside: u (C, M_total, 10) uniforms in [0, 1),
 one row per molecule of the whole system, whose columns are [selector, dx, dy, dz, accept, e1, e2, e3, e4, angle] (the
-TPU kernel's u[:, 0:10]).  The kernel and sweep_plain read the same u,
-so the two can be compared trajectory by trajectory.
+TPU kernel's u[:, 0:10]), and ux (C, n_exch + n_widom, 8), one row per
+attempt, [type, x, y, z, u1, theta2, theta3, accept].  The kernel and
+sweep_plain read the same u and ux, so the two can be compared
+trajectory by trajectory.  The one exception is the deletion pick, which
+needs a score per slot and attempt: both generate it from the caller's
+seed with Philox4x32-10 (`philox_scores`; key (seed, chain), counter
+(slot, attempt, 0, 0), the top 24 bits of the first output word), the
+same integers in the kernel and here.
 
 `sweep` launches the kernel (csrc/sweep_kernel.cu) for CUDA tensors and
 runs `sweep_plain` for CPU tensors; there is no fallback between them.
@@ -30,9 +47,13 @@ import torch
 from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
 
 N_UNIFORMS = 10
-# stats columns: [energy delta, acc_trans, acc_rot, att_trans, att_rot,
-# decision fingerprint = sum of (global m + 1) over accepted moves]
-N_STATS = 6
+N_EXCH_UNIFORMS = 8
+# stats columns: [energy delta (moves and exchanges), acc_trans, acc_rot,
+# att_trans, att_rot (active slots only), acc_insert, acc_delete,
+# att_insert (att_delete = n_exch - att_insert), decision fingerprint = sum
+# of (global m + 1) over accepted moves, of (slot + 1) over accepted
+# insertions and of (slot + 1 + M_total) over accepted deletions]
+N_STATS = 9
 MAX_SITES = 16
 MAX_SMEM_BYTES = 232448   # 227 KB, a Hopper block's dynamic shared memory
 THREADS = 256
@@ -89,15 +110,19 @@ class SweepTables:
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
 
-def smem_bytes(M, P, A_pad, K, T):
+def smem_bytes(M, P, A_pad, K, T, use_act=False):
     """Dynamic shared memory of one block, M the COM/quaternion rows held
     (all molecules of the system); must match sweep_smem_floats in
-    csrc/sweep_kernel.cu."""
-    return 4 * (6 * A_pad + 7 * M + 8 * K + 4 * P * T + 11 * P + 80)
+    csrc/sweep_kernel.cu: 6 atom rows, 7 COM/quaternion rows, 8 k-vector
+    rows, 4 (P, T) LJ tables, 12 P-wide site rows (body 3, charge, two
+    flags, old and new positions 3 each), 144 words of reduction and
+    decision scratch, and with use_act the two activity planes."""
+    return 4 * (6 * A_pad + 7 * M + 8 * K + 4 * P * T + 12 * P + 144
+                + (A_pad + M if use_act else 0))
 
 
 def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
-                  t):
+                  t, act, actm, n_exch, n_widom, ux, z, si, wc):
     C, three, A_pad = coords.shape
     M_total = com.shape[1]
     K = sfac.shape[1]
@@ -113,14 +138,28 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
             f"M_total={M_total})")
     tensors = dict(t.tensors(), coords=coords, com=com, quat=quat, sfac=sfac,
                    box=box, temp=temp, dr_max=dr_max, dphi_max=dphi_max, u=u)
+    if (act is None) != (actm is None):
+        raise ValueError("act and actm go together")
+    if n_exch < 0 or n_widom < 0:
+        raise ValueError("n_exch and n_widom must be >= 0")
+    if act is not None:
+        tensors.update(act=act, actm=actm)
+    if n_exch or n_widom:
+        if act is None:
+            raise ValueError("exchange attempts and Widom ghosts need the "
+                             "activity planes act and actm")
+        tensors.update(ux=ux, z=z, si=si, wc=wc)
     shapes = dict(
         coords=(C, 3, A_pad), com=(C, M_total, 3), quat=(C, M_total, 4),
         sfac=(C, K, 2), box=(C,), temp=(C,), dr_max=(C,), dphi_max=(C,),
         u=(C, M_total, N_UNIFORMS), body=(t.P, 3), qp=(t.P,), eps=(t.P, T),
         sig2=(t.P, T), lam1=(t.P, T), lam2=(t.P, T), has_lj=(t.P,),
         has_q=(t.P,), tid_row=(A_pad,), molid_row=(A_pad,), q_row=(A_pad,),
-        kvec=(K, 3), kw=(K,))
+        kvec=(K, 3), kw=(K,), act=(C, A_pad), actm=(C, M_total),
+        ux=(C, n_exch + n_widom, N_EXCH_UNIFORMS), z=(C,), si=(C,), wc=(C,))
     for name, x in tensors.items():
+        if x is None:
+            raise ValueError(f"{name} is required")
         if tuple(x.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(x.shape)} != "
                              f"{shapes[name]}")
@@ -134,51 +173,73 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
             raise ValueError(f"{name}: dtype {x.dtype}")
 
 
-def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables):
-    """One sweep of the species block's tables.M moves per chain.
+def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
+          act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None, si=None,
+          wc=None, seed=0):
+    """One sweep of the species block's tables.M moves per chain, then
+    n_exch exchange attempts and n_widom ghost insertions.
 
     coords (C, 3, A_pad), com (C, M_total, 3), quat (C, M_total, 4), sfac
     (C, K, 2), box/temp/dr_max/dphi_max (C,), u (C, M_total, 10); all f32,
-    contiguous, on one device.  Returns new (coords, com, quat, sfac, stats (C, 6)).
+    contiguous, on one device.  Optional: act (C, A_pad) and actm
+    (C, M_total) f32 activity planes; with n_exch + n_widom > 0 also ux
+    (C, n_exch + n_widom, 8), the per-chain activity z, the exchange
+    constants si and wc (C,) (du = +-u_pair +- si + wc (2 n sgn + 1) +
+    dU_recip) and the integer seed of the deletion scores.
+    Returns new (coords, com, quat, sfac, stats (C, 9)); with activity
+    planes also (act, actm, wid (C, 2) = [sum w, sum w^2] of the ghosts).
     CUDA tensors launch the kernel (and count it in sweep.launches); CPU
     tensors run sweep_plain; any other device raises."""
     _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
-                  tables)
+                  tables, act, actm, n_exch, n_widom, ux, z, si, wc)
     if coords.device.type == "cpu":
         return sweep_plain(coords, com, quat, sfac, box, temp, dr_max,
-                           dphi_max, u, tables)
+                           dphi_max, u, tables, act, actm, n_exch, n_widom,
+                           ux, z, si, wc, seed)
     if coords.device.type != "cuda":
         raise ValueError(f"no sweep for device {coords.device}")
     return _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
-                   tables)
+                   tables, act, actm, n_exch, n_widom, ux, z, si, wc, seed)
 
 
 sweep.launches = 0
 
 
-def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t):
+def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
+            actm, n_exch, n_widom, ux, z, si, wc, seed):
     lib = _library()
     C, _, A_pad = coords.shape
     M_total, K, T = com.shape[1], sfac.shape[1], t.eps.shape[1]
-    nbytes = smem_bytes(M_total, t.P, A_pad, K, T)
+    use_act = act is not None
+    nbytes = smem_bytes(M_total, t.P, A_pad, K, T, use_act)
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"chain state needs {nbytes} B of shared memory, "
                          f"over the {MAX_SMEM_BYTES} B a block may use")
-    if lib.mmc_sweep_smem_bytes(M_total, t.P, A_pad, K, T) != nbytes:
+    if lib.mmc_sweep_smem_bytes(M_total, t.P, A_pad, K, T,
+                                int(use_act)) != nbytes:
         raise RuntimeError("csrc/sweep_kernel.cu and smem_bytes disagree "
                            "on the shared-memory layout")
     outs = (torch.empty_like(coords), torch.empty_like(com),
             torch.empty_like(quat), torch.empty_like(sfac),
             torch.empty((C, N_STATS), dtype=torch.float32,
                         device=coords.device))
-    ptrs = [x.data_ptr() for x in (
-        coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t.body,
-        t.qp, t.eps, t.sig2, t.lam1, t.lam2, t.has_lj, t.has_q, t.tid_row,
-        t.molid_row, t.q_row, t.kvec, t.kw) + outs]
+    if use_act:
+        outs += (torch.empty_like(act), torch.empty_like(actm),
+                 torch.empty((C, 2), dtype=torch.float32,
+                             device=coords.device))
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    ins = (coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t.body,
+           t.qp, t.eps, t.sig2, t.lam1, t.lam2, t.has_lj, t.has_q, t.tid_row,
+           t.molid_row, t.q_row, t.kvec, t.kw, act, actm, ux, z, si, wc)
+    ptrs = [ptr(x) for x in ins + outs + (None,) * (8 - len(outs))]
     err = lib.mmc_sweep_launch(
         *ptrs, C, t.M, M_total, t.m_start, t.a_start, t.P, A_pad, K, T,
         COULOMB_CODES[t.coulomb],
-        int(t.lj_shift == "linear"), int(t.use_rot), THREADS,
+        int(t.lj_shift == "linear"), int(t.use_rot), int(use_act),
+        int(n_exch), int(n_widom), int(seed) & 0xFFFFFFFF, THREADS,
         t.rc2, t.qrc2, t.kappa_l, t.d2_overlap, t.p_translate,
         COULOMB_FACTOR, torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
@@ -197,13 +258,56 @@ def _library():
 
     lib = load_library("sweep_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_sweep_launch.argtypes = [vp] * 27 + [ci] * 13 + [cf] * 6 + [vp]
+    lib.mmc_sweep_launch.argtypes = [vp] * 36 + [ci] * 15 + [ctypes.c_uint] \
+        + [ci] + [cf] * 6 + [vp]
     lib.mmc_sweep_launch.restype = ci
-    lib.mmc_sweep_smem_bytes.argtypes = [ci] * 5
+    lib.mmc_sweep_smem_bytes.argtypes = [ci] * 6
     lib.mmc_sweep_smem_bytes.restype = ctypes.c_size_t
     lib.mmc_cuda_error_string.argtypes = [ci]
     lib.mmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(m, x):
+    """(high, low) 32-bit words of the product of the constant m < 2^32
+    and x (int64 tensor, values < 2^32), through 16-bit halves of x so
+    that no int64 intermediate overflows."""
+    a, b = m * (x >> 16), m * (x & 0xFFFF)          # each < 2^48
+    mid = a + (b >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (b & 0xFFFF)
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Salmon et al., SC 2011): counter 4 and key 2 int64
+    tensors (broadcastable, values < 2^32) -> the 4 output words, int64
+    tensors.  Integer arithmetic only, so the CUDA kernel's words and
+    these are the same bits."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_scores(seed, n_chains, attempt, m_start, M, device):
+    """The kernel's deletion scores of one attempt: (C, M) int64 in
+    [0, 2^24), the top 24 bits of the first Philox word for counter
+    (slot, attempt, 0, 0) and key (seed, chain)."""
+    i64 = dict(dtype=torch.int64, device=device)
+    slot = torch.arange(m_start, m_start + M, **i64)[None, :]
+    chain = torch.arange(n_chains, **i64)[:, None]
+    zero = torch.zeros((), **i64)
+    w0 = philox4x32((slot, zero + int(attempt), zero, zero),
+                    (zero + (int(seed) & _MASK32), chain))[0]
+    return w0 >> 8
 
 
 def rot_apply(w, x, y, z, bx, by, bz):
@@ -243,20 +347,53 @@ def propose_rotation(w0, x0, y0, z0, um, dphi_max):
     return nw * qn, nx * qn, ny * qn, nz * qn
 
 
+def trial_pose(ux_i, box, body):
+    """The insertion measure shared by exchange attempts and Widom
+    ghosts, from one attempt's uniforms ux_i (C, 8): a uniform position
+    (columns 1-3) and a Shoemake quaternion (columns 4-6; the identity
+    for a one-site body).  Returns (com (C, 3), quat (C, 4), atoms
+    (C, 3, P))."""
+    ct = ux_i[:, 1:4] * box[:, None]
+    P = body.shape[0]
+    if P > 1:
+        u1 = ux_i[:, 4:5]
+        th2 = _TWO_PI * (ux_i[:, 5:6] - torch.round(ux_i[:, 5:6]))
+        th3 = _TWO_PI * (ux_i[:, 6:7] - torch.round(ux_i[:, 6:7]))
+        r1, r2 = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0)), torch.sqrt(u1)
+        q = (r1 * torch.sin(th2), r1 * torch.cos(th2), r2 * torch.sin(th3),
+             r2 * torch.cos(th3))
+        rot = rot_apply(*q, body[:, 0], body[:, 1], body[:, 2])
+        atoms = torch.stack([ct[:, d:d + 1] + rot[d] for d in range(3)], 1)
+        return ct, torch.cat(q, dim=1), atoms
+    quat = torch.zeros((ct.shape[0], 4), dtype=ct.dtype, device=ct.device)
+    quat[:, 0] = 1.0
+    return ct, quat, ct[:, :, None].clone()
+
+
 def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
-                magnitude=False):
+                act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None,
+                si=None, wc=None, seed=0, magnitude=False, scores=None):
     """Plain PyTorch version of the kernel: a Python loop over the M
-    molecules, vectorised over chains, f32 throughout.  Same arguments
-    and results as `sweep`.  With magnitude, stats gains a seventh column:
-    the sum over accepted moves of the magnitudes of the terms their
-    energy deltas add up (each old and new row's r^-12 and r^-6 LJ terms,
-    linear shift and Coulomb pair terms, each k-vector's reciprocal
-    term), the scale of the energy delta's f32 rounding, for holding
-    another route's energy delta against this one's."""
+    molecules, the exchange attempts and the ghosts, vectorised over
+    chains, f32 throughout.  Same arguments and results as `sweep`.
+    scores (C, n_exch, M_total) f32, when given, replace the Philox
+    deletion scores (a test forces a deletion slot with them).  With
+    magnitude, stats gains a tenth column:
+    the sum over accepted moves and exchanges of the magnitudes of the
+    terms their energy deltas add up (each old and new row's r^-12 and
+    r^-6 LJ terms, linear shift and Coulomb pair terms, each k-vector's
+    reciprocal term, the exchange constants), the scale of the energy
+    delta's f32 rounding, for holding another route's energy delta
+    against this one's."""
     coords, com, quat = coords.clone(), com.clone(), quat.clone()
     sre, sim = sfac[..., 0].clone(), sfac[..., 1].clone()
     C, _, A_pad = coords.shape
+    M_total = com.shape[1]
     P = t.P
+    dev = coords.device
+    use_act = act is not None
+    if use_act:
+        act, actm = act.clone(), actm.clone()
     box_c, temp_c = box[:, None], temp[:, None]
     inv_box = 1.0 / box_c
     kappa = t.kappa_l * inv_box                                   # (C, 1)
@@ -272,17 +409,79 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
         qrc = math.sqrt(t.qrc2)
         sh_w = torch.special.erfc(kappa * qrc) / qrc              # (C, 1)
     tid = t.tid_row.clamp(min=0).long()
-    eps4 = (4.0 * t.eps[:, tid]).repeat(2, 1)                     # (2P, A)
-    sig2 = t.sig2[:, tid].repeat(2, 1)
-    lam1 = t.lam1[:, tid].repeat(2, 1)
-    lam2 = t.lam2[:, tid].repeat(2, 1)
-    qq = ((COULOMB_FACTOR * t.qp)[:, None] * t.q_row[None, :]).repeat(2, 1)
-    new_row = (torch.arange(2 * P, device=coords.device) >= P)[:, None]
-    sign = torch.cat([-torch.ones(P), torch.ones(P)]).to(coords)  # (2P,)
+    eps4_p, sig2_p = 4.0 * t.eps[:, tid], t.sig2[:, tid]          # (P, A)
+    lam1_p, lam2_p = t.lam1[:, tid], t.lam2[:, tid]
+    qq_p = (COULOMB_FACTOR * t.qp)[:, None] * t.q_row[None, :]
     valid = t.molid_row >= 0
     bx, by, bz = t.body[:, 0], t.body[:, 1], t.body[:, 2]
     stats = torch.zeros((C, N_STATS + int(magnitude)), dtype=torch.float32,
-                        device=coords.device)
+                        device=dev)
+
+    def pair_terms(pos, weight, veto, eps4, sig2, lam1, lam2, qq):
+        """Site sums of pos (C, 3, R) against every atom lane: the pair
+        energies times weight (C, 1 | R, A) summed over lanes, and their
+        magnitudes; veto (C, R, 1) bool marks rows that carry the +1e30
+        overlap penalty; the (R, A) tables are the rows' parameters."""
+        d2 = None
+        for d in range(3):
+            dd = coords[:, d, None, :] - pos[:, d, :, None]      # (C, R, A)
+            dd = dd - box_c[:, :, None] * torch.round(
+                dd * inv_box[:, :, None])
+            d2 = dd * dd if d2 is None else d2 + dd * dd
+        d2 = torch.clamp_min(d2, 1e-4)
+        mask_lj = d2 < t.rc2
+        mask_qq = d2 < t.qrc2 if t.qrc2 != t.rc2 else mask_lj
+        inv_r = torch.rsqrt(d2)
+        inv_d2 = inv_r * inv_r
+        s2 = sig2 * inv_d2
+        s6 = s2 * s2 * s2
+        pot = eps4 * (s6 * s6 - s6)
+        lj_mag = eps4.abs() * (s6 * s6 + s6) if magnitude else None
+        if t.lj_shift == "linear":
+            shift = lam1 + lam2 * torch.sqrt(d2)
+            pot = pot + shift
+            if magnitude:
+                lj_mag = lj_mag + shift.abs()
+        contrib = torch.where(mask_lj, pot, 0.0)
+        mag = torch.where(mask_lj, lj_mag, 0.0) if magnitude else None
+        if use_q:
+            r = d2 * inv_r
+            kr = kappa[:, :, None] * r
+            if t.coulomb in ("ewald", "wolf_ref"):
+                cp = qq * (torch.special.erfc(kr) * inv_r)
+            elif t.coulomb == "wolf":
+                cp = qq * (torch.special.erfc(kr) * inv_r - sh_w[:, :, None])
+            else:
+                cp = qq * inv_r
+            cp = torch.where(veto & (d2 < t.d2_overlap) & (qq < 0.0), 1e30,
+                             cp)
+            contrib = contrib + torch.where(mask_qq, cp, 0.0)
+            if magnitude:
+                mag = mag + torch.where(mask_qq, cp.abs(), 0.0)
+        e = (contrib * weight).sum(-1)                            # (C, R)
+        return e, ((mag * weight).sum((1, 2)) if magnitude else None)
+
+    def site_sfac(pos, qs):
+        """sum_r qs_r exp(i k~ . pos_r): pos (C, 3, R), qs (R,) ->
+        ((C, K), (C, K))."""
+        tpl = (_TWO_PI * inv_box)[:, :, None]                    # (C, 1, 1)
+        ph = tpl * (t.kvec[:, 0] * pos[:, 0, :, None]
+                    + t.kvec[:, 1] * pos[:, 1, :, None]
+                    + t.kvec[:, 2] * pos[:, 2, :, None])         # (C, R, K)
+        ph = ph - _TWO_PI * torch.round(ph * _INV_TWO_PI)
+        qs = qs[None, :, None]
+        return (qs * torch.cos(ph)).sum(1), (qs * torch.sin(ph)).sum(1)
+
+    def recip_delta(ds_re, ds_im, sgn):
+        """(dU_recip (C,), its magnitude) of S -> S + sgn dS."""
+        cross = 2.0 * sgn * (sre * ds_re + sim * ds_im) \
+            + ds_re * ds_re + ds_im * ds_im
+        return COULOMB_FACTOR * (cfac * cross).sum(-1), \
+            COULOMB_FACTOR * (cfac * cross.abs()).sum(-1)
+
+    rep2 = [x.repeat(2, 1) for x in (eps4_p, sig2_p, lam1_p, lam2_p, qq_p)]
+    new_row = (torch.arange(2 * P, device=dev) >= P)[None, :, None]
+    sign = torch.cat([-torch.ones(P), torch.ones(P)]).to(coords)  # (2P,)
 
     for m in range(t.M):
         mg = t.m_start + m                                        # global
@@ -311,64 +510,28 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
             new = ncom[:, :, None].clone()
         pos = torch.cat([old, new], dim=2)                       # (C, 3, 2P)
 
-        d2 = None
-        for d in range(3):
-            dd = coords[:, d, None, :] - pos[:, d, :, None]      # (C, 2P, A)
-            dd = dd - box_c[:, :, None] * torch.round(
-                dd * inv_box[:, :, None])
-            d2 = dd * dd if d2 is None else d2 + dd * dd
-        d2 = torch.clamp_min(d2, 1e-4)
-        other = valid & (t.molid_row != mg)
-        mask_lj = other & (d2 < t.rc2)
-        mask_qq = other & (d2 < t.qrc2) if t.qrc2 != t.rc2 else mask_lj
-        inv_r = torch.rsqrt(d2)
-        inv_d2 = inv_r * inv_r
-        s2 = sig2 * inv_d2
-        s6 = s2 * s2 * s2
-        pot = eps4 * (s6 * s6 - s6)
-        if magnitude:
-            lj_mag = eps4.abs() * (s6 * s6 + s6)
-        if t.lj_shift == "linear":
-            shift = lam1 + lam2 * torch.sqrt(d2)
-            pot = pot + shift
-            if magnitude:
-                lj_mag = lj_mag + shift.abs()
-        contrib = torch.where(mask_lj, pot, 0.0)
-        if magnitude:
-            mag = torch.where(mask_lj, lj_mag, 0.0).sum((1, 2))
-        if use_q:
-            r = d2 * inv_r
-            kr = kappa[:, :, None] * r
-            if t.coulomb in ("ewald", "wolf_ref"):
-                cp = qq * (torch.special.erfc(kr) * inv_r)
-            elif t.coulomb == "wolf":
-                cp = qq * (torch.special.erfc(kr) * inv_r - sh_w[:, :, None])
-            else:
-                cp = qq * inv_r
-            veto = new_row & (d2 < t.d2_overlap) & (qq < 0.0)
-            cp = torch.where(veto, 1e30, cp)
-            contrib = contrib + torch.where(mask_qq, cp, 0.0)
-            if magnitude:
-                mag = mag + torch.where(mask_qq, cp.abs(), 0.0).sum((1, 2))
-        d_e = (contrib.sum(-1) * sign).sum(-1)                   # (C,)
+        other = (valid & (t.molid_row != mg)).to(coords.dtype)[None, None, :]
+        if use_act:
+            other = other * act[:, None, :]
+        e_rows, mag = pair_terms(pos, other, new_row, *rep2)
+        d_e = (e_rows * sign).sum(-1)                            # (C,)
 
         if ewald:
-            tpl = (_TWO_PI * inv_box)[:, :, None]                # (C, 1, 1)
-            ph = tpl * (t.kvec[:, 0] * pos[:, 0, :, None]
-                        + t.kvec[:, 1] * pos[:, 1, :, None]
-                        + t.kvec[:, 2] * pos[:, 2, :, None])     # (C, 2P, K)
-            ph = ph - _TWO_PI * torch.round(ph * _INV_TWO_PI)
-            qs = (sign * t.qp.repeat(2))[None, :, None]
-            ds_re = (qs * torch.cos(ph)).sum(1)                  # (C, K)
-            ds_im = (qs * torch.sin(ph)).sum(1)
-            cross = 2.0 * (sre * ds_re + sim * ds_im) \
-                + ds_re * ds_re + ds_im * ds_im
-            d_e = d_e + COULOMB_FACTOR * (cfac * cross).sum(-1)
+            ds_re, ds_im = site_sfac(pos, sign * t.qp.repeat(2))
+            dr_e, dr_mag = recip_delta(ds_re, ds_im, 1.0)
+            d_e = d_e + dr_e
             if magnitude:
-                mag = mag + COULOMB_FACTOR * (cfac * cross.abs()).sum(-1)
+                mag = mag + dr_mag
 
         beta_de = d_e / temp_c[:, 0]
         accept = (beta_de < 0.0) | (um[:, 4] < torch.exp(-beta_de))
+        ts = tsel[:, 0]
+        if use_act:
+            gate = act[:, a0]        # an inactive slot: a null move
+            accept = accept & (gate > 0.0)
+            att_t, att_r = gate * ts, gate * (1.0 - ts)
+        else:
+            att_t, att_r = ts, 1.0 - ts
         acc = accept[:, None]
         com[:, mg] = torch.where(acc, ncom, com[:, mg])
         if t.use_rot:
@@ -378,11 +541,113 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
         if ewald:
             sre = torch.where(acc, sre + ds_re, sre)
             sim = torch.where(acc, sim + ds_im, sim)
-        ts = tsel[:, 0]
         af = accept.to(coords.dtype)
-        cols = [torch.where(accept, d_e, 0.0), af * ts, af * (1.0 - ts), ts,
-                1.0 - ts, af * float(mg + 1)]
+        zero = torch.zeros_like(af)
+        cols = [torch.where(accept, d_e, 0.0), af * ts, af * (1.0 - ts),
+                att_t, att_r, zero, zero, zero, af * float(mg + 1)]
         if magnitude:
             cols.append(torch.where(accept, mag, 0.0))
         stats += torch.stack(cols, dim=1)
-    return coords, com, quat, torch.stack([sre, sim], dim=-1), stats
+
+    if not use_act:
+        return coords, com, quat, torch.stack([sre, sim], dim=-1), stats
+
+    wid = torch.zeros((C, 2), dtype=torch.float32, device=dev)
+    if n_exch or n_widom:
+        beta = 1.0 / temp
+        ar = torch.arange(C, device=dev)
+        iota = torch.arange(t.M, device=dev)[None, :]
+        prange = torch.arange(P, device=dev)[None, :]
+        m0, m1 = t.m_start, t.m_start + t.M
+        tabs = (eps4_p, sig2_p, lam1_p, lam2_p, qq_p)
+
+        def pose_energy(pos, excl, veto, sgn):
+            """(sgn * pair + reciprocal delta (C,), magnitude, dS) of the
+            pose pos (C, 3, P) against the active atoms of molecules other
+            than excl (C,)."""
+            weight = torch.where(
+                valid[None, :] & (t.molid_row[None, :] != excl[:, None]),
+                act, 0.0)[:, None, :]
+            e_rows, mag = pair_terms(pos, weight, veto[:, None, None], *tabs)
+            part = sgn * e_rows.sum(-1)
+            ds = None
+            if ewald:
+                ds = site_sfac(pos, t.qp)
+                dr_e, dr_mag = recip_delta(ds[0], ds[1], sgn[:, None]
+                                           if torch.is_tensor(sgn) else sgn)
+                part = part + dr_e
+                if magnitude:
+                    mag = mag + dr_mag
+            return part, mag, ds
+
+    if n_exch:
+        lnzv = torch.log(z * box * box * box)
+    for xi in range(n_exch):
+        ux_i = ux[:, xi]
+        is_ins = ux_i[:, 0] < 0.5
+        insf = is_ins.to(coords.dtype)
+        sgn = 2.0 * insf - 1.0
+        on = actm[:, m0:m1] > 0.5
+        n = on.sum(1).to(coords.dtype)
+        if scores is None:
+            sc = philox_scores(seed, C, xi, m0, t.M, dev)
+        else:
+            sc = scores[:, xi, m0:m1]
+        # deletion: the largest score on the active set, the lower index
+        # on a tie; insertion: the first free slot
+        score = torch.where(on, sc, -torch.ones_like(sc))
+        smax = score.max(dim=1, keepdim=True).values
+        del_i = torch.where(score == smax, iota, t.M).min(dim=1).values
+        ins_i = torch.where(~on, iota, t.M).min(dim=1).values
+        idx = torch.where(is_ins, ins_i, del_i)
+        idx = torch.where(idx >= t.M, 0, idx)    # no candidate: refused
+        slot = m0 + idx
+        cols = (t.a_start + idx * P)[:, None] + prange            # (C, P)
+        gidx = cols[:, None, :].expand(C, 3, P)
+        cur = coords.gather(2, gidx)                              # (C, 3, P)
+        ct, q_ins, ins_atoms = trial_pose(ux_i, box, t.body)
+        sel = torch.where(is_ins[:, None, None], ins_atoms, cur)
+        # excl = slot serves both branches: the insertion slot is inactive
+        du, mag, ds = pose_energy(sel, slot, is_ins, sgn)
+        const = si * sgn + wc * (2.0 * n * sgn + 1.0)
+        du = du + const
+        ln_acc = torch.where(is_ins, lnzv - torch.log(n + 1.0),
+                             torch.log(torch.clamp_min(n, 1.0)) - lnzv) \
+            - beta * du
+        can = torch.where(is_ins, n < t.M - 0.5, n > 0.5)
+        ln_u = torch.log(torch.clamp_min(ux_i[:, 7], 1e-30))
+        ok = can & (ln_u < ln_acc)
+        wr = ok & is_ins
+        actm[ar, slot] = torch.where(ok, insf, actm[ar, slot])
+        act.scatter_(1, cols, torch.where(ok[:, None], insf[:, None],
+                                          act.gather(1, cols)))
+        coords.scatter_(2, gidx, torch.where(wr[:, None, None], ins_atoms,
+                                             cur))
+        com[ar, slot] = torch.where(wr[:, None], ct, com[ar, slot])
+        if P > 1:
+            quat[ar, slot] = torch.where(wr[:, None], q_ins, quat[ar, slot])
+        if ewald:
+            okf = (ok.to(coords.dtype) * sgn)[:, None]
+            sre = sre + okf * ds[0]
+            sim = sim + okf * ds[1]
+        okf = ok.to(coords.dtype)
+        zero = torch.zeros_like(okf)
+        fp = okf * (slot + 1 + (~is_ins) * M_total).to(coords.dtype)
+        cols_s = [torch.where(ok, du, 0.0), zero, zero, zero, zero,
+                  okf * insf, okf * (1.0 - insf), insf, fp]
+        if magnitude:
+            cols_s.append(torch.where(ok, mag + const.abs(), 0.0))
+        stats += torch.stack(cols_s, dim=1)
+
+    for wi in range(n_widom):
+        _, _, ins_atoms = trial_pose(ux[:, n_exch + wi], box, t.body)
+        n = (actm[:, m0:m1] > 0.5).sum(1).to(coords.dtype)
+        none = torch.full((C,), -2, dtype=torch.long, device=dev)
+        veto = torch.ones((C,), dtype=torch.bool, device=dev)
+        du, _, _ = pose_energy(ins_atoms, none, veto, 1.0)
+        du = du + (si + wc * (2.0 * n + 1.0))
+        # a vetoed ghost carries +1e30: w = 0
+        w = torch.exp(-beta * du)
+        wid += torch.stack([w, w * w], dim=1)
+    return (coords, com, quat, torch.stack([sre, sim], dim=-1), stats, act,
+            actm, wid)

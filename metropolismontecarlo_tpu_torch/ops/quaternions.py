@@ -68,6 +68,20 @@ def random_quaternion(generator, shape=(), dtype=torch.float32):
          b * torch.cos(t3)], dim=-1)
 
 
+def random_rotate_quaternion(generator, q, dphi_max):
+    """q (..., 4) turned by a uniform random angle in [-dphi_max, dphi_max]
+    about a uniform random axis (a symmetric proposal), renormalised."""
+    shape = tuple(q.shape[:-1])
+    axis = normalize(torch.randn(shape + (3,), generator=generator,
+                                 dtype=q.dtype, device=generator.device))
+    u = torch.rand(shape, generator=generator, dtype=q.dtype,
+                   device=generator.device)
+    half = 0.5 * (2.0 * u - 1.0) * dphi_max
+    rot = torch.cat([torch.cos(half)[..., None],
+                     torch.sin(half)[..., None] * axis], dim=-1)
+    return normalize(quat_mul(rot, q))
+
+
 def rot_to_quat(r):
     """Rotation matrix (3, 3) -> unit quaternion (w, x, y, z), numpy
     (Shepperd's method)."""

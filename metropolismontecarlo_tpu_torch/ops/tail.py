@@ -1,11 +1,31 @@
 """LJ long-range tail corrections (counterpart of
-metropolismontecarlo_tpu/ops/tail.py, fixed-N part):
+metropolismontecarlo_tpu/ops/tail.py, energy and pressure terms and the
+species-level coefficient of the fluctuating-N ensembles):
 
   U_lrc = (8 pi / 3V) sum_ab N_a N_b eps sig^3 [(sig/rc)^9/3 - (sig/rc)^3]
   P_lrc = (16 pi / 3V^2) sum_ab N_a N_b eps sig^3 [2(sig/rc)^9/3 - (sig/rc)^3]
 """
 
 import math
+
+import numpy as np
+
+LRC_PREFACTOR = 8.0 * math.pi / 3.0
+
+
+def mol_tail_coeff(tvec_a, tvec_b, eps_table, sig_table, r_cut):
+    """Species-level tail coefficient c_ab = t_a^T C t_b (numpy, static),
+    C_ij = eps_ij sig_ij^3 [(sig_ij/rc)^9 / 3 - (sig_ij/rc)^3], for
+    per-molecule atom-type counts t_a, t_b (T,).  With N_s molecules of
+    species s, U_lrc = (8 pi / 3V) sum_ss' N_s N_s' c_ss': quadratic in
+    the molecule counts, so every exchange delta is affine in N and rides
+    the exchange constants (si, wc) of the sweep kernel."""
+    eps = np.asarray(eps_table, np.float64)
+    sig = np.asarray(sig_table, np.float64)
+    sc3 = (sig / float(r_cut)) ** 3
+    c = eps * sig**3 * (sc3**3 / 3.0 - sc3)
+    return float(np.asarray(tvec_a, np.float64) @ c
+                 @ np.asarray(tvec_b, np.float64))
 
 
 def _species_sum(counts, eps_table, sig_table, r_cut):

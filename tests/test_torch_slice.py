@@ -124,9 +124,14 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError):
         MonteCarlo(system, RunParams(), device="cpu", tp_mesh=object())
     mc = MonteCarlo(system, RunParams(coulomb="wolf"), device="cpu")
-    for name in ("pressure_fd", "widom", "widom_mega"):
-        with pytest.raises(NotImplementedError):
-            getattr(mc, name)(None)
+    with pytest.raises(NotImplementedError):
+        mc.pressure_fd(None)
+    # Widom sampling is ported: both entry points run on this 8-water
+    # system (tests/test_torch_widom.py holds them against JAX)
+    state = mc.init_state(cubic_lattice(8, 24.0), box=24.0, n_chains=2)
+    assert mc.widom(state, 4)["boltzmann_mean"].shape == (2,)
+    state2, out = mc.widom_mega(state, 4)
+    assert out["boltzmann_mean"].shape == (2,) and int(state2.step) == 12
     # a 750-water box where the JAX package's forced slab mode applies
     big = spce_system(750)
     mc = MonteCarlo(big, RunParams(slab_mode="force", dr_max=0.3),
