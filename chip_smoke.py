@@ -40,7 +40,13 @@ activity mask alone with about half the slots inactive; exchange attempts
 for SPC/E/Ewald (with ghosts), the linear-shift triatomic, one-site LJ
 with the tail correction (wc != 0), SPC/E with both Wolf styles, a full
 and an empty chain among each; the two-block CO2/N2 case with (3, 2)
-attempts; ghosts alone for SPC/E/Ewald and LJ.
+attempts; ghosts alone for SPC/E/Ewald and LJ.  And the tmmc deposits
+(`phase2_tmmc`): SPC/E/Ewald, one-site LJ with the tail and SPC/E/Wolf,
+each with the bias 0.35 N, against sweep_plain (cmat within 1e-4 of a
+row's deposit count plus 1e-5 of its energy scale, beta pa x the
+attempts' term magnitudes; equal counts; sum E and sum E^2 within 1e-5
+of their scales), then with eta = 0 against the n_exch instantiation:
+every decision, coordinate and S(k) equal.
 Phase 6  the muVT main path: capacity-512 SPC/E, Ewald, 25 A, T = 500 K,
          z = 2.2e-4, p_exchange 0.3, 256 molecules at the start, 2048
          chains through MolGCMC(mega="full").run_block: one launch per
@@ -54,6 +60,26 @@ Phase 7  a closed form through the kernel: the ideal rigid rotor (eps = q =
 Phase 8  Widom: 256 SPC/E at phase 6's density and temperature, NVT;
          widom_mega(64) (a sweep and 64 ghosts per launch) against widom()
          on the same states; drift gate and attempt count after it.
+Phase 9  the TMMC main path: capacity-512 SPC/E at phase 6's state point,
+         2048 walkers stratified over N = 1..448, a fixed-N melt
+         (MolGCMC p_exchange 0, mega=True, 2 x 1 sweep), then
+         TMMCMol(mega="full") 3 x 2 cycles with the bias refreshed per
+         block (one launch per cycle of 512 moves + 219 two-branch
+         attempts): S(k), drift and acceptance gates, cmat rows filled on
+         90% of N = 1..448; the hybrid route with eta = 0 against
+         MolGCMC(mega=True) from one state and seed (256 chains, one
+         cycle, every field equal); one cycle against sweep_plain; the
+         cycle timed beside an n_exch launch on the same state.
+Phase 10 closed forms and coexistence on the tmmc kernel: the ideal gas
+         (TMMC, cap 48, box 5, z 0.08) and the ideal rigid rotor (TMMCMol,
+         cap 64, box 8, z 0.039), ln Pi = N ln(zV) - ln N! within 1e-3;
+         SPC/E vapour-liquid coexistence at 500 K by
+         docs/validation/run_tmmc_water.py's protocol and gates (cap 80,
+         box 13 A, 128 walkers, 10 melt + 60 TMMC blocks of 2500 steps);
+         cut LJ at T = 1.0 by the TMMC side of
+         docs/validation/run_tmmc_coexistence.py (cap 192, box 6, 256
+         walkers, 48 x 5000 steps) against the recorded Gibbs densities;
+         one GCMC(mega="full") block of that LJ with its drift gate.
 
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
@@ -63,7 +89,9 @@ chain diverge, so divergent chains are counted, not compared.  On the
 other chains coordinates and COMs agree within 1e-3 A, the summed energy
 delta within 1e-5 of the sweep's energy scale (sweep_plain's magnitude
 column: the summed magnitudes of the terms the accepted moves' deltas
-add up, which f32 rounds), and S(k) within 1e-4 of its norm.
+add up, which f32 rounds), and S(k) within 1e-4 of its norm (floored
+at 1 e, a molecule's charge scale: a muVT chain that emptied holds only
+the rounding residue of its exchanges' S(k) rows).
 Delta-energy kernel vs plain: the move's energy change (new rows - old
 rows) within 1e-5 of the move's energy scale (the rows' |LJ| sums plus
 their Coulomb term magnitudes), each row's e_coul within 1e-5 of its
@@ -98,6 +126,7 @@ POS_TOL = 1e-3
 ENERGY_REL_TOL = 1e-5      # of the energy scale of a move or a sweep
 SFAC_REL_TOL = 1e-4
 SFAC_ABS_TOL = 1e-4        # carried S(k) against its recompute, muVT blocks
+SFAC_NORM_FLOOR = 1.0      # e; the least S(k) norm SFAC_REL_TOL scales by
 DRIFT_TOL = 2e-3
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -117,6 +146,9 @@ OPS_K_SITE, OPS_K_MOVE = 20, 8
 # products (high and low words), three xors and two key additions
 OPS_PHILOX = 90
 WIDOM_REL_TOL = 1e-3
+DEPOSIT_TOL = 1e-4         # cmat, of the row's deposit count (+ its
+#   energy scale's ENERGY_REL_TOL: the f32 error of a deposit exp(ln_acc)
+#   is beta pa x the error of du, which the terms' magnitudes set)
 
 SRC = "metropolismontecarlo_tpu_torch/csrc"
 PALLAS = "metropolismontecarlo_tpu/ops/pallas"
@@ -151,11 +183,20 @@ def phase1():
     names = ("sweep_kernel", "delta_energy")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
+    # the sweep kernel's template instantiations <kAct, kTmmc> by mangled
+    # name
+    labels = {"ILb0ELb0E": "<false, false> fixed N",
+              "ILb1ELb0E": "<true, false> activity",
+              "ILb1ELb1E": "<true, true> tmmc"}
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s")
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = next((v for k, v in labels.items() if k in line),
+                             line.split("'")[1] if "'" in line else "")
             if "registers" in line or "spill" in line or "smem" in line:
-                print(f"phase1 ptxas {name}: {line.strip()}")
+                print(f"phase1 ptxas {name} {entry}: {line.strip()}")
     sweep_kernel._library()
     delta_energy._library()
 
@@ -180,8 +221,10 @@ def _check_match(tag, C, same, k, p, e_scale):
               float((k[1] - p[1])[same].abs().max()))
     e_rel = float(((k[3][:, 0] - p[3][:, 0]).abs()
                    / e_scale.clamp_min(1.0))[same].max())
+    # floored at 1 e, a molecule's charge scale: a chain that emptied
+    # carries only the rounding residue of its exchanges' rows
     s_norm = torch.clamp_min(torch.linalg.vector_norm(
-        p[2].flatten(1), dim=1), 1e-30)
+        p[2].flatten(1), dim=1), SFAC_NORM_FLOOR)
     s_rel = float(((k[2] - p[2]).flatten(1).abs().max(dim=1).values
                    / s_norm)[same].max())
     finite = all(bool(torch.isfinite(x).all()) for x in k)
@@ -234,35 +277,42 @@ def _exchange_consts(system, params, kvecs, kweights, box):
 
 
 def run_variant(op_fn, args, tables, act, actm, n_exchs, n_widoms, uxs, z,
-                consts, seed):
+                consts, seed, tmmc=None):
     """One launch per species block of the sweep op `op_fn` with the
     activity planes and each block's attempts, threading the state; returns
-    (coords, com, quat, sfac, stats summed, act, actm, wid (C, blocks, 2))."""
+    (coords, com, quat, sfac, stats summed, act, actm, wid (C, blocks, 2));
+    with tmmc = (eta, e_in) (one block) the attempts deposit, and the op's
+    (cmat, uhist[, umag]) follow."""
     args = list(args)
-    stats, wids = None, []
+    stats, wids, deposits = None, [], ()
     for b, t in enumerate(tables):
         extra = {}
         if n_exchs[b] or n_widoms[b]:
             extra = dict(n_exch=n_exchs[b], n_widom=n_widoms[b], ux=uxs[b],
                          z=z, si=consts[b][0], wc=consts[b][1], seed=seed + b)
+            if tmmc is not None:
+                extra.update(tmmc=True, eta=tmmc[0], e_in=tmmc[1])
         out = op_fn(*args, t, act=act, actm=actm, **extra)
-        args[:4], (st, act, actm, wid) = out[:4], out[4:]
+        args[:4], (st, act, actm, wid) = out[:4], out[4:8]
+        deposits = out[8:]
         stats = st if stats is None else stats + st
         wids.append(wid)
-    return tuple(args[:4]) + (stats, act, actm, torch.stack(wids, 1))
+    return tuple(args[:4]) + (stats, act, actm,
+                              torch.stack(wids, 1)) + deposits
 
 
 def compare_variant(tag, system, args, tables, act, actm, n_exchs, n_widoms,
-                    uxs, z, consts, seed):
+                    uxs, z, consts, seed, tmmc=None):
     """The kernel against sweep_plain on the same arguments with activity
-    planes, exchange attempts and ghosts; returns the largest coordinate
-    difference on matched chains."""
+    planes, exchange attempts and ghosts (and with tmmc = (eta, e_in) the
+    deposits); returns the largest coordinate difference on matched
+    chains."""
     from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
 
     rest = (tables, act, actm, n_exchs, n_widoms, uxs, z, consts, seed)
-    k = run_variant(op.sweep, args, *rest)
+    k = run_variant(op.sweep, args, *rest, tmmc=tmmc)
     p = run_variant(functools.partial(op.sweep_plain, magnitude=True), args,
-                    *rest)
+                    *rest, tmmc=tmmc)
     torch.cuda.synchronize()
     C = act.shape[0]
     same = (k[4][:, 1:] == p[4][:, 1:op.N_STATS]).all(dim=1)
@@ -284,37 +334,47 @@ def compare_variant(tag, system, args, tables, act, actm, n_exchs, n_widoms,
     if not (q_err <= POS_TOL and planes_equal and w_rel <= WIDOM_REL_TOL
             and bool(torch.isfinite(k[7]).all())):
         raise AssertionError(f"{tag}: the two disagree")
+    if tmmc is not None:
+        check_deposits(tag, same, k[8:10], p[8:11])
     return pos
 
 
-def phase2_variants(dev):
-    """The activity, exchange and Widom arguments of the sweep kernel
-    against sweep_plain, 64 chains each."""
-    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
-    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
-    from metropolismontecarlo_tpu_torch.mc.moves import (
-        activity_planes,
-        draw_exchange_uniforms,
-        draw_uniforms,
-    )
-    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+def check_deposits(tag, same, k, p):
+    """The kernel's (cmat, uhist) against the plain version's (cmat,
+    uhist, umag) on the matched chains: equal deposit counts, cmat within
+    DEPOSIT_TOL of each row's count plus ENERGY_REL_TOL of its energy
+    scale (umag: how far a relative error of the attempts' energy terms
+    moves the deposits, beta pa x the terms' magnitudes), sum E and sum
+    E^2 within ENERGY_REL_TOL of their scales."""
+    (cm_k, uh_k), (cm_p, uh_p, umag) = k, p
+    count = uh_p[..., 0]
+    counts_equal = torch.equal(uh_k[..., 0][same], count[same])
+    cm_tol = DEPOSIT_TOL * count + ENERGY_REL_TOL * umag[..., 2]
+    cm_diff = (cm_k - cm_p).abs().amax(-1)
+    cm_rel = float((cm_diff / cm_tol.clamp_min(1e-30))[same].max())
+    cm_err = float((cm_diff / count.clamp_min(1.0))[same].max())
+    e_err = [float(((uh_k[..., i] - uh_p[..., i]).abs()
+                    / umag[..., i - 1].clamp_min(1e-30))[same].max())
+             for i in (1, 2)]
+    print(f"phase {tag}: deposits {float(count.sum()):.0f}, counts equal "
+          f"{counts_equal}, cmat err {cm_err:.3e} of the row's count "
+          f"({cm_rel:.3f} of its tolerance), sum E err {e_err[0]:.3e}, sum "
+          f"E^2 err {e_err[1]:.3e} of their scales; up "
+          f"{float(cm_k[..., 1].sum()):.3f}, down "
+          f"{float(cm_k[..., 2].sum()):.3f}")
+    if not (counts_equal and cm_rel <= 1.0
+            and max(e_err) <= ENERGY_REL_TOL
+            and all(bool(torch.isfinite(x).all()) for x in k)):
+        raise AssertionError(f"{tag}: the deposits disagree")
+
+
+def _variant_params():
+    """(box_w, box_lj, water(**kw), lj): phase 2's muVT boxes and params:
+    SPC/E at phase 6's slot density, LJ-256 at rho 0.4 with the tail."""
     from metropolismontecarlo_tpu_torch.models.monatomic import (
         lj_box_for_density,
-        lj_system,
-    )
-    from metropolismontecarlo_tpu_torch.models.polyatomic import (
-        mossa_params,
-        triatomic_system,
     )
     from metropolismontecarlo_tpu_torch.models.system import RunParams
-    from metropolismontecarlo_tpu_torch.models.water import spce_system
-    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
-
-    C = 64
-    box_w = 25.0 * (64 / 512) ** (1 / 3)        # phase 6's slot density
-    box_lj = lj_box_for_density(256, 0.4)
-    box_tri = (256 / 0.15) ** (1 / 3)
-    box_mix = 37.0 * (64 / 750) ** (1 / 3)
 
     def water(**kw):
         return RunParams(**dict(dict(
@@ -324,6 +384,67 @@ def phase2_variants(dev):
     lj = RunParams(temperature=1.2, r_cut=2.5, coulomb="none",
                    p_translate=1.0, dr_max=0.3, use_lrc=True,
                    slab_mode="off")
+    return (25.0 * (64 / 512) ** (1 / 3), lj_box_for_density(256, 0.4),
+            water, lj)
+
+
+def _variant_inputs(dev, seed, tag, system, box, params, n_exchs, n_widoms,
+                    C=64):
+    """A lattice state of `system` with about half the slots active (each
+    chain its own mask; chain 0 full, chain 1 empty), its S(k), shared
+    uniforms, the exchange constants and an activity near (N / V)
+    exp(si / T), which accepts insertions and deletions alike.  Returns
+    (mc, state, args, act, actm, uxs, z, consts)."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+    )
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mc = MonteCarlo(system, params, device=dev, generator=gen,
+                    kernel="sweep")
+    M = system.n_mol
+    quat = diagonal_quats(M) if "co2" in tag else None
+    state = mc.init_state(cubic_lattice(M, box), quat=quat, box=box,
+                          n_chains=C)
+    active = torch.rand((C, M), generator=gen, device=dev) < 0.5
+    active[0], active[1] = True, False
+    act, actm = activity_planes(system, active)
+    sfac = state.sfac
+    if params.coulomb == "ewald":
+        kv = torch.tensor(mc.kvecs, dtype=torch.int32, device=dev)
+        q = mc.tables[0].q_row[None, :] * act
+        sfac = ewald_ops.structure_factor(
+            state.coords.transpose(1, 2), q, kv, state.box)
+    u = draw_uniforms(C, M, gen, dev)
+    uxs = [draw_exchange_uniforms(C, ne + nw, gen, dev)
+           for ne, nw in zip(n_exchs, n_widoms)]
+    args = _sweep_args(dataclasses.replace(state, sfac=sfac), u)
+    consts = _exchange_consts(system, params, mc.kvecs, mc.kweights,
+                              state.box)
+    z = 0.5 * M / len(mc.tables) / box ** 3 \
+        * torch.exp(consts[0][0] / params.temperature)
+    return mc, state, args, act, actm, uxs, z.contiguous(), consts
+
+
+def phase2_variants(dev):
+    """The activity, exchange and Widom arguments of the sweep kernel
+    against sweep_plain, 64 chains each."""
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
+    from metropolismontecarlo_tpu_torch.models.polyatomic import (
+        mossa_params,
+        triatomic_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+
+    box_w, box_lj, water, lj = _variant_params()
+    box_tri = (256 / 0.15) ** (1 / 3)
+    box_mix = 37.0 * (64 / 750) ** (1 / 3)
     tri = dataclasses.replace(mossa_params(), temperature=1.5)
     # (tag, system, box, params, n_exch, n_widom per block)
     cases = [
@@ -347,38 +468,72 @@ def phase2_variants(dev):
     ]
     err = 0.0
     for i, (tag, system, box, params, n_exchs, n_widoms) in enumerate(cases):
-        gen = torch.Generator(device=dev).manual_seed(300 + i)
-        mc = MonteCarlo(system, params, device=dev, generator=gen,
-                        kernel="sweep")
-        M = system.n_mol
-        quat = diagonal_quats(M) if "co2" in tag else None
-        state = mc.init_state(cubic_lattice(M, box), quat=quat, box=box,
-                              n_chains=C)
-        # about half the slots active, each chain its own mask; chain 0
-        # full and chain 1 empty
-        active = torch.rand((C, M), generator=gen, device=dev) < 0.5
-        active[0], active[1] = True, False
-        act, actm = activity_planes(system, active)
-        sfac = state.sfac
-        if params.coulomb == "ewald":
-            kv = torch.tensor(mc.kvecs, dtype=torch.int32, device=dev)
-            q = mc.tables[0].q_row[None, :] * act
-            sfac = ewald_ops.structure_factor(
-                state.coords.transpose(1, 2), q, kv, state.box)
-        u = draw_uniforms(C, M, gen, dev)
-        uxs = [draw_exchange_uniforms(C, ne + nw, gen, dev)
-               for ne, nw in zip(n_exchs, n_widoms)]
-        args = _sweep_args(dataclasses.replace(state, sfac=sfac), u)
-        consts = _exchange_consts(system, params, mc.kvecs, mc.kweights,
-                                  state.box)
-        # an activity near (N / V) exp(si / T) accepts insertions and
-        # deletions alike
-        z = 0.5 * M / len(mc.tables) / box ** 3 \
-            * torch.exp(consts[0][0] / params.temperature)
+        mc, _, args, act, actm, uxs, z, consts = _variant_inputs(
+            dev, 300 + i, tag, system, box, params, n_exchs, n_widoms)
         err = max(err, compare_variant(
             f"2 {tag}", system, args, mc.tables, act, actm, n_exchs,
-            n_widoms, uxs, z.contiguous(), consts, 1000 + i))
+            n_widoms, uxs, z, consts, 1000 + i))
     return err
+
+
+def tmmc_identity(tag, args, tables, act, actm, n_exch, ux, z, consts,
+                  seed, e_in):
+    """The tmmc instantiation with eta = 0 against the n_exch
+    instantiation on the same arguments: the same decisions on every
+    chain, coordinates, COMs and S(k) equal.  Returns the largest
+    difference of the summed energy deltas (K)."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    eta0 = torch.zeros(tables[0].M + 1, device=e_in.device)
+    rest = (tables, act, actm, (n_exch,), (0,), [ux], z, consts, seed)
+    a = run_variant(op.sweep, args, *rest)
+    b = run_variant(op.sweep, args, *rest, tmmc=(eta0, e_in))
+    torch.cuda.synchronize()
+    n_diff = int((~(a[4][:, 1:] == b[4][:, 1:]).all(dim=1)).sum())
+    diffs = [float((x - y).abs().max()) for x, y in zip(a[:4], b[:4])]
+    d_e = float((a[4][:, 0] - b[4][:, 0]).abs().max())
+    equal = all(torch.equal(x, y) for x, y in zip(a[:8], b[:8]))
+    print(f"phase {tag}: eta = 0 tmmc vs n_exch instantiation: "
+          f"{n_diff}/{act.shape[0]} chains differing, largest difference "
+          f"coords {diffs[0]:.3e}, com {diffs[1]:.3e}, quat {diffs[2]:.3e}, "
+          f"S(k) {diffs[3]:.3e}, energy {d_e:.3e} K; every output equal "
+          f"{equal}")
+    if n_diff or max(diffs) != 0.0 or not all(
+            torch.equal(x, y) for x, y in zip(a[5:7], b[5:7])):
+        raise AssertionError(f"{tag}: eta = 0 changed the trajectory")
+    return d_e
+
+
+def phase2_tmmc(dev):
+    """The tmmc instantiation against sweep_plain (64 chains, shared
+    uniforms and Philox scores, a non-zero bias 0.35 N), and with eta = 0
+    against the n_exch instantiation.  Returns (largest coordinate
+    difference, largest eta = 0 energy difference)."""
+    from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+
+    box_w, box_lj, water, lj = _variant_params()
+    cases = [
+        ("tmmc spce64 ewald", spce_system(64), box_w, water()),
+        ("tmmc lj256 lrc", lj_system(256), box_lj, lj),
+        ("tmmc spce64 wolf", spce_system(64), box_w,
+         water(coulomb="wolf", temperature=5000.0)),
+    ]
+    n_exch = 16
+    err, d_e = 0.0, 0.0
+    for i, (tag, system, box, params) in enumerate(cases):
+        mc, state, args, act, actm, uxs, z, consts = _variant_inputs(
+            dev, 400 + i, tag, system, box, params, (n_exch,), (0,))
+        M = system.n_mol
+        eta = 0.35 * torch.arange(M + 1, dtype=torch.float32, device=dev)
+        e_in = state.energy.float().contiguous()
+        err = max(err, compare_variant(
+            f"2 {tag}", system, args, mc.tables, act, actm, (n_exch,), (0,),
+            uxs, z, consts, 1100 + i, tmmc=(eta, e_in)))
+        d_e = max(d_e, tmmc_identity(f"2 {tag}", args, mc.tables, act, actm,
+                                     n_exch, uxs[0], z, consts, 1100 + i,
+                                     e_in))
+    return err, d_e
 
 
 def diagonal_quats(n_mol):
@@ -559,37 +714,45 @@ def _cutoff_fraction(system, state, r_cut, n=4):
 
 
 def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
-                n_widoms=None, n_del=0.0):
+                n_widoms=None, n_del=0.0, tmmc=False, n_sq=None):
     """The least time (ms) one sweep could take on this card, and what
     sets it: each input and output moved once against the operations the
     pair and k-space sums need (see OPS_*).  With an activity mask,
     n_active[b] is the mean number of active molecules of block b: only
     they move and only their atoms are neighbours.  n_exchs[b] / n_widoms[b]
     attempts and ghosts each sum one pose against the active atoms and
-    every k-vector; n_del deletion attempts per chain (this run's count)
-    each score the active slots with Philox."""
+    every k-vector (a tmmc attempt two poses, and it reads eta and e_in and
+    writes cmat and uhist); n_del attempts per chain (this run's deletions;
+    with tmmc every attempt) each score the active slots with Philox.
+    n_sq (one block): the mean over chains of n_c^2, for chains whose
+    active counts differ (chain c's moves each sum over its own n_c P
+    atoms, so the move work goes with the mean of n_c (n_c - 1))."""
     C, M = state.com.shape[:2]
     A, A_pad, K = system.n_atoms, state.coords.shape[-1], state.sfac.shape[1]
     nbytes = 4 * C * (2 * 3 * A_pad + 2 * 7 * M + 2 * 2 * K + 10 * M + 10)
     if n_active is not None:
         n_att = sum(n_exchs) + sum(n_widoms)
         nbytes += 4 * C * (2 * (A_pad + M) + 8 * n_att + 5)
+        if tmmc:
+            nbytes += 4 * (C * (2 * 3 * (M + 1) + 1) + M + 1)
         A = sum(n * t.P for n, t in zip(n_active, tables))
     ops = 0.0
     for b, t in enumerate(tables):
         lj = t.has_lj.sum().item()
         qf = t.has_q.sum().item() if t.coulomb != "none" else 0
-        per_pose = (A - t.P) * (t.P * OPS_GEOMETRY + frac * (
-            lj * OPS_LJ + qf * OPS_COULOMB))
-        per_move = 2 * per_pose
-        k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) \
-            if t.coulomb == "ewald" else 0
-        if t.coulomb == "ewald":
-            per_move += K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE)
-        moves = t.M if n_active is None else n_active[b]
-        ops += C * moves * per_move
-        if n_active is not None:
-            ops += C * (n_exchs[b] + n_widoms[b]) * (per_pose + k_pose)
+        c_pair = t.P * OPS_GEOMETRY + frac * (lj * OPS_LJ + qf * OPS_COULOMB)
+        per_pose = (A - t.P) * c_pair
+        ewald = t.coulomb == "ewald"
+        k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+        k_move = K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+        if n_active is None:
+            ops += C * t.M * (2 * per_pose + k_move)
+        else:
+            pairs = n_active[b] * per_pose if n_sq is None \
+                else (n_sq - n_active[b]) * t.P * c_pair
+            ops += C * (2 * pairs + n_active[b] * k_move)
+            poses = n_exchs[b] * (2 if tmmc else 1) + n_widoms[b]
+            ops += C * poses * (per_pose + k_pose)
     if n_active is not None:
         ops += C * n_del * sum(n_active) * OPS_PHILOX
     return _bound(nbytes, ops)
@@ -805,11 +968,13 @@ def _n_stats(state):
     return float(n.mean()), float(n.std() / math.sqrt(n.numel()))
 
 
-def _active_cutoff_fraction(state, P, r_cut, n=4):
+def _active_cutoff_fraction(state, P, r_cut, n=8):
     """Share of the pairs of active atoms of different molecules within
-    r_cut, from the first n chains."""
+    r_cut, from n chains spread evenly over the chain axis (TMMC walkers
+    are stratified in N along it)."""
     fr = []
-    for c in range(n):
+    C = state.active.shape[0]
+    for c in sorted({round(i * (C - 1) / max(n - 1, 1)) for i in range(n)}):
         on = state.active[c].repeat_interleave(P)
         x = state.coords[c, :, :on.numel()][:, on].T                # (a, 3)
         d = x[:, None, :] - x[None, :, :]
@@ -855,11 +1020,13 @@ def muvt_blocks(tag, g, st, cycles, apc, launches_per_cycle):
 
 
 def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
-                 z_val, consts):
+                 z_val, consts, tmmc=None, plain=True):
     """One launch of the sweep kernel with the activity planes of `st` (a
     MolGCMCState or a SimState with every slot active) and n_exch attempts
-    and n_widom ghosts: held against sweep_plain, then both timed, with
-    the bound of this run's work."""
+    and n_widom ghosts (with tmmc = (eta, e_in) depositing): held against
+    sweep_plain, then both timed, with the bound of this run's work.
+    plain=False times the kernel alone and returns (None, ms, None, bound
+    ms, bound_by)."""
     from metropolismontecarlo_tpu_torch.mc.moves import (
         activity_planes,
         draw_exchange_uniforms,
@@ -882,22 +1049,31 @@ def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
     uxs = [draw_exchange_uniforms(C, n_exch + n_widom, gen, dev)]
     rest = (mc_tables, act, actm, (n_exch,), (n_widom,), uxs, z_val * ones,
             consts, 77)
-    err = compare_variant(f"{tag} kernel vs plain", system, args, *rest)
-    out = run_variant(op.sweep, args, *rest)                        # warm
-    ms = _time_ms(lambda: run_variant(op.sweep, args, *rest), 3)
-    plain_ms = _time_ms(lambda: run_variant(op.sweep_plain, args, *rest), 1)
+    err = plain_ms = None
+    if plain:
+        err = compare_variant(f"{tag} kernel vs plain", system, args, *rest,
+                              tmmc=tmmc)
+    out = run_variant(op.sweep, args, *rest, tmmc=tmmc)             # warm
+    ms = _time_ms(lambda: run_variant(op.sweep, args, *rest, tmmc=tmmc), 3)
+    if plain:
+        plain_ms = _time_ms(lambda: run_variant(op.sweep_plain, args, *rest,
+                                                tmmc=tmmc), 1)
     n_del = n_exch - float(out[4][:, 7].mean())
     view = SimpleNamespace(active=active, coords=st.coords, box=st.box,
                            com=st.com, sfac=st.sfac)
     frac = _active_cutoff_fraction(view, mc_tables[0].P, params.r_cut)
     n_act = float(actm.sum(1).mean())
-    bound_ms, bound_by = sweep_bound(system, mc_tables, view, frac,
-                                     (n_act,), (n_exch,), (n_widom,), n_del)
-    print(f"phase{tag} one launch, {C} chains, {n_act:.1f} of {M} slots "
-          f"active, {M} moves + {n_exch} attempts ({n_del:.1f} deletions) + "
-          f"{n_widom} ghosts: kernel {ms:.3f} ms, sweep_plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-          f"{frac:.4f} of active pairs within the cutoff)")
+    bound_ms, bound_by = sweep_bound(
+        system, mc_tables, view, frac, (n_act,), (n_exch,), (n_widom,),
+        n_exch if tmmc is not None else n_del, tmmc=tmmc is not None,
+        n_sq=float((actm.sum(1) ** 2).mean()))
+    plain_txt = f"{plain_ms:.3f} ms" if plain else "not run"
+    print(f"phase{tag} one launch{' (tmmc)' if tmmc is not None else ''}, "
+          f"{C} chains, {n_act:.1f} of {M} slots active, {M} moves + "
+          f"{n_exch} attempts ({n_del:.1f} deletions) + {n_widom} ghosts: "
+          f"kernel {ms:.3f} ms, sweep_plain {plain_txt}, bound "
+          f"{bound_ms:.3f} ms ({bound_by}; {frac:.4f} of active pairs "
+          f"within the cutoff)")
     return err, ms, plain_ms, bound_ms, bound_by
 
 
@@ -1111,9 +1287,361 @@ def phase8(dev, n_mol=256, box=25.0, chains=2048, r_cut=10.0, calls=6,
     return (launches,) + timing
 
 
+def _first_chains(st, n):
+    """The first n chains of a muVT state."""
+    return dataclasses.replace(st, **{f.name: getattr(st, f.name)[:n]
+                                      for f in dataclasses.fields(st)})
+
+
+def _muvt_params(**kw):
+    """Phase 6's state point: SPC/E at 500 K, r_cut 10 A, the flagship's
+    Ewald (kappa L 5.6, nk 5, |k|^2 < 27), no tail."""
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+
+    return RunParams(**dict(dict(
+        temperature=500.0, r_cut=10.0, cutoff_mode="site", coulomb="ewald",
+        nk=5, ksq_max=27, p_translate=0.5, dr_max=0.4, dphi_max=0.4,
+        use_lrc=False), **kw))
+
+
+def phase9(dev, cap=512, box=25.0, chains=2048, r_cut=10.0, melt=(1, 1),
+           blocks=(2, 2, 2), chunk=16, hyb_chains=256):
+    """The TMMC main path at full width: capacity-512 SPC/E, 2048 walkers
+    stratified over N = 1..(7/8) cap, a fixed-N melt (MolGCMC p_exchange
+    0, mega=True), then TMMCMol(mega="full") blocks with the bias
+    refreshed per block (one launch per cycle of cap moves + x_per
+    two-branch attempts).  Then the hybrid route with eta = 0 against
+    MolGCMC(mega=True) from one state and one seed, one cycle against
+    sweep_plain, and the cycle timed beside an n_exch launch."""
+    from metropolismontecarlo_tpu_torch.mc.gcmc_mol import (
+        MolGCMC,
+        make_gcmc_mol,
+    )
+    from metropolismontecarlo_tpu_torch.mc.moves import sweep_tables
+    from metropolismontecarlo_tpu_torch.mc.tmmc import TMMCMol
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    z, px = 2.2e-4, 0.3
+    params = _muvt_params(r_cut=r_cut)
+    system = spce_system(cap)
+    x_per = max(1, int(round(cap * px / (1.0 - px))))
+    apc = cap + x_per
+    f32 = torch.float32
+    n_init = np.linspace(1, cap * 7 // 8, chains).astype(np.int64)
+    gen = torch.Generator(device=dev).manual_seed(2033)
+    g = MolGCMC(system, params, activity=z, p_exchange=0.0, dtype=f32,
+                chunk=chunk, mega=True, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    st = g.init(box=box, n_init=n_init, n_chains=chains)
+    torch.cuda.synchronize()
+    print(f"phase9 init: {time.perf_counter() - t0:.2f} s, capacity {cap}, "
+          f"{chains} walkers over N = {n_init[0]}..{n_init[-1]}, x_per "
+          f"{x_per}")
+    op.sweep.launches = 0
+    for n_sw in melt:
+        t0 = time.perf_counter()
+        st, stats = g.run_block(st, n_sw * cap)
+        torch.cuda.synchronize()
+        print(f"phase9 melt run_block({n_sw} sweeps): "
+              f"{time.perf_counter() - t0:.2f} s, drift "
+              f"{stats['drift_max_rel']:.3e}, sfac err "
+              f"{stats['sfac_err_max']:.3e}, acc {stats['acc_trans']:.3f}/"
+              f"{stats['acc_rot']:.3f}")
+        if not (stats["drift_max_rel"] < DRIFT_TOL
+                and stats["sfac_err_max"] < SFAC_ABS_TOL):
+            raise AssertionError(f"melt block failed its gates: {stats}")
+    l_melt = op.sweep.launches
+    if l_melt != sum(melt):
+        raise AssertionError(f"{l_melt} melt launches")
+
+    t = TMMCMol(system, params, activity=z, p_exchange=px, dtype=f32,
+                chunk=chunk, mega="full", device=dev, generator=gen)
+    op.sweep.launches = 0
+    for n_cyc in blocks:
+        t0 = time.perf_counter()
+        st, stats = t.run_block(st, n_cyc * apc)
+        torch.cuda.synchronize()
+        print(f"phase9 tmmc run_block({n_cyc} cycles): "
+              f"{time.perf_counter() - t0:.2f} s, " + ", ".join(
+                  f"{k} {v:.6g}" for k, v in stats.items()))
+        if not stats["sfac_err_max"] < SFAC_ABS_TOL:
+            raise AssertionError(f"S(k) error {stats['sfac_err_max']}")
+        if not stats["drift_max_rel"] < DRIFT_TOL:
+            raise AssertionError(f"drift {stats['drift_max_rel']}")
+        for k in ("acc_insert", "acc_delete"):
+            if not 0.0 < stats[k] < 1.0:
+                raise AssertionError(f"{k} = {stats[k]}")
+    launches = op.sweep.launches
+    if launches != sum(blocks):
+        raise AssertionError(f"{launches} launches for {sum(blocks)} cycles")
+    rows = t.cmat.sum(axis=1)[1:n_init[-1] + 1]
+    cover = float(np.mean(rows > 0))
+    lnpi = t.lnpi()
+    print(f"phase9 main path: {sum(blocks)} cycles, {launches} kernel "
+          f"launches; cmat rows with deposits {cover:.4f} of N = "
+          f"1..{n_init[-1]}, {float(t.cmat.sum()):.0f} deposits, ln Pi "
+          f"finite on {int(np.isfinite(lnpi).sum())} of {cap + 1} states")
+    if not cover >= 0.9:
+        raise AssertionError(f"cmat covers {cover} of the N range")
+
+    # the hybrid route with eta = 0 is the muVT hybrid, chain for chain
+    sub = _first_chains(st, hyb_chains)
+    runs = []
+    for tmmc in (True, False):
+        g_h = torch.Generator(device=dev).manual_seed(2034)
+        _, run, _ = make_gcmc_mol(system, params, z, px, f32, chunk,
+                                  tmmc=tmmc, mega=True, device=dev,
+                                  generator=g_h)
+        t0 = time.perf_counter()
+        runs.append(run(sub, np.zeros(cap + 1), apc)[0] if tmmc
+                    else run(sub, apc))
+        torch.cuda.synchronize()
+        print(f"phase9 hybrid cycle (tmmc {tmmc}), {hyb_chains} chains: "
+              f"{time.perf_counter() - t0:.2f} s")
+    diff = [f.name for f in dataclasses.fields(sub)
+            if not torch.equal(getattr(runs[0], f.name),
+                               getattr(runs[1], f.name))]
+    d_e = float((runs[0].energy - runs[1].energy).abs().max())
+    print(f"phase9 hybrid eta = 0 vs MolGCMC(mega=True): fields differing "
+          f"{diff}, largest energy difference {d_e:.3e} K, insertions "
+          f"{int(runs[0].acc[:, 2].sum())}, deletions "
+          f"{int(runs[0].acc[:, 3].sum())}")
+    if diff:
+        raise AssertionError(f"eta = 0 hybrid differs in {diff}")
+
+    kv, kw = make_kvectors(params.nk, params.ksq_max)
+    tables = sweep_tables(system, params, kv, kw, dev)
+    consts = _exchange_consts(system, params, kv, kw, st.box)
+    tm = (torch.tensor(t.eta, dtype=f32, device=dev),
+          st.energy.float().contiguous())
+    res = time_variant("9 tmmc cycle", system, params, tables, st, gen,
+                       x_per, 0, z, consts, tmmc=tm)
+    ms_x = time_variant("9 n_exch cycle, same state", system, params, tables,
+                        st, gen, x_per, 0, z, consts, plain=False)[1]
+    print(f"phase9 the second branch: tmmc cycle {res[1]:.3f} ms against the "
+          f"n_exch cycle's {ms_x:.3f} ms on the same state "
+          f"({res[1] - ms_x:+.3f} ms, {1e3 * (res[1] - ms_x) / x_per:.2f} us "
+          f"per attempt)")
+    return (launches,) + res, l_melt
+
+
+def _ideal_lnpi_error(t, zv, tag):
+    """Largest deviation of t's ln Pi from N ln(zV) - ln N! on its visited
+    range (both gauged at its first state) and the range's size."""
+    lnpi = t.lnpi()
+    fin = np.where(np.isfinite(lnpi))[0]
+    n = fin.astype(np.float64)
+    exact = n * math.log(zv) - np.array([math.lgamma(x + 1.0) for x in n])
+    dev_ = float(np.max(np.abs((lnpi[fin] - lnpi[fin[0]])
+                               - (exact - exact[0]))))
+    print(f"phase10 {tag}: ln Pi exact within {dev_:.3e} on N = "
+          f"{fin[0]}..{fin[-1]} ({fin.size} states), z V = {zv:.3f}")
+    if not (dev_ < 1e-3 and fin.size >= 8):
+        raise AssertionError(f"{tag}: ln Pi is not the closed form")
+    return dev_
+
+
+def phase10_ideal(dev, chains=256, blocks=2, cycles=2):
+    """Closed forms through the tmmc kernel: the ideal gas (monatomic,
+    capacity 48, box 5, z = 0.08) and the ideal rigid rotor (capacity 64,
+    box 8, z = 0.039); returns their launches."""
+    from metropolismontecarlo_tpu_torch.mc.tmmc import TMMC, TMMCMol
+    from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
+    from metropolismontecarlo_tpu_torch.models.polyatomic import (
+        triatomic_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(2035)
+    op.sweep.launches = 0
+    gas = RunParams(strict_min_image=False, temperature=1.2, r_cut=2.5,
+                    cutoff_mode="site", coulomb="none", p_translate=0.4,
+                    dr_max=0.4, use_lrc=False)
+    t = TMMC(lj_system(1, eps=0.0), gas, activity=0.08, capacity=48,
+             dtype=f32, mega="full", device=dev, generator=gen)
+    st = t.init(5.0, np.linspace(0, 48, chains).astype(np.int64), chains)
+    for _ in range(blocks):
+        st, _ = t.run_block(st, cycles * (48 + 72), drift_tol=1e-6)
+    _ideal_lnpi_error(t, 0.08 * 5.0 ** 3, "ideal gas (TMMC, cap 48)")
+    rotor = RunParams(temperature=1.5, r_cut=2.5, cutoff_mode="site",
+                      coulomb="none", p_translate=0.5, dr_max=1.0,
+                      dphi_max=1.0, use_lrc=False, strict_min_image=False)
+    t = TMMCMol(triatomic_system(64, eps=0.0), rotor, activity=0.039,
+                p_exchange=0.5, dtype=f32, mega="full", device=dev,
+                generator=gen)
+    st = t.init(8.0, np.linspace(0, 64, chains).astype(np.int64), chains)
+    for _ in range(blocks):
+        st, _ = t.run_block(st, cycles * (64 + 64), drift_tol=1e-6)
+    _ideal_lnpi_error(t, 0.039 * 8.0 ** 3, "ideal rotor (TMMCMol, cap 64)")
+    return op.sweep.launches
+
+
+G_CC = 18.01528 * 1.66053907      # water molecules per A^3 -> g/cc
+
+
+def phase10_spce(dev, cap=80, box=13.0, chains=128, melt=10, blocks=60,
+                 steps=2500):
+    """SPC/E vapour-liquid coexistence at 500 K by the protocol of
+    docs/validation/run_tmmc_water.py (the configs/tmmc_spce.json state
+    point, n_orient 1): a fixed-N melt of stratified walkers, then TMMC
+    blocks on the kernel route with a quarter discarded, and that
+    script's gates.  Returns (tmmc launches, melt launches, results)."""
+    from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMC
+    from metropolismontecarlo_tpu_torch.mc.tmmc import (
+        TMMCMol,
+        coexistence,
+        reweight_lnpi_temperature,
+        surface_tension,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    T, z0 = 500.0, 2e-4
+    f32 = torch.float32
+    params = RunParams(strict_min_image=False, temperature=T, r_cut=6.0,
+                       cutoff_mode="site", coulomb="ewald", use_lrc=False,
+                       p_translate=0.5, dr_max=1.0, dphi_max=0.7)
+    system = spce_system(cap)
+    gen = torch.Generator(device=dev).manual_seed(2036)
+    g = MolGCMC(system, params, activity=z0, p_exchange=0.0, dtype=f32,
+                mega=True, device=dev, generator=gen)
+    st = g.init(box, np.linspace(1, cap * 7 // 8, chains).astype(np.int64),
+                chains)
+    t0 = time.perf_counter()
+    op.sweep.launches = 0
+    for b in range(melt):
+        st, stats = g.run_block(st, steps, drift_tol=1e-3)
+    l_melt = op.sweep.launches
+    print(f"phase10 spce melt: {melt} blocks, {l_melt} launches, "
+          f"{time.perf_counter() - t0:.1f} s, <E> {stats['energy_mean']:.0f}"
+          f" K, acc {stats['acc_trans']:.3f}")
+    t = TMMCMol(system, params, activity=z0, p_exchange=0.4, dtype=f32,
+                mega="full", device=dev, generator=gen)
+    op.sweep.launches = 0
+    max_drift = max_sfac = 0.0
+    for b in range(blocks):
+        st, stats = t.run_block(st, steps)
+        max_drift = max(max_drift, stats["drift_max_rel"])
+        max_sfac = max(max_sfac, stats["sfac_err_max"])
+        if not stats["sfac_err_max"] < 1e-3:
+            raise AssertionError(f"S(k) error {stats['sfac_err_max']}")
+        if b == blocks // 4 - 1:
+            t.reset_collection()
+        if b % 10 == 0 or b == blocks - 1:
+            print(f"phase10 spce block {b}: N [{stats['n_min']},"
+                  f"{stats['n_max']}] mean {stats['n_mean']:.1f} visited "
+                  f"{stats['visited_frac']:.2f} accI "
+                  f"{stats['acc_insert']:.4f} accD {stats['acc_delete']:.4f}"
+                  f" drift {stats['drift_max_rel']:.1e} "
+                  f"({time.perf_counter() - t0:.0f} s)")
+    launches = op.sweep.launches
+    res = coexistence(t.lnpi(), z0, box ** 3)
+    gamma = surface_tension(res["lnpi_coex"], box, T) * 1.380649  # mN/m
+    rho_v, rho_l = res["rho_vap"] * G_CC, res["rho_liq"] * G_CC
+    cover = stats["visited_frac"]
+    ext = {}
+    for t_to in (480.0, 520.0):
+        lp = reweight_lnpi_temperature(t.lnpi(), t.uhist, T, t_to,
+                                       second_order=False)
+        r = coexistence(lp, z0, box ** 3)
+        ext[t_to] = (r["z_coex"], r["rho_vap"] * G_CC, r["rho_liq"] * G_CC)
+    ok = {
+        "rho bands": 0.45 < rho_l < 1.0 and rho_v < 0.05
+        and rho_v < rho_l / 5.0,
+        "gamma 2-60 mN/m": 2.0 < gamma < 60.0,
+        "residual": abs(res["dlnw"]) < 1e-6,
+        "coverage > 0.8": cover > 0.8,
+        "drift/sfac": max_drift < 0.25 and max_sfac < 1e-3,
+        "T-extension": ext[480.0][2] > rho_l > ext[520.0][2]
+        and ext[480.0][1] < rho_v < ext[520.0][1]
+        and ext[480.0][0] < res["z_coex"] < ext[520.0][0]}
+    print(f"phase10 spce coexistence (cap {cap}, box {box} A, {chains} "
+          f"walkers, {melt} + {blocks} x {steps} steps, {launches} tmmc "
+          f"launches, {time.perf_counter() - t0:.1f} s): z* = "
+          f"{res['z_coex']:.4e} A^-3, rho_v = {rho_v:.4f} g/cc, rho_l = "
+          f"{rho_l:.4f} g/cc, gamma = {gamma:.1f} mN/m, coverage "
+          f"{cover:.2f}, residual {res['dlnw']:.1e}, max drift "
+          f"{max_drift:.1e}, max sfac err {max_sfac:.1e}; 480 K: rho_v "
+          f"{ext[480.0][1]:.4f} rho_l {ext[480.0][2]:.4f}, 520 K: rho_v "
+          f"{ext[520.0][1]:.4f} rho_l {ext[520.0][2]:.4f}; gates {ok}")
+    if not all(ok.values()):
+        raise AssertionError(f"SPC/E coexistence gates failed: {ok}")
+    return launches, l_melt, dict(z_coex=res["z_coex"], rho_v=rho_v,
+                                  rho_l=rho_l, gamma=gamma)
+
+
+# the Gibbs-ensemble densities of docs/validation/tmmc_coexistence.txt and
+# that validation's bands
+GIBBS_RHO_V, GIBBS_RHO_L = 0.0548, 0.6350
+
+
+def phase10_lj(dev, cap=192, box=6.0, chains=256, blocks=48, steps=5000):
+    """Cut LJ at T = 1.0 by the TMMC side of
+    docs/validation/run_tmmc_coexistence.py on the kernel route, held to
+    the Gibbs densities recorded there; then one GCMC(mega="full") block
+    of the same model with its drift gate.  Returns (tmmc launches, gcmc
+    launches, results)."""
+    from metropolismontecarlo_tpu_torch.mc.gcmc import GCMC
+    from metropolismontecarlo_tpu_torch.mc.tmmc import TMMC, coexistence
+    from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    z0 = 0.03
+    f32 = torch.float32
+    params = RunParams(strict_min_image=False, temperature=1.0, r_cut=2.5,
+                       cutoff_mode="site", coulomb="none", p_translate=0.4,
+                       dr_max=0.35, use_lrc=False)
+    gen = torch.Generator(device=dev).manual_seed(2037)
+    t = TMMC(lj_system(1), params, activity=z0, capacity=cap, dtype=f32,
+             mega="full", device=dev, generator=gen)
+    st = t.init(box, cap // 2, chains)
+    t0 = time.perf_counter()
+    op.sweep.launches = 0
+    for b in range(blocks):
+        st, stats = t.run_block(st, steps, drift_tol=1e-3)
+        if b % 8 == 7:
+            print(f"phase10 lj block {b}: N [{stats['n_min']},"
+                  f"{stats['n_max']}] visited {stats['visited_frac']:.2f} "
+                  f"drift {stats['drift_max_rel']:.1e} "
+                  f"({time.perf_counter() - t0:.0f} s)")
+    launches = op.sweep.launches
+    res = coexistence(t.lnpi(), z0, box ** 3)
+    d_v = abs(res["rho_vap"] - GIBBS_RHO_V)
+    d_l = abs(res["rho_liq"] - GIBBS_RHO_L)
+    print(f"phase10 lj coexistence (cap {cap}, box {box}, {chains} walkers,"
+          f" {blocks} x {steps} steps, {launches} tmmc launches, "
+          f"{time.perf_counter() - t0:.1f} s): z* = {res['z_coex']:.5f}, "
+          f"rho_v = {res['rho_vap']:.4f} (Gibbs {GIBBS_RHO_V}, |d| "
+          f"{d_v:.4f} < 0.02), rho_l = {res['rho_liq']:.4f} (Gibbs "
+          f"{GIBBS_RHO_L}, |d| {d_l:.4f} < 0.05), visited "
+          f"{stats['visited_frac']:.2f}, residual {res['dlnw']:.1e}")
+    if not (d_v < 0.02 and d_l < 0.05):
+        raise AssertionError("LJ coexistence densities off the Gibbs ones")
+
+    g = GCMC(lj_system(1), params, activity=z0, capacity=cap, dtype=f32,
+             mega="full", device=dev, generator=gen)
+    sg = g.init(box, cap // 2, chains)
+    op.sweep.launches = 0
+    sg, stats = g.run_block(sg, steps, drift_tol=1e-3)
+    l_gcmc = op.sweep.launches
+    print(f"phase10 lj GCMC(mega='full') block: {l_gcmc} launches, " +
+          ", ".join(f"{k} {v:.6g}" for k, v in stats.items()))
+    if not (0.0 < stats["acc_insert"] < 1.0 and 0.0 < stats["acc_delete"]
+            < 1.0):
+        raise AssertionError(f"GCMC acceptances {stats}")
+    return launches, l_gcmc, dict(z_coex=res["z_coex"],
+                                  rho_v=res["rho_vap"], rho_l=res["rho_liq"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -1125,6 +1653,7 @@ def main():
     if 2 in want:
         err2, err_d = phase2(dev)
         err2x = phase2_variants(dev)
+        err2t, _ = phase2_tmmc(dev)
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
         # the new phases (phase 3 keeps its 10-sweep adjust block, which
@@ -1144,8 +1673,14 @@ def main():
         l7 = phase7(dev)
     if 8 in want:
         l8, err8, ms8, plain8, bound8, by8 = phase8(dev)
+    if 9 in want:
+        (l9, err9, ms9, plain9, bound9, by9), l9m = phase9(dev)
+    if 10 in want:
+        l10 = phase10_ideal(dev)
+        l10s, l10m, _ = phase10_spce(dev)
+        l10l, l10g, _ = phase10_lj(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != {2, 3, 4, 5, 6, 7, 8}:
+    if want != {2, 3, 4, 5, 6, 7, 8, 9, 10}:
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -1165,15 +1700,18 @@ def main():
          "replaces": f"{PALLAS}/delta_energy.py:159", "launches": l5,
          "max_abs_err": max(err_d, err_d5), "ms": ms5, "plain_ms": plain5,
          "bound_ms": bound5, "bound_by": by5, "library_ms": None},
-        dict(sweep_row, name="sweep_kernel[use_act]", launches=l6h,
-             max_abs_err=max(err2x, err6h), ms=ms6h, plain_ms=plain6h,
-             bound_ms=bound6h, bound_by=by6h),
-        dict(sweep_row, name="sweep_kernel[n_exch]", launches=l6 + l7,
+        dict(sweep_row, name="sweep_kernel[use_act]",
+             launches=l6h + l9m + l10m, max_abs_err=max(err2x, err6h),
+             ms=ms6h, plain_ms=plain6h, bound_ms=bound6h, bound_by=by6h),
+        dict(sweep_row, name="sweep_kernel[n_exch]", launches=l6 + l7 + l10g,
              max_abs_err=max(err2x, err6), ms=ms6, plain_ms=plain6,
              bound_ms=bound6, bound_by=by6),
         dict(sweep_row, name="sweep_kernel[n_widom]", launches=l8,
              max_abs_err=max(err2x, err8), ms=ms8, plain_ms=plain8,
-             bound_ms=bound8, bound_by=by8)]}))
+             bound_ms=bound8, bound_by=by8),
+        dict(sweep_row, name="sweep_kernel[tmmc]",
+             launches=l9 + l10 + l10s + l10l, max_abs_err=max(err2t, err9),
+             ms=ms9, plain_ms=plain9, bound_ms=bound9, bound_by=by9)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -11,12 +11,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from metropolismontecarlo_tpu_torch.mc.gcmc import GCMCState
 from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMCState
 from metropolismontecarlo_tpu_torch.models.system import SimState, System
 
 _SYSTEM_FIELDS = tuple(f.name for f in dataclasses.fields(System))
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 _GCMC_FIELDS = tuple(f.name for f in dataclasses.fields(MolGCMCState))
+_MONO_FIELDS = tuple(f.name for f in dataclasses.fields(GCMCState))
+_TMMC_FIELDS = ("cmat", "uhist", "eta")
 
 
 def system_from_numpy(fields):
@@ -31,15 +34,19 @@ def system_from_numpy(fields):
     return System(**kw)
 
 
+def _from_numpy(cls, fields, arrays, device):
+    missing = [f for f in fields if f not in arrays]
+    if missing:
+        raise KeyError(f"state arrays lack fields {missing}")
+    return cls(**{f: torch.as_tensor(np.array(arrays[f]), device=device)
+                  for f in fields})
+
+
 def state_from_numpy(arrays, device):
     """SimState on `device` from a mapping of field name to numpy array
     (the JAX SimState's fields; its `key` is ignored).  dtypes are
     kept."""
-    missing = [f for f in _STATE_FIELDS if f not in arrays]
-    if missing:
-        raise KeyError(f"state arrays lack fields {missing}")
-    return SimState(**{f: torch.as_tensor(np.array(arrays[f]), device=device)
-                       for f in _STATE_FIELDS})
+    return _from_numpy(SimState, _STATE_FIELDS, arrays, device)
 
 
 def state_to_numpy(state):
@@ -52,15 +59,40 @@ def gcmc_state_from_numpy(arrays, device):
     """MolGCMCState on `device` from a mapping of field name to numpy
     array (the JAX MolGCMCState's fields; its `key` is ignored).  dtypes
     are kept."""
-    missing = [f for f in _GCMC_FIELDS if f not in arrays]
-    if missing:
-        raise KeyError(f"state arrays lack fields {missing}")
-    return MolGCMCState(**{
-        f: torch.as_tensor(np.array(arrays[f]), device=device)
-        for f in _GCMC_FIELDS})
+    return _from_numpy(MolGCMCState, _GCMC_FIELDS, arrays, device)
 
 
 def gcmc_state_to_numpy(state):
     """{field: numpy array} for every MolGCMCState field."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in _GCMC_FIELDS}
+
+
+def mono_gcmc_state_from_numpy(arrays, device):
+    """Monatomic GCMCState on `device` from a mapping of field name to
+    numpy array (the JAX GCMCState's fields; its `key` is ignored).
+    dtypes are kept."""
+    return _from_numpy(GCMCState, _MONO_FIELDS, arrays, device)
+
+
+def mono_gcmc_state_to_numpy(state):
+    """{field: numpy array} for every monatomic GCMCState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _MONO_FIELDS}
+
+
+def tmmc_estimator_to_numpy(t):
+    """{cmat, uhist, eta}: the pooled float64 estimator state of a TMMC or
+    TMMCMol object (of either package: both keep numpy arrays)."""
+    return {f: np.array(getattr(t, f), np.float64) for f in _TMMC_FIELDS}
+
+
+def tmmc_estimator_from_numpy(t, arrays):
+    """Set a TMMC or TMMCMol object's cmat (cap + 1, 3), uhist (cap + 1, 3)
+    and eta (cap + 1,) from numpy arrays, checking their shapes."""
+    for f in _TMMC_FIELDS:
+        v = np.array(arrays[f], np.float64)
+        if v.shape != getattr(t, f).shape:
+            raise ValueError(f"{f}: shape {v.shape} != "
+                             f"{getattr(t, f).shape}")
+        setattr(t, f, v)

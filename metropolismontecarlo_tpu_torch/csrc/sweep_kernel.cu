@@ -3,9 +3,9 @@
 // Replaces the TPU kernel metropolismontecarlo_tpu/ops/pallas/sweep_kernel.py
 // sweep_pallas / _make_kernel: the base and species-block variants, the
 // activity mask (use_act), the in-kernel grand-canonical exchange attempts
-// (n_exch) and the Widom ghost insertions (n_widom), with lj_shift "none"
-// and "linear" (no TMMC deposits or sorted slabs).  Plain PyTorch twin:
-// ops/cuda/sweep_kernel.py sweep_plain.
+// (n_exch), the transition-matrix deposits (tmmc) and the Widom ghost
+// insertions (n_widom), with lj_shift "none" and "linear" (no sorted
+// slabs).  Plain PyTorch twin: ops/cuda/sweep_kernel.py sweep_plain.
 //
 // What it computes: for one chain per thread block, M sequential moves of
 // the species block whose molecules are [m_start, m_start + M) (global
@@ -64,6 +64,22 @@
 // veto applies to insertions only; n counts this block's active slots;
 // insertion at n = M and deletion at n = 0 are refused.
 //
+// Transition matrix (tmmc, needs n_exch; its own instantiation): every
+// attempt evaluates both branches -- the insertion pose into the first
+// free slot (veto on) and the deletion of the highest-scoring active slot
+// (veto off), each with its own pair sum, S(k) row and reciprocal delta,
+// in one pass over the atom lanes -- and deposits both unbiased
+// acceptances: row n of cmat (C, M + 1, 3) receives [1 - up - dn, up, dn],
+// up = 0.5 pa_ins and dn = 0.5 pa_del with pa = exp(min(ln_acc, 0)) (0 at
+// n = M resp. n = 0), and row n of uhist (C, M + 1, 3) receives [1, e,
+// e^2] with e = e_in (C,) plus this launch's running energy delta.  The
+// block zeroes its chain's rows at entry (one chain per block: no races).
+// Only then does the bias eta (M + 1,) enter the thresholds: ln_acc_ins +=
+// eta[min(n + 1, M)] - eta[n], ln_acc_del += eta[max(n - 1, 0)] - eta[n].
+// Each branch's arithmetic is the n_exch instantiation's (same lane
+// stride, skip test, term order, signs and roundings), so eta = 0 takes
+// the same decisions bit for bit.
+//
 // Widom (n_widom > 0, needs use_act): after moves and exchanges, n_widom
 // ghost insertions with the same pose and energy code and no writes; wid
 // (C, 2) receives sum w and sum w^2, w = exp(-du_ins / T).
@@ -83,14 +99,19 @@ constexpr int kStats = 9;
 constexpr int kUniforms = 10;
 constexpr int kExchUniforms = 8;
 constexpr int kMaxSmemBytes = 232448;
+constexpr float kPDep = 0.5f;  // the exchange type's probability, folded in
 
 // Shared-memory words of one block (M = M_total, the COM/quaternion rows
 // held); ops/cuda/sweep_kernel.py smem_bytes computes the same number.
+// tmmc adds a second slot-pick row (64 words), the deletion pose (3 P), its
+// S(k) row (2 K) and its warp partials (32).
 __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
-                                                    int K, int T, int use_act) {
+                                                    int K, int T, int use_act,
+                                                    int tmmc) {
   return 6 * (size_t)A_pad + 7 * (size_t)M + 8 * (size_t)K +
          4 * (size_t)P * T + 12 * (size_t)P + 144 +
-         (use_act ? (size_t)A_pad + (size_t)M : 0);
+         (use_act ? (size_t)A_pad + (size_t)M : 0) +
+         (tmmc ? 2 * (size_t)K + 3 * (size_t)P + 96 : 0);
 }
 
 __device__ inline float warp_sum(float v) {
@@ -137,8 +158,11 @@ __device__ inline void rot_apply(float w, float x, float y, float z, float bx,
 
 // kAct: the activity-mask instantiation (use_act), which alone carries the
 // exchange attempts and the ghosts; the other keeps the fixed-N sweep's
-// inner loop and register count free of them.
-template <bool kAct>
+// inner loop and register count free of them.  kTmmc (with kAct): the
+// transition-matrix instantiation, whose attempts evaluate both branches
+// and deposit cmat/uhist; the fixed-N and muVT instantiations carry none
+// of it.
+template <bool kAct, bool kTmmc>
 __global__ void sweep_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
@@ -154,18 +178,22 @@ __global__ void sweep_kernel(
     const float* __restrict__ act_in, const float* __restrict__ actm_in,
     const float* __restrict__ ux_in, const float* __restrict__ z_in,
     const float* __restrict__ si_in, const float* __restrict__ wc_in,
+    const float* __restrict__ eta_in, const float* __restrict__ e_in,
     float* __restrict__ coords_out, float* __restrict__ com_out,
     float* __restrict__ quat_out, float* __restrict__ sfac_out,
     float* __restrict__ stats_out, float* __restrict__ act_out,
-    float* __restrict__ actm_out, float* __restrict__ wid_out, int M,
+    float* __restrict__ actm_out, float* __restrict__ wid_out,
+    float* __restrict__ cmat_out, float* __restrict__ uhist_out, int M,
     int M_total, int m_start, int a_start, int P, int A_pad, int K, int T,
     int coulomb, int lj_linear, int use_rot, int n_exch, int n_widom,
     unsigned int seed, float rc2, float qrc2, float kappa_l,
     float d2_overlap, float p_translate, float factor) {
   extern __shared__ float smem[];
-  // 32 x 8-byte slots of the slot-pick reduction first: 8-byte aligned
+  // 32 x 8-byte slots of the slot-pick reduction first: 8-byte aligned;
+  // tmmc's deletion pick has a second row
   unsigned long long* sred64 = reinterpret_cast<unsigned long long*>(smem);
-  float* sx = smem + 64;
+  unsigned long long* sred64d = sred64 + 32;
+  float* sx = smem + (kTmmc ? 128 : 64);
   float* sy = sx + A_pad;
   float* sz = sy + A_pad;
   float* sq = sz + A_pad;
@@ -196,6 +224,10 @@ __global__ void sweep_kernel(
   float* sdec = sred + 32;      // 16 words: proposal scalars + decision
   float* sact = sdec + 16;      // (A_pad) atom activity, with use_act
   float* sactm = sact + A_pad;  // (M_total) slot activity, with use_act
+  float* sdel = sactm + M_total;  // (P, 3) tmmc: the deletion pose
+  float* sdre2 = sdel + 3 * P;    // (K) tmmc: its structure-factor row
+  float* sdim2 = sdre2 + K;
+  float* sred2 = sdim2 + K;       // tmmc: its warp partials
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -221,6 +253,11 @@ __global__ void sweep_kernel(
     scom[i] = com_in[(size_t)c * 3 * M_total + i];
   for (int i = tid; i < 4 * M_total; i += nt)
     squat[i] = quat_in[(size_t)c * 4 * M_total + i];
+  if (kTmmc)
+    for (int i = tid; i < 3 * (M + 1); i += nt) {
+      cmat_out[(size_t)c * 3 * (M + 1) + i] = 0.0f;
+      uhist_out[(size_t)c * 3 * (M + 1) + i] = 0.0f;
+    }
 
   const float box = box_in[c];
   const float inv_box = 1.0f / box;
@@ -480,10 +517,73 @@ __global__ void sweep_kernel(
     for (int w = 0; w < nwarps; ++w) n_act += sred[w];
     __syncthreads();
 
+    // One pair term of site p of pose a against the atom lane (xj, yj, zj,
+    // qj, tj): LJ plus real-space Coulomb, the +1e30 overlap veto on
+    // attractive contacts when `veto`.
+    auto pair_term = [&](const float* a, int p, float xj, float yj, float zj,
+                         float qj, int tj, bool veto) -> float {
+      const bool lj = slj[p] != 0;
+      const bool uq = sqf[p] != 0;
+      const float qq = (factor * sqp[p]) * qj;
+      float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
+      dx -= box * rintf(dx * inv_box);
+      dy -= box * rintf(dy * inv_box);
+      dz -= box * rintf(dz * inv_box);
+      const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+      const bool m_lj = d2 < rc2;
+      const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
+      const float inv_r = rsqrtf(d2);
+      const float inv_d2 = inv_r * inv_r;
+      float contrib = 0.0f;
+      if (lj && m_lj) {
+        const float s2 = ssig2[p * T + tj] * inv_d2;
+        const float s6 = s2 * s2 * s2;
+        float pot = seps[p * T + tj] * (s6 * s6 - s6);
+        if (lj_linear) pot += slam1[p * T + tj] + slam2[p * T + tj] * sqrtf(d2);
+        contrib = pot;
+      }
+      if (uq && m_qq) {
+        const float r = d2 * inv_r;
+        float cp;
+        if (coulomb == kBare)
+          cp = qq * inv_r;
+        else if (coulomb == kWolf)
+          cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
+        else
+          cp = qq * (erfcf(kappa * r) * inv_r);
+        if (veto && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
+        contrib += cp;
+      }
+      return contrib;
+    };
+
+    // The structure-factor row of pose a at k-vector k, and the reciprocal
+    // energy delta of adding (sgn = +1) or removing (-1) it against the
+    // live S(k).
+    const float tpl = kTwoPi * inv_box;
+    auto k_row = [&](const float* a, int k, float& dre, float& dim) {
+      const float kx = skx[k], ky = sky[k], kz = skz[k];
+      dre = 0.0f;
+      dim = 0.0f;
+      for (int p = 0; p < P; ++p) {
+        if (!sqf[p]) continue;
+        float ph = tpl * (kx * a[3 * p] + ky * a[3 * p + 1] + kz * a[3 * p + 2]);
+        ph -= kTwoPi * rintf(ph * kInvTwoPi);
+        float sn, cs;
+        sincosf(ph, &sn, &cs);
+        dre += sqp[p] * cs;
+        dim += sqp[p] * sn;
+      }
+    };
+    auto k_term = [&](int k, float dre, float dim, float sgn) -> float {
+      const float cross = 2.0f * sgn * (ssre[k] * dre + ssim[k] * dim) + dre * dre + dim * dim;
+      return factor * (scfac[k] * cross);
+    };
+
     // The pose in snew against every active atom of other molecules than
-    // `excl` (sgn * pair sum), plus the reciprocal delta of adding (sgn =
-    // +1) or removing (-1) its charges against the live S(k); leaves the
-    // pose's structure-factor row in sdre/sdim.  One thread's partial sum.
+    // `excl` (sgn * pair sum), plus the reciprocal delta of adding or
+    // removing it; leaves the pose's structure-factor row in sdre/sdim.
+    // One thread's partial sum.
     auto pose_part = [&](int excl, bool veto, float sgn) -> float {
       float pair = 0.0f;
       for (int j = tid; j < A_pad; j += nt) {
@@ -491,65 +591,58 @@ __global__ void sweep_kernel(
         if (mj < 0 || mj == excl || sact[j] == 0.0f) continue;
         const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
         const int tj = stid[j];
-        for (int p = 0; p < P; ++p) {
-          const bool lj = slj[p] != 0;
-          const bool uq = sqf[p] != 0;
-          const float qq = (factor * sqp[p]) * qj;
-          const float* a = snew + 3 * p;
-          float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
-          dx -= box * rintf(dx * inv_box);
-          dy -= box * rintf(dy * inv_box);
-          dz -= box * rintf(dz * inv_box);
-          const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
-          const bool m_lj = d2 < rc2;
-          const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
-          const float inv_r = rsqrtf(d2);
-          const float inv_d2 = inv_r * inv_r;
-          float contrib = 0.0f;
-          if (lj && m_lj) {
-            const float s2 = ssig2[p * T + tj] * inv_d2;
-            const float s6 = s2 * s2 * s2;
-            float pot = seps[p * T + tj] * (s6 * s6 - s6);
-            if (lj_linear) pot += slam1[p * T + tj] + slam2[p * T + tj] * sqrtf(d2);
-            contrib = pot;
-          }
-          if (uq && m_qq) {
-            const float r = d2 * inv_r;
-            float cp;
-            if (coulomb == kBare)
-              cp = qq * inv_r;
-            else if (coulomb == kWolf)
-              cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
-            else
-              cp = qq * (erfcf(kappa * r) * inv_r);
-            if (veto && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
-            contrib += cp;
-          }
-          pair += contrib;
-        }
+        for (int p = 0; p < P; ++p) pair += pair_term(snew + 3 * p, p, xj, yj, zj, qj, tj, veto);
       }
       float part = sgn * pair;
-      if (ewald) {
-        const float tpl = kTwoPi * inv_box;
+      if (ewald)
         for (int k = tid; k < K; k += nt) {
-          const float kx = skx[k], ky = sky[k], kz = skz[k];
-          float dre = 0.0f, dim = 0.0f;
-          for (int p = 0; p < P; ++p) {
-            if (!sqf[p]) continue;
-            float ph = tpl * (kx * snew[3 * p] + ky * snew[3 * p + 1] + kz * snew[3 * p + 2]);
-            ph -= kTwoPi * rintf(ph * kInvTwoPi);
-            float sn, cs;
-            sincosf(ph, &sn, &cs);
-            dre += sqp[p] * cs;
-            dim += sqp[p] * sn;
-          }
+          float dre, dim;
+          k_row(snew, k, dre, dim);
           sdre[k] = dre;
           sdim[k] = dim;
-          const float cross = 2.0f * sgn * (ssre[k] * dre + ssim[k] * dim) + dre * dre + dim * dim;
-          part += factor * (scfac[k] * cross);
+          part += k_term(k, dre, dim, sgn);
+        }
+      return part;
+    };
+
+    // Both branches of a tmmc attempt in one pass: each atom lane is loaded
+    // once and feeds the insertion pose's (snew, excl_i) and the deletion
+    // pose's (sdel, excl_d) sums, each summed in pose_part's order with its
+    // arithmetic; the S(k) rows go to sdre/sdim and sdre2/sdim2.
+    auto pose_part2 = [&](int excl_i, int excl_d, bool veto_i, bool veto_d,
+                          float sgn_i, float sgn_d, float& part_i, float& part_d) {
+      float pair_i = 0.0f, pair_d = 0.0f;
+      for (int j = tid; j < A_pad; j += nt) {
+        const int mj = smol[j];
+        if (mj < 0 || sact[j] == 0.0f) continue;
+        const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
+        const int tj = stid[j];
+        const bool use_i = mj != excl_i, use_d = mj != excl_d;
+        for (int p = 0; p < P; ++p) {
+          if (use_i) pair_i += pair_term(snew + 3 * p, p, xj, yj, zj, qj, tj, veto_i);
+          if (use_d) pair_d += pair_term(sdel + 3 * p, p, xj, yj, zj, qj, tj, veto_d);
         }
       }
-      return part;
+      part_i = sgn_i * pair_i;
+      part_d = sgn_d * pair_d;
+      if (ewald)
+        for (int k = tid; k < K; k += nt) {
+          float dre, dim;
+          k_row(snew, k, dre, dim);
+          sdre[k] = dre;
+          sdim[k] = dim;
+          part_i += k_term(k, dre, dim, sgn_i);
+          k_row(sdel, k, dre, dim);
+          sdre2[k] = dre;
+          sdim2[k] = dim;
+          part_d += k_term(k, dre, dim, sgn_d);
+        }
+    };
+
+    // du's position-independent part, si sgn + wc (2 n sgn + 1), rounded
+    // as sweep_plain rounds it (no contraction)
+    auto exch_const = [&](float sgn) -> float {
+      return __fadd_rn(si_c * sgn, __fmul_rn(wc_c, 2.0f * n_act * sgn + 1.0f));
     };
 
     // Thread 0: the trial pose of uniforms ux[1..6] (uniform position,
@@ -578,6 +671,25 @@ __global__ void sweep_kernel(
       }
     };
 
+    // tmmc's branch signs and vetoes as values the compiler cannot fold:
+    // folded constants would let it drop the deletion branch's veto select
+    // and contract that branch's terms otherwise than the n_exch
+    // instantiation does, and eta = 0 must decide as that one does
+    volatile float one_v = 1.0f;
+    const float sgn_i = one_v, sgn_d = -sgn_i;
+    const bool veto_i = sgn_i > 0.0f, veto_d = sgn_d > 0.0f;
+    const float e_c = kTmmc ? e_in[c] : 0.0f;
+    auto block_max = [&](const unsigned long long* row) {
+      unsigned long long b = 0ull;
+      for (int w = 0; w < nwarps; ++w) b = row[w] > b ? row[w] : b;
+      return b;
+    };
+    // no candidate (a full or an empty block): any slot of the block, the
+    // branch is refused below
+    auto slot_of = [&](unsigned long long b) {
+      return b ? (int)(0xFFFFFFFFu - (uint32_t)(b & 0xFFFFFFFFull)) : m_start;
+    };
+
     for (int xi = 0; xi < n_exch; ++xi) {
       if (tid < kExchUniforms) ux[tid] = ux_chain[(size_t)xi * kExchUniforms + tid];
       __syncthreads();
@@ -586,56 +698,106 @@ __global__ void sweep_kernel(
 
       // slot pick: the first free slot (insertion) or the active slot with
       // the largest score, the lower index on a tie (deletion), as the
-      // maximum of 64-bit keys (score, ~slot); 0 marks no candidate
-      unsigned long long best = 0ull;
+      // maximum of 64-bit keys (score, ~slot); 0 marks no candidate.  tmmc
+      // picks both in one pass.
+      unsigned long long best_i = 0ull, best_d = 0ull;
       for (int i = tid; i < M; i += nt) {
         const int slot = m_start + i;
-        const bool on = sactm[slot] > 0.5f;
-        unsigned long long key = 0ull;
-        if (is_ins && !on) {
-          key = (1ull << 32) | (0xFFFFFFFFu - (uint32_t)slot);
-        } else if (!is_ins && on) {
+        if (!(sactm[slot] > 0.5f)) {
+          if (kTmmc || is_ins) {
+            const unsigned long long key = (1ull << 32) | (0xFFFFFFFFu - (uint32_t)slot);
+            best_i = key > best_i ? key : best_i;
+          }
+        } else if (kTmmc || !is_ins) {
           const uint32_t bits = philox_word((uint32_t)slot, (uint32_t)xi, seed, (uint32_t)c) >> 8;
-          key = ((unsigned long long)(bits + 1u) << 32) | (0xFFFFFFFFu - (uint32_t)slot);
+          const unsigned long long key =
+              ((unsigned long long)(bits + 1u) << 32) | (0xFFFFFFFFu - (uint32_t)slot);
+          best_d = key > best_d ? key : best_d;
         }
-        best = key > best ? key : best;
       }
-      best = warp_max_u64(best);
-      if (lane == 0) sred64[warp] = best;
+      if (kTmmc) {
+        best_i = warp_max_u64(best_i);
+        best_d = warp_max_u64(best_d);
+        if (lane == 0) {
+          sred64[warp] = best_i;
+          sred64d[warp] = best_d;
+        }
+      } else {
+        const unsigned long long b = warp_max_u64(is_ins ? best_i : best_d);
+        if (lane == 0) sred64[warp] = b;
+      }
       __syncthreads();
-      best = 0ull;
-      for (int w = 0; w < nwarps; ++w) best = sred64[w] > best ? sred64[w] : best;
-      // no candidate (a full or an empty block): any slot of the block, the
-      // attempt is refused below
-      const int slot = best ? (int)(0xFFFFFFFFu - (uint32_t)(best & 0xFFFFFFFFull)) : m_start;
+      const int slot_i = slot_of(block_max(sred64));
+      const int slot_d = kTmmc ? slot_of(block_max(sred64d)) : slot_i;
+      const int slot = is_ins ? slot_i : slot_d;
       const int a0 = a_start + (slot - m_start) * P;
+      const int a0_d = a_start + (slot_d - m_start) * P;
 
       if (tid == 0) {
-        if (is_ins) {
-          trial_pose();
-        } else {
+        if (kTmmc || is_ins) trial_pose();
+        if (kTmmc || !is_ins) {
+          float* pd = kTmmc ? sdel : snew;
           for (int p = 0; p < P; ++p) {
-            snew[3 * p] = sx[a0 + p];
-            snew[3 * p + 1] = sy[a0 + p];
-            snew[3 * p + 2] = sz[a0 + p];
+            pd[3 * p] = sx[a0_d + p];
+            pd[3 * p + 1] = sy[a0_d + p];
+            pd[3 * p + 2] = sz[a0_d + p];
           }
         }
       }
       __syncthreads();
 
-      // excl = slot serves both branches: the insertion slot is inactive
-      float part = pose_part(slot, is_ins, sgn);
+      // excl = slot serves the insertion: its slot is inactive
+      float part, part_d = 0.0f;
+      if (kTmmc)
+        pose_part2(slot_i, slot_d, veto_i, veto_d, sgn_i, sgn_d, part, part_d);
+      else
+        part = pose_part(slot, is_ins, sgn);
       part = warp_sum(part);
-      if (lane == 0) sred[warp] = part;
+      if (kTmmc) part_d = warp_sum(part_d);
+      if (lane == 0) {
+        sred[warp] = part;
+        if (kTmmc) sred2[warp] = part_d;
+      }
       __syncthreads();
 
       if (tid == 0) {
-        float du = 0.0f;
+        float du = 0.0f, ln_acc;
+        bool can;
         for (int w = 0; w < nwarps; ++w) du += sred[w];
-        du += si_c * sgn + wc_c * (2.0f * n_act * sgn + 1.0f);
-        const float ln_acc = (is_ins ? lnzv - logf(n_act + 1.0f)
-                                     : logf(fmaxf(n_act, 1.0f)) - lnzv) - beta * du;
-        const bool can = is_ins ? n_act < (float)M - 0.5f : n_act > 0.5f;
+        if (kTmmc) {
+          float du_d = 0.0f;
+          for (int w = 0; w < nwarps; ++w) du_d += sred2[w];
+          const float du_i = __fadd_rn(du, exch_const(sgn_i));
+          du_d = __fadd_rn(du_d, exch_const(sgn_d));
+          float la_i = __fsub_rn(lnzv - logf(n_act + 1.0f), __fmul_rn(beta, du_i));
+          float la_d = __fsub_rn(logf(fmaxf(n_act, 1.0f)) - lnzv, __fmul_rn(beta, du_d));
+          const bool can_i = n_act < (float)M - 0.5f, can_d = n_act > 0.5f;
+          // the deposits: unbiased acceptances, the type probability folded in
+          const float up = can_i ? kPDep * expf(fminf(la_i, 0.0f)) : 0.0f;
+          const float dn = can_d ? kPDep * expf(fminf(la_d, 0.0f)) : 0.0f;
+          const int row = (int)n_act;
+          float* cm = cmat_out + ((size_t)c * (M + 1) + row) * 3;
+          cm[0] += (1.0f - up) - dn;
+          cm[1] += up;
+          cm[2] += dn;
+          const float e = e_c + st_e;
+          float* uh = uhist_out + ((size_t)c * (M + 1) + row) * 3;
+          uh[0] += 1.0f;
+          uh[1] += e;
+          uh[2] += __fmul_rn(e, e);
+          // the bias, in the thresholds only
+          const float eta_n = eta_in[row];
+          la_i = (la_i + eta_in[min(row + 1, M)]) - eta_n;
+          la_d = (la_d + eta_in[max(row - 1, 0)]) - eta_n;
+          du = is_ins ? du_i : du_d;
+          ln_acc = is_ins ? la_i : la_d;
+          can = is_ins ? can_i : can_d;
+        } else {
+          du = __fadd_rn(du, exch_const(sgn));
+          ln_acc = __fsub_rn(is_ins ? lnzv - logf(n_act + 1.0f) : logf(fmaxf(n_act, 1.0f)) - lnzv,
+                             __fmul_rn(beta, du));
+          can = is_ins ? n_act < (float)M - 0.5f : n_act > 0.5f;
+        }
         const float ln_u = logf(fmaxf(ux[7], 1e-30f));
         const bool ok = can && ln_u < ln_acc;
         st_att_i += is_ins ? 1.0f : 0.0f;
@@ -664,11 +826,14 @@ __global__ void sweep_kernel(
       __syncthreads();
       if (sdec[8] != 0.0f) {
         n_act += sgn;
-        if (ewald)
+        if (ewald) {
+          const float* dre = kTmmc && !is_ins ? sdre2 : sdre;
+          const float* dim = kTmmc && !is_ins ? sdim2 : sdim;
           for (int k = tid; k < K; k += nt) {
-            ssre[k] += sgn * sdre[k];
-            ssim[k] += sgn * sdim[k];
+            ssre[k] += sgn * dre[k];
+            ssim[k] += sgn * dim[k];
           }
+        }
       }
     }
 
@@ -734,8 +899,8 @@ __global__ void sweep_kernel(
 }  // namespace
 
 extern "C" size_t mmc_sweep_smem_bytes(int M, int P, int A_pad, int K, int T,
-                                       int use_act) {
-  return sizeof(float) * sweep_smem_floats(M, P, A_pad, K, T, use_act);
+                                       int use_act, int tmmc) {
+  return sizeof(float) * sweep_smem_floats(M, P, A_pad, K, T, use_act, tmmc);
 }
 
 extern "C" const char* mmc_cuda_error_string(int code) {
@@ -747,7 +912,9 @@ extern "C" const char* mmc_cuda_error_string(int code) {
 // hold all M_total molecules' rows.  All pointers are device pointers to
 // contiguous f32 (int32 for the flag and row tables) tensors; act, actm,
 // act_out, actm_out and wid_out are read and written only with use_act, ux,
-// z, si and wc only with n_exch + n_widom > 0 (which needs use_act).
+// z, si and wc only with n_exch + n_widom > 0 (which needs use_act), eta
+// (M + 1), e_in (C), cmat_out and uhist_out (C, M + 1, 3) only with tmmc
+// (which needs n_exch > 0).
 extern "C" int mmc_sweep_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* box, const void* temp, const void* drmax, const void* dphi,
@@ -756,20 +923,25 @@ extern "C" int mmc_sweep_launch(
     const void* has_lj, const void* has_q, const void* tid_row,
     const void* molid_row, const void* q_row, const void* kvec, const void* kw,
     const void* act, const void* actm, const void* ux, const void* z,
-    const void* si, const void* wc, void* coords_out, void* com_out,
-    void* quat_out, void* sfac_out, void* stats_out, void* act_out,
-    void* actm_out, void* wid_out, int C, int M, int M_total, int m_start,
+    const void* si, const void* wc, const void* eta, const void* e_in,
+    void* coords_out, void* com_out, void* quat_out, void* sfac_out,
+    void* stats_out, void* act_out, void* actm_out, void* wid_out,
+    void* cmat_out, void* uhist_out, int C, int M, int M_total, int m_start,
     int a_start, int P, int A_pad, int K, int T, int coulomb, int lj_linear,
-    int use_rot, int use_act, int n_exch, int n_widom, unsigned int seed,
-    int threads, float rc2, float qrc2, float kappa_l, float d2_overlap,
-    float p_translate, float factor, void* stream) {
-  const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T, use_act);
+    int use_rot, int use_act, int n_exch, int n_widom, int tmmc,
+    unsigned int seed, int threads, float rc2, float qrc2, float kappa_l,
+    float d2_overlap, float p_translate, float factor, void* stream) {
+  const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T, use_act,
+                                           tmmc);
   if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > 1024 ||
       threads % 32 != 0 || C < 1 || M < 1 || m_start < 0 || a_start < 0 ||
       m_start + M > M_total || a_start + M * P > A_pad || n_exch < 0 ||
-      n_widom < 0 || ((n_exch > 0 || n_widom > 0) && !use_act))
+      n_widom < 0 || ((n_exch > 0 || n_widom > 0) && !use_act) ||
+      (tmmc && n_exch < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = use_act ? sweep_kernel<true> : sweep_kernel<false>;
+  auto kernel = tmmc ? sweep_kernel<true, true>
+                     : use_act ? sweep_kernel<true, false>
+                               : sweep_kernel<false, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -790,11 +962,14 @@ extern "C" int mmc_sweep_launch(
       static_cast<const float*>(act), static_cast<const float*>(actm),
       static_cast<const float*>(ux), static_cast<const float*>(z),
       static_cast<const float*>(si), static_cast<const float*>(wc),
+      static_cast<const float*>(eta), static_cast<const float*>(e_in),
       static_cast<float*>(coords_out), static_cast<float*>(com_out),
       static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
       static_cast<float*>(stats_out), static_cast<float*>(act_out),
-      static_cast<float*>(actm_out), static_cast<float*>(wid_out), M, M_total,
-      m_start, a_start, P, A_pad, K, T, coulomb, lj_linear, use_rot, n_exch,
-      n_widom, seed, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
+      static_cast<float*>(actm_out), static_cast<float*>(wid_out),
+      static_cast<float*>(cmat_out), static_cast<float*>(uhist_out), M,
+      M_total, m_start, a_start, P, A_pad, K, T, coulomb, lj_linear, use_rot,
+      n_exch, n_widom, seed, rc2, qrc2, kappa_l, d2_overlap, p_translate,
+      factor);
   return static_cast<int>(cudaGetLastError());
 }

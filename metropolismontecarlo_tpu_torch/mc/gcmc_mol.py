@@ -22,8 +22,11 @@ Three routes, chosen by `mega`:
           exchange-only plain steps;
   "full"  cycles of one sweep-kernel launch that runs the cap moves and
           the x_per exchange attempts.
-On CPU tensors the kernel routes run the kernel's plain version.  The
-transition-matrix variant (tmmc=True) is not ported yet.
+On CPU tensors the kernel routes run the kernel's plain version.  tmmc=True
+builds the transition-matrix variant on every route (mc/tmmc.py TMMCMol
+runs it in blocks): each exchange attempt deposits both branches' unbiased
+acceptances into a collection matrix and the bias eta enters the
+acceptance thresholds only.
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+from metropolismontecarlo_tpu_torch.mc.gcmc import check_device
 from metropolismontecarlo_tpu_torch.mc.widom import make_pose_eval
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.quaternions import (
@@ -231,6 +235,14 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
     passes "cpu"; generator: the torch.Generator (on device) behind every
     draw, seeded 0 when None.
 
+    tmmc=True: run_steps(state, eta, n_steps) -> (state, cmat, uhist),
+    eta the (cap + 1,) bias applied to the exchange acceptance only, cmat
+    this call's (C, cap + 1, 3) collection matrix of Rao-Blackwellized
+    unbiased acceptance probabilities ([stay, up, down], the exchange
+    type's probability folded in) and uhist the (C, cap + 1, 3) energy
+    moments [count, sum E, sum E^2] of each row.  With eta = 0 the
+    trajectories are those of the tmmc=False build bit for bit.
+
     n_orient > 1: orientational-bias exchanges (Rosenbluth k-trial
     sampling, Frenkel & Smit ch. 13.2); bias="pose" widens the trials
     from k orientations at one position to k full poses.  Exact for every
@@ -246,21 +258,7 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
     the whole-sweep route's conventions, and run at params.temperature /
     dr_max / dphi_max; "full" needs n_orient=1, bias="orientation" and
     0 < p_exchange < 1."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the muVT app runs on the GPU by default; pass "
-            "device='cpu' to run the kernels' plain versions on the CPU")
-    if generator is None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(0)
-    if generator.device.type != device.type:
-        raise ValueError(f"generator on {generator.device}, state on "
-                         f"{device}")
-    if tmmc:
-        raise NotImplementedError(
-            "the transition-matrix variant needs mc/tmmc.py and the sweep "
-            "kernel's tmmc deposits, which are not ported yet")
+    device, generator = check_device(device, generator)
     ms = make_mol_slots(system, params, device, dtype)
     ev, P, cap, K = ms.ev, ms.P, ms.cap, ms.K
     kv, kw, use_ewald = ms.kv, ms.kw, ms.use_ewald
@@ -290,9 +288,10 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
         return torch.rand(shape, generator=generator, dtype=dtype,
                           device=device)
 
-    def _one_step(st, z):
+    def _one_step(st, z, eta=None, cmat=None, uhist=None):
         """One attempt of every chain: displace, rotate, insert or delete
-        by the chain's own draw; where-selects only."""
+        by the chain's own draw; where-selects only.  With tmmc, deposits
+        into cmat and uhist (C, cap + 1, 3) in place."""
         com, quat, coords, active, box, sfac, e = (
             st.com, st.quat, st.coords, st.active, st.box, st.sfac,
             st.energy)
@@ -409,6 +408,22 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
         ln_acc_d = torch.log(torch.clamp_min(nf, 1.0) / (z * vol)) \
             + log_k - m_d - torch.log(torch.clamp_min(w_sum_d, tiny)) \
             - beta * ec_del
+        if tmmc:
+            # Rao-Blackwellized deposit of the unbiased acceptances
+            # (min(1, e^ln_acc) = e^min(ln_acc, 0)), the exchange type's
+            # probability 0.5 px folded in; uhist takes the pre-step energy
+            pa_i = torch.where(full | (w_sum_i <= 0.0), 0.0,
+                               torch.exp(torch.clamp_max(ln_acc_i, 0.0)))
+            pa_d = torch.where(n > 0, torch.exp(torch.clamp_max(ln_acc_d,
+                                                                0.0)), 0.0)
+            up_v, dn_v = 0.5 * px * pa_i, 0.5 * px * pa_d
+            cmat[ar, n] += torch.stack([1.0 - up_v - dn_v, up_v, dn_v], 1)
+            uhist[ar, n] += torch.stack([torch.ones_like(e), e, e * e], 1)
+            # the bias enters the thresholds only (the clamped reads are
+            # behind the full / n == 0 refusals)
+            eta_n = eta[n]
+            ln_acc_i = ln_acc_i + eta[torch.clamp_max(n + 1, cap)] - eta_n
+            ln_acc_d = ln_acc_d + eta[torch.clamp_min(n - 1, 0)] - eta_n
         ok_i = (mt == 2) & ~full & (w_sum_i > 0.0) & (ln_u < ln_acc_i)
         ok_d = (mt == 3) & (n > 0) & (ln_u < ln_acc_d)
 
@@ -448,11 +463,26 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
         """(C,) per-chain activity (ladder broadcast)."""
         return torch.broadcast_to(z_arr, (state.com.shape[0],))
 
-    def run_steps(state, n_steps):
-        z = _z_of(state)
-        for _ in range(int(n_steps)):
-            state = _one_step(state, z)
-        return state
+    def _tm_zeros(state):
+        return torch.zeros((state.com.shape[0], cap + 1, 3), dtype=dtype,
+                           device=device)
+
+    def _eta(eta):
+        return torch.as_tensor(eta).to(device=device, dtype=dtype)
+
+    if tmmc:
+        def run_steps(state, eta, n_steps):
+            z, eta = _z_of(state), _eta(eta)
+            cmat, uhist = _tm_zeros(state), _tm_zeros(state)
+            for _ in range(int(n_steps)):
+                state = _one_step(state, z, eta, cmat, uhist)
+            return state, cmat, uhist
+    else:
+        def run_steps(state, n_steps):
+            z = _z_of(state)
+            for _ in range(int(n_steps)):
+                state = _one_step(state, z)
+            return state
 
     if mega:
         if dtype != torch.float32:
@@ -476,31 +506,46 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
             x_per = max(1, int(round(cap * px / (1.0 - px))))
             sweep_x = make_mega_sweep_fn(
                 system, params, ms.kvecs, ms.kweights, device,
-                with_activity=True, n_exch=x_per)
+                with_activity=True, n_exch=x_per, tmmc_exch=tmmc)
 
-            def _cycle_full(state):
+            def _cycle_full(state, eta=None):
+                """One launch; with tmmc also its (cmat, uhist), the
+                carried energy going in as the deposits' e_in."""
                 si_c = ev.self_intra(state.box)
                 wc_c = ev.wolf_const_coeff(state.box) * ms.q_t2
                 if ev.use_lrc:
                     # the tail rides the quadratic-in-N constant:
                     # wc (2 n +- 1) is g ((N + dn)^2 - N^2) for dn = +-1
                     wc_c = wc_c + ev.lrc_self_coeff(state.box)
-                com, quat, coords, active, sfac_o, d_e, acc4, att4 = sweep_x(
+                out = sweep_x(
                     state.com, state.quat, state.coords, state.active,
                     state.box, state.sfac, generator, _z_of(state), si_c,
-                    wc_c)
-                return dataclasses.replace(
+                    wc_c, energy=state.energy, eta=eta)
+                com, quat, coords, active, sfac_o, d_e, acc4, att4 = out[:8]
+                st = dataclasses.replace(
                     state, com=com, quat=quat, coords=coords, active=active,
                     sfac=sfac_o if use_ewald else state.sfac,
                     energy=state.energy + d_e,
                     acc=state.acc + acc4.to(torch.int32),
                     att=state.att + att4.to(torch.int32))
+                return (st,) + tuple(out[8:10]) if tmmc else st
 
-            def run_steps(state, n_steps):           # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-                for _ in range(n_cyc):
-                    state = _cycle_full(state)
-                return state
+            def n_cycles(n_steps):
+                return max(1, int(round(n_steps / (cap + x_per))))
+
+            if tmmc:
+                def run_steps(state, eta, n_steps):   # noqa: F811
+                    eta = _eta(eta)
+                    cmat, uhist = _tm_zeros(state), _tm_zeros(state)
+                    for _ in range(n_cycles(n_steps)):
+                        state, cm, uh = _cycle_full(state, eta)
+                        cmat, uhist = cmat + cm, uhist + uh
+                    return state, cmat, uhist
+            else:
+                def run_steps(state, n_steps):        # noqa: F811
+                    for _ in range(n_cycles(n_steps)):
+                        state = _cycle_full(state)
+                    return state
 
         else:
             sweep_act = make_mega_sweep_fn(
@@ -515,8 +560,13 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                 # same generator, x_per steps of it per kernel sweep
                 _, run_x, _ = make_gcmc_mol(
                     system, params, activity, 1.0, dtype, chunk, n_orient,
-                    bias, device=device, generator=generator)
+                    bias, tmmc, device=device, generator=generator)
                 x_per = max(1, int(round(cap * px / (1.0 - px))))
+            elif tmmc:
+                raise ValueError(
+                    "mega=True TMMC needs p_exchange > 0: its exchange "
+                    "steps deposit the collection matrix (mc/tmmc.py); melt "
+                    "phases use a tmmc=False build")
             else:
                 run_x, x_per = None, 0
 
@@ -532,13 +582,24 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                     acc=state.acc + pad(acc2.to(torch.int32), (0, 2)),
                     att=state.att + pad(att2.to(torch.int32), (0, 2)))
 
-            def run_steps(state, n_steps):           # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-                for _ in range(n_cyc):
-                    state = _sweep_state(state)
-                    if run_x is not None:
-                        state = run_x(state, x_per)
-                return state
+            def n_cycles(n_steps):
+                return max(1, int(round(n_steps / (cap + x_per))))
+
+            if tmmc:
+                def run_steps(state, eta, n_steps):   # noqa: F811
+                    cmat, uhist = _tm_zeros(state), _tm_zeros(state)
+                    for _ in range(n_cycles(n_steps)):
+                        state = _sweep_state(state)
+                        state, cm, uh = run_x(state, eta, x_per)
+                        cmat, uhist = cmat + cm, uhist + uh
+                    return state, cmat, uhist
+            else:
+                def run_steps(state, n_steps):        # noqa: F811
+                    for _ in range(n_cycles(n_steps)):
+                        state = _sweep_state(state)
+                        if run_x is not None:
+                            state = run_x(state, x_per)
+                    return state
 
     def init(box, n_init, n_chains):
         """n_init: a scalar, or (n_chains,) per-chain starts."""

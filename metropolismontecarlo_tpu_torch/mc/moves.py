@@ -8,7 +8,8 @@
   and summing the statistics.  With with_activity it returns the
   fluctuating-N variants on the MolGCMCState layout instead: `sweep_act`
   (activity-masked moves) or, with n_exch / n_widom, `sweep_x` (moves,
-  then in-kernel exchange attempts and Widom ghosts per block).
+  then in-kernel exchange attempts and Widom ghosts per block; with
+  tmmc_exch also the transition-matrix deposits).
 * The per-move route, `make_sweep_fn`: one molecule move of every chain
   per call, for one species block.  Its proposal reads the same 10
   uniform columns with the same formulas as the sweep kernel, so both
@@ -241,7 +242,10 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
     With n_exch or n_widom (an int, or one count per species block) the
     callable is `sweep_x` with three more arguments (see there): when
     every count is 0 it is the 7-argument sweep_act, so a caller passing
-    computed counts branches on any(counts)."""
+    computed counts branches on any(counts).  tmmc_exch (a single species
+    block) makes the exchange attempts deposit the collection matrix:
+    sweep_x then takes energy= (C,) and eta= (cap + 1,) and returns cmat
+    and uhist as well."""
     check_mega_supported(system, params, box_hint, z_hint)
     slices = system.species_slices
     nb = len(slices)
@@ -255,10 +259,9 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
         if len(n_exchs) != nb or len(n_widoms) != nb:
             raise ValueError("n_exch/n_widom must be an int or one count "
                              "per species block")
-        if tmmc_exch:
-            raise NotImplementedError(
-                "in-kernel TMMC deposits (the sweep kernel's tmmc variant) "
-                "are not ported yet")
+        if tmmc_exch and nb != 1:
+            raise ValueError("in-kernel TMMC deposits support a single "
+                             "species block")
         if nb > 1:
             # the in-kernel exchange constant tracks only the own block's
             # count; a charged species' reference-Wolf global term couples
@@ -334,7 +337,7 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
     launch = [0]
 
     def sweep_x(com, quat, coords, active, box, sfac, generator, zact, si,
-                wc, lrc_cross=None):
+                wc, lrc_cross=None, energy=None, eta=None):
         """One launch per species block = [the block's activity-masked
         moves + n_exchs[b] exchange attempts of that species + n_widoms[b]
         ghost insertions].  zact/si/wc: per-chain (C,) activity, self +
@@ -342,10 +345,15 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
         Wolf c Q^2 and the LJ tail), plain tensors for one block, one per
         block (tuple/list) otherwise; lrc_cross[b] (C,): the cross-species
         tail coefficient 2 g_bo N_o folded into si from the live counts.
-        Returns (com, quat, coords, active, sfac, d_e, acc, att[, wid]):
-        active the updated (C, M) bool mask, acc/att (C, 2 + 2 n_blocks)
-        f32 [translate, rotate, then per block insert, delete]; with any
-        n_widom, wid (C, n_blocks, 2) = each block's [sum w, sum w^2]."""
+        With tmmc_exch, energy (C,) the carried energies and eta (cap + 1,)
+        the bias.
+        Returns (com, quat, coords, active, sfac, d_e, acc, att[, cmat,
+        uhist][, wid]): active the updated (C, M) bool mask, acc/att
+        (C, 2 + 2 n_blocks) f32 [translate, rotate, then per block insert,
+        delete]; with tmmc_exch this call's collection matrix [stay, up,
+        down] and energy moments [count, sum E, sum E^2], each
+        (C, cap + 1, 3) f32; with any n_widom, wid (C, n_blocks, 2) = each
+        block's [sum w, sum w^2]."""
         C = com.shape[0]
         z_b, si_b, wc_b = ((x,) if nb == 1 and not isinstance(
             x, (tuple, list)) else tuple(x) for x in (zact, si, wc))
@@ -373,8 +381,15 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
                     z=z_b[b].to(f32).contiguous(),
                     si=si_eff.contiguous(),
                     wc=wc_b[b].to(f32).contiguous())
+                if tmmc_exch:
+                    extra.update(tmmc=True,
+                                 eta=torch.as_tensor(eta).to(
+                                     device=com.device, dtype=f32)
+                                 .contiguous(),
+                                 e_in=energy.to(f32).contiguous())
             out = sweep_op.sweep(*args, u, t, act=act, actm=actm, **extra)
-            args[:4], (st, act, actm, wid) = out[:4], out[4:]
+            args[:4], (st, act, actm, wid) = out[:4], out[4:8]
+            cm_uh = out[8:10]
             # per-species exchange counters: each launch's own columns
             xacc += [st[:, 5], st[:, 6]]
             xatt += [st[:, 7], float(n_exchs[b]) - st[:, 7]]
@@ -384,6 +399,8 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
         res = (com_o, quat_o, coords_o, actm > 0.5, sfac_o, stats[:, 0],
                torch.stack([stats[:, 1], stats[:, 2]] + xacc, dim=1),
                torch.stack([stats[:, 3], stats[:, 4]] + xatt, dim=1))
+        if tmmc_exch:
+            res = res + tuple(cm_uh)
         if any(n_widoms):
             res = res + (torch.stack(wids, dim=1),)
         return res

@@ -1,8 +1,8 @@
 """Whole-sweep Metropolis op: the CUDA kernel's wrapper and its plain
 PyTorch version (counterpart of metropolismontecarlo_tpu/ops/pallas/
 sweep_kernel.py sweep_pallas: the base and species-block variants, the
-activity mask, the in-kernel exchange attempts and the Widom ghosts; no
-TMMC deposits or sorted slabs).
+activity mask, the in-kernel exchange attempts, the transition-matrix
+deposits and the Widom ghosts; no sorted slabs).
 
 One call runs the M sequential moves of one species block (global
 molecules [m_start, m_start + M), atoms from column a_start, P each) on
@@ -20,7 +20,13 @@ attempts of this block's species (50/50 insertion into the first free
 slot at a uniform pose / deletion of a uniform active slot, the muVT
 acceptance in log space; the state's activity planes change) and then
 n_widom ghost insertions that touch no state and deposit sum w and
-sum w^2 of w = exp(-dU_ins / T).
+sum w^2 of w = exp(-dU_ins / T).  With tmmc every attempt evaluates both
+branches (the first free slot's insertion and the highest-scoring active
+slot's deletion) and deposits their unbiased acceptances into the
+collection matrix cmat (C, M + 1, 3) = [stay, up, down] of row n, and [1,
+e, e^2] into uhist (C, M + 1, 3), e = e_in plus the call's running energy
+delta; the bias eta (M + 1,) enters the acceptance thresholds only, so
+eta = 0 samples what the plain exchange attempts sample.
 
 Random numbers come from outside: u (C, M_total, 10) uniforms in [0, 1),
 one row per molecule of the whole system, whose columns are [selector, dx, dy, dz, accept, e1, e2, e3, e4, angle] (the
@@ -55,6 +61,7 @@ N_EXCH_UNIFORMS = 8
 # insertions and of (slot + 1 + M_total) over accepted deletions]
 N_STATS = 9
 MAX_SITES = 16
+P_DEPOSIT = 0.5           # the exchange type's probability in a deposit
 MAX_SMEM_BYTES = 232448   # 227 KB, a Hopper block's dynamic shared memory
 THREADS = 256
 COULOMB_CODES = {"none": 0, "ewald": 1, "wolf": 2, "wolf_ref": 3, "bare": 4}
@@ -110,19 +117,23 @@ class SweepTables:
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
 
-def smem_bytes(M, P, A_pad, K, T, use_act=False):
+def smem_bytes(M, P, A_pad, K, T, use_act=False, tmmc=False):
     """Dynamic shared memory of one block, M the COM/quaternion rows held
     (all molecules of the system); must match sweep_smem_floats in
     csrc/sweep_kernel.cu: 6 atom rows, 7 COM/quaternion rows, 8 k-vector
     rows, 4 (P, T) LJ tables, 12 P-wide site rows (body 3, charge, two
     flags, old and new positions 3 each), 144 words of reduction and
-    decision scratch, and with use_act the two activity planes."""
+    decision scratch, with use_act the two activity planes, and with tmmc
+    a second slot-pick row (64 words), the deletion pose (3 P), its S(k)
+    row (2 K) and its warp partials (32)."""
     return 4 * (6 * A_pad + 7 * M + 8 * K + 4 * P * T + 12 * P + 144
-                + (A_pad + M if use_act else 0))
+                + (A_pad + M if use_act else 0)
+                + (2 * K + 3 * P + 96 if tmmc else 0))
 
 
 def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
-                  t, act, actm, n_exch, n_widom, ux, z, si, wc):
+                  t, act, actm, n_exch, n_widom, ux, z, si, wc, tmmc, eta,
+                  e_in):
     C, three, A_pad = coords.shape
     M_total = com.shape[1]
     K = sfac.shape[1]
@@ -149,6 +160,11 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
             raise ValueError("exchange attempts and Widom ghosts need the "
                              "activity planes act and actm")
         tensors.update(ux=ux, z=z, si=si, wc=wc)
+    if tmmc:
+        if not n_exch:
+            raise ValueError("tmmc deposits need exchange attempts "
+                             "(n_exch > 0)")
+        tensors.update(eta=eta, e_in=e_in)
     shapes = dict(
         coords=(C, 3, A_pad), com=(C, M_total, 3), quat=(C, M_total, 4),
         sfac=(C, K, 2), box=(C,), temp=(C,), dr_max=(C,), dphi_max=(C,),
@@ -156,7 +172,8 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
         sig2=(t.P, T), lam1=(t.P, T), lam2=(t.P, T), has_lj=(t.P,),
         has_q=(t.P,), tid_row=(A_pad,), molid_row=(A_pad,), q_row=(A_pad,),
         kvec=(K, 3), kw=(K,), act=(C, A_pad), actm=(C, M_total),
-        ux=(C, n_exch + n_widom, N_EXCH_UNIFORMS), z=(C,), si=(C,), wc=(C,))
+        ux=(C, n_exch + n_widom, N_EXCH_UNIFORMS), z=(C,), si=(C,), wc=(C,),
+        eta=(t.M + 1,), e_in=(C,))
     for name, x in tensors.items():
         if x is None:
             raise ValueError(f"{name} is required")
@@ -175,7 +192,7 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
 
 def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
           act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None, si=None,
-          wc=None, seed=0):
+          wc=None, seed=0, tmmc=False, eta=None, e_in=None):
     """One sweep of the species block's tables.M moves per chain, then
     n_exch exchange attempts and n_widom ghost insertions.
 
@@ -186,37 +203,43 @@ def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
     (C, n_exch + n_widom, 8), the per-chain activity z, the exchange
     constants si and wc (C,) (du = +-u_pair +- si + wc (2 n sgn + 1) +
     dU_recip) and the integer seed of the deletion scores.
+    With tmmc (needs n_exch) also the bias eta (M + 1,) and the chains'
+    carried energies e_in (C,).
     Returns new (coords, com, quat, sfac, stats (C, 9)); with activity
-    planes also (act, actm, wid (C, 2) = [sum w, sum w^2] of the ghosts).
+    planes also (act, actm, wid (C, 2) = [sum w, sum w^2] of the ghosts);
+    with tmmc also (cmat, uhist), each (C, M + 1, 3), this call's deposits.
     CUDA tensors launch the kernel (and count it in sweep.launches); CPU
     tensors run sweep_plain; any other device raises."""
     _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
-                  tables, act, actm, n_exch, n_widom, ux, z, si, wc)
+                  tables, act, actm, n_exch, n_widom, ux, z, si, wc, tmmc,
+                  eta, e_in)
     if coords.device.type == "cpu":
         return sweep_plain(coords, com, quat, sfac, box, temp, dr_max,
                            dphi_max, u, tables, act, actm, n_exch, n_widom,
-                           ux, z, si, wc, seed)
+                           ux, z, si, wc, seed, tmmc=tmmc, eta=eta,
+                           e_in=e_in)
     if coords.device.type != "cuda":
         raise ValueError(f"no sweep for device {coords.device}")
     return _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
-                   tables, act, actm, n_exch, n_widom, ux, z, si, wc, seed)
+                   tables, act, actm, n_exch, n_widom, ux, z, si, wc, seed,
+                   tmmc, eta, e_in)
 
 
 sweep.launches = 0
 
 
 def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
-            actm, n_exch, n_widom, ux, z, si, wc, seed):
+            actm, n_exch, n_widom, ux, z, si, wc, seed, tmmc, eta, e_in):
     lib = _library()
     C, _, A_pad = coords.shape
     M_total, K, T = com.shape[1], sfac.shape[1], t.eps.shape[1]
     use_act = act is not None
-    nbytes = smem_bytes(M_total, t.P, A_pad, K, T, use_act)
+    nbytes = smem_bytes(M_total, t.P, A_pad, K, T, use_act, tmmc)
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"chain state needs {nbytes} B of shared memory, "
                          f"over the {MAX_SMEM_BYTES} B a block may use")
-    if lib.mmc_sweep_smem_bytes(M_total, t.P, A_pad, K, T,
-                                int(use_act)) != nbytes:
+    if lib.mmc_sweep_smem_bytes(M_total, t.P, A_pad, K, T, int(use_act),
+                                int(tmmc)) != nbytes:
         raise RuntimeError("csrc/sweep_kernel.cu and smem_bytes disagree "
                            "on the shared-memory layout")
     outs = (torch.empty_like(coords), torch.empty_like(com),
@@ -227,19 +250,25 @@ def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
         outs += (torch.empty_like(act), torch.empty_like(actm),
                  torch.empty((C, 2), dtype=torch.float32,
                              device=coords.device))
+    if tmmc:
+        # the kernel zeroes each chain's rows before it deposits
+        outs += tuple(torch.empty((C, t.M + 1, 3), dtype=torch.float32,
+                                  device=coords.device) for _ in range(2))
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     ins = (coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t.body,
            t.qp, t.eps, t.sig2, t.lam1, t.lam2, t.has_lj, t.has_q, t.tid_row,
-           t.molid_row, t.q_row, t.kvec, t.kw, act, actm, ux, z, si, wc)
-    ptrs = [ptr(x) for x in ins + outs + (None,) * (8 - len(outs))]
+           t.molid_row, t.q_row, t.kvec, t.kw, act, actm, ux, z, si, wc, eta,
+           e_in)
+    ptrs = [ptr(x) for x in ins + outs + (None,) * (10 - len(outs))]
     err = lib.mmc_sweep_launch(
         *ptrs, C, t.M, M_total, t.m_start, t.a_start, t.P, A_pad, K, T,
         COULOMB_CODES[t.coulomb],
         int(t.lj_shift == "linear"), int(t.use_rot), int(use_act),
-        int(n_exch), int(n_widom), int(seed) & 0xFFFFFFFF, THREADS,
+        int(n_exch), int(n_widom), int(tmmc), int(seed) & 0xFFFFFFFF,
+        THREADS,
         t.rc2, t.qrc2, t.kappa_l, t.d2_overlap, t.p_translate,
         COULOMB_FACTOR, torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
@@ -258,10 +287,10 @@ def _library():
 
     lib = load_library("sweep_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_sweep_launch.argtypes = [vp] * 36 + [ci] * 15 + [ctypes.c_uint] \
+    lib.mmc_sweep_launch.argtypes = [vp] * 40 + [ci] * 16 + [ctypes.c_uint] \
         + [ci] + [cf] * 6 + [vp]
     lib.mmc_sweep_launch.restype = ci
-    lib.mmc_sweep_smem_bytes.argtypes = [ci] * 6
+    lib.mmc_sweep_smem_bytes.argtypes = [ci] * 7
     lib.mmc_sweep_smem_bytes.restype = ctypes.c_size_t
     lib.mmc_cuda_error_string.argtypes = [ci]
     lib.mmc_cuda_error_string.restype = ctypes.c_char_p
@@ -372,7 +401,8 @@ def trial_pose(ux_i, box, body):
 
 def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
                 act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None,
-                si=None, wc=None, seed=0, magnitude=False, scores=None):
+                si=None, wc=None, seed=0, magnitude=False, scores=None,
+                tmmc=False, eta=None, e_in=None):
     """Plain PyTorch version of the kernel: a Python loop over the M
     molecules, the exchange attempts and the ghosts, vectorised over
     chains, f32 throughout.  Same arguments and results as `sweep`.
@@ -384,7 +414,12 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
     r^-6 LJ terms, linear shift and Coulomb pair terms, each k-vector's
     reciprocal term, the exchange constants), the scale of the energy
     delta's f32 rounding, for holding another route's energy delta
-    against this one's."""
+    against this one's; with tmmc the results also gain umag (C, M + 1,
+    3), each row's scales: of uhist's sum E and sum E^2, the sums over its
+    deposits of s = |e_in| + the magnitude column so far and of
+    (|e| + s)^2; of its cmat entries, the sum over its deposits of
+    beta (up m_ins + dn m_del), m a branch's term magnitudes, which is
+    how far a relative error of the energy terms moves the deposits."""
     coords, com, quat = coords.clone(), com.clone(), quat.clone()
     sre, sim = sfac[..., 0].clone(), sfac[..., 1].clone()
     C, _, A_pad = coords.shape
@@ -582,6 +617,13 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
 
     if n_exch:
         lnzv = torch.log(z * box * box * box)
+    if tmmc:
+        f32 = dict(dtype=torch.float32, device=dev)
+        cmat = torch.zeros((C, t.M + 1, 3), **f32)
+        uhist = torch.zeros((C, t.M + 1, 3), **f32)
+        umag = torch.zeros((C, t.M + 1, 3), **f32)
+        ones = torch.ones((C,), **f32)
+        veto_on = torch.ones((C,), dtype=torch.bool, device=dev)
     for xi in range(n_exch):
         ux_i = ux[:, xi]
         is_ins = ux_i[:, 0] < 0.5
@@ -594,27 +636,71 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
         else:
             sc = scores[:, xi, m0:m1]
         # deletion: the largest score on the active set, the lower index
-        # on a tie; insertion: the first free slot
+        # on a tie; insertion: the first free slot; no candidate: slot 0
+        # of the block, the branch is refused
         score = torch.where(on, sc, -torch.ones_like(sc))
         smax = score.max(dim=1, keepdim=True).values
         del_i = torch.where(score == smax, iota, t.M).min(dim=1).values
         ins_i = torch.where(~on, iota, t.M).min(dim=1).values
-        idx = torch.where(is_ins, ins_i, del_i)
-        idx = torch.where(idx >= t.M, 0, idx)    # no candidate: refused
+        idx_i = torch.where(ins_i >= t.M, 0, ins_i)
+        idx_d = torch.where(del_i >= t.M, 0, del_i)
+        idx = torch.where(is_ins, idx_i, idx_d)
         slot = m0 + idx
         cols = (t.a_start + idx * P)[:, None] + prange            # (C, P)
         gidx = cols[:, None, :].expand(C, 3, P)
         cur = coords.gather(2, gidx)                              # (C, 3, P)
         ct, q_ins, ins_atoms = trial_pose(ux_i, box, t.body)
-        sel = torch.where(is_ins[:, None, None], ins_atoms, cur)
-        # excl = slot serves both branches: the insertion slot is inactive
-        du, mag, ds = pose_energy(sel, slot, is_ins, sgn)
-        const = si * sgn + wc * (2.0 * n * sgn + 1.0)
-        du = du + const
-        ln_acc = torch.where(is_ins, lnzv - torch.log(n + 1.0),
-                             torch.log(torch.clamp_min(n, 1.0)) - lnzv) \
-            - beta * du
-        can = torch.where(is_ins, n < t.M - 0.5, n > 0.5)
+        if tmmc:
+            # both branches, each as the selected branch is summed below
+            cols_d = (t.a_start + idx_d * P)[:, None] + prange
+            cur_d = coords.gather(2, cols_d[:, None, :].expand(C, 3, P))
+            du_i, mag_i, ds_i = pose_energy(ins_atoms, m0 + idx_i, veto_on,
+                                            ones)
+            du_d, mag_d, ds_d = pose_energy(cur_d, m0 + idx_d, ~veto_on,
+                                            -ones)
+            const_i = si * ones + wc * (2.0 * n * ones + 1.0)
+            const_d = si * -ones + wc * (2.0 * n * -ones + 1.0)
+            du_i, du_d = du_i + const_i, du_d + const_d
+            la_i = (lnzv - torch.log(n + 1.0)) - beta * du_i
+            la_d = (torch.log(torch.clamp_min(n, 1.0)) - lnzv) - beta * du_d
+            can_i, can_d = n < t.M - 0.5, n > 0.5
+            up = torch.where(can_i, P_DEPOSIT * torch.exp(
+                torch.clamp_max(la_i, 0.0)), 0.0)
+            dn = torch.where(can_d, P_DEPOSIT * torch.exp(
+                torch.clamp_max(la_d, 0.0)), 0.0)
+            row = n.long()
+            cmat[ar, row] += torch.stack([1.0 - up - dn, up, dn], 1)
+            e = e_in + stats[:, 0]
+            uhist[ar, row] += torch.stack([ones, e, e * e], 1)
+            if magnitude:
+                s_e = e_in.abs() + stats[:, N_STATS]
+                s_dep = beta * (up * (mag_i + const_i.abs())
+                                + dn * (mag_d + const_d.abs()))
+                umag[ar, row] += torch.stack(
+                    [s_e, (e.abs() + s_e) ** 2, s_dep], 1)
+            # the bias, in the thresholds only
+            eta_n = eta[row]
+            la_i = (la_i + eta[torch.clamp_max(row + 1, t.M)]) - eta_n
+            la_d = (la_d + eta[torch.clamp_min(row - 1, 0)]) - eta_n
+            du = torch.where(is_ins, du_i, du_d)
+            const = torch.where(is_ins, const_i, const_d)
+            ln_acc = torch.where(is_ins, la_i, la_d)
+            can = torch.where(is_ins, can_i, can_d)
+            mag = torch.where(is_ins, mag_i, mag_d) if magnitude else None
+            if ewald:
+                ds = tuple(torch.where(is_ins[:, None], a, b)
+                           for a, b in zip(ds_i, ds_d))
+        else:
+            sel = torch.where(is_ins[:, None, None], ins_atoms, cur)
+            # excl = slot serves both branches: the insertion slot is
+            # inactive
+            du, mag, ds = pose_energy(sel, slot, is_ins, sgn)
+            const = si * sgn + wc * (2.0 * n * sgn + 1.0)
+            du = du + const
+            ln_acc = torch.where(is_ins, lnzv - torch.log(n + 1.0),
+                                 torch.log(torch.clamp_min(n, 1.0)) - lnzv) \
+                - beta * du
+            can = torch.where(is_ins, n < t.M - 0.5, n > 0.5)
         ln_u = torch.log(torch.clamp_min(ux_i[:, 7], 1e-30))
         ok = can & (ln_u < ln_acc)
         wr = ok & is_ins
@@ -649,5 +735,8 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
         # a vetoed ghost carries +1e30: w = 0
         w = torch.exp(-beta * du)
         wid += torch.stack([w, w * w], dim=1)
-    return (coords, com, quat, torch.stack([sre, sim], dim=-1), stats, act,
-            actm, wid)
+    out = (coords, com, quat, torch.stack([sre, sim], dim=-1), stats, act,
+           actm, wid)
+    if tmmc:
+        out += (cmat, uhist) + ((umag,) if magnitude else ())
+    return out

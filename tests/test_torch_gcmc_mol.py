@@ -549,7 +549,8 @@ def test_activity_ladder_and_per_chain_n_init():
     (dict(n_orient=0), ValueError, "n_orient"),
     (dict(bias="cavity"), ValueError, "bias"),
     (dict(activity=np.ones((2, 2))), ValueError, "ladder"),
-    (dict(tmmc=True), NotImplementedError, "mc/tmmc.py"),
+    (dict(tmmc=True, dtype=F32, mega=True, p_exchange=0.0), ValueError,
+     "mc/tmmc.py"),
 ])
 def test_make_gcmc_mol_refusals(kw, exc, match):
     kw = dict(dict(activity=1e-4, device="cpu"), **kw)
@@ -605,7 +606,7 @@ def test_mega_sweep_fn_exchange_refusals(bad):
             moves_t.make_mega_sweep_fn(mix, params, kv, kw, "cpu",
                                        with_activity=True, n_exch=(1, 2, 3))
     elif bad == "tmmc":
-        with pytest.raises(NotImplementedError, match="TMMC"):
+        with pytest.raises(ValueError, match="TMMC"):
             moves_t.make_mega_sweep_fn(mix, params, kv, kw, "cpu",
                                        with_activity=True, n_exch=2,
                                        tmmc_exch=True)
