@@ -5,7 +5,8 @@
 Phase 0  require CUDA; print the card's name and power limit.
 Phase 1  build csrc/sweep_kernel.cu and csrc/delta_energy.cu with nvcc
          for sm_90a, both at once (cached by a hash of each source under
-         metropolismontecarlo_tpu_torch/_build).
+         metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
+         of each instantiation.
 Phase 2  each kernel against its plain PyTorch version on the card, on the
          same inputs.  The sweep kernel, one sweep on shared uniforms:
          SPC/E-64 (ewald, wolf, none; p_translate 0.5 and 0.0), LJ-256,
@@ -80,6 +81,34 @@ Phase 10 closed forms and coexistence on the tmmc kernel: the ideal gas
          docs/validation/run_tmmc_coexistence.py (cap 192, box 6, 256
          walkers, 48 x 5000 steps) against the recorded Gibbs densities;
          one GCMC(mega="full") block of that LJ with its drift gate.
+Phase 11 the large-system NVT main path: 6859 SPC/E waters (20577
+         atoms, A_pad 20736) on a 19^3 lattice at the flagship's density,
+         Ewald kappa L 11.711, nk 11, |k|^2 < 118 (K = 2874), slab_mode
+         "auto" (W 12800 of 20577 columns at the start), 256 chains:
+         init_state through the row-tiled recompute, a 2-sweep melt with
+         adaptation, retune_slabs, a 2-sweep block with the drift gate and
+         the window-coverage check (one global-layout launch per sweep);
+         one sweep timed on the slab route and on the dense global layout
+         (slab_mode "off") from the same state and uniforms; both against
+         sweep_plain over the first 512 molecules of every chain; one
+         sweep of the dense global route through run_block.
+Phase 12 NPT at bench.py's "npt" parameters on the flagship lattice (750
+         SPC/E, 1 bar, p_volume 0.05, dv_max 0.01), 2048 chains: a 20-sweep
+         melt with adaptation and two 20-sweep blocks (drift gate, one
+         volume attempt per chain per block, acc_vol in (0, 1)), <V>; then
+         pressure_fd (float64, eps 1e-9) against the virial pressure
+         M T / V + W / (3 V) of the final state: within 1 bar on >= 98%
+         of chains, and their mean within the virial's chain-to-chain
+         standard error.
+
+Phase 2 also holds the global layout (`phase2_global`): on SPC/E-64,
+LJ-256 and the two-block CO2/N2 case the global-layout launch against the
+shared-layout launch (every output compared bit for bit; the count of
+chains that differ is printed) and against sweep_plain; forced sorted
+slabs against sweep_plain with slabs, with the ghost halo checked after
+the sweep: LJ-640 in a 32 box from a stratified start (W 512 < 640),
+SPC/E-512 at r_cut 4.5 from a z-sheared lattice and CO2 + N2 64 + 576 with
+the N2 block sorted.
 
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
@@ -183,11 +212,12 @@ def phase1():
     names = ("sweep_kernel", "delta_energy")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
-    # the sweep kernel's template instantiations <kAct, kTmmc> by mangled
-    # name
-    labels = {"ILb0ELb0E": "<false, false> fixed N",
-              "ILb1ELb0E": "<true, false> activity",
-              "ILb1ELb1E": "<true, true> tmmc"}
+    # the sweep kernel's template instantiations <kAct, kTmmc, kGlobal> by
+    # mangled name
+    labels = {"ILb0ELb0ELb0E": "<false, false, false> fixed N",
+              "ILb1ELb0ELb0E": "<true, false, false> activity",
+              "ILb1ELb1ELb0E": "<true, true, false> tmmc",
+              "ILb0ELb0ELb1E": "<false, false, true> global layout"}
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s")
         entry = ""
@@ -687,6 +717,203 @@ def phase2(dev, chains=2048):
     return err, err_d
 
 
+# ---------------- the global layout and sorted slabs -------------------
+
+
+def _stratified_com(n, box, side=26):
+    """xy grid + scrambled stratified z: exactly uniform z-occupancy and
+    no close pairs (the JAX package's tests/test_slabs.py start)."""
+    i = np.arange(n)
+    return np.stack([(i % side + 0.5) * box / side,
+                     (i // side + 0.5) * box / side,
+                     ((i * 997) % n + 0.5) * box / n], axis=1)
+
+
+def _sheared_lattice(n, box):
+    """A simple cubic lattice whose (x, y) columns are shifted in z by up
+    to one spacing: no close pairs and no z-planes to clump the windows."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+
+    com = np.asarray(cubic_lattice(n, box), np.float64)
+    side = int(np.ceil(n ** (1 / 3)))
+    a = box / side
+    ix, iy = np.floor(com[:, 0] / a), np.floor(com[:, 1] / a)
+    com[:, 2] = (com[:, 2] + (ix + side * iy) / side ** 2 * a) % box
+    return com
+
+
+def _slab_args(mc, state, u):
+    """The resorted state's kernel arguments on the slab planes (ghost
+    halo filled), as the whole-sweep route builds them."""
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        make_slab_resort_fn,
+        with_halo,
+    )
+
+    state = make_slab_resort_fn(mc.system, mc.params, mc._slab_cfg)(state)
+    args = _sweep_args(state, u)
+    args[0] = with_halo(args[0], mc.system, mc._slab_cfg).contiguous()
+    return state, args
+
+
+def compare_tables(tag, args, tables, layout="auto"):
+    """One launch per table of the kernel and of sweep_plain on the same
+    arguments; the shared tolerance test.  Returns (largest coordinate
+    difference on matched chains, kernel outputs)."""
+    from metropolismontecarlo_tpu_torch.mc.moves import sweep_blocks
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    C = args[0].shape[0]
+    k = sweep_blocks(functools.partial(op.sweep, layout=layout), *args,
+                     tables)
+    p = sweep_blocks(functools.partial(op.sweep_plain, magnitude=True),
+                     *args, tables)
+    torch.cuda.synchronize()
+    same = (k[4][:, 1:] == p[4][:, 1:op.N_STATS]).all(dim=1)
+    print(f"phase {tag}: acc/att {k[4][:, 1:5].sum(0).tolist()}")
+    err = _check_match(tag, C, same, (k[0], k[1], k[3], k[4]),
+                       (p[0], p[1], p[3], p[4]), p[4][:, op.N_STATS])
+    return err, k
+
+
+def check_halo(tag, planes, system, cfg):
+    """The ghost twins kept up with their head molecules: the halo equals
+    the sorted block's first W columns, bit for bit."""
+    A, a0, W = system.n_atoms, cfg["a0"], cfg["W"]
+    if not torch.equal(planes[:, :, A:A + W], planes[:, :, a0:a0 + W]):
+        raise AssertionError(f"{tag}: ghost halo differs from its head "
+                             f"columns")
+    print(f"phase {tag}: ghost halo equals its {W} head columns")
+
+
+def phase2_global(dev, chains=64):
+    """(a) The global layout against the shared layout on systems that fit
+    both: every output compared bit for bit, and the global layout held
+    against sweep_plain; (b)-(d) forced sorted slabs against sweep_plain
+    with slabs (LJ-640 from a stratified start, W 512 < 640; SPC/E-512; a
+    CO2 + N2 mixture whose N2 block is sorted)."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        draw_uniforms,
+        sweep_blocks,
+    )
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.models.monatomic import (
+        lj_box_for_density,
+        lj_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    box_w = 28.24 * (64 / 750) ** (1 / 3)
+    box_lj = lj_box_for_density(256, 0.75)
+    box_mix = 37.0 * (64 / 750) ** (1 / 3)
+    ident = [("2a spce64 ewald", spce_system(64), box_w,
+              RunParams(temperature=298.15, r_cut=6.0, coulomb="ewald",
+                        p_translate=0.5, dr_max=0.3, dphi_max=0.3)),
+             ("2a lj256", lj_system(256), box_lj,
+              RunParams(temperature=1.0, r_cut=2.5, coulomb="none",
+                        p_translate=1.0, dr_max=box_lj / 30)),
+             ("2a co2/n2 32+32", co2_n2_system(32, 32), box_mix,
+              mixture_params(r_cut=7.0))]
+    err = 0.0
+    n_unequal = 0
+    for i, (tag, system, box, params) in enumerate(ident):
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        mc = MonteCarlo(system, params, device=dev, generator=gen,
+                        kernel="sweep")
+        state = mc.init_state(cubic_lattice(system.n_mol, box), box=box,
+                              n_chains=chains)
+        u = draw_uniforms(chains, system.n_mol, gen, dev)
+        args = _sweep_args(state, u)
+        ks = sweep_blocks(functools.partial(op.sweep, layout="shared"),
+                          *args, mc.tables)
+        e, kg = compare_tables(tag + " global", args, mc.tables,
+                               layout="global")
+        err = max(err, e)
+        diff = torch.zeros(chains, dtype=torch.bool, device=dev)
+        big = 0.0
+        for a, b in zip(kg, ks):
+            d = (a != b).flatten(1).any(dim=1)
+            diff |= d
+            big = max(big, float((a - b).abs().max()))
+        n_unequal += int(diff.sum())
+        print(f"phase {tag}: global vs shared layout: {int(diff.sum())} of "
+              f"{chains} chains differ in any output, largest difference "
+              f"{big:.3e}")
+
+    mix = dict(temperature=240.0, r_cut=7.0, coulomb="ewald", nk=5,
+               ksq_max=27, p_translate=0.5, dr_max=0.3, dphi_max=0.3,
+               slab_mode="force", slab_skin=0.5)
+    box_m = 37.0 * (640 / 750) ** (1 / 3)
+    slabs = [("2b lj640 slab", lj_system(640), 32.0,
+              RunParams(temperature=1.5, r_cut=3.0, coulomb="none",
+                        p_translate=1.0, dr_max=0.4, use_lrc=False,
+                        slab_mode="force", slab_skin=1.0),
+              _stratified_com(640, 32.0)),
+             ("2c spce512 slab", spce_system(512), 24.83,
+              RunParams(temperature=298.15, r_cut=4.5, coulomb="ewald",
+                        nk=5, ksq_max=27, p_translate=0.5, dr_max=0.3,
+                        dphi_max=0.3, slab_mode="force", slab_skin=0.3),
+              _sheared_lattice(512, 24.83)),
+             ("2d co2/n2 64+576 slab", co2_n2_system(64, 576), box_m,
+              RunParams(**mix), cubic_lattice(640, box_m))]
+    for i, (tag, system, box, params, com) in enumerate(slabs):
+        gen = torch.Generator(device=dev).manual_seed(320 + i)
+        mc = MonteCarlo(system, params, device=dev, generator=gen)
+        state = mc.init_state(com, box=box, n_chains=chains)
+        cfg = mc._slab_cfg
+        if cfg is None or not cfg["W"] < cfg["A_blk"]:
+            raise AssertionError(f"{tag}: slab configuration {cfg}")
+        print(f"phase {tag}: W {cfg['W']} of A_blk {cfg['A_blk']}, "
+              f"A_store {cfg['A_store']}, {len(mc.tables)} launches")
+        u = draw_uniforms(chains, system.n_mol, gen, dev)
+        state, args = _slab_args(mc, state, u)
+        e, k = compare_tables(tag, args, mc.tables)
+        check_halo(tag, k[0], system, cfg)
+        err = max(err, e)
+    return err, n_unequal
+
+
+def _cutoff_fraction_tiled(system, state, r_cut, rows=512):
+    """_cutoff_fraction of chain 0 for systems too large for an (A, A)
+    grid, one block of rows at a time."""
+    A = system.n_atoms
+    x = state.coords[0, :, :A].T                                   # (A, 3)
+    box = state.box[0]
+    mol = torch.as_tensor(system.atom_mol_slot[0], device=x.device)
+    inside = total = 0
+    for i0 in range(0, A, rows):
+        d = x[i0:i0 + rows, None, :] - x[None, :, :]
+        d = d - box * torch.round(d / box)
+        other = mol[i0:i0 + rows, None] != mol[None, :]
+        inside += int(((d * d).sum(-1) < r_cut ** 2)[other].sum())
+        total += int(other.sum())
+    return inside / total
+
+
+def slab_lanes(system, t):
+    """The mean number of atom lanes a move of table t scans: the other
+    blocks' segments and its window (above the sorted block's first
+    column), less its own columns and their ghost twin."""
+    wst = t.wst.cpu().numpy()
+    segs = t.segs.cpu().numpy().reshape(-1, 2)
+    lanes = []
+    for m in range(t.m_start, t.m_start + t.M):
+        a0 = t.a_start + (m - t.m_start) * t.P
+        n = int(segs[:, 1].sum())
+        lo, hi = max(int(wst[m]), t.a0_w), int(wst[m]) + t.W
+        n += hi - lo
+        own = [a0 + p for p in range(t.P)]
+        if a0 >= t.a0_w:
+            own += [c + t.A_blk for c in own]
+        lanes.append(n - sum(1 for c in own if lo <= c < hi
+                             or any(b <= c < b + w for b, w in segs)))
+    return float(np.mean(lanes))
+
+
 def _time_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -714,7 +941,8 @@ def _cutoff_fraction(system, state, r_cut, n=4):
 
 
 def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
-                n_widoms=None, n_del=0.0, tmmc=False, n_sq=None):
+                n_widoms=None, n_del=0.0, tmmc=False, n_sq=None,
+                lanes=None, A_plane=None):
     """The least time (ms) one sweep could take on this card, and what
     sets it: each input and output moved once against the operations the
     pair and k-space sums need (see OPS_*).  With an activity mask,
@@ -726,9 +954,14 @@ def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
     with tmmc every attempt) each score the active slots with Philox.
     n_sq (one block): the mean over chains of n_c^2, for chains whose
     active counts differ (chain c's moves each sum over its own n_c P
-    atoms, so the move work goes with the mean of n_c (n_c - 1))."""
+    atoms, so the move work goes with the mean of n_c (n_c - 1)).
+    lanes[b] (sorted slabs): the mean atom lanes a move of block b scans
+    (slab_lanes), each with its distance; the in-cutoff terms are those of
+    all A atoms, which the window covers; A_plane: the planes' width
+    (A_store)."""
     C, M = state.com.shape[:2]
-    A, A_pad, K = system.n_atoms, state.coords.shape[-1], state.sfac.shape[1]
+    A, K = system.n_atoms, state.sfac.shape[1]
+    A_pad = state.coords.shape[-1] if A_plane is None else A_plane
     nbytes = 4 * C * (2 * 3 * A_pad + 2 * 7 * M + 2 * 2 * K + 10 * M + 10)
     if n_active is not None:
         n_att = sum(n_exchs) + sum(n_widoms)
@@ -742,6 +975,9 @@ def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
         qf = t.has_q.sum().item() if t.coulomb != "none" else 0
         c_pair = t.P * OPS_GEOMETRY + frac * (lj * OPS_LJ + qf * OPS_COULOMB)
         per_pose = (A - t.P) * c_pair
+        if lanes is not None:
+            per_pose = lanes[b] * t.P * OPS_GEOMETRY + (A - t.P) * frac * (
+                lj * OPS_LJ + qf * OPS_COULOMB)
         ewald = t.coulomb == "ewald"
         k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
         k_move = K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
@@ -779,11 +1015,15 @@ def _bound(nbytes, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def main_path(tag, mc, state, blocks, launches_per_sweep, counter):
+def main_path(tag, mc, state, blocks, launches_per_sweep, counter,
+              reset=True):
     """run_blocks with the launch count, drift gate and acceptance
     checked; `counter` is the wrapper whose .launches counts the path's
-    kernel.  Returns (state, launches)."""
-    counter.launches = 0
+    kernel (set to 0 first unless reset is False: the launch check then
+    counts from the caller's reset).  Returns (state, launches)."""
+    if reset:
+        counter.launches = 0
+    launches0 = counter.launches
     sweeps = 0
     for n_steps, adjust in blocks:
         t0 = time.perf_counter()
@@ -802,13 +1042,13 @@ def main_path(tag, mc, state, blocks, launches_per_sweep, counter):
                                and 0.05 < m["acc_rot"] < 0.95):
             raise AssertionError(f"acceptance out of range: {m}")
     launches = counter.launches
-    if launches != launches_per_sweep * sweeps:
+    if launches - launches0 != launches_per_sweep * sweeps:
         raise AssertionError(f"kernel launched {launches} times for "
                              f"{sweeps} sweeps, {launches_per_sweep} each")
     if not bool(torch.isfinite(state.energy).all()):
         raise AssertionError("non-finite chain energies")
-    print(f"phase{tag} main path: {sweeps} sweeps, {launches} kernel "
-          f"launches")
+    print(f"phase{tag} main path: {sweeps} sweeps, "
+          f"{launches - launches0} kernel launches")
     return state, launches
 
 
@@ -1639,9 +1879,210 @@ def phase10_lj(dev, cap=192, box=6.0, chains=256, blocks=48, steps=5000):
                                   rho_v=res["rho_vap"], rho_l=res["rho_liq"])
 
 
+def phase11(dev, n_mol=6859, box=59.056, chains=256, r_cut=10.0, nk=11,
+            ksq_max=118, melt=2, blocks=2, twin_moves=512):
+    """The large-system NVT main path: 6859 SPC/E waters (20577 atoms) on
+    a 19^3 lattice at the flagship's density with random orientations,
+    the flagship's Ewald truncation carried to the larger box (kappa L
+    11.711, nk 11, |k|^2 < 118: K = 2874), slab_mode "auto", 256 chains:
+    init_state (the row-tiled recompute), a melt block with adaptation,
+    retune_slabs, a measured block; one sweep timed on the slab route and
+    on the dense global layout (slab_mode "off") from the same state and
+    uniforms; the kernel against sweep_plain over the first twin_moves
+    molecules of every chain, slab and dense; a one-sweep block on the
+    dense global route as its main path."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        draw_uniforms,
+        sweep_blocks,
+        sweep_tables,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    t_phase = time.perf_counter()
+    system = spce_system(n_mol)
+    params = RunParams(temperature=298.15, r_cut=r_cut, coulomb="ewald",
+                       kappa_L=5.6 * box / 28.24, nk=nk, ksq_max=ksq_max,
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3)
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    mc = MonteCarlo(system, params, device=dev, generator=gen)
+    op.sweep.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = mc.init_state(cubic_lattice(n_mol, box), box=box,
+                          n_chains=chains)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cfg = mc._slab_cfg
+    K = state.sfac.shape[1]
+    if cfg is None or not cfg["W"] < cfg["A_blk"]:
+        raise AssertionError(f"slab configuration {cfg}")
+    w_init = cfg["W"]
+    print(f"phase11 init_state: {t_init:.2f} s (the row-tiled recompute of "
+          f"{chains} chains in chunks of {mc.recompute_chunk}, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB), "
+          f"A {system.n_atoms}, A_pad {system.n_atoms_padded}, K {K}, "
+          f"W {cfg['W']} of A_blk {cfg['A_blk']}, A_store {cfg['A_store']}, "
+          f"E/N mean {float(state.energy.mean()) / n_mol:.2f} K")
+    # the melt: the lattice start's energy crosses zero in its first
+    # sweeps, where a relative drift says nothing, so this block's drift is
+    # printed, not gated
+    t0 = time.perf_counter()
+    state, m = mc.run_block(state, melt, adjust=True)
+    torch.cuda.synchronize()
+    print(f"phase11 melt run_block({melt}, adjust=True): "
+          f"{time.perf_counter() - t0:.2f} s, " + ", ".join(
+              f"{k} {v:.6g}" for k, v in m.items()))
+    needed = int(state.nbr_needed.max())
+    state = mc.retune_slabs(state)
+    cfg = mc._slab_cfg
+    if cfg is None or not cfg["W"] < cfg["A_blk"]:
+        raise AssertionError(f"slab configuration after retune {cfg}")
+    print(f"phase11 retune_slabs: W {w_init} -> {cfg['W']} (A_store "
+          f"{cfg['A_store']}); max nbr_needed over the melt {needed}")
+    state, launches = main_path("11", mc, state, ((blocks, False),), 1,
+                                op.sweep, reset=False)
+    needed = int(state.nbr_needed.max())
+    print(f"phase11 main path: {launches} slab launches; max nbr_needed "
+          f"{needed} of W {cfg['W']}; {time.perf_counter() - t_phase:.1f} s "
+          f"so far")
+
+    # one sweep on the slab route and on the dense global layout, from the
+    # same resorted state and uniforms
+    u = draw_uniforms(chains, n_mol, gen, dev)
+    state_s, args = _slab_args(mc, state, u)
+    dense = sweep_tables(system, params, mc.kvecs, mc.kweights, dev)
+    args_d = _sweep_args(state_s, u)
+    ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, mc.tables), 1)
+    ms_d = _time_ms(lambda: sweep_blocks(op.sweep, *args_d, dense), 1)
+    frac = _cutoff_fraction_tiled(system, state_s, params.r_cut)
+    lanes = [slab_lanes(system, t) for t in mc.tables]
+    bound, by = sweep_bound(system, mc.tables, state_s, frac, lanes=lanes,
+                            A_plane=cfg["A_store"])
+    bound_d, by_d = sweep_bound(system, dense, state_s, frac)
+    print(f"phase11 one sweep of {chains} chains x {n_mol} moves: slab "
+          f"{ms:.3f} ms (bound {bound:.3f} ms, {by}; {lanes[0]:.1f} lanes "
+          f"per move), dense global {ms_d:.3f} ms (bound {bound_d:.3f} ms, "
+          f"{by_d}; {system.n_atoms - 3} lanes), dense / slab "
+          f"{ms_d / ms:.3f}; {frac:.5f} of pairs within the cutoff")
+
+    # the kernel against its twin over the first twin_moves molecules
+    # (their windows wrap through the ghost halo)
+    part = [dataclasses.replace(t, M=twin_moves) for t in mc.tables]
+    part_d = [dataclasses.replace(t, M=twin_moves) for t in dense]
+    err, k = compare_tables("11 slab kernel vs plain", args, part)
+    check_halo("11", k[0], system, cfg)
+    err_d, _ = compare_tables("11 dense global kernel vs plain", args_d,
+                              part_d)
+    t_ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, part), 1)
+    t_plain = _time_ms(lambda: sweep_blocks(op.sweep_plain, *args, part), 1)
+    td_ms = _time_ms(lambda: sweep_blocks(op.sweep, *args_d, part_d), 1)
+    td_plain = _time_ms(lambda: sweep_blocks(op.sweep_plain, *args_d,
+                                             part_d), 1)
+    p_bound = sweep_bound(system, part, state_s, frac, lanes=[
+        slab_lanes(system, t) for t in part], A_plane=cfg["A_store"])
+    pd_bound = sweep_bound(system, part_d, state_s, frac)
+    print(f"phase11 {twin_moves} moves x {chains} chains: slab kernel "
+          f"{t_ms:.3f} ms, sweep_plain {t_plain:.3f} ms, bound "
+          f"{p_bound[0]:.3f} ms; dense global kernel {td_ms:.3f} ms, "
+          f"sweep_plain {td_plain:.3f} ms, bound {pd_bound[0]:.3f} ms")
+
+    # the dense global layout's main path: slab_mode "off"
+    gen_off = torch.Generator(device=dev).manual_seed(2032)
+    mc_off = MonteCarlo(system, dataclasses.replace(params, slab_mode="off"),
+                        device=dev, generator=gen_off)
+    _, launches_d = main_path("11 dense", mc_off, state_s, ((1, False),),
+                              1, op.sweep)
+    print(f"phase11 total {time.perf_counter() - t_phase:.1f} s")
+    return ((launches, err, t_ms, t_plain) + p_bound,
+            (launches_d, err_d, td_ms, td_plain) + pd_bound)
+
+
+P_BAR = 1.0e5 / 1.380649e-23 * 1e-30      # 1 bar in K / A^3
+
+
+def phase12(dev, n_mol=750, box=28.24, chains=2048, r_cut=10.0,
+            blocks=((20, True), (20, False), (20, False))):
+    """NPT at bench.py's "npt" parameters on the flagship lattice (750
+    SPC/E waters, Ewald, 1 bar, p_volume 0.05, dv_max 0.01), 2048 chains:
+    a melt block with adaptation and two measured blocks (one volume
+    attempt per chain per block), <V>; then pressure_fd (float64) against
+    the virial pressure M T / V + W / (3 V) of the final state, chain by
+    chain."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    t_phase = time.perf_counter()
+    system = spce_system(n_mol)
+    params = RunParams(temperature=298.15, r_cut=r_cut, coulomb="ewald",
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3,
+                       pressure=P_BAR, p_volume=0.05, dv_max=0.01)
+    gen = torch.Generator(device=dev).manual_seed(2033)
+    mc = MonteCarlo(system, params, device=dev, generator=gen)
+    state = mc.init_state(cubic_lattice(n_mol, box), box=box,
+                          n_chains=chains)
+    op.sweep.launches = 0
+    vols = []
+    for i, block in enumerate(blocks):
+        state, _ = main_path("12", mc, state, (block,), 1, op.sweep,
+                             reset=False)
+        if not block[1]:
+            acc_vol = float(((state.acc[:, 2]).float()
+                             / state.att[:, 2].clamp_min(1)).mean())
+            vols.append(float((state.box ** 3).mean()))
+            print(f"phase12 block {i}: acc_vol {acc_vol:.4f} (one attempt "
+                  f"per chain per 20 sweeps), <V> {vols[-1]:.2f} A^3")
+    launches = op.sweep.launches
+    att = int(state.att[:, 2].sum())
+    if att != chains * 2 or not 0.0 < acc_vol < 1.0:
+        raise AssertionError(f"volume attempts {att}, acc_vol {acc_vol}")
+    vol = state.box.double() ** 3
+    p_vir = (n_mol * state.temp.double() / vol
+             + state.virial.double() / (3.0 * vol))
+    # pressure_fd differentiates the sampled energy, whose truncation at
+    # r_cut jumps where a site pair crosses the cutoff: an eps that moves
+    # pairs by ~1e-4 A crosses dozens per chain and adds their impulse
+    # (~1e2 bar at 750 waters) and noise (~1e3 bar per chain) that the
+    # virial has not.  A float64 difference at eps 1e-9 moves pairs by
+    # ~3e-9 A: a chain crosses a pair with probability ~5e-4, and the
+    # other chains' pressure_fd is the virial's to f64 precision.
+    mc64 = MonteCarlo(system, params, device=dev, dtype=torch.float64,
+                      kernel="plain")
+    f64 = {f.name: getattr(state, f.name).double()
+           for f in dataclasses.fields(state)
+           if getattr(state, f.name).is_floating_point()}
+    t0 = time.perf_counter()
+    p_fd = mc64.pressure_fd(dataclasses.replace(state, **f64),
+                            rel_eps=1e-9)
+    torch.cuda.synchronize()
+    agree = (p_fd - p_vir).abs() < P_BAR
+    se = math.sqrt(float(p_vir.var()) / chains)
+    gap = abs(float(p_fd[agree].mean()) - float(p_vir.mean()))
+    print(f"phase12 pressure: virial {float(p_vir.mean()) / P_BAR:.3f} bar "
+          f"+- {se / P_BAR:.3f} (chain-to-chain standard error); "
+          f"pressure_fd within 1 bar of it on {int(agree.sum())} of "
+          f"{chains} chains (median difference "
+          f"{float((p_fd - p_vir).abs().median()) / P_BAR:.2e} bar), whose "
+          f"mean {float(p_fd[agree].mean()) / P_BAR:.3f} bar is "
+          f"{gap / P_BAR:.3f} bar from the virial mean (pressure_fd in "
+          f"float64, eps 1e-9: {time.perf_counter() - t0:.2f} s)")
+    if not (float(agree.float().mean()) >= MATCH_FRACTION and gap <= se):
+        raise AssertionError("pressure_fd and the virial pressure disagree")
+    print(f"phase12 main path: {launches} kernel launches, mean box "
+          f"{float(state.box.mean()):.4f} A; total "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -1654,6 +2095,10 @@ def main():
         err2, err_d = phase2(dev)
         err2x = phase2_variants(dev)
         err2t, _ = phase2_tmmc(dev)
+        t0 = time.perf_counter()
+        err2g, _ = phase2_global(dev)
+        print(f"phase 2 global layout and slab cases: "
+              f"{time.perf_counter() - t0:.1f} s")
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
         # the new phases (phase 3 keeps its 10-sweep adjust block, which
@@ -1679,8 +2124,13 @@ def main():
         l10 = phase10_ideal(dev)
         l10s, l10m, _ = phase10_spce(dev)
         l10l, l10g, _ = phase10_lj(dev)
+    if 11 in want:
+        ((l11, err11, ms11, plain11, bound11, by11),
+         (l11d, err11d, ms11d, plain11d, bound11d, by11d)) = phase11(dev)
+    if 12 in want:
+        l12 = phase12(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != {2, 3, 4, 5, 6, 7, 8, 9, 10}:
+    if want != set(range(2, 13)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -1689,7 +2139,7 @@ def main():
                      replaces=f"{PALLAS}/sweep_kernel.py:903",
                      library_ms=None)
     print(json.dumps({"kernels": [
-        dict(sweep_row, name="sweep_kernel", launches=l3,
+        dict(sweep_row, name="sweep_kernel", launches=l3 + l12,
              max_abs_err=max(err2, err3), ms=ms3, plain_ms=plain3,
              bound_ms=bound3, bound_by=by3),
         dict(sweep_row, name="sweep_kernel[species blocks]", launches=l4,
@@ -1711,7 +2161,16 @@ def main():
              bound_ms=bound8, bound_by=by8),
         dict(sweep_row, name="sweep_kernel[tmmc]",
              launches=l9 + l10 + l10s + l10l, max_abs_err=max(err2t, err9),
-             ms=ms9, plain_ms=plain9, bound_ms=bound9, bound_by=by9)]}))
+             ms=ms9, plain_ms=plain9, bound_ms=bound9, bound_by=by9),
+        # the 6859-water cell, one launch of 512 moves of every chain (a
+        # full sweep's time and bound are in the phase 11 line)
+        dict(sweep_row, name="sweep_kernel[slab]",
+             replaces=f"{PALLAS}/sweep_kernel.py:86", launches=l11,
+             max_abs_err=max(err2g, err11), ms=ms11, plain_ms=plain11,
+             bound_ms=bound11, bound_by=by11),
+        dict(sweep_row, name="sweep_kernel[global layout]", launches=l11d,
+             max_abs_err=max(err2g, err11d), ms=ms11d, plain_ms=plain11d,
+             bound_ms=bound11d, bound_by=by11d)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,11 @@
 //
 // Replaces the TPU kernel metropolismontecarlo_tpu/ops/pallas/sweep_kernel.py
 // sweep_pallas / _make_kernel: the base and species-block variants, the
-// activity mask (use_act), the in-kernel grand-canonical exchange attempts
-// (n_exch), the transition-matrix deposits (tmmc) and the Widom ghost
-// insertions (n_widom), with lj_shift "none" and "linear" (no sorted
-// slabs).  Plain PyTorch twin: ops/cuda/sweep_kernel.py sweep_plain.
+// sorted-slab windows (slab), the activity mask (use_act), the in-kernel
+// grand-canonical exchange attempts (n_exch), the transition-matrix
+// deposits (tmmc) and the Widom ghost insertions (n_widom), with lj_shift
+// "none" and "linear".  Plain PyTorch twin: ops/cuda/sweep_kernel.py
+// sweep_plain.
 //
 // What it computes: for one chain per thread block, M sequential moves of
 // the species block whose molecules are [m_start, m_start + M) (global
@@ -25,8 +26,10 @@
 // and store the chain state (~55 KB) and to read 40 B of uniforms per move.
 // The design: the whole chain state (x/y/z, all M_total COM and quaternion
 // rows, S(k), the per-atom type/charge/molecule rows and the k-vectors)
-// lives in shared memory for the whole sweep -- every block's launch loads
-// and stores all of it, so launches chain without a merge step; the atom loop is strided over the block so
+// lives in shared memory for the whole sweep (the global layout below
+// keeps the atom, COM and quaternion rows in global memory) -- every
+// block's launch loads and stores all of it, so launches chain without a
+// merge step; the atom loop is strided over the block so
 // neighbouring threads read neighbouring words; one warp-shuffle reduction
 // plus one pass over the warp partials per move; the next move's uniforms
 // are prefetched during the current move; chains run in parallel across
@@ -83,6 +86,32 @@
 // Widom (n_widom > 0, needs use_act): after moves and exchanges, n_widom
 // ghost insertions with the same pose and energy code and no writes; wid
 // (C, 2) receives sum w and sum w^2, w = exp(-du_ins / T).
+//
+// Global layout (kGlobal, fixed N only; its own instantiation): for chain
+// states that do not fit a block's shared memory (6859 SPC/E waters with
+// K = 2874 would need ~780 KB) the chain's x/y/z planes and its COM and
+// quaternion rows live in global memory -- the chain's own rows of the
+// output tensors, copied in at entry and updated in place by accepted
+// moves -- and the type/charge/molecule rows are read from their global
+// tables (shared by all chains, so L2 keeps them).  Shared memory keeps
+// the k-vector rows, S(k), the LJ tables, the site rows and the scratch.
+// One chain per block: thread 0's writes of an accepted move are ordered
+// before every other thread's reads by the __syncthreads that follows.
+// The arithmetic, lane stride, skip tests and reduction order are the
+// shared layout's; only where the atom, COM and quaternion words live
+// differs.
+//
+// Sorted slabs (W > 0, global layout): the last species block (atoms
+// [a0_w, a0_w + A_blk)) is kept z-sorted by the caller, and the planes
+// carry a ghost halo [A, A + W) replicating its first W columns.  A
+// move's pair scan reads each other species block as a column segment
+// (segs: (n_seg, 2) = [first column, width]; the mover's own columns
+// excluded) and one W-wide window of the sorted block starting at column
+// wst[m]: lanes below a0_w are skipped, and a mover of the sorted block
+// (a0 >= a0_w) excludes its own columns and their ghost twin at +A_blk.  Lane validity comes from these column ranges,
+// not from molid (ghost columns carry molid -1).  An accepted move of a
+// head molecule (column offset < W in its block) also writes its twin's
+// columns inside the halo.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,10 +133,12 @@ constexpr float kPDep = 0.5f;  // the exchange type's probability, folded in
 // Shared-memory words of one block (M = M_total, the COM/quaternion rows
 // held); ops/cuda/sweep_kernel.py smem_bytes computes the same number.
 // tmmc adds a second slot-pick row (64 words), the deletion pose (3 P), its
-// S(k) row (2 K) and its warp partials (32).
+// S(k) row (2 K) and its warp partials (32); the global layout holds no
+// atom and no COM/quaternion rows.
 __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
                                                     int K, int T, int use_act,
-                                                    int tmmc) {
+                                                    int tmmc, int global) {
+  if (global) return 8 * (size_t)K + 4 * (size_t)P * T + 12 * (size_t)P + 144;
   return 6 * (size_t)A_pad + 7 * (size_t)M + 8 * (size_t)K +
          4 * (size_t)P * T + 12 * (size_t)P + 144 +
          (use_act ? (size_t)A_pad + (size_t)M : 0) +
@@ -161,8 +192,9 @@ __device__ inline void rot_apply(float w, float x, float y, float z, float bx,
 // inner loop and register count free of them.  kTmmc (with kAct): the
 // transition-matrix instantiation, whose attempts evaluate both branches
 // and deposit cmat/uhist; the fixed-N and muVT instantiations carry none
-// of it.
-template <bool kAct, bool kTmmc>
+// of it.  kGlobal (fixed N): the global-memory layout, which alone carries
+// the slab windows.
+template <bool kAct, bool kTmmc, bool kGlobal>
 __global__ void sweep_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
@@ -179,6 +211,7 @@ __global__ void sweep_kernel(
     const float* __restrict__ ux_in, const float* __restrict__ z_in,
     const float* __restrict__ si_in, const float* __restrict__ wc_in,
     const float* __restrict__ eta_in, const float* __restrict__ e_in,
+    const int* __restrict__ wst, const int* __restrict__ segs,
     float* __restrict__ coords_out, float* __restrict__ com_out,
     float* __restrict__ quat_out, float* __restrict__ sfac_out,
     float* __restrict__ stats_out, float* __restrict__ act_out,
@@ -186,13 +219,16 @@ __global__ void sweep_kernel(
     float* __restrict__ cmat_out, float* __restrict__ uhist_out, int M,
     int M_total, int m_start, int a_start, int P, int A_pad, int K, int T,
     int coulomb, int lj_linear, int use_rot, int n_exch, int n_widom,
-    unsigned int seed, float rc2, float qrc2, float kappa_l,
-    float d2_overlap, float p_translate, float factor) {
+    int n_seg, int a0_w, int A_blk, int W, unsigned int seed, float rc2,
+    float qrc2, float kappa_l, float d2_overlap, float p_translate,
+    float factor) {
   extern __shared__ float smem[];
   // 32 x 8-byte slots of the slot-pick reduction first: 8-byte aligned;
   // tmmc's deletion pick has a second row
   unsigned long long* sred64 = reinterpret_cast<unsigned long long*>(smem);
   unsigned long long* sred64d = sred64 + 32;
+  // the shared layout's atom, COM and quaternion rows; the global layout
+  // points these at global memory below and starts S(k) at their place
   float* sx = smem + (kTmmc ? 128 : 64);
   float* sy = sx + A_pad;
   float* sz = sy + A_pad;
@@ -201,7 +237,7 @@ __global__ void sweep_kernel(
   int* smol = stid + A_pad;
   float* scom = reinterpret_cast<float*>(smol + A_pad);  // (M_total, 3)
   float* squat = scom + 3 * M_total;                     // (M_total, 4)
-  float* ssre = squat + 4 * M_total;
+  float* ssre = kGlobal ? sx : squat + 4 * M_total;
   float* ssim = ssre + K;
   float* scfac = ssim + K;
   float* sdre = scfac + K;
@@ -237,14 +273,28 @@ __global__ void sweep_kernel(
   const int nwarps = nt >> 5;
 
   const float* cin = coords_in + (size_t)c * 3 * A_pad;
-  for (int j = tid; j < A_pad; j += nt) {
-    sx[j] = cin[j];
-    sy[j] = cin[A_pad + j];
-    sz[j] = cin[2 * A_pad + j];
-    sq[j] = q_row[j];
-    stid[j] = tid_row[j];
-    smol[j] = molid_row[j];
-    if (kAct) sact[j] = act_in[(size_t)c * A_pad + j];
+  if constexpr (kGlobal) {
+    // the chain's own rows of the outputs, updated in place; the per-atom
+    // rows are read (never written) from their global tables
+    sx = coords_out + (size_t)c * 3 * A_pad;
+    sy = sx + A_pad;
+    sz = sy + A_pad;
+    scom = com_out + (size_t)c * 3 * M_total;
+    squat = quat_out + (size_t)c * 4 * M_total;
+    sq = const_cast<float*>(q_row);
+    stid = const_cast<int*>(tid_row);
+    smol = const_cast<int*>(molid_row);
+    for (int j = tid; j < 3 * A_pad; j += nt) sx[j] = cin[j];
+  } else {
+    for (int j = tid; j < A_pad; j += nt) {
+      sx[j] = cin[j];
+      sy[j] = cin[A_pad + j];
+      sz[j] = cin[2 * A_pad + j];
+      sq[j] = q_row[j];
+      stid[j] = tid_row[j];
+      smol[j] = molid_row[j];
+      if (kAct) sact[j] = act_in[(size_t)c * A_pad + j];
+    }
   }
   if (kAct)
     for (int i = tid; i < M_total; i += nt)
@@ -383,10 +433,8 @@ __global__ void sweep_kernel(
 
     // ---- old and new site sums over the atom lanes ----
     float part = 0.0f;
-    for (int j = tid; j < A_pad; j += nt) {
-      const int mj = smol[j];
-      if (mj < 0 || mj == mg) continue;
-      if (kAct && sact[j] == 0.0f) continue;
+    // one atom lane j: its old and new pair terms into part
+    auto lane_terms = [&](int j) {
       const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
       const int tj = stid[j];
       for (int p = 0; p < P; ++p) {
@@ -431,7 +479,36 @@ __global__ void sweep_kernel(
           part += s ? contrib : -contrib;
         }
       }
+    };
+    bool dense = true;
+    if constexpr (kGlobal) {
+      if (W > 0) {
+        // sorted slabs: the other blocks' column segments, then the window
+        dense = false;
+        const int a0 = a_start + m * P;
+        for (int sg = 0; sg < n_seg; ++sg) {
+          const int b0 = segs[2 * sg], b1 = b0 + segs[2 * sg + 1];
+          for (int j = b0 + tid; j < b1; j += nt)
+            if (j < a0 || j >= a0 + P) lane_terms(j);
+        }
+        const int wb = wst[mg];
+        const bool in_w = a0 >= a0_w;  // the mover is in the sorted block
+        for (int j = wb + tid; j < wb + W; j += nt) {
+          if (j < a0_w) continue;  // the window's alignment overhang
+          if (in_w && ((j >= a0 && j < a0 + P) ||
+                       (j >= a0 + A_blk && j < a0 + A_blk + P)))
+            continue;
+          lane_terms(j);
+        }
+      }
     }
+    if (dense)
+      for (int j = tid; j < A_pad; j += nt) {
+        const int mj = smol[j];
+        if (mj < 0 || mj == mg) continue;
+        if (kAct && sact[j] == 0.0f) continue;
+        lane_terms(j);
+      }
 
     // ---- incremental S(k) and the reciprocal energy delta ----
     if (ewald) {
@@ -485,6 +562,14 @@ __global__ void sweep_kernel(
           sy[a0 + p] = snew[3 * p + 1];
           sz[a0 + p] = snew[3 * p + 2];
         }
+        if constexpr (kGlobal)
+          if (W > 0 && a0 >= a0_w)
+            // a head molecule's ghost twin (the halo may end inside it)
+            for (int p = 0; p < P && a0 + p - a0_w < W; ++p) {
+              sx[a0 + A_blk + p] = snew[3 * p];
+              sy[a0 + A_blk + p] = snew[3 * p + 1];
+              sz[a0 + A_blk + p] = snew[3 * p + 2];
+            }
       }
       sdec[8] = accept ? 1.0f : 0.0f;
     }
@@ -860,20 +945,22 @@ __global__ void sweep_kernel(
     __syncthreads();
   }
 
-  float* cout = coords_out + (size_t)c * 3 * A_pad;
-  for (int j = tid; j < A_pad; j += nt) {
-    cout[j] = sx[j];
-    cout[A_pad + j] = sy[j];
-    cout[2 * A_pad + j] = sz[j];
-    if (kAct) act_out[(size_t)c * A_pad + j] = sact[j];
+  if constexpr (!kGlobal) {
+    float* cout = coords_out + (size_t)c * 3 * A_pad;
+    for (int j = tid; j < A_pad; j += nt) {
+      cout[j] = sx[j];
+      cout[A_pad + j] = sy[j];
+      cout[2 * A_pad + j] = sz[j];
+      if (kAct) act_out[(size_t)c * A_pad + j] = sact[j];
+    }
+    if (kAct)
+      for (int i = tid; i < M_total; i += nt)
+        actm_out[(size_t)c * M_total + i] = sactm[i];
+    for (int i = tid; i < 3 * M_total; i += nt)
+      com_out[(size_t)c * 3 * M_total + i] = scom[i];
+    for (int i = tid; i < 4 * M_total; i += nt)
+      quat_out[(size_t)c * 4 * M_total + i] = squat[i];
   }
-  if (kAct)
-    for (int i = tid; i < M_total; i += nt)
-      actm_out[(size_t)c * M_total + i] = sactm[i];
-  for (int i = tid; i < 3 * M_total; i += nt)
-    com_out[(size_t)c * 3 * M_total + i] = scom[i];
-  for (int i = tid; i < 4 * M_total; i += nt)
-    quat_out[(size_t)c * 4 * M_total + i] = squat[i];
   for (int k = tid; k < K; k += nt) {
     sfac_out[((size_t)c * K + k) * 2] = ssre[k];
     sfac_out[((size_t)c * K + k) * 2 + 1] = ssim[k];
@@ -899,8 +986,9 @@ __global__ void sweep_kernel(
 }  // namespace
 
 extern "C" size_t mmc_sweep_smem_bytes(int M, int P, int A_pad, int K, int T,
-                                       int use_act, int tmmc) {
-  return sizeof(float) * sweep_smem_floats(M, P, A_pad, K, T, use_act, tmmc);
+                                       int use_act, int tmmc, int global) {
+  return sizeof(float) *
+         sweep_smem_floats(M, P, A_pad, K, T, use_act, tmmc, global);
 }
 
 extern "C" const char* mmc_cuda_error_string(int code) {
@@ -914,7 +1002,9 @@ extern "C" const char* mmc_cuda_error_string(int code) {
 // act_out, actm_out and wid_out are read and written only with use_act, ux,
 // z, si and wc only with n_exch + n_widom > 0 (which needs use_act), eta
 // (M + 1), e_in (C), cmat_out and uhist_out (C, M + 1, 3) only with tmmc
-// (which needs n_exch > 0).
+// (which needs n_exch > 0).  global selects the global-memory layout (fixed
+// N only); with W > 0 (which needs it) wst (M_total,) and segs (n_seg, 2)
+// int32 give the slab windows and segments.
 extern "C" int mmc_sweep_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* box, const void* temp, const void* drmax, const void* dphi,
@@ -924,24 +1014,28 @@ extern "C" int mmc_sweep_launch(
     const void* molid_row, const void* q_row, const void* kvec, const void* kw,
     const void* act, const void* actm, const void* ux, const void* z,
     const void* si, const void* wc, const void* eta, const void* e_in,
-    void* coords_out, void* com_out, void* quat_out, void* sfac_out,
-    void* stats_out, void* act_out, void* actm_out, void* wid_out,
-    void* cmat_out, void* uhist_out, int C, int M, int M_total, int m_start,
-    int a_start, int P, int A_pad, int K, int T, int coulomb, int lj_linear,
-    int use_rot, int use_act, int n_exch, int n_widom, int tmmc,
+    const void* wst, const void* segs, void* coords_out, void* com_out,
+    void* quat_out, void* sfac_out, void* stats_out, void* act_out,
+    void* actm_out, void* wid_out, void* cmat_out, void* uhist_out, int C,
+    int M, int M_total, int m_start, int a_start, int P, int A_pad, int K,
+    int T, int coulomb, int lj_linear, int use_rot, int use_act, int n_exch,
+    int n_widom, int tmmc, int global, int n_seg, int a0_w, int A_blk, int W,
     unsigned int seed, int threads, float rc2, float qrc2, float kappa_l,
     float d2_overlap, float p_translate, float factor, void* stream) {
   const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T, use_act,
-                                           tmmc);
+                                           tmmc, global);
   if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > 1024 ||
       threads % 32 != 0 || C < 1 || M < 1 || m_start < 0 || a_start < 0 ||
       m_start + M > M_total || a_start + M * P > A_pad || n_exch < 0 ||
       n_widom < 0 || ((n_exch > 0 || n_widom > 0) && !use_act) ||
-      (tmmc && n_exch < 1))
+      (tmmc && n_exch < 1) || (global && use_act) || W < 0 ||
+      (W > 0 && (!global || !wst || (n_seg > 0 && !segs) || n_seg < 0 ||
+                 W > A_blk || a0_w < 0 || a0_w + A_blk + W > A_pad)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tmmc ? sweep_kernel<true, true>
-                     : use_act ? sweep_kernel<true, false>
-                               : sweep_kernel<false, false>;
+  auto kernel = tmmc ? sweep_kernel<true, true, false>
+                : use_act ? sweep_kernel<true, false, false>
+                : global ? sweep_kernel<false, false, true>
+                         : sweep_kernel<false, false, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -963,13 +1057,14 @@ extern "C" int mmc_sweep_launch(
       static_cast<const float*>(ux), static_cast<const float*>(z),
       static_cast<const float*>(si), static_cast<const float*>(wc),
       static_cast<const float*>(eta), static_cast<const float*>(e_in),
+      static_cast<const int*>(wst), static_cast<const int*>(segs),
       static_cast<float*>(coords_out), static_cast<float*>(com_out),
       static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
       static_cast<float*>(stats_out), static_cast<float*>(act_out),
       static_cast<float*>(actm_out), static_cast<float*>(wid_out),
       static_cast<float*>(cmat_out), static_cast<float*>(uhist_out), M,
       M_total, m_start, a_start, P, A_pad, K, T, coulomb, lj_linear, use_rot,
-      n_exch, n_widom, seed, rc2, qrc2, kappa_l, d2_overlap, p_translate,
-      factor);
+      n_exch, n_widom, n_seg, a0_w, A_blk, W, seed, rc2, qrc2, kappa_l,
+      d2_overlap, p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

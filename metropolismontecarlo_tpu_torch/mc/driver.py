@@ -1,5 +1,5 @@
 """Chain-parallel MC driver (counterpart of
-metropolismontecarlo_tpu/mc/driver.py, NVT routes).
+metropolismontecarlo_tpu/mc/driver.py).
 
 C independent chains advance in lockstep.  `sweep` moves every molecule
 once, in storage order, by one of three routes (the JAX package's
@@ -12,15 +12,21 @@ once, in storage order, by one of three routes (the JAX package's
   block, the Ewald surface term, float64).
 
 On the card the kernels run; on the CPU the same route runs their plain
-versions.  `run_steps` loops sweeps with optional step-size adaptation;
-`run_block` adds the block-end recompute that checks the accumulated
-energy's drift and resynchronises energy, virial and S(k).
+versions.  On the whole-sweep route init_state sizes sorted-slab windows
+from the box and chain 0's z where slab_config finds them profitable
+(`retune_slabs` re-sizes them from the current state).  `run_steps`
+loops sweeps with optional step-size adaptation and, under NPT, a volume
+move every round(1/p_volume) sweeps (mc/npt.py); `run_block` adds the
+block-end recompute that checks the accumulated energy's drift (and the
+slab windows' coverage) and resynchronises energy, virial and S(k).
+`pressure_fd` is the finite-difference pressure, `quench` a
+near-zero-temperature descent.
 
 `widom` samples ghost insertions in plain tensor code, `widom_mega` runs
 a sweep and the ghosts inside one sweep-kernel launch (mc/widom.py).
 
-Not ported yet, and refused when asked for: NPT volume moves, neighbour
-lists, sorted slabs, pressure_fd and tensor-parallel recomputes.
+Not ported yet, and refused when asked for: neighbour lists and
+tensor-parallel recomputes.
 """
 
 import dataclasses
@@ -32,19 +38,24 @@ import torch
 
 from metropolismontecarlo_tpu_torch.mc.adjust import adjust_dmax
 from metropolismontecarlo_tpu_torch.mc.moves import (
-    check_mega_supported,
     delta_kernel_supported,
     draw_uniforms,
     make_mega_sweep_fn,
     make_sweep_fn,
     mega_supported,
+    slab_config,
 )
+from metropolismontecarlo_tpu_torch.mc.npt import make_volume_move_fn
 from metropolismontecarlo_tpu_torch.mc.widom import (
     make_mega_widom_fn,
     make_widom_fn,
     mu_excess,
 )
-from metropolismontecarlo_tpu_torch.models.energy import energy_breakdown
+from metropolismontecarlo_tpu_torch.models.energy import (
+    DENSE_MAX_ATOMS,
+    ROW_BLOCK,
+    energy_breakdown,
+)
 from metropolismontecarlo_tpu_torch.models.system import SimState
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.quaternions import (
@@ -55,13 +66,20 @@ from metropolismontecarlo_tpu_torch.ops.quaternions import (
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
 
 
-def _auto_recompute_chunk(system, dtype, budget_bytes=8 << 30):
-    """Chains per chunk of the dense full-energy recompute: ~48 live
-    (A, A) temporaries per chain (the (A, A, 3) displacement grids count
-    three each) against a fixed memory budget, clamped to [1, 64]."""
+def _auto_recompute_chunk(system, dtype, n_k=0, budget_bytes=8 << 30):
+    """Chains per chunk of the full-energy recompute against a fixed
+    memory budget, clamped to [1, 64] (the JAX driver's model with this
+    port's counts): up to DENSE_MAX_ATOMS ~48 live (A, A) temporaries per
+    chain (the (A, A, 3) displacement grids count three each); above it
+    as many (B, A) row tiles plus ~8 (A, K) grids of the structure factor
+    and the reciprocal virial, n_k the Ewald k-vectors."""
     A = system.n_atoms_padded
     item = torch.finfo(dtype).bits // 8
-    return int(max(1, min(64, budget_bytes // (48 * A * A * item))))
+    if system.n_atoms > DENSE_MAX_ATOMS:
+        per_chain = item * A * (48 * ROW_BLOCK + 8 * n_k)
+    else:
+        per_chain = 48 * A * A * item
+    return int(max(1, min(64, budget_bytes // per_chain)))
 
 
 ROUTES = ("auto", "sweep", "move", "plain")
@@ -100,7 +118,7 @@ class MonteCarlo:
 
     def __init__(self, system, params, device="cuda", generator=None,
                  dtype=torch.float32, recompute_chunk="auto", tp_mesh=None,
-                 kernel="auto"):
+                 kernel="auto", pressure_ladder=None):
         """device: where state and kernels live, the card unless the
         caller passes "cpu" (then every kernel runs its plain version);
         without a CUDA device a "cuda" request raises.  generator: the
@@ -109,7 +127,10 @@ class MonteCarlo:
         chunked full-energy recompute ("auto": from a memory model).
         tp_mesh (tensor-parallel recomputes) is not ported and raises.
         kernel: the sweep route, see choose_route; self.route holds the
-        choice.  The kernel routes run float32; "plain" also float64."""
+        choice.  The kernel routes run float32; "plain" also float64.
+        pressure_ladder: (n_chains,) per-chain pressures for NPT, every
+        chain on its own isobar; needs params.p_volume > 0 (then
+        params.pressure may be None)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -127,24 +148,29 @@ class MonteCarlo:
         if tp_mesh is not None:
             raise NotImplementedError("tensor-parallel recomputes are not "
                                       "ported yet")
-        if params.pressure is not None or params.p_volume > 0.0:
-            raise NotImplementedError("NPT volume moves are not ported yet")
+        if pressure_ladder is not None and params.p_volume <= 0.0:
+            raise ValueError(
+                "pressure_ladder requires params.p_volume > 0: with no "
+                "volume moves every chain would sample the same fixed-V "
+                "ensemble instead of its isobar")
         if params.nlist_width > 0:
             raise NotImplementedError("neighbour lists are not ported yet")
         self.system = system
         self.params = params
         self.dtype = dtype
-        if recompute_chunk in ("auto", None):
-            recompute_chunk = _auto_recompute_chunk(system, dtype)
-        self.recompute_chunk = recompute_chunk
         if params.coulomb == "ewald":
             self.kvecs, self.kweights = ewald_ops.make_kvectors(
                 params.nk, params.ksq_max, strict=True)
         else:
             self.kvecs, self.kweights = None, None
+        if recompute_chunk in ("auto", None):
+            recompute_chunk = _auto_recompute_chunk(
+                system, dtype, 0 if self.kvecs is None else len(self.kvecs))
+        self.recompute_chunk = recompute_chunk
         self._widom_fns, self._widom_mega_fn, self._widom_mega_n = \
             {}, None, None
         self.route = choose_route(system, params, dtype, kernel)
+        self._slab_cfg = None
         if self.route == "sweep":
             self._sweep_full = make_mega_sweep_fn(
                 system, params, self.kvecs, self.kweights, self.device)
@@ -160,6 +186,40 @@ class MonteCarlo:
                  make_sweep_fn(system, params, self.kvecs, self.kweights,
                                self.device, dtype, self.route == "move", sl))
                 for sl in system.species_slices)
+        self._volume_move = None
+        if (params.pressure is not None or pressure_ladder is not None) \
+                and params.p_volume > 0.0:
+            self._volume_move = make_volume_move_fn(
+                system, params, self._energies, self.build_coords,
+                pressure=pressure_ladder)
+
+    def _maybe_slab_mega(self, box_hint, z_hint=None):
+        """Rebuild the whole-sweep route with sorted-slab windows sized
+        for this box and configuration where slab_config finds them
+        profitable (a no-op on other routes or when the window is
+        unchanged)."""
+        if self.route != "sweep":
+            return
+        cfg = slab_config(self.system, self.params, box_hint, z_hint)
+        key = None if cfg is None else (cfg["W"], cfg["A_store"])
+        cur = None if self._slab_cfg is None else (
+            self._slab_cfg["W"], self._slab_cfg["A_store"])
+        if key == cur:
+            return
+        self._slab_cfg = cfg
+        self._sweep_full = make_mega_sweep_fn(
+            self.system, self.params, self.kvecs, self.kweights, self.device,
+            box_hint=box_hint if cfg is not None else None, z_hint=z_hint)
+        self.tables = self._sweep_full.tables
+
+    def retune_slabs(self, state):
+        """Re-size the sorted-slab windows from the current configuration
+        (after equilibrating away a lattice start, whose z-plane clumps
+        force wide windows at init); resets the coverage counter."""
+        self._maybe_slab_mega(float(torch.min(state.box)),
+                              state.com[0, :, 2].double().cpu().numpy())
+        return dataclasses.replace(
+            state, nbr_needed=torch.zeros_like(state.nbr_needed))
 
     def _check_min_image(self, box):
         """r_cut <= box/2, else pair sums silently miss second images;
@@ -239,10 +299,8 @@ class MonteCarlo:
                               device=self.device)
         box = torch.broadcast_to(box.reshape(-1), (C,)).contiguous()
         self._check_min_image(box)
-        if self.route == "sweep":
-            check_mega_supported(self.system, self.params,
-                                 float(torch.min(box)),
-                                 com[0, :, 2].double().cpu().numpy())
+        self._maybe_slab_mega(float(torch.min(box)),
+                              com[0, :, 2].double().cpu().numpy())
         return self.resync(self._new_state(com, quat, box))
 
     def init_from_coords(self, coords, com, box, n_chains):
@@ -265,9 +323,10 @@ class MonteCarlo:
 
     # ---------------- full recompute / resync ----------------
 
-    def full_energy(self, state):
-        """Chunked full-system energy over chains: (C,) totals, virials
-        and (C, K, 2) structure factors ((C, 1, 2) zeros without Ewald)."""
+    def _energies(self, coords, com, box):
+        """Chunked full-system energy of coords (C, 3, A_pad), com
+        (C, M, 3), box (C,): (C,) totals, virials and (C, K, 2) structure
+        factors ((C, 1, 2) zeros without Ewald)."""
         A = self.system.n_atoms
 
         def one(coords_t, com, box):
@@ -276,8 +335,12 @@ class MonteCarlo:
                                    box, self.kvecs, self.kweights)
             return out["total"], out["w"], out["sfac"]
 
-        return chunked_map(one, self.recompute_chunk, state.coords,
-                           state.com, state.box)
+        return chunked_map(one, self.recompute_chunk, coords, com, box)
+
+    def full_energy(self, state):
+        """Chunked full-system energy over chains: (C,) totals, virials
+        and (C, K, 2) structure factors ((C, 1, 2) zeros without Ewald)."""
+        return self._energies(state.coords, state.com, state.box)
 
     def resync(self, state):
         """Replace the carried energy/virial/S(k) with a recompute."""
@@ -291,7 +354,18 @@ class MonteCarlo:
     def sweep(self, state):
         """One sweep: every molecule attempted once, in storage order, on
         uniforms (C, M, 10) drawn once from the generator (the per-move
-        routes hand molecule m its row u[:, m])."""
+        routes hand molecule m its row u[:, m]); under NPT then a volume
+        move of every chain on every round(1/p_volume)-th sweep (step is
+        a pure molecule-move counter, so step // n_mol is the 1-based
+        sweep index)."""
+        state = self._sweep_moves(state)
+        if self._volume_move is not None:
+            period = max(1, int(round(1.0 / self.params.p_volume)))
+            if (int(state.step) // self.system.n_mol) % period == 0:
+                state = self._volume_move(state, self.generator)
+        return state
+
+    def _sweep_moves(self, state):
         if self.route == "sweep":
             return self._sweep_full(state, self.generator)
         C, M = state.com.shape[:2]
@@ -313,9 +387,11 @@ class MonteCarlo:
         for _ in range(n_steps):
             state = self.sweep(state)
             if adjust:
+                # sorted-slab windows need dr_max <= slab_skin
+                dr_hi = state.box / 2.0 if self._slab_cfg is None \
+                    else torch.clamp_max(state.box / 2.0, p.slab_skin)
                 dr = adjust_dmax(state.dr_max, state.acc[:, 0],
-                                 state.att[:, 0], p.move_accept,
-                                 state.box / 2.0)
+                                 state.att[:, 0], p.move_accept, dr_hi)
                 dphi = adjust_dmax(state.dphi_max, state.acc[:, 1],
                                    state.att[:, 1], p.move_accept, math.pi)
                 dv = adjust_dmax(state.dv_max, state.acc[:, 2],
@@ -327,7 +403,31 @@ class MonteCarlo:
         return state
 
     def pressure_fd(self, state, rel_eps=1e-4):
-        raise NotImplementedError("pressure_fd is not ported yet")
+        """The pressure by a central finite difference of the total energy
+        under isotropic COM scaling, P = M T / V - dU/dV at rigid
+        molecules (two chunked full recomputes): the independent check of
+        the closed-form virial carried in state.virial.  Returns (C,)
+        pressures in K/A^3.  The difference of two energies needs the
+        precision of the state's dtype: use float64."""
+        def energy_at(scale):
+            com = state.com * scale
+            return self._energies(self.build_coords(com, state.quat), com,
+                                  state.box * scale)[0]
+
+        sp = (1.0 + rel_eps) ** (1.0 / 3.0)
+        sm = (1.0 - rel_eps) ** (1.0 / 3.0)
+        vol = state.box ** 3
+        du_dv = (energy_at(sp) - energy_at(sm)) / (2.0 * rel_eps * vol)
+        return self.system.n_mol * state.temp / vol - du_dv
+
+    def quench(self, state, n_steps=20, temp=1e-6):
+        """Descent at a near-zero temperature: n_steps sweeps in which only
+        downhill moves are accepted (the reference's EnergyMinimize
+        counterpart), then the original temperatures back and a resync."""
+        t0 = state.temp
+        state = dataclasses.replace(state, temp=torch.full_like(t0, temp))
+        state = self.run_steps(state, n_steps, False)
+        return self.resync(dataclasses.replace(state, temp=t0))
 
     def widom(self, state, n_insertions=64, species=0):
         """Widom test-particle insertion (mc/widom.py): n_insertions
@@ -378,6 +478,15 @@ class MonteCarlo:
         e, w, sfac = self.full_energy(state)
         drift = torch.max(torch.abs(e - state.energy)
                           / torch.clamp_min(torch.abs(e), 1.0))
+        if self._slab_cfg is not None:
+            needed = int(torch.max(state.nbr_needed))
+            if needed > self._slab_cfg["W"]:
+                raise RuntimeError(
+                    f"sorted-slab window overflow: a molecule's "
+                    f"z-neighbourhood needed {needed} columns but the "
+                    f"window is W={self._slab_cfg['W']}; density "
+                    f"fluctuations exceeded the sizing margin: set "
+                    f"MMC_SLAB_W higher or slab_mode='off'")
         metrics = {
             "energy_mean": float(torch.mean(e)),
             "energy_min": float(torch.min(e)),

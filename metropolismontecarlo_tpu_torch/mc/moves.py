@@ -5,7 +5,13 @@
   shared per-atom rows and k-vectors, draws the sweep's uniforms once as
   (C, M, 10), and launches the sweep op once per block in storage order,
   threading coordinates, COM, quaternions and S(k) from launch to launch
-  and summing the statistics.  With with_activity it returns the
+  and summing the statistics.  Given a box (and z) hint where
+  `slab_config` finds sorted slabs profitable, each sweep first z-sorts
+  every block per chain (`make_slab_resort_fn`, which also checks the
+  windows' coverage into state.nbr_needed) and the planes carry a ghost
+  halo of the sorted block's first W columns, so each move scans the
+  other blocks and one W-wide window of the sorted block
+  (`slab_window_starts`).  With with_activity it returns the
   fluctuating-N variants on the MolGCMCState layout instead: `sweep_act`
   (activity-masked moves) or, with n_exch / n_widom, `sweep_x` (moves,
   then in-kernel exchange attempts and Widom ghosts per block; with
@@ -19,9 +25,7 @@
   (`pair_energy_rows`: every cutoff mode, the linear shift, the surface
   term, float64).
 
-Not ported yet, and refused rather than skipped: the sorted-slab windows
-(`slab_config` is ported so that a configuration the JAX package would
-run with slabs raises NotImplementedError) and neighbour lists.
+Not ported yet, and refused rather than skipped: neighbour lists.
 """
 
 import dataclasses
@@ -54,7 +58,8 @@ def kernel_coulomb(params):
 def slab_config(system, params, box_hint, z_hint=None):
     """The JAX package's sorted-slab decision (mc/moves.py slab_config):
     the window configuration dict when it would enable slabs, else None.
-    Same inputs, the same environment overrides, the same result."""
+    Same inputs, the same environment overrides, the same result, except
+    that a zero-width window (a sorted block under 128 atoms) is None."""
     if params.slab_mode == "off" or os.environ.get("MMC_SLABS") == "0":
         return None
     if box_hint is None or params.p_volume > 0.0:
@@ -94,7 +99,9 @@ def slab_config(system, params, box_hint, z_hint=None):
                 np.max(np.maximum(mid - lo, hi - mid))))
         W = _round_up(2 * int(np.ceil(one_sided + 2)) * P_w + 256, 128)
         W = min(W, _round_up(A_blk, 128) - 128 if A_blk % 128 else A_blk)
-    if W > A_blk or (not force and W > 0.7 * A_blk):
+    # W = 0 (a sorted block under 128 atoms) would scan no window at all:
+    # refused here, where the JAX function returns it
+    if W == 0 or W > A_blk or (not force and W > 0.7 * A_blk):
         return None
     if params.dr_max > params.slab_skin:
         if force:
@@ -113,33 +120,141 @@ def mega_supported(system, params, dtype=torch.float32):
             and dtype == torch.float32 and not params.ewald_surface)
 
 
-def check_mega_supported(system, params, box_hint=None, z_hint=None):
-    """Raise unless the ported whole-sweep route runs this configuration."""
+def check_mega_supported(system, params):
+    """Raise unless the whole-sweep route runs this configuration."""
     if not mega_supported(system, params):
         raise ValueError("the whole-sweep route requires a species-uniform "
                          "system, site cutoff, none/linear LJ shift, "
                          "float32 and no Ewald surface term")
-    if slab_config(system, params, box_hint, z_hint) is not None:
-        raise NotImplementedError(
-            "this configuration would run with sorted-slab windows, which "
-            "are not ported yet (set slab_mode='off' to run it dense)")
 
 
-def _shared_rows(system):
-    """(A_pad,) int32 type ids and molecule ids (pads -1) and f32 charges
-    (pads 0), numpy."""
-    A_pad = system.n_atoms_padded
-    tid_row = np.full(A_pad, -1, np.int32)
-    tid_row[:system.n_atoms] = system.flat(system.type_ids)
-    q_row = np.zeros(A_pad, np.float32)
-    q_row[:system.n_atoms] = system.flat(system.charges)
-    return tid_row, system.mol_of_atom_padded.astype(np.int32), q_row
+def slab_window_starts(system, cfg):
+    """(M,) int32 numpy: each molecule's static, 128-aligned window start
+    (a global column) into the sorted block (the JAX function of this
+    name).  Molecules of the sorted block centre on their own sorted
+    slot; other (also z-sorted) blocks map their slot proportionally.
+    Read by the kernel per move and by the resort's coverage check."""
+    m0_w, P_w, a0_w = cfg["m0"], cfg["P"], cfg["a0"]
+    M_w = cfg["m1"] - m0_w
+    A_blk, W, A_store = cfg["A_blk"], cfg["W"], cfg["A_store"]
+    out = np.zeros(system.n_mol, np.int32)
+    for _, b0, b1, _, _ in system.species_slices:
+        for m in range(b0, b1):
+            if b0 == m0_w:
+                c = (m - m0_w) * P_w
+            else:
+                c = int((m - b0 + 0.5) / (b1 - b0) * M_w) * P_w
+            start_rel = (c + P_w // 2 - W // 2) % A_blk
+            g = a0_w + start_rel
+            out[m] = min((g // 128) * 128, A_store - W)
+    return out
 
 
-def sweep_tables(system, params, kvecs, kweights, device):
+def make_slab_resort_fn(system, params, cfg):
+    """resort(state) -> state (the JAX make_slab_resort_fn): a per-chain
+    stable z-sort of every species block of >= 2 molecules (COM,
+    quaternion and atom columns permuted together: an energy-invariant
+    relabelling of identical molecules), and the windows' coverage check
+    folded into state.nbr_needed: the most columns any molecule's
+    z-neighbourhood (within r_half) needs from its window start, which the
+    driver holds against W at block ends."""
+    m0_w, m1_w, P_w = cfg["m0"], cfg["m1"], cfg["P"]
+    M_w = m1_w - m0_w
+    A_blk, r_half = cfg["A_blk"], cfg["r_half"]
+    wstart_rel = slab_window_starts(system, cfg) - cfg["a0"]
+    sortable = [(b0, b1, p, a0) for _, b0, b1, p, a0
+                in system.species_slices if b1 - b0 >= 2]
+
+    def resort(state):
+        C = state.com.shape[0]
+        box = state.box[:, None]                                 # (C, 1)
+        com, quat, coords = state.com.clone(), state.quat.clone(), \
+            state.coords.clone()
+        dev = com.device
+        z_s_w = None
+        for b0, b1, p, a0 in sortable:
+            z = com[:, b0:b1, 2]
+            z = z - box * torch.floor(z / box)                   # [0, box)
+            perm = torch.argsort(z, dim=1, stable=True)          # (C, Mb)
+            idx_m = b0 + perm
+            com[:, b0:b1] = com.gather(1, idx_m[:, :, None].expand(-1, -1,
+                                                                  3))
+            quat[:, b0:b1] = quat.gather(1, idx_m[:, :, None].expand(-1, -1,
+                                                                    4))
+            cols = (a0 + perm[:, :, None] * p
+                    + torch.arange(p, device=dev)[None, None, :]
+                    ).reshape(C, 1, (b1 - b0) * p).expand(-1, 3, -1)
+            coords[:, :, a0:a0 + (b1 - b0) * p] = coords.gather(2, cols)
+            if b0 == m0_w:
+                z_s_w = z.gather(1, perm)                        # sorted
+
+        # coverage: every molecule's z-neighbourhood in the sorted block
+        # must fit its static window (circular, in columns)
+        z_all = com[:, :, 2]
+        z_all = z_all - box * torch.floor(z_all / box)
+        lo_v = z_all - r_half
+        wl = lo_v < 0.0
+        lo = torch.searchsorted(z_s_w, torch.where(wl, lo_v + box, lo_v)) \
+            - torch.where(wl, M_w, 0)
+        hi_v = z_all + r_half
+        wh = hi_v >= box
+        hi = torch.searchsorted(z_s_w, torch.where(wh, hi_v - box, hi_v)) \
+            + torch.where(wh, M_w, 0)
+        rel = torch.as_tensor(wstart_rel, dtype=lo.dtype, device=dev)
+        offset = torch.remainder(lo * P_w - rel[None, :], A_blk)
+        needed = torch.where(hi > lo, offset + (hi - lo) * P_w, 0)
+        needed = needed.max(dim=1).values.to(torch.int32)       # (C,)
+        return dataclasses.replace(
+            state, com=com, quat=quat, coords=coords,
+            nbr_needed=torch.maximum(state.nbr_needed, needed))
+
+    return resort
+
+
+def with_halo(coords, system, cfg):
+    """The sweep op's slab planes of coords (C, 3, A_pad): widened to
+    A_store, the ghost halo [A, A + W) filled with the sorted block's
+    first W columns."""
+    A, a0, W = system.n_atoms, cfg["a0"], cfg["W"]
+    out = torch.nn.functional.pad(coords[:, :, :A], (0, cfg["A_store"] - A))
+    out[:, :, A:A + W] = out[:, :, a0:a0 + W]
+    return out
+
+
+def without_halo(coords, system):
+    """(C, 3, A_pad) planes of slab planes: the halo dropped and the lane
+    pads [A, A_pad) it overlapped zero again."""
+    A = system.n_atoms
+    return torch.nn.functional.pad(coords[:, :, :A],
+                                   (0, system.n_atoms_padded - A))
+
+
+def _shared_rows(system, cfg=None):
+    """(A_row,) int32 type ids and molecule ids (pads -1) and f32 charges
+    (pads 0), numpy; A_row is A_pad, or A_store with sorted slabs (cfg),
+    whose ghost halo [A, A + W) copies the sorted block's first W types
+    and charges and keeps molecule -1."""
+    A = system.n_atoms
+    A_row = system.n_atoms_padded if cfg is None else cfg["A_store"]
+    tid_row = np.full(A_row, -1, np.int32)
+    tid_row[:A] = system.flat(system.type_ids)
+    q_row = np.zeros(A_row, np.float32)
+    q_row[:A] = system.flat(system.charges)
+    molid_row = np.full(A_row, -1, np.int32)
+    molid_row[:A] = system.atom_mol_slot[0]
+    if cfg is not None:
+        a0, W = cfg["a0"], cfg["W"]
+        tid_row[A:A + W] = tid_row[a0:a0 + W]
+        q_row[A:A + W] = q_row[a0:a0 + W]
+    return tid_row, molid_row, q_row
+
+
+def sweep_tables(system, params, kvecs, kweights, device, cfg=None):
     """One SweepTables per species block (its template is the block's
     first molecule), on `device`; the shared rows and k-vectors are one
-    set of tensors."""
+    set of tensors.  cfg (slab_config's dict) adds the slab windows: the
+    window starts, the other blocks' column segments and A_store-wide
+    rows."""
     n_types = system.eps_table.shape[0]
     et = np.asarray(system.eps_table, np.float32)
     st = np.asarray(system.sig_table, np.float32)
@@ -154,9 +269,15 @@ def sweep_tables(system, params, kvecs, kweights, device):
     def i32(x):
         return torch.tensor(np.asarray(x, np.int32), device=device)
 
-    tid_row, molid_row, q_row = _shared_rows(system)
+    tid_row, molid_row, q_row = _shared_rows(system, cfg)
     shared = dict(tid_row=i32(tid_row), molid_row=i32(molid_row),
                   q_row=f32(q_row), kvec=f32(kvec), kw=f32(kw))
+    if cfg is not None:
+        segs = [(a0, (m1 - m0) * p)
+                for _, m0, m1, p, a0 in system.species_slices[:-1]]
+        shared.update(a0_w=cfg["a0"], A_blk=cfg["A_blk"], W=cfg["W"],
+                      wst=i32(slab_window_starts(system, cfg)),
+                      segs=i32(np.reshape(segs, (-1, 2))))
     out = []
     for _, m0, m1, P, a0 in system.species_slices:
         tids = np.asarray(system.type_ids)[m0, :P]
@@ -229,7 +350,9 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
                        box_hint=None, z_hint=None, with_activity=False,
                        n_exch=0, tmmc_exch=False, n_widom=0):
     """Returns sweep_full(state, generator) -> state: one sweep-kernel
-    launch per species block.  sweep_full.tables holds the SweepTables.
+    launch per species block.  sweep_full.tables holds the SweepTables,
+    sweep_full.slab the sorted-slab configuration (slab_config of box_hint
+    and z_hint; None: dense scans).
 
     with_activity=True returns instead the fluctuating-N variant
     `sweep_act(com, quat, coords, active, box, sfac, generator) -> (com,
@@ -245,8 +368,12 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
     computed counts branches on any(counts).  tmmc_exch (a single species
     block) makes the exchange attempts deposit the collection matrix:
     sweep_x then takes energy= (C,) and eta= (cap + 1,) and returns cmat
-    and uhist as well."""
-    check_mega_supported(system, params, box_hint, z_hint)
+    and uhist as well.  The activity variants run dense (no slabs)."""
+    check_mega_supported(system, params)
+    cfg = slab_config(system, params, box_hint, z_hint)
+    if with_activity and cfg is not None:
+        raise ValueError("activity-masked sweeps do not support the "
+                         "sorted-slab window path")
     slices = system.species_slices
     nb = len(slices)
     n_exchs = (n_exch,) * nb if isinstance(n_exch, int) else tuple(n_exch)
@@ -272,18 +399,27 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
                                                 for q in qs_tot):
                 raise ValueError("multi-block in-kernel exchanges need "
                                  "charge-neutral species under wolf")
-    tables = sweep_tables(system, params, kvecs, kweights, device)
+    tables = sweep_tables(system, params, kvecs, kweights, device, cfg)
     M = system.n_mol
     ewald = params.coulomb == "ewald"
     f32 = torch.float32
+    resort = None if cfg is None else make_slab_resort_fn(system, params,
+                                                          cfg)
 
     def sweep_full(state, generator):
+        if resort is not None:
+            state = resort(state)
         C = state.com.shape[0]
         u = draw_uniforms(C, M, generator, state.com.device)
+        coords = state.coords.to(f32)
+        if cfg is not None:
+            coords = with_halo(coords, system, cfg)
         coords, com, quat, sfac, stats = sweep_blocks(
             sweep_op.sweep, *(x.to(f32).contiguous() for x in (
-                state.coords, state.com, state.quat, state.sfac, state.box,
+                coords, state.com, state.quat, state.sfac, state.box,
                 state.temp, state.dr_max, state.dphi_max)), u, tables)
+        if cfg is not None:
+            coords = without_halo(coords, system)
         zero = torch.zeros_like(stats[:, 1])
         acc_d = torch.stack([stats[:, 1], stats[:, 2], zero], 1).to(
             torch.int32)
@@ -299,6 +435,7 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
             att=state.att + att_d)
 
     sweep_full.tables = tables
+    sweep_full.slab = cfg
     if not with_activity:
         return sweep_full
 

@@ -1,11 +1,12 @@
 """Full-system energy with component breakdown (counterpart of
-metropolismontecarlo_tpu/models/energy.py, dense route).
+metropolismontecarlo_tpu/models/energy.py).
 
-One function over dense masked (A, A) pair grids, batched over a leading
-chain axis written out (the JAX version is single-configuration and
-vmapped).  Used at initialisation and for the block-end drift check and
-resync.  Systems above 4096 atoms need the row-tiled route, which is not
-ported yet.
+Batched over a leading chain axis written out (the JAX version is
+single-configuration and vmapped).  Up to DENSE_MAX_ATOMS atoms one
+function over dense masked (A, A) pair grids; above it a row-tiled scan
+of (B, A) tiles (site cutoff only), so peak memory is O(C B A).  Used at
+initialisation, for the block-end drift check and resync, and by the NPT
+volume move and pressure_fd.
 """
 
 import numpy as np
@@ -18,8 +19,10 @@ from metropolismontecarlo_tpu_torch.ops import tail as tail_ops
 from metropolismontecarlo_tpu_torch.ops import wolf as wolf_ops
 from metropolismontecarlo_tpu_torch.ops.pairs import full_pair_mask, pair_dist2
 from metropolismontecarlo_tpu_torch.ops.pbc import batch_view, min_image
+from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
 
 DENSE_MAX_ATOMS = 4096
+ROW_BLOCK = 256
 
 
 def _intra_terms(system, coords, kappa, box):
@@ -50,9 +53,8 @@ def energy_breakdown(system, params, coords, com, box, kvecs=None,
     ((..., 1, 2) zeros without Ewald) -- the keys of the JAX version.
     """
     if system.n_atoms > DENSE_MAX_ATOMS:
-        raise NotImplementedError(
-            "systems above 4096 atoms need the row-tiled energy route, "
-            "which is not ported yet")
+        return energy_breakdown_tiled(system, params, coords, com, box,
+                                      kvecs, kweights)
     dtype, dev = coords.dtype, coords.device
     batch = coords.shape[:-2]
     box = torch.as_tensor(box, dtype=dtype, device=dev)
@@ -87,20 +89,8 @@ def energy_breakdown(system, params, coords, com, box, kvecs=None,
     out = {"disp": 0.5 * pot}
     w_total = 0.5 * w
 
-    counts = t(system.type_counts)
-    vol = box**3
     zero = torch.zeros(batch, dtype=dtype, device=dev)
-    w_lrc = w_lrc_ref = zero
-    if params.use_lrc and params.lj_shift == "none":
-        out["lrc"] = tail_ops.lrc_energy(counts, eps_t, sig_t, params.r_cut,
-                                         vol)
-        # exact dU/dV of U_lrc = C/V is -U_lrc/V, i.e. w_lrc = 3 U_lrc;
-        # w_ref keeps the textbook virial-integral form
-        w_lrc = 3.0 * out["lrc"]
-        w_lrc_ref = 3.0 * vol * tail_ops.lrc_pressure(
-            counts, eps_t, sig_t, params.r_cut, vol)
-    else:
-        out["lrc"] = zero
+    out["lrc"], w_lrc, w_lrc_ref = _lrc_terms(system, params, box)
 
     e_real = e_four = e_self = e_intra = zero
     w_ref = w_coul = zero
@@ -167,5 +157,163 @@ def energy_breakdown(system, params, coords, com, box, kvecs=None,
         + e_intra
     out["w"] = w_total + w_lrc + w_coul
     out["w_ref"] = w_total + w_lrc_ref + w_ref
+    out["sfac"] = sfac
+    return out
+
+
+def _lrc_terms(system, params, box):
+    """(E_lrc, W_lrc, W_lrc reference convention) of the batch shape of
+    box; zeros without the tail correction.  The exact dU/dV of
+    U_lrc = C/V is -U_lrc/V, so W_lrc = 3 U_lrc; the reference keeps the
+    textbook virial-integral form."""
+    dtype, dev = box.dtype, box.device
+    zero = torch.zeros(box.shape, dtype=dtype, device=dev)
+    if not (params.use_lrc and params.lj_shift == "none"):
+        return zero, zero, zero
+    counts = torch.tensor(np.array(system.type_counts), dtype=dtype,
+                          device=dev)
+    eps_t = torch.tensor(np.array(system.eps_table), dtype=dtype, device=dev)
+    sig_t = torch.tensor(np.array(system.sig_table), dtype=dtype, device=dev)
+    vol = box**3
+    e = tail_ops.lrc_energy(counts, eps_t, sig_t, params.r_cut, vol)
+    return e, 3.0 * e, 3.0 * vol * tail_ops.lrc_pressure(
+        counts, eps_t, sig_t, params.r_cut, vol)
+
+
+def energy_breakdown_tiled(system, params, coords, com, box, kvecs=None,
+                           kweights=None, row_block=ROW_BLOCK):
+    """energy_breakdown's row-tiled route (the JAX
+    _energy_breakdown_tiled, without its tensor-parallel row_shard): the
+    pair sums scan row blocks of `row_block` atoms against all A atoms,
+    (..., B, A) tiles, with per-pair LJ parameters gathered from the
+    (T, T) tables; the structure factor is the direct form over the
+    whole batch (the caller bounds the batch).  Site cutoff only; same
+    arguments and keys as energy_breakdown."""
+    if params.cutoff_mode != "site":
+        raise NotImplementedError("the row-tiled recompute supports site "
+                                  "cutoff only")
+    dtype, dev = coords.dtype, coords.device
+    batch = coords.shape[:-2]
+    box = torch.broadcast_to(torch.as_tensor(box, dtype=dtype, device=dev),
+                             batch)
+
+    def t(x, dt=dtype):   # System arrays are read-only numpy: copy
+        return torch.tensor(np.array(x), dtype=dt, device=dev)
+
+    A = system.n_atoms
+    tid = t(system.flat(system.type_ids), torch.long)
+    mol = t(system.atom_mol_slot[0], torch.long)
+    charges = t(system.flat(system.charges))
+    eps_t, sig2_t = t(system.eps_table), t(system.sig_table) ** 2
+    com_of_col = com[..., mol, :]
+    # rigid atom-from-COM offsets for the pair-consistent molecular image
+    delta = min_image(coords - com_of_col, batch_view(box, 2))   # (..., A, 3)
+    rc2, qrc2 = params.r_cut ** 2, params.qq_cut ** 2
+    kappa = params.kappa_L / box
+    kappa2 = batch_view(kappa, 2)
+    box3 = batch_view(box, 3)
+    use_coul = params.coulomb != "none"
+    wolf_ref = params.coulomb == "wolf" and params.wolf_style != "pairwise"
+    c2 = ewald_ops._TWO_OVER_RTPI
+
+    zero = torch.zeros(batch, dtype=dtype, device=dev)
+    pot = w = e_real_raw = w_coul_raw = zero
+    for i0 in range(0, A, row_block):
+        rows = slice(i0, min(A, i0 + row_block))
+        dr = min_image(coords[..., rows, None, :] - coords[..., None, :, :],
+                       box3)                                   # (..., B, A, 3)
+        d2 = torch.clamp_min(torch.sum(dr * dr, dim=-1), 1e-4)
+        valid = mol[rows, None] != mol[None, :]
+        mask_lj = valid & (d2 < rc2)
+        mask_qq = valid & (d2 < qrc2)
+        d2s = torch.where(mask_lj | mask_qq, d2, torch.ones((), dtype=dtype,
+                                                            device=dev))
+        eps_pa = eps_t[tid[rows]][:, tid]                      # (B, A)
+        sig2_pa = sig2_t[tid[rows]][:, tid]
+        s2 = sig2_pa / d2s
+        s6 = s2 * s2 * s2
+        pair_pot = 4.0 * eps_pa * (s6 * s6 - s6)
+        wvir = 24.0 * eps_pa * (2.0 * s6 * s6 - s6)
+        if params.lj_shift == "linear":
+            # the shift's force term too, as ops/lj.py lj_pair_terms (the
+            # JAX tiled route leaves it out of the virial)
+            sig_pa = torch.sqrt(sig2_pa)
+            lam1, lam2 = lj_ops._shift_coeffs(params.r_cut / sig_pa)
+            r_sig = torch.sqrt(d2s) / sig_pa
+            pair_pot = pair_pot + eps_pa * (lam1 + lam2 * r_sig)
+            wvir = wvir - eps_pa * lam2 * r_sig
+        pot = pot + torch.sum(torch.where(mask_lj, pair_pot, 0.0),
+                              dim=(-1, -2))
+        # molecular virial with the pair-consistent COM image
+        # r_ij = r_ab - (d_a - d_b)
+        mol_dr = dr - delta[..., rows, None, :] + delta[..., None, :, :]
+        dot = torch.sum(mol_dr * dr, dim=-1)
+        w = w + torch.sum(torch.where(mask_lj, wvir * (dot / d2s), 0.0),
+                          dim=(-1, -2))
+        if use_coul:
+            qq = charges[rows, None] * charges[None, :]
+            r = torch.sqrt(d2s)
+            if params.coulomb == "bare":
+                cp = qq / r
+                wv = qq * dot / (d2s * r)
+            else:
+                erfc = torch.special.erfc(kappa2 * r)
+                cp = qq * erfc / r
+                if params.coulomb == "wolf" and not wolf_ref:
+                    cp = qq * (erfc / r - torch.special.erfc(
+                        kappa2 * params.qq_cut) / params.qq_cut)
+                gauss = torch.exp(-(kappa2 * kappa2) * d2s)
+                wv = qq * (dot * (erfc / (d2s * r) + kappa2 * c2 * gauss
+                                  / d2s) - kappa2 * c2 * gauss)
+                if params.coulomb == "wolf" and not wolf_ref:
+                    wv = wv + qq * kappa2 * c2 * torch.exp(
+                        -(kappa2 * params.qq_cut) ** 2)
+            e_real_raw = e_real_raw + torch.sum(
+                torch.where(mask_qq, cp, 0.0), dim=(-1, -2))
+            w_coul_raw = w_coul_raw + torch.sum(
+                torch.where(mask_qq, wv, 0.0), dim=(-1, -2))
+
+    out = {"disp": 0.5 * pot}
+    out["lrc"], w_lrc, w_lrc_ref = _lrc_terms(system, params, box)
+    e_real = e_four = e_self = e_intra = zero
+    w_ref = w_coul = zero
+    sfac = torch.zeros(batch + (1, 2), dtype=dtype, device=dev)
+    if use_coul:
+        e_real = 0.5 * COULOMB_FACTOR * e_real_raw
+        w_coul = 0.5 * COULOMB_FACTOR * w_coul_raw
+        if params.coulomb == "ewald":
+            kv, kw = t(kvecs, torch.int32), t(kweights)
+            cf = ewald_ops.cfac_coeffs(kv, kw, kappa, box)
+            sfac = ewald_ops.structure_factor(coords, charges, kv, box)
+            w_recip = ewald_ops.recip_virial(sfac, cf, coords, com_of_col,
+                                             charges, kv, box)
+            e_four = ewald_ops.recip_energy(sfac, cf)
+            e_self = ewald_ops.ewald_self(charges, kappa)
+            e_intra, w_intra = _intra_terms(system, coords, kappa, box)
+            w_coul = w_coul + w_recip + e_self + w_intra
+            if params.ewald_surface:
+                e_surf = ewald_ops.surface_term(coords, com_of_col, charges,
+                                                box)
+                e_four = e_four + e_surf
+                w_coul = w_coul + 3.0 * e_surf
+        elif params.coulomb == "wolf":
+            e_self = wolf_ops.wolf_self(charges, kappa, params.qq_cut)
+            w_coul = w_coul + wolf_ops.wolf_self_kappa(charges, kappa,
+                                                       params.qq_cut)
+            if wolf_ref:
+                e_self = e_self + wolf_ops.wolf_ref_const(
+                    charges, kappa, params.qq_cut)
+                w_coul = w_coul + wolf_ops.wolf_ref_const_kappa(
+                    charges, kappa, params.qq_cut)
+        w_ref = e_real + e_four + e_self + e_intra
+
+    out["coul_real"] = e_real
+    out["coul_fourier"] = e_four
+    out["coul_self"] = e_self
+    out["coul_intra"] = e_intra
+    out["total"] = out["disp"] + out["lrc"] + e_real + e_four + e_self \
+        + e_intra
+    out["w"] = 0.5 * w + w_lrc + w_coul
+    out["w_ref"] = 0.5 * w + w_lrc_ref + w_ref
     out["sfac"] = sfac
     return out

@@ -1,8 +1,8 @@
 """Whole-sweep Metropolis op: the CUDA kernel's wrapper and its plain
 PyTorch version (counterpart of metropolismontecarlo_tpu/ops/pallas/
 sweep_kernel.py sweep_pallas: the base and species-block variants, the
-activity mask, the in-kernel exchange attempts, the transition-matrix
-deposits and the Widom ghosts; no sorted slabs).
+sorted-slab windows, the activity mask, the in-kernel exchange attempts,
+the transition-matrix deposits and the Widom ghosts).
 
 One call runs the M sequential moves of one species block (global
 molecules [m_start, m_start + M), atoms from column a_start, P each) on
@@ -27,6 +27,19 @@ collection matrix cmat (C, M + 1, 3) = [stay, up, down] of row n, and [1,
 e, e^2] into uhist (C, M + 1, 3), e = e_in plus the call's running energy
 delta; the bias eta (M + 1,) enters the acceptance thresholds only, so
 eta = 0 samples what the plain exchange attempts sample.
+
+With sorted slabs (tables.W > 0; mc/moves.py builds them) the last
+species block is z-sorted and the planes (C, 3, A_store) carry a ghost
+halo [A, A + W) replicating its first W columns: a move's pair scan reads
+the other blocks as column segments and one W-wide window of the sorted
+block at tables.wst[m], and an accepted head molecule also updates its
+ghost twin (see csrc/sweep_kernel.cu).
+
+The kernel keeps a chain's state in one thread block's shared memory
+when it fits (layout "shared"); otherwise, and always with slabs, the
+atom planes and COM/quaternion rows stay in global memory (layout
+"global", fixed N only).  `sweep` picks the layout before the launch;
+layout="global" forces it.
 
 Random numbers come from outside: u (C, M_total, 10) uniforms in [0, 1),
 one row per molecule of the whole system, whose columns are [selector, dx, dy, dz, accept, e1, e2, e3, e4, angle] (the
@@ -83,7 +96,11 @@ class SweepTables:
     LJ rows by neighbour type (lam pre-scaled: the shift is
     lam1 + lam2 * r); has_lj/has_q (P,) int32 site flags; tid_row/
     molid_row (A_pad,) int32 (pads -1); q_row (A_pad,); kvec (K, 3);
-    kw (K,)."""
+    kw (K,).  Sorted slabs (W > 0): the sorted block's first column a0_w
+    and width A_blk, the window width W, wst (M_total,) int32 each
+    molecule's window start, segs (n_seg, 2) int32 the other blocks'
+    [first column, width]; the rows are then A_store wide (ghost halo
+    type and charge copied, molecule -1)."""
 
     M: int
     m_start: int
@@ -110,6 +127,11 @@ class SweepTables:
     q_row: torch.Tensor
     kvec: torch.Tensor
     kw: torch.Tensor
+    a0_w: int = 0
+    A_blk: int = 0
+    W: int = 0
+    wst: torch.Tensor = None
+    segs: torch.Tensor = None
 
     def tensors(self):
         return {f.name: getattr(self, f.name)
@@ -117,7 +139,11 @@ class SweepTables:
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
 
-def smem_bytes(M, P, A_pad, K, T, use_act=False, tmmc=False):
+LAYOUTS = ("shared", "global")
+
+
+def smem_bytes(M, P, A_pad, K, T, use_act=False, tmmc=False,
+               layout="shared"):
     """Dynamic shared memory of one block, M the COM/quaternion rows held
     (all molecules of the system); must match sweep_smem_floats in
     csrc/sweep_kernel.cu: 6 atom rows, 7 COM/quaternion rows, 8 k-vector
@@ -125,10 +151,40 @@ def smem_bytes(M, P, A_pad, K, T, use_act=False, tmmc=False):
     flags, old and new positions 3 each), 144 words of reduction and
     decision scratch, with use_act the two activity planes, and with tmmc
     a second slot-pick row (64 words), the deletion pose (3 P), its S(k)
-    row (2 K) and its warp partials (32)."""
+    row (2 K) and its warp partials (32).  The global layout holds no
+    atom and no COM/quaternion rows."""
+    if layout == "global":
+        return 4 * (8 * K + 4 * P * T + 12 * P + 144)
     return 4 * (6 * A_pad + 7 * M + 8 * K + 4 * P * T + 12 * P + 144
                 + (A_pad + M if use_act else 0)
                 + (2 * K + 3 * P + 96 if tmmc else 0))
+
+
+def choose_layout(M, P, A_pad, K, T, use_act=False, tmmc=False,
+                  slab=False, layout="auto"):
+    """The kernel layout of a launch: "shared" when the chain state fits
+    a block's shared memory, else "global" (fixed N only); slabs and
+    layout="global" take "global".  Raises, with the byte count, for a
+    state that fits neither."""
+    if layout not in ("auto",) + LAYOUTS:
+        raise ValueError(f"layout must be auto, shared or global, got "
+                         f"{layout!r}")
+    if slab and layout == "shared":
+        raise ValueError("sorted slabs run on the global layout only")
+    sizes = {lay: smem_bytes(M, P, A_pad, K, T, use_act, tmmc, lay)
+             for lay in LAYOUTS}
+    want = "global" if slab else layout
+    if want == "auto":
+        want = "shared" if sizes["shared"] <= MAX_SMEM_BYTES \
+            or use_act else "global"
+    if want == "global" and use_act:
+        raise ValueError("the global layout runs fixed-N sweeps only (no "
+                         "activity planes)")
+    if sizes[want] > MAX_SMEM_BYTES:
+        raise ValueError(f"chain state needs {sizes[want]} B of shared "
+                         f"memory in the {want} layout, over the "
+                         f"{MAX_SMEM_BYTES} B a block may use")
+    return want
 
 
 def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
@@ -151,6 +207,16 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
                    box=box, temp=temp, dr_max=dr_max, dphi_max=dphi_max, u=u)
     if (act is None) != (actm is None):
         raise ValueError("act and actm go together")
+    n_seg = 0
+    if t.W:
+        if t.wst is None or t.segs is None or act is not None:
+            raise ValueError("sorted slabs need wst and segs, and run "
+                             "without activity planes")
+        n_seg = t.segs.shape[0]
+        if not (0 < t.W <= t.A_blk and t.a0_w + t.A_blk + t.W <= A_pad):
+            raise ValueError(f"slab window W={t.W} of a block of "
+                             f"{t.A_blk} atoms from column {t.a0_w} does "
+                             f"not fit A_store={A_pad}")
     if n_exch < 0 or n_widom < 0:
         raise ValueError("n_exch and n_widom must be >= 0")
     if act is not None:
@@ -171,7 +237,8 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
         u=(C, M_total, N_UNIFORMS), body=(t.P, 3), qp=(t.P,), eps=(t.P, T),
         sig2=(t.P, T), lam1=(t.P, T), lam2=(t.P, T), has_lj=(t.P,),
         has_q=(t.P,), tid_row=(A_pad,), molid_row=(A_pad,), q_row=(A_pad,),
-        kvec=(K, 3), kw=(K,), act=(C, A_pad), actm=(C, M_total),
+        kvec=(K, 3), kw=(K,), wst=(M_total,), segs=(n_seg, 2),
+        act=(C, A_pad), actm=(C, M_total),
         ux=(C, n_exch + n_widom, N_EXCH_UNIFORMS), z=(C,), si=(C,), wc=(C,),
         eta=(t.M + 1,), e_in=(C,))
     for name, x in tensors.items():
@@ -185,14 +252,15 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
                              f"{coords.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        int_field = name in ("tid_row", "molid_row", "has_lj", "has_q")
+        int_field = name in ("tid_row", "molid_row", "has_lj", "has_q",
+                             "wst", "segs")
         if x.dtype != (torch.int32 if int_field else torch.float32):
             raise ValueError(f"{name}: dtype {x.dtype}")
 
 
 def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
           act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None, si=None,
-          wc=None, seed=0, tmmc=False, eta=None, e_in=None):
+          wc=None, seed=0, tmmc=False, eta=None, e_in=None, layout="auto"):
     """One sweep of the species block's tables.M moves per chain, then
     n_exch exchange attempts and n_widom ghost insertions.
 
@@ -208,11 +276,15 @@ def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
     Returns new (coords, com, quat, sfac, stats (C, 9)); with activity
     planes also (act, actm, wid (C, 2) = [sum w, sum w^2] of the ghosts);
     with tmmc also (cmat, uhist), each (C, M + 1, 3), this call's deposits.
+    layout: "auto" (choose_layout), "shared" or "global".
     CUDA tensors launch the kernel (and count it in sweep.launches); CPU
     tensors run sweep_plain; any other device raises."""
     _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
                   tables, act, actm, n_exch, n_widom, ux, z, si, wc, tmmc,
                   eta, e_in)
+    layout = choose_layout(com.shape[1], tables.P, coords.shape[2],
+                           sfac.shape[1], tables.eps.shape[1],
+                           act is not None, tmmc, tables.W > 0, layout)
     if coords.device.type == "cpu":
         return sweep_plain(coords, com, quat, sfac, box, temp, dr_max,
                            dphi_max, u, tables, act, actm, n_exch, n_widom,
@@ -222,24 +294,23 @@ def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
         raise ValueError(f"no sweep for device {coords.device}")
     return _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
                    tables, act, actm, n_exch, n_widom, ux, z, si, wc, seed,
-                   tmmc, eta, e_in)
+                   tmmc, eta, e_in, layout)
 
 
 sweep.launches = 0
 
 
 def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
-            actm, n_exch, n_widom, ux, z, si, wc, seed, tmmc, eta, e_in):
+            actm, n_exch, n_widom, ux, z, si, wc, seed, tmmc, eta, e_in,
+            layout):
     lib = _library()
     C, _, A_pad = coords.shape
     M_total, K, T = com.shape[1], sfac.shape[1], t.eps.shape[1]
     use_act = act is not None
-    nbytes = smem_bytes(M_total, t.P, A_pad, K, T, use_act, tmmc)
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"chain state needs {nbytes} B of shared memory, "
-                         f"over the {MAX_SMEM_BYTES} B a block may use")
+    glob = layout == "global"
+    nbytes = smem_bytes(M_total, t.P, A_pad, K, T, use_act, tmmc, layout)
     if lib.mmc_sweep_smem_bytes(M_total, t.P, A_pad, K, T, int(use_act),
-                                int(tmmc)) != nbytes:
+                                int(tmmc), int(glob)) != nbytes:
         raise RuntimeError("csrc/sweep_kernel.cu and smem_bytes disagree "
                            "on the shared-memory layout")
     outs = (torch.empty_like(coords), torch.empty_like(com),
@@ -261,14 +332,15 @@ def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
     ins = (coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t.body,
            t.qp, t.eps, t.sig2, t.lam1, t.lam2, t.has_lj, t.has_q, t.tid_row,
            t.molid_row, t.q_row, t.kvec, t.kw, act, actm, ux, z, si, wc, eta,
-           e_in)
+           e_in, t.wst if t.W else None, t.segs if t.W else None)
     ptrs = [ptr(x) for x in ins + outs + (None,) * (10 - len(outs))]
+    n_seg = t.segs.shape[0] if t.W else 0
     err = lib.mmc_sweep_launch(
         *ptrs, C, t.M, M_total, t.m_start, t.a_start, t.P, A_pad, K, T,
         COULOMB_CODES[t.coulomb],
         int(t.lj_shift == "linear"), int(t.use_rot), int(use_act),
-        int(n_exch), int(n_widom), int(tmmc), int(seed) & 0xFFFFFFFF,
-        THREADS,
+        int(n_exch), int(n_widom), int(tmmc), int(glob), n_seg, t.a0_w,
+        t.A_blk, t.W, int(seed) & 0xFFFFFFFF, THREADS,
         t.rc2, t.qrc2, t.kappa_l, t.d2_overlap, t.p_translate,
         COULOMB_FACTOR, torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
@@ -287,10 +359,10 @@ def _library():
 
     lib = load_library("sweep_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_sweep_launch.argtypes = [vp] * 40 + [ci] * 16 + [ctypes.c_uint] \
+    lib.mmc_sweep_launch.argtypes = [vp] * 42 + [ci] * 21 + [ctypes.c_uint] \
         + [ci] + [cf] * 6 + [vp]
     lib.mmc_sweep_launch.restype = ci
-    lib.mmc_sweep_smem_bytes.argtypes = [ci] * 7
+    lib.mmc_sweep_smem_bytes.argtypes = [ci] * 8
     lib.mmc_sweep_smem_bytes.restype = ctypes.c_size_t
     lib.mmc_cuda_error_string.argtypes = [ci]
     lib.mmc_cuda_error_string.restype = ctypes.c_char_p
@@ -517,6 +589,13 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
     rep2 = [x.repeat(2, 1) for x in (eps4_p, sig2_p, lam1_p, lam2_p, qq_p)]
     new_row = (torch.arange(2 * P, device=dev) >= P)[None, :, None]
     sign = torch.cat([-torch.ones(P), torch.ones(P)]).to(coords)  # (2P,)
+    if t.W:
+        # sorted slabs: lanes by column range (the ghost columns carry
+        # molecule -1): the other blocks' segments and the move's window
+        wst = t.wst.tolist()
+        seg_lanes = torch.zeros(A_pad, dtype=torch.bool, device=dev)
+        for b0, width in t.segs.tolist():
+            seg_lanes[b0:b0 + width] = True
 
     for m in range(t.M):
         mg = t.m_start + m                                        # global
@@ -545,7 +624,18 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
             new = ncom[:, :, None].clone()
         pos = torch.cat([old, new], dim=2)                       # (C, 3, 2P)
 
-        other = (valid & (t.molid_row != mg)).to(coords.dtype)[None, None, :]
+        if t.W:
+            lanes = seg_lanes.clone()
+            lanes[a0:a0 + P] = False
+            lanes[max(wst[mg], t.a0_w):wst[mg] + t.W] = True
+            in_w = a0 >= t.a0_w          # the mover is in the sorted block
+            if in_w:
+                lanes[a0:a0 + P] = False
+                lanes[a0 + t.A_blk:a0 + t.A_blk + P] = False
+            other = lanes.to(coords.dtype)[None, None, :]
+        else:
+            other = (valid & (t.molid_row != mg)).to(coords.dtype)[
+                None, None, :]
         if use_act:
             other = other * act[:, None, :]
         e_rows, mag = pair_terms(pos, other, new_row, *rep2)
@@ -573,6 +663,12 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
             quat[:, mg] = torch.where(acc, torch.cat([w1, x1, y1, z1], 1),
                                       quat[:, mg])
         coords[:, :, a0:a0 + P] = torch.where(acc[:, :, None], new, old)
+        if t.W and in_w and a0 - t.a0_w < t.W:
+            # a head molecule's ghost twin (the halo may end inside it)
+            n_g = min(P, t.a0_w + t.W - a0)
+            g = slice(a0 + t.A_blk, a0 + t.A_blk + n_g)
+            coords[:, :, g] = torch.where(acc[:, :, None], new[:, :, :n_g],
+                                          coords[:, :, g])
         if ewald:
             sre = torch.where(acc, sre + ds_re, sre)
             sim = torch.where(acc, sim + ds_im, sim)

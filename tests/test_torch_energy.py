@@ -107,9 +107,13 @@ def test_energy_breakdown_batched_equals_single():
 
 
 def test_energy_breakdown_refuses_tiled_sizes():
+    """Above DENSE_MAX_ATOMS energy_breakdown takes the row-tiled route
+    (tests/test_torch_energy_tiled.py), which runs site cutoff only and
+    refuses the molecular cutoff modes."""
     system = water_t.spce_system(1400)
     coords = torch.zeros((system.n_atoms, 3), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="row-tiled"):
-        energy_t.energy_breakdown(system, RunParams(), coords,
+        energy_t.energy_breakdown(system, RunParams(cutoff_mode="com"),
+                                  coords,
                                   torch.zeros((1400, 3),
                                               dtype=torch.float64), 40.0)

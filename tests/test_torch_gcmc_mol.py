@@ -754,6 +754,15 @@ def test_smem_bytes_counts_every_region_of_the_layout():
     assert 2 * sweep_op.smem_bytes(M, P, A, K, T) <= sweep_op.MAX_SMEM_BYTES
     # capacity-512 SPC/E muVT with its activity planes
     assert sweep_op.smem_bytes(512, 3, 1536, 337, 2, True) < 80 * 1024
+    # the global layout keeps the atom, COM and quaternion rows in global
+    # memory: whatever the atom and molecule counts, the rest remains
+    glob = regions - 6 * A - 7 * M
+    for shape in ((M, P, A, K, T), (6859, 3, 33408, K, T)):
+        assert sweep_op.smem_bytes(*shape, layout="global") == 4 * glob
+    # the 6859-water cell: K = 2874, two blocks per SM
+    big = sweep_op.smem_bytes(6859, 3, 33408, 2874, 2, layout="global")
+    assert big == 4 * (8 * 2874 + 4 * 3 * 2 + 12 * 3 + 144)
+    assert 2 * big <= 228 * 1024
 
 
 def test_bridge_roundtrips_the_muvt_state():

@@ -115,20 +115,22 @@ def test_lj256_acceptance_anchor():
 
 
 def test_unported_routes_raise():
+    """Neighbour lists and tensor-parallel recomputes are refused; NPT,
+    pressure_fd, Widom and sorted slabs run (tests/test_torch_npt.py,
+    test_torch_widom.py and test_torch_slabs.py hold them against JAX)."""
     system = spce_system(8)
-    with pytest.raises(NotImplementedError):
-        MonteCarlo(system, RunParams(pressure=1.0, p_volume=0.1),
-                   device="cpu")
     with pytest.raises(NotImplementedError):
         MonteCarlo(system, RunParams(nlist_width=8), device="cpu")
     with pytest.raises(NotImplementedError):
         MonteCarlo(system, RunParams(), device="cpu", tp_mesh=object())
+    npt = MonteCarlo(system, RunParams(coulomb="wolf", pressure=1e-5,
+                                       p_volume=1.0), device="cpu")
+    state = npt.init_state(cubic_lattice(8, 24.0), box=24.0, n_chains=2)
+    state = npt.run_steps(state, 1)
+    assert int(state.att[:, 2].sum()) == 2
     mc = MonteCarlo(system, RunParams(coulomb="wolf"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        mc.pressure_fd(None)
-    # Widom sampling is ported: both entry points run on this 8-water
-    # system (tests/test_torch_widom.py holds them against JAX)
     state = mc.init_state(cubic_lattice(8, 24.0), box=24.0, n_chains=2)
+    assert mc.pressure_fd(state).shape == (2,)
     assert mc.widom(state, 4)["boltzmann_mean"].shape == (2,)
     state2, out = mc.widom_mega(state, 4)
     assert out["boltzmann_mean"].shape == (2,) and int(state2.step) == 12
@@ -136,8 +138,8 @@ def test_unported_routes_raise():
     big = spce_system(750)
     mc = MonteCarlo(big, RunParams(slab_mode="force", dr_max=0.3),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="sorted-slab"):
-        mc.init_state(np.zeros((750, 3)), box=40.0, n_chains=1)
+    mc.init_state(cubic_lattice(750, 40.0), box=40.0, n_chains=1)
+    assert mc._slab_cfg is not None and mc.tables[0].W > 0
     # species-blocked mixtures now run: one whole-sweep launch per block
     mixed = dataclasses.replace(
         system, species=(("a", 4, 3), ("b", 4, 3)))
