@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Phase 0  require CUDA; print the card's name and power limit.
-Phase 1  build csrc/sweep_kernel.cu and csrc/delta_energy.cu with nvcc
-         for sm_90a, both at once (cached by a hash of each source under
-         metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
-         of each instantiation.
+Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu and
+         csrc/gibbs_kernel.cu with nvcc for sm_90a, all at once (cached by
+         a hash of each source under metropolismontecarlo_tpu_torch/_build);
+         ptxas registers and spills of each instantiation.
 Phase 2  each kernel against its plain PyTorch version on the card, on the
          same inputs.  The sweep kernel, one sweep on shared uniforms:
          SPC/E-64 (ewald, wolf, none; p_translate 0.5 and 0.0), LJ-256,
@@ -100,6 +100,36 @@ Phase 12 NPT at bench.py's "npt" parameters on the flagship lattice (750
          M T / V + W / (3 V) of the final state: within 1 bar on >= 98%
          of chains, and their mean within the virial's chain-to-chain
          standard error.
+
+Phase 13 the Gibbs main path at bench.py's "gibbs" configuration: SPC/E
+         cap 128 x 2 (T 450 K, boxes 14.711 / 18.0 A with 85 + 21
+         molecules, r_cut 6.620 A, Ewald tuned at 20.813 A: kappa L 8.263,
+         nk 7, K 783, p_transfer 0.3, p_volume 0.002, dv_max 0.03), 1024
+         chains through MolGibbsEnsemble(mega="full"): init, a 2-cycle
+         melt block, two 2-cycle blocks (one Gibbs-kernel launch of 256
+         moves + 110 transfers and one volume move per cycle; drift < 2e-3,
+         S(k) error < 1e-4, N conserved on every chain, acc_transfer > 0,
+         acc_vol in (0, 1)); one cycle on the main path's arguments against
+         sweep_gibbs_plain (>= 98% of chains agree) and timed beside it and
+         the bound, and at 128 and 512 threads per block; the volume
+         move's share of a cycle (p_volume 0 against
+         0.01, 512 chains, 8 cycles: scripts/probe_gibbs_volume_cost.py's
+         protocol).
+Phase 14 the physics gates of docs/validation/run_gibbs_kernel_exchange.py:
+         [0] the ideal single-species Binomial partition through the
+         kernel's transfers (cap 96, 64 molecules, boxes 8 / 11, 2048
+         chains; mean and variance within 4 sigma); [2] SPC/E at 500 K,
+         mega="full" against mega=True on <N_liq> (cap 48, boxes 12 / 16,
+         256 chains) at the protocol's depth and gates.
+
+Phase 2 also holds the Gibbs kernel against sweep_gibbs_plain
+(`phase2_gibbs`, 64 chains, unequal boxes, shared uniforms and Philox
+scores, one chain with an empty source box and one with a full
+destination box): SPC/E cap 32 with Ewald and with Wolf, the
+linear-shift triatomic cap 16 without charges, LJ cap 64, and a two-block
+CO2/N2 case (24 + 8) through m_start / a_start; at most 2 of 64 chains
+may differ, energies within 1e-5 of the cycle's term magnitudes, S(k)
+within 1e-5 of its norm, N conserved on every chain.
 
 Phase 2 also holds the global layout (`phase2_global`): on SPC/E-64,
 LJ-256 and the two-block CO2/N2 case the global-layout launch against the
@@ -206,10 +236,11 @@ def phase1():
     from metropolismontecarlo_tpu_torch.ops.cuda import (
         build,
         delta_energy,
+        gibbs_kernel,
         sweep_kernel,
     )
 
-    names = ("sweep_kernel", "delta_energy")
+    names = ("sweep_kernel", "delta_energy", "gibbs_kernel")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
     # the sweep kernel's template instantiations <kAct, kTmmc, kGlobal> by
@@ -217,7 +248,8 @@ def phase1():
     labels = {"ILb0ELb0ELb0E": "<false, false, false> fixed N",
               "ILb1ELb0ELb0E": "<true, false, false> activity",
               "ILb1ELb1ELb0E": "<true, true, false> tmmc",
-              "ILb0ELb0ELb1E": "<false, false, true> global layout"}
+              "ILb0ELb0ELb1E": "<false, false, true> global layout",
+              "12gibbs_kernel": "two-box Gibbs"}
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s")
         entry = ""
@@ -229,6 +261,7 @@ def phase1():
                 print(f"phase1 ptxas {name} {entry}: {line.strip()}")
     sweep_kernel._library()
     delta_energy._library()
+    gibbs_kernel._library()
 
 
 def _sweep_args(state, u):
@@ -2080,9 +2113,552 @@ def phase12(dev, n_mol=750, box=28.24, chains=2048, r_cut=10.0,
     return launches
 
 
+# ---------------- the Gibbs ensemble ----------------------------------------
+
+GIBBS_MAX_DIFFERING = 2     # of 64 chains, phase 2's Gibbs cases
+GIBBS_SFAC_TOL = 1e-5       # S(k) against the twin, of the chain's S(k) norm
+
+
+def gibbs_planes(system, boxes, n_act, gen, dev, kvecs):
+    """A two-box f32 state of `system` (one box's contents) in the Gibbs
+    op's layout: lattice COMs, random orientations, the first
+    n_act[c, b, s] slots of species block s active in box b of chain c,
+    S(k) of the active charges (one zero row without k-vectors).
+    Returns (coords, com, quat, sfac, box2, act, actm)."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.moves import activity_planes
+    from metropolismontecarlo_tpu_torch.ops.ewald import structure_factor
+    from metropolismontecarlo_tpu_torch.ops.quaternions import (
+        random_quaternion,
+        rotate_vectors,
+    )
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    C, M = n_act.shape[0], system.n_mol
+    A, A_pad = system.n_atoms, system.n_atoms_padded
+    com = torch.stack([torch.tensor(cubic_lattice(M, b), **f32)
+                       for b in boxes])[None].expand(C, 2, M, 3)
+    quat = random_quaternion(gen, (C, 2, M))
+    ra = com[..., None, :] + rotate_vectors(
+        quat, torch.tensor(np.asarray(system.body), **f32))
+    mol, slot = system.atom_mol_slot
+    coords = torch.zeros((C, 2, 3, A_pad), **f32)
+    coords[..., :A] = ra[:, :, mol, slot].transpose(2, 3)
+    active = torch.zeros((C, 2, M), dtype=torch.bool, device=dev)
+    j = torch.arange(M, device=dev)
+    for s, (_, m0, m1, _, _) in enumerate(system.species_slices):
+        blk = (j >= m0) & (j < m1)
+        active |= blk & (j - m0 < n_act[:, :, s, None].to(dev))
+    act, actm = activity_planes(system, active.reshape(2 * C, M))
+    act, actm = act.reshape(C, 2, A_pad), actm.reshape(C, 2, M)
+    box2 = torch.tensor(boxes, **f32)[None].expand(C, 2).contiguous()
+    if kvecs is None:
+        sfac = torch.zeros((C, 2, 1, 2), **f32)
+    else:
+        q = torch.zeros(A_pad, **f32)
+        q[:A] = torch.tensor(system.flat(system.charges), **f32)
+        sfac = structure_factor(coords.transpose(2, 3), q * act,
+                                torch.tensor(kvecs, device=dev), box2)
+    return (coords.contiguous(), com.contiguous(), quat.contiguous(),
+            sfac.contiguous(), box2, act.contiguous(), actm.contiguous())
+
+
+def gibbs_consts(system, params, kvecs, kweights, box2):
+    """Per species block (si2, wc2), each (C, 2): the exchange constants
+    of each box."""
+    C = box2.shape[0]
+    return [(si.reshape(C, 2), wc.reshape(C, 2)) for si, wc in
+            _exchange_consts(system, params, kvecs, kweights,
+                             box2.reshape(-1))]
+
+
+def run_gibbs(op_fn, args, us, tables, act, actm, n_exchs, uxs, consts,
+              seed):
+    """One Gibbs call per species block of `op_fn` (sweep_gibbs or
+    sweep_gibbs_plain), threading the state and the activity planes;
+    returns (coords, com, quat, sfac, stats summed, act, actm)."""
+    args, stats = list(args), None
+    for b, t in enumerate(tables):
+        out = op_fn(*args, us[b], t, act, actm, n_exch=n_exchs[b],
+                    ux=uxs[b], si2=consts[b][0], wc2=consts[b][1],
+                    seed=seed + b)
+        args[:4], (st, act, actm) = list(out[:4]), out[4:]
+        stats = st if stats is None else stats + st
+    return tuple(args[:4]) + (stats, act, actm)
+
+
+def compare_gibbs(tag, args, us, tables, act, actm, n_exchs, uxs, consts,
+                  seed, max_differing=None):
+    """The Gibbs kernel against sweep_gibbs_plain on the same arguments:
+    chains with identical decisions (equal acc/att counts, transfers and
+    fingerprint) are compared field by field; N is conserved on every
+    chain of both.  max_differing: the most chains allowed to differ
+    (default: MATCH_FRACTION of them must agree).  Returns the largest
+    absolute difference of the matched chains' outputs (A, and the
+    energy's and S(k)'s relative errors)."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+
+    rest = (us, tables, act, actm, n_exchs, uxs, consts, seed)
+    k = run_gibbs(op.sweep_gibbs, args, *rest)
+    p = run_gibbs(functools.partial(op.sweep_gibbs_plain, magnitude=True),
+                  args, *rest)
+    torch.cuda.synchronize()
+    C = act.shape[0]
+    same = (k[4][:, 2:8] == p[4][:, 2:op.N_STATS]).all(dim=1)
+    n_diff = int((~same).sum())
+    n_in = actm.sum((1, 2))
+    conserved = torch.equal(k[6].sum((1, 2)), n_in) \
+        and torch.equal(p[6].sum((1, 2)), n_in)
+    pos = max(float((k[i] - p[i])[same].abs().max()) for i in (0, 1, 2))
+    mag = p[4][:, op.N_STATS].clamp_min(1.0)
+    e_rel = float(((k[4][:, :2] - p[4][:, :2]).abs()
+                   / mag[:, None])[same].max())
+    s_norm = torch.clamp_min(torch.linalg.vector_norm(
+        p[3].flatten(2), dim=2), SFAC_NORM_FLOOR)                 # (C, 2)
+    s_rel = float(((k[3] - p[3]).flatten(2).abs().max(dim=2).values
+                   / s_norm)[same].max())
+    planes = torch.equal(k[5][same], p[5][same]) \
+        and torch.equal(k[6][same], p[6][same])
+    finite = all(bool(torch.isfinite(x).all()) for x in k)
+    print(f"phase {tag}: chains {C}, differing {n_diff}, acc/att moves "
+          f"{k[4][:, 2:6].sum(0).tolist()}, transfers accepted "
+          f"{float(k[4][:, 6].sum()):.0f} of {C * sum(n_exchs)}, N box 0 "
+          f"{float(actm[:, 0].sum(1).float().mean()):.2f} -> "
+          f"{float(k[6][:, 0].sum(1).float().mean()):.2f}; coord/com/quat "
+          f"err {pos:.3e}, energy err {e_rel:.3e} of the cycle's energy "
+          f"scale, S(k) err {s_rel:.3e} of its norm, activity planes equal "
+          f"{planes}, N conserved {conserved}")
+    allowed = max_differing if max_differing is not None \
+        else (1.0 - MATCH_FRACTION) * C
+    if not (n_diff <= allowed and conserved and finite and planes
+            and pos <= POS_TOL and e_rel <= ENERGY_REL_TOL
+            and s_rel <= GIBBS_SFAC_TOL):
+        raise AssertionError(f"{tag}: the Gibbs kernel and its plain "
+                             f"version disagree")
+    return max(pos, e_rel, s_rel), k
+
+
+def _gibbs_case(dev, system, params, boxes, chains, seed, n_exch):
+    """Phase 2 inputs of one Gibbs case: random N per chain and box, chain
+    0 with box 1 empty and chain 1 with box 0 full, each of their attempts
+    directed box 1 -> 0 (an empty source, a full destination)."""
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        draw_exchange_uniforms,
+        draw_uniforms,
+        sweep_tables,
+    )
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kv, kw = make_kvectors(params.nk, params.ksq_max) \
+        if params.coulomb == "ewald" else (None, None)
+    tables = sweep_tables(system, params, kv, kw, dev)
+    caps = [t.M for t in tables]
+    rng = np.random.default_rng(seed)
+    n_act = np.stack([rng.integers(0, cap + 1, (chains, 2))
+                      for cap in caps], axis=2)                   # (C, 2, S)
+    n_act[0, 1] = 0
+    n_act[0, 0] = caps
+    n_act[1, 0] = caps
+    n_act = torch.tensor(n_act)
+    coords, com, quat, sfac, box2, act, actm = gibbs_planes(
+        system, boxes, n_act, gen, dev, kv)
+    ones = torch.ones((chains,), device=dev)
+    args = [coords, com, quat, sfac, box2, params.temperature * ones,
+            params.dr_max * ones, params.dphi_max * ones]
+    us = [draw_uniforms(chains, 2 * t.M, gen, dev) for t in tables]
+    uxs = []
+    for _ in tables:
+        ux = draw_exchange_uniforms(chains, n_exch, gen, dev)
+        ux[:2, :, 0] = 0.9
+        uxs.append(ux)
+    consts = gibbs_consts(system, params, kv, kw, box2)
+    return args, us, tables, act, actm, [n_exch] * len(tables), uxs, consts
+
+
+def phase2_gibbs(dev, chains=64):
+    """The Gibbs kernel against sweep_gibbs_plain on shared uniforms and
+    Philox scores, unequal boxes, 64 chains (one with an empty source box,
+    one with a full destination box): SPC/E cap 32 with Ewald and with
+    Wolf, the linear-shift triatomic cap 16 without charges, LJ cap 64,
+    and a two-block CO2/N2 case through m_start / a_start."""
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
+    from metropolismontecarlo_tpu_torch.models.polyatomic import (
+        triatomic_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
+
+    t0 = time.perf_counter()
+    kl, nk, ksq = tune_parameters(14.0, 5.0, 1e-3)
+    water = dict(temperature=500.0, r_cut=5.0, cutoff_mode="site",
+                 coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
+                 p_translate=0.5, dr_max=0.3, dphi_max=0.4, use_lrc=False,
+                 strict_min_image=False)
+    kl2, nk2, ksq2 = tune_parameters(24.0, 7.0, 1e-3)
+    cases = (
+        ("spce-32 ewald", spce_system(32), RunParams(**water),
+         (10.5, 14.0), 24),
+        ("spce-32 wolf", spce_system(32),
+         RunParams(**dict(water, coulomb="wolf", kappa_L=2.0)),
+         (10.5, 14.0), 24),
+        ("triatomic-16 none linear", triatomic_system(16),
+         RunParams(**dict(water, temperature=2.0, r_cut=2.5,
+                          coulomb="none", lj_shift="linear",
+                          dphi_max=0.5)), (4.5, 6.0), 12),
+        ("lj-64", lj_system(64),
+         RunParams(**dict(water, temperature=1.5, r_cut=2.5,
+                          coulomb="none", p_translate=1.0)), (5.0, 6.5),
+         40),
+        ("co2/n2 24+8", co2_n2_system(24, 8),
+         RunParams(**dict(water, temperature=300.0, r_cut=7.0, kappa_L=kl2,
+                          nk=nk2, ksq_max=ksq2, dr_max=0.5)), (18.0, 24.0),
+         10),
+    )
+    err = 0.0
+    for i, (tag, system, params, boxes, n_exch) in enumerate(cases):
+        inputs = _gibbs_case(dev, system, params, boxes, chains, 3100 + i,
+                             n_exch)
+        e, _ = compare_gibbs(f"2g {tag}", *inputs, seed=91 + i,
+                             max_differing=GIBBS_MAX_DIFFERING)
+        err = max(err, e)
+    print(f"phase 2 Gibbs cases: {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def _gibbs_flagship(p_volume=0.002, cap=128):
+    """bench.py's "gibbs" configuration: SPC/E, cap 128 per box, T 450 K,
+    the liquid box at 0.0267 /A^3 with 2 cap / 3 molecules, an 18 A vapour
+    box with cap / 6, r_cut min(7.5, 0.45 L), Ewald tuned at the largest
+    box a volume exchange can reach, p_transfer 0.3, dv_max 0.03."""
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
+
+    n_l, n_v = (2 * cap) // 3, cap // 6
+    box_l = (n_l / 0.0267) ** (1.0 / 3.0)
+    box_v = 18.0
+    r_cut = min(7.5, 0.45 * box_l)
+    box_max = (box_l ** 3 + box_v ** 3) ** (1.0 / 3.0)
+    kl, nk, ksq = tune_parameters(box_max, r_cut, 1e-3)
+    params = RunParams(temperature=450.0, r_cut=r_cut, cutoff_mode="site",
+                       coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.4,
+                       p_volume=p_volume, use_lrc=False,
+                       strict_min_image=False)
+    return params, (box_l, box_v), (n_l, n_v)
+
+
+def _gibbs_cutoff_fraction(system, coords, active, box2, r_cut, n=4):
+    """Per box, the share of active atom pairs of different molecules
+    within r_cut, from the first n chains."""
+    A = system.n_atoms
+    mol = torch.as_tensor(system.atom_mol_slot[0], device=coords.device)
+    out = []
+    for b in range(2):
+        x = coords[:n, b, :, :A].transpose(1, 2)
+        L = box2[:n, b, None, None, None]
+        d = x[:, :, None, :] - x[:, None, :, :]
+        d = d - L * torch.round(d / L)
+        d2 = (d * d).sum(-1)
+        on = active[:n, b][:, mol]
+        pair = on[:, :, None] & on[:, None, :] & (mol[:, None]
+                                                  != mol[None, :])
+        out.append(float((d2 < r_cut ** 2)[pair].float().mean())
+                   if bool(pair.any()) else 0.0)
+    return out
+
+
+def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, n_exch):
+    """The least time (ms) of one Gibbs launch, and what sets it: the
+    chain state in and out once, the uniforms and constants read once,
+    against the operations the pair and k-space sums need (OPS_*): each
+    active slot of box b moves once, its old and new poses summed against
+    the other active atoms of box b and every k-vector; each transfer sums
+    one pose against each box (the source without the candidate) with
+    two S(k) rows, and scores the source's active slots with Philox.
+    n_box (C, 2) this run's active counts."""
+    lj = t.has_lj.sum().item()
+    qf = t.has_q.sum().item() if t.coulomb != "none" else 0
+    ewald = t.coulomb == "ewald"
+    # per chain: x, y, z and activity of both boxes' atoms, COM (3),
+    # quaternion (4) and activity of both boxes' slots, both S(k) rows
+    state = 8 * A_off + 16 * m_off + 4 * K
+    nbytes = 4 * C * (2 * state + 2 * t.M * 10 + 8 * n_exch + 4 + 4 + 8)
+    n = n_box.double()
+    ops = 0.0
+    for b in range(2):
+        c_pair = t.P * OPS_GEOMETRY + frac[b] * (lj * OPS_LJ
+                                                 + qf * OPS_COULOMB)
+        pairs = float((n[:, b] * (n[:, b] - 1.0)).sum()) * t.P * c_pair
+        k_move = K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+        ops += 2 * pairs + float(n[:, b].sum()) * k_move
+    f_mix = 0.5 * (frac[0] + frac[1])
+    c_pair = t.P * OPS_GEOMETRY + f_mix * (lj * OPS_LJ + qf * OPS_COULOMB)
+    k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+    n_tot = float(n.sum(1).mean())
+    ops += C * n_exch * ((n_tot - 1.0) * t.P * c_pair + 2 * k_pose
+                         + 0.5 * n_tot * OPS_PHILOX)
+    return _bound(nbytes, ops)
+
+
+def gibbs_blocks(tag, g, st, blocks, launches_per_cycle, att_pc, n_tot,
+                 gated=True):
+    """MolGibbsEnsemble.run_blocks of `blocks` cycles each with the drift,
+    S(k), N-conservation and acceptance gates (gated=False: printed
+    only) and the launch count; returns (state, launches)."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+
+    launches0 = op.sweep_gibbs.launches
+    for n_cyc in blocks:
+        t0 = time.perf_counter()
+        st, stats = g.run_block(st, n_cyc * att_pc)
+        torch.cuda.synchronize()
+        print(f"phase{tag} run_block({n_cyc} cycles): "
+              f"{time.perf_counter() - t0:.2f} s, " + ", ".join(
+                  f"{k} {v}" if isinstance(v, list) else f"{k} {v:.6g}"
+                  for k, v in stats.items()))
+        n_chain = st.active.sum((1, 2))
+        if not bool((n_chain == n_tot).all()):
+            raise AssertionError(f"N not conserved: {n_chain.unique()}")
+        if gated and not (stats["drift_max_rel"] < DRIFT_TOL
+                          and stats["sfac_err_max"] < SFAC_ABS_TOL
+                          and stats["acc_transfer"] > 0.0
+                          and 0.0 < stats["acc_vol"] < 1.0):
+            raise AssertionError(f"phase{tag}: a gate failed: {stats}")
+    launches = op.sweep_gibbs.launches - launches0
+    if launches != launches_per_cycle * sum(blocks):
+        raise AssertionError(f"{launches} launches for {sum(blocks)} cycles")
+    return st, launches
+
+
+def phase13(dev, chains=1024, blocks=(2, 2), melt=2, chunk=128,
+            vol_chains=512, vol_cycles=8, twin_chains=None):
+    """The Gibbs main path at bench.py's "gibbs" configuration: SPC/E cap
+    128 x 2, 1024 chains through MolGibbsEnsemble(mega="full"): init, a
+    melt block, measured blocks (one Gibbs launch and one volume move per
+    cycle of 256 moves + 110 transfers); one cycle's launch timed beside
+    its plain version and the bound; one cycle against sweep_gibbs_plain on
+    the main path's own arguments; the volume move's share of a cycle
+    (p_volume 0 against 0.01, 512 chains, 8 cycles)."""
+    from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsEnsemble
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+        sweep_tables,
+    )
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t_phase = time.perf_counter()
+    cap, px = 128, 0.3
+    params, boxes, n_init = _gibbs_flagship(cap=cap)
+    system = spce_system(cap)
+    gen = torch.Generator(device=dev).manual_seed(2041)
+    g = MolGibbsEnsemble(system, params, dv_max=0.03, p_transfer=px,
+                         dtype=torch.float32, chunk=chunk, mega="full",
+                         device=dev, generator=gen)
+    x_per = g.run_steps.x_per
+    att_pc = 2 * cap + x_per
+    t0 = time.perf_counter()
+    st = g.init(boxes=boxes, n_init=n_init, n_chains=chains)
+    torch.cuda.synchronize()
+    print(f"phase13 init: {time.perf_counter() - t0:.2f} s; boxes "
+          f"{boxes[0]:.3f} / {boxes[1]:.3f} A, r_cut {params.r_cut:.3f}, "
+          f"kappa_L {params.kappa_L:.3f}, nk {params.nk}, ksq_max "
+          f"{params.ksq_max}, K {st.sfac.shape[2]}, A_pad "
+          f"{st.coords.shape[-1]}, x_per {x_per} (a cycle: {2 * cap} moves "
+          f"+ {x_per} transfers), {chains} chains")
+    op.sweep_gibbs.launches = 0
+    st, _ = gibbs_blocks("13 melt", g, st, (melt,), 1, att_pc, sum(n_init),
+                         gated=False)
+    st, _ = gibbs_blocks("13", g, st, blocks, 1, att_pc, sum(n_init))
+    launches = op.sweep_gibbs.launches
+    print(f"phase13 main path: {melt + sum(blocks)} cycles, {launches} "
+          f"Gibbs kernel launches")
+
+    # one cycle on the main path's arguments: timed, and held to the twin
+    kv, kw = make_kvectors(params.nk, params.ksq_max)
+    (t,) = sweep_tables(system, params, kv, kw, dev)
+    C = chains if twin_chains is None else twin_chains
+    act, actm = activity_planes(system, st.active[:C].reshape(2 * C, cap))
+    ones = torch.ones((C,), device=dev)
+    args = [x[:C].float().contiguous() for x in (st.coords, st.com, st.quat,
+                                                 st.sfac, st.box)] + [
+        params.temperature * ones, params.dr_max * ones,
+        params.dphi_max * ones]
+    us = [draw_uniforms(C, 2 * cap, gen, dev)]
+    uxs = [draw_exchange_uniforms(C, x_per, gen, dev)]
+    consts = gibbs_consts(system, params, kv, kw, args[4])
+    rest = (us, [t], act.reshape(C, 2, -1), actm.reshape(C, 2, cap),
+            [x_per], uxs, consts, 97)
+    err, out = compare_gibbs("13 cycle vs plain", args, *rest)
+    ms = _time_ms(lambda: run_gibbs(op.sweep_gibbs, args, *rest), 3)
+    plain_ms = _time_ms(lambda: run_gibbs(op.sweep_gibbs_plain, args,
+                                          *rest), 1)
+    frac = _gibbs_cutoff_fraction(system, st.coords, st.active, st.box,
+                                  params.r_cut)
+    n_box = st.active[:C].sum(2)
+    bound_ms, bound_by = gibbs_bound(t, C, st.coords.shape[-1], cap,
+                                     st.sfac.shape[2], n_box, frac, x_per)
+    print(f"phase13 one cycle, {C} chains, N per box "
+          f"{float(n_box[:, 0].float().mean()):.1f} / "
+          f"{float(n_box[:, 1].float().mean()):.1f}, {2 * cap} moves + "
+          f"{x_per} transfers ({float(out[4][:, 6].mean()):.2f} accepted): "
+          f"kernel {ms:.3f} ms, sweep_gibbs_plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}; {frac[0]:.4f} / {frac[1]:.4f} "
+          f"of active pairs within the cutoff)")
+
+    # the volume move's share of a cycle
+    walls = {}
+    for p_v in (0.0, 0.01):
+        params_v, _, _ = _gibbs_flagship(p_volume=p_v, cap=cap)
+        gen_v = torch.Generator(device=dev).manual_seed(2042)
+        g_v = MolGibbsEnsemble(system, params_v, dv_max=0.03, p_transfer=px,
+                               dtype=torch.float32, chunk=chunk, mega="full",
+                               device=dev, generator=gen_v)
+        sv = dataclasses.replace(st, **{f.name: getattr(st, f.name)[
+            :vol_chains] for f in dataclasses.fields(st)})
+        sv = g_v.run_steps(sv, att_pc)                           # warm
+        torch.cuda.synchronize()
+        att0 = sv.att[:, 2].clone()
+        t0 = time.perf_counter()
+        sv = g_v.run_steps(sv, vol_cycles * att_pc)
+        torch.cuda.synchronize()
+        walls[p_v] = time.perf_counter() - t0
+        print(f"phase13 p_volume {p_v}: {vol_cycles} cycles of "
+              f"{vol_chains} chains in {walls[p_v]:.3f} s "
+              f"({1e3 * walls[p_v] / vol_cycles:.2f} ms per cycle; "
+              f"{int((sv.att[:, 2] - att0).sum()) // vol_chains} volume "
+              f"attempts per chain)")
+    share = (walls[0.01] - walls[0.0]) / walls[0.01]
+    print(f"phase13 volume-move share of a cycle at p_volume 0.01: "
+          f"{100.0 * share:.1f}% ({vol_chains} chains, {vol_cycles} cycles; "
+          f"phase total {time.perf_counter() - t_phase:.1f} s)")
+    return launches, err, ms, plain_ms, bound_ms, bound_by
+
+
+def _zgate(name, measured, sem, exact, tol_sig=4.0):
+    z = abs(measured - exact) / max(sem, 1e-12)
+    print(f"phase14 {name}: {measured:.4f} +- {sem:.4f} vs exact "
+          f"{exact:.4f} (z = {z:.2f}, gate {tol_sig})")
+    return z < tol_sig
+
+
+def phase14_ideal(dev, chains=2048, eq_steps=3000, steps=800, samples=4):
+    """docs/validation/run_gibbs_kernel_exchange.py [0]: the ideal
+    single-species Gibbs partition through the kernel's transfers (eps =
+    0, cap 96, 64 molecules, boxes 8 / 11, fixed volumes): N_box0 ~
+    Binomial(64, V0 / (V0 + V1)), mean and variance within 4 sigma."""
+    from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsEnsemble
+    from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+
+    t0 = time.perf_counter()
+    cap, n_tot, b0, b1 = 96, 64, 8.0, 11.0
+    p0 = b0 ** 3 / (b0 ** 3 + b1 ** 3)
+    params = RunParams(temperature=1.0, r_cut=2.5, cutoff_mode="site",
+                       coulomb="none", p_translate=1.0, dr_max=0.5,
+                       p_volume=0.0, use_lrc=False, strict_min_image=False)
+    gen = torch.Generator(device=dev).manual_seed(2043)
+    g = MolGibbsEnsemble(lj_system(cap, eps=0.0), params, p_transfer=0.5,
+                         dtype=torch.float32, mega="full", device=dev,
+                         generator=gen)
+    st = g.init(boxes=(b0, b1), n_init=(n_tot // 2, n_tot - n_tot // 2),
+                n_chains=chains)
+    l0 = op.sweep_gibbs.launches
+    st = g.run_steps(st, eq_steps)
+    n0 = []
+    for _ in range(samples):
+        st = g.run_steps(st, steps)
+        n0.append(st.active[:, 0].sum(1).double().cpu().numpy())
+    torch.cuda.synchronize()
+    launches = op.sweep_gibbs.launches - l0
+    n0 = np.concatenate(n0)
+    n_eff = len(n0)
+    ok = _zgate("[0] <N_box0>", n0.mean(), n0.std() / np.sqrt(n_eff),
+                n_tot * p0)
+    ok &= _zgate("[0] Var[N_box0]", n0.var(),
+                 n0.var() * np.sqrt(2.0 / n_eff), n_tot * p0 * (1 - p0))
+    conserved = bool((st.active.sum((1, 2)) == n_tot).all())
+    print(f"phase14 [0] N conserved on all {chains} chains: {conserved}; "
+          f"{launches} Gibbs launches; {time.perf_counter() - t0:.1f} s")
+    if not (ok and conserved):
+        raise AssertionError("phase14 [0]: the Binomial gates failed")
+    return launches
+
+
+def phase14_water(dev, chains=256, eq_steps=4000, steps=1200, blocks=3):
+    """docs/validation/run_gibbs_kernel_exchange.py [2]: SPC/E at 500 K,
+    cap 48, boxes 12 / 16, mega="full" against mega=True (kernel sweeps +
+    plain transfers, n_orient 1) on <N_liq>: the gap within 4 combined
+    standard errors + 2%; every block's S(k) error < 1e-3 and drift <
+    2e-2 (the protocol's)."""
+    from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsEnsemble
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
+
+    t0 = time.perf_counter()
+    cap, r_cut = 48, 5.0
+    kl, nk, ksq = tune_parameters(16.5, r_cut, 1e-3)
+    params = RunParams(temperature=500.0, r_cut=r_cut, cutoff_mode="site",
+                       coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
+                       p_translate=0.5, dr_max=0.35, dphi_max=0.5,
+                       p_volume=0.0, use_lrc=False, strict_min_image=False)
+    res, launches = {}, 0
+    for label, mega, seed in (("full", "full", 2044), ("hybrid", True, 2045)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        g = MolGibbsEnsemble(spce_system(cap), params, p_transfer=0.3,
+                             dtype=torch.float32, chunk=chains, mega=mega,
+                             device=dev, generator=gen)
+        st = g.init(boxes=(12.0, 16.0), n_init=(30, 8), n_chains=chains)
+        l0 = op.sweep_gibbs.launches
+        st = g.run_steps(st, eq_steps)
+        drift = sferr = 0.0
+        worst = ""
+        nl = []
+        for _ in range(blocks):
+            # the protocol's block-end resync: drift of the carried energy
+            # against the recompute, scaled by the recompute (floored at 1)
+            st = g.run_steps(st, steps)
+            e, sf = g.full_energy(st)
+            rel = (e - st.energy).abs() / e.abs().clamp_min(1.0)
+            if float(rel.max()) > drift:
+                c, b = divmod(int(rel.argmax()), 2)
+                drift = float(rel.max())
+                worst = (f"chain {c} box {b}: N {int(st.active[c, b].sum())}"
+                         f", E {float(e[c, b]):.4f} K recomputed against "
+                         f"{float(st.energy[c, b]):.4f} K carried")
+            sferr = max(sferr, float((sf - st.sfac).abs().max()))
+            st = dataclasses.replace(st, energy=e, sfac=sf)
+            nl.append(st.active.sum(2).max(1).values.double().cpu().numpy())
+        torch.cuda.synchronize()
+        launches += op.sweep_gibbs.launches - l0
+        nl = np.concatenate(nl)
+        res[label] = (nl.mean(), nl.std() / np.sqrt(len(nl)))
+        print(f"phase14 [2] {label}: <N_liq> {nl.mean():.3f} +- "
+              f"{res[label][1]:.3f}, worst block drift {drift:.2e} ({worst})"
+              f", S(k) err {sferr:.2e}; {time.perf_counter() - t0:.1f} s")
+        if not (sferr < 1e-3 and drift < 2e-2):
+            raise AssertionError(f"phase14 [2] {label}: drift or S(k)")
+    (mf, sf_), (mh, sh) = res["full"], res["hybrid"]
+    tol = 4.0 * math.hypot(sf_, sh) + 0.02 * mh
+    print(f"phase14 [2] |gap| {abs(mf - mh):.3f} < {tol:.3f}: "
+          f"{abs(mf - mh) < tol}")
+    if not abs(mf - mh) < tol:
+        raise AssertionError("phase14 [2]: full and hybrid <N_liq> differ")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -2099,6 +2675,7 @@ def main():
         err2g, _ = phase2_global(dev)
         print(f"phase 2 global layout and slab cases: "
               f"{time.perf_counter() - t0:.1f} s")
+        err2gb = phase2_gibbs(dev)
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
         # the new phases (phase 3 keeps its 10-sweep adjust block, which
@@ -2129,8 +2706,15 @@ def main():
          (l11d, err11d, ms11d, plain11d, bound11d, by11d)) = phase11(dev)
     if 12 in want:
         l12 = phase12(dev)
+    if 13 in want:
+        l13, err13, ms13, plain13, bound13, by13 = phase13(dev)
+    if 14 in want:
+        t0 = time.perf_counter()
+        l14 = phase14_ideal(dev) + phase14_water(dev)
+        print(f"phase14: {l14} Gibbs kernel launches (not in the kernels "
+              f"line); {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 13)):
+    if want != set(range(2, 15)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -2170,7 +2754,14 @@ def main():
              bound_ms=bound11, bound_by=by11),
         dict(sweep_row, name="sweep_kernel[global layout]", launches=l11d,
              max_abs_err=max(err2g, err11d), ms=ms11d, plain_ms=plain11d,
-             bound_ms=bound11d, bound_by=by11d)]}))
+             bound_ms=bound11d, bound_by=by11d),
+        # the cap-128 x 2 SPC/E Gibbs cell: one cycle of 256 moves + 110
+        # transfers per launch
+        {"name": "sweep_gibbs_kernel", "route": "cuda",
+         "source": f"{SRC}/gibbs_kernel.cu",
+         "replaces": f"{PALLAS}/gibbs_kernel.py:714", "launches": l13,
+         "max_abs_err": max(err2gb, err13), "ms": ms13, "plain_ms": plain13,
+         "bound_ms": bound13, "bound_by": by13, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -13,12 +13,16 @@ import torch
 
 from metropolismontecarlo_tpu_torch.mc.gcmc import GCMCState
 from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMCState
+from metropolismontecarlo_tpu_torch.mc.gibbs import GibbsState
+from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsState
 from metropolismontecarlo_tpu_torch.models.system import SimState, System
 
 _SYSTEM_FIELDS = tuple(f.name for f in dataclasses.fields(System))
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 _GCMC_FIELDS = tuple(f.name for f in dataclasses.fields(MolGCMCState))
 _MONO_FIELDS = tuple(f.name for f in dataclasses.fields(GCMCState))
+_GIBBS_FIELDS = tuple(f.name for f in dataclasses.fields(GibbsState))
+_MOL_GIBBS_FIELDS = tuple(f.name for f in dataclasses.fields(MolGibbsState))
 _TMMC_FIELDS = ("cmat", "uhist", "eta")
 
 
@@ -79,6 +83,32 @@ def mono_gcmc_state_to_numpy(state):
     """{field: numpy array} for every monatomic GCMCState field."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in _MONO_FIELDS}
+
+
+def gibbs_state_from_numpy(arrays, device):
+    """Monatomic GibbsState on `device` from a mapping of field name to
+    numpy array (the JAX GibbsState's fields; its `key` is ignored).
+    dtypes are kept."""
+    return _from_numpy(GibbsState, _GIBBS_FIELDS, arrays, device)
+
+
+def gibbs_state_to_numpy(state):
+    """{field: numpy array} for every monatomic GibbsState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _GIBBS_FIELDS}
+
+
+def mol_gibbs_state_from_numpy(arrays, device):
+    """MolGibbsState on `device` from a mapping of field name to numpy
+    array (the JAX MolGibbsState's fields; its `key` is ignored).  dtypes
+    are kept."""
+    return _from_numpy(MolGibbsState, _MOL_GIBBS_FIELDS, arrays, device)
+
+
+def mol_gibbs_state_to_numpy(state):
+    """{field: numpy array} for every MolGibbsState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _MOL_GIBBS_FIELDS}
 
 
 def tmmc_estimator_to_numpy(t):

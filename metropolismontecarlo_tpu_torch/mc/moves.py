@@ -16,6 +16,9 @@
   (activity-masked moves) or, with n_exch / n_widom, `sweep_x` (moves,
   then in-kernel exchange attempts and Widom ghosts per block; with
   tmmc_exch also the transition-matrix deposits).
+* The Gibbs cycle, `make_mega_gibbs_fn`: one launch of the two-box Gibbs
+  op (ops/cuda/gibbs_kernel.py) per cycle on the MolGibbsState layout,
+  2 cap moves and n_exch transfer attempts.
 * The per-move route, `make_sweep_fn`: one molecule move of every chain
   per call, for one species block.  Its proposal reads the same 10
   uniform columns with the same formulas as the sweep kernel, so both
@@ -37,6 +40,7 @@ import torch
 
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as delta_op
+from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as gibbs_op
 from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sweep_op
 from metropolismontecarlo_tpu_torch.ops.lj import _shift_coeffs
 from metropolismontecarlo_tpu_torch.ops.pbc import min_image
@@ -544,6 +548,61 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
 
     sweep_x.tables = tables
     return sweep_x
+
+
+def make_mega_gibbs_fn(system, params, kvecs, kweights, device, n_exch=1):
+    """The in-kernel Gibbs cycle: returns `sweep_gibbs(com, quat, coords,
+    active, box, sfac, generator, si2, wc2)` running [2 cap moves + n_exch
+    transfer attempts] in one Gibbs-op launch on the MolGibbsState layout
+    (mc/gibbs_mol.py): com (C, 2, cap, 3), quat (C, 2, cap, 4), coords
+    (C, 2, 3, A_pad), active (C, 2, cap) bool, box (C, 2), sfac (C, 2, K,
+    2); si2/wc2 (C, 2) per box the self + intra constant and the
+    quadratic-in-N coefficient (reference Wolf c Q^2 plus the LJ tail).
+    The moves run at params.temperature / dr_max / dphi_max; uniforms come
+    from the generator, the deletion scores from a per-launch seed.
+    Volume exchanges are not part of it.  Requires a uniform single-
+    species system, site cutoff and lj_shift none or linear; computes in
+    f32.
+
+    Returns (com, quat, coords, active, sfac, d_e (C, 2) per-box accepted
+    energy deltas, acc (C, 3) [trans, rot, transfer], att (C, 3))."""
+    if not system.is_uniform or params.cutoff_mode != "site" \
+            or params.lj_shift not in ("none", "linear"):
+        raise ValueError("mega Gibbs requires a uniform single-species "
+                         "system and site cutoff")
+    (tables,) = sweep_tables(system, params, kvecs, kweights, device)
+    cap = system.n_mol
+    f32 = torch.float32
+    launch = [0]
+
+    def sweep_gibbs(com, quat, coords, active, box, sfac, generator, si2,
+                    wc2):
+        C = com.shape[0]
+        dev = com.device
+        act, actm = activity_planes(system, active.reshape(2 * C, cap))
+        ones = torch.ones((C,), dtype=f32, device=dev)
+        # the deletion scores' stream: one seed per launch
+        seed = (generator.initial_seed() * 0x9E3779B1 + launch[0]) \
+            & 0xFFFFFFFF
+        launch[0] += 1
+        u = draw_uniforms(C, 2 * cap, generator, dev)
+        ux = draw_exchange_uniforms(C, n_exch, generator, dev)
+        out = gibbs_op.sweep_gibbs(
+            *(x.to(f32).contiguous() for x in (coords, com, quat, sfac,
+                                               box)),
+            params.temperature * ones, params.dr_max * ones,
+            params.dphi_max * ones, u, tables,
+            act.reshape(C, 2, -1), actm.reshape(C, 2, cap), n_exch=n_exch,
+            ux=ux, si2=si2.to(f32).contiguous(),
+            wc2=wc2.to(f32).contiguous(), seed=seed)
+        coords_o, com_o, quat_o, sfac_o, stats, _, actm_o = out
+        acc = torch.stack([stats[:, 2], stats[:, 3], stats[:, 6]], 1)
+        att = torch.stack([stats[:, 4], stats[:, 5],
+                           torch.full_like(stats[:, 6], float(n_exch))], 1)
+        return (com_o, quat_o, coords_o, actm_o > 0.5, sfac_o, stats[:, 0:2],
+                acc, att)
+
+    return sweep_gibbs
 
 
 # ---------------- per-move route ----------------------------------------

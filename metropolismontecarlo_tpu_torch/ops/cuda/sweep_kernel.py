@@ -471,6 +471,93 @@ def trial_pose(ux_i, box, body):
     return ct, quat, ct[:, :, None].clone()
 
 
+def box_constants(t, box_c):
+    """The plain twins' constants of boxes of length box_c (C, 1): ((L,
+    1 / L, kappa, Wolf shift), cfac (C, K)); the shift is None unless
+    t.coulomb is "wolf", cfac None unless it is "ewald"."""
+    inv_c = 1.0 / box_c
+    kappa = t.kappa_l * inv_c
+    sh_w = cfac = None
+    if t.coulomb == "ewald":
+        k2 = (t.kvec * t.kvec).sum(-1)                           # (K,)
+        kt2 = (_TWO_PI * inv_c) ** 2 * k2
+        vol = box_c * box_c * box_c
+        cfac = t.kw * (_TWO_PI / vol) * torch.exp(
+            -kt2 / (4.0 * kappa * kappa)) / kt2                   # (C, K)
+    if t.coulomb == "wolf":
+        qrc = math.sqrt(t.qrc2)
+        sh_w = torch.special.erfc(kappa * qrc) / qrc              # (C, 1)
+    return (box_c, inv_c, kappa, sh_w), cfac
+
+
+def pair_terms(t, lanes, pos, weight, veto, cst, tabs, magnitude=False):
+    """Site sums of pos (C, 3, R) against the atom lanes (C, 3, A) of one
+    box per chain, with its constants cst (`box_constants`): the pair
+    energies times weight (C, 1 | R, A) summed over lanes (C, R), and
+    (magnitude) their magnitudes (C,); veto (C, R, 1) bool marks the rows
+    that carry the +1e30 overlap penalty; tabs = (eps4, sig2, lam1, lam2,
+    qq), the rows' (R, A) parameter tables."""
+    box_c, inv_c, kappa, sh_w = cst
+    eps4, sig2, lam1, lam2, qq = tabs
+    d2 = None
+    for d in range(3):
+        dd = lanes[:, d, None, :] - pos[:, d, :, None]           # (C, R, A)
+        dd = dd - box_c[:, :, None] * torch.round(dd * inv_c[:, :, None])
+        d2 = dd * dd if d2 is None else d2 + dd * dd
+    d2 = torch.clamp_min(d2, 1e-4)
+    mask_lj = d2 < t.rc2
+    mask_qq = d2 < t.qrc2 if t.qrc2 != t.rc2 else mask_lj
+    inv_r = torch.rsqrt(d2)
+    inv_d2 = inv_r * inv_r
+    s2 = sig2 * inv_d2
+    s6 = s2 * s2 * s2
+    pot = eps4 * (s6 * s6 - s6)
+    lj_mag = eps4.abs() * (s6 * s6 + s6) if magnitude else None
+    if t.lj_shift == "linear":
+        shift = lam1 + lam2 * torch.sqrt(d2)
+        pot = pot + shift
+        if magnitude:
+            lj_mag = lj_mag + shift.abs()
+    contrib = torch.where(mask_lj, pot, 0.0)
+    mag = torch.where(mask_lj, lj_mag, 0.0) if magnitude else None
+    if t.coulomb != "none":
+        r = d2 * inv_r
+        kr = kappa[:, :, None] * r
+        if t.coulomb in ("ewald", "wolf_ref"):
+            cp = qq * (torch.special.erfc(kr) * inv_r)
+        elif t.coulomb == "wolf":
+            cp = qq * (torch.special.erfc(kr) * inv_r - sh_w[:, :, None])
+        else:
+            cp = qq * inv_r
+        cp = torch.where(veto & (d2 < t.d2_overlap) & (qq < 0.0), 1e30, cp)
+        contrib = contrib + torch.where(mask_qq, cp, 0.0)
+        if magnitude:
+            mag = mag + torch.where(mask_qq, cp.abs(), 0.0)
+    e = (contrib * weight).sum(-1)                                # (C, R)
+    return e, ((mag * weight).sum((1, 2)) if magnitude else None)
+
+
+def site_sfac(t, pos, qs, inv_c):
+    """sum_r qs_r exp(i k~ . pos_r) in boxes of 1 / L inv_c (C, 1): pos
+    (C, 3, R), qs (R,) -> ((C, K), (C, K))."""
+    tpl = (_TWO_PI * inv_c)[:, :, None]                           # (C, 1, 1)
+    ph = tpl * (t.kvec[:, 0] * pos[:, 0, :, None]
+                + t.kvec[:, 1] * pos[:, 1, :, None]
+                + t.kvec[:, 2] * pos[:, 2, :, None])             # (C, R, K)
+    ph = ph - _TWO_PI * torch.round(ph * _INV_TWO_PI)
+    qs = qs[None, :, None]
+    return (qs * torch.cos(ph)).sum(1), (qs * torch.sin(ph)).sum(1)
+
+
+def recip_delta(ds_re, ds_im, sgn, s_re, s_im, cfac):
+    """(dU_recip (C,), its magnitude) of S = s_re + i s_im -> S + sgn dS,
+    cfac (C, K) the box's k-space coefficients."""
+    cross = 2.0 * sgn * (s_re * ds_re + s_im * ds_im) \
+        + ds_re * ds_re + ds_im * ds_im
+    return COULOMB_FACTOR * (cfac * cross).sum(-1), \
+        COULOMB_FACTOR * (cfac * cross.abs()).sum(-1)
+
+
 def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
                 act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None,
                 si=None, wc=None, seed=0, magnitude=False, scores=None,
@@ -501,20 +588,10 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
     use_act = act is not None
     if use_act:
         act, actm = act.clone(), actm.clone()
-    box_c, temp_c = box[:, None], temp[:, None]
-    inv_box = 1.0 / box_c
-    kappa = t.kappa_l * inv_box                                   # (C, 1)
+    temp_c = temp[:, None]
+    cst, cfac = box_constants(t, box[:, None])
+    box_c, inv_box = cst[0], cst[1]
     ewald = t.coulomb == "ewald"
-    use_q = t.coulomb != "none"
-    if ewald:
-        k2 = (t.kvec * t.kvec).sum(-1)                           # (K,)
-        kt2 = (_TWO_PI * inv_box) ** 2 * k2
-        vol = box_c * box_c * box_c
-        cfac = t.kw * (_TWO_PI / vol) * torch.exp(
-            -kt2 / (4.0 * kappa * kappa)) / kt2                   # (C, K)
-    if t.coulomb == "wolf":
-        qrc = math.sqrt(t.qrc2)
-        sh_w = torch.special.erfc(kappa * qrc) / qrc              # (C, 1)
     tid = t.tid_row.clamp(min=0).long()
     eps4_p, sig2_p = 4.0 * t.eps[:, tid], t.sig2[:, tid]          # (P, A)
     lam1_p, lam2_p = t.lam1[:, tid], t.lam2[:, tid]
@@ -523,68 +600,6 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
     bx, by, bz = t.body[:, 0], t.body[:, 1], t.body[:, 2]
     stats = torch.zeros((C, N_STATS + int(magnitude)), dtype=torch.float32,
                         device=dev)
-
-    def pair_terms(pos, weight, veto, eps4, sig2, lam1, lam2, qq):
-        """Site sums of pos (C, 3, R) against every atom lane: the pair
-        energies times weight (C, 1 | R, A) summed over lanes, and their
-        magnitudes; veto (C, R, 1) bool marks rows that carry the +1e30
-        overlap penalty; the (R, A) tables are the rows' parameters."""
-        d2 = None
-        for d in range(3):
-            dd = coords[:, d, None, :] - pos[:, d, :, None]      # (C, R, A)
-            dd = dd - box_c[:, :, None] * torch.round(
-                dd * inv_box[:, :, None])
-            d2 = dd * dd if d2 is None else d2 + dd * dd
-        d2 = torch.clamp_min(d2, 1e-4)
-        mask_lj = d2 < t.rc2
-        mask_qq = d2 < t.qrc2 if t.qrc2 != t.rc2 else mask_lj
-        inv_r = torch.rsqrt(d2)
-        inv_d2 = inv_r * inv_r
-        s2 = sig2 * inv_d2
-        s6 = s2 * s2 * s2
-        pot = eps4 * (s6 * s6 - s6)
-        lj_mag = eps4.abs() * (s6 * s6 + s6) if magnitude else None
-        if t.lj_shift == "linear":
-            shift = lam1 + lam2 * torch.sqrt(d2)
-            pot = pot + shift
-            if magnitude:
-                lj_mag = lj_mag + shift.abs()
-        contrib = torch.where(mask_lj, pot, 0.0)
-        mag = torch.where(mask_lj, lj_mag, 0.0) if magnitude else None
-        if use_q:
-            r = d2 * inv_r
-            kr = kappa[:, :, None] * r
-            if t.coulomb in ("ewald", "wolf_ref"):
-                cp = qq * (torch.special.erfc(kr) * inv_r)
-            elif t.coulomb == "wolf":
-                cp = qq * (torch.special.erfc(kr) * inv_r - sh_w[:, :, None])
-            else:
-                cp = qq * inv_r
-            cp = torch.where(veto & (d2 < t.d2_overlap) & (qq < 0.0), 1e30,
-                             cp)
-            contrib = contrib + torch.where(mask_qq, cp, 0.0)
-            if magnitude:
-                mag = mag + torch.where(mask_qq, cp.abs(), 0.0)
-        e = (contrib * weight).sum(-1)                            # (C, R)
-        return e, ((mag * weight).sum((1, 2)) if magnitude else None)
-
-    def site_sfac(pos, qs):
-        """sum_r qs_r exp(i k~ . pos_r): pos (C, 3, R), qs (R,) ->
-        ((C, K), (C, K))."""
-        tpl = (_TWO_PI * inv_box)[:, :, None]                    # (C, 1, 1)
-        ph = tpl * (t.kvec[:, 0] * pos[:, 0, :, None]
-                    + t.kvec[:, 1] * pos[:, 1, :, None]
-                    + t.kvec[:, 2] * pos[:, 2, :, None])         # (C, R, K)
-        ph = ph - _TWO_PI * torch.round(ph * _INV_TWO_PI)
-        qs = qs[None, :, None]
-        return (qs * torch.cos(ph)).sum(1), (qs * torch.sin(ph)).sum(1)
-
-    def recip_delta(ds_re, ds_im, sgn):
-        """(dU_recip (C,), its magnitude) of S -> S + sgn dS."""
-        cross = 2.0 * sgn * (sre * ds_re + sim * ds_im) \
-            + ds_re * ds_re + ds_im * ds_im
-        return COULOMB_FACTOR * (cfac * cross).sum(-1), \
-            COULOMB_FACTOR * (cfac * cross.abs()).sum(-1)
 
     rep2 = [x.repeat(2, 1) for x in (eps4_p, sig2_p, lam1_p, lam2_p, qq_p)]
     new_row = (torch.arange(2 * P, device=dev) >= P)[None, :, None]
@@ -638,12 +653,13 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
                 None, None, :]
         if use_act:
             other = other * act[:, None, :]
-        e_rows, mag = pair_terms(pos, other, new_row, *rep2)
+        e_rows, mag = pair_terms(t, coords, pos, other, new_row, cst, rep2,
+                                 magnitude)
         d_e = (e_rows * sign).sum(-1)                            # (C,)
 
         if ewald:
-            ds_re, ds_im = site_sfac(pos, sign * t.qp.repeat(2))
-            dr_e, dr_mag = recip_delta(ds_re, ds_im, 1.0)
+            ds_re, ds_im = site_sfac(t, pos, sign * t.qp.repeat(2), inv_box)
+            dr_e, dr_mag = recip_delta(ds_re, ds_im, 1.0, sre, sim, cfac)
             d_e = d_e + dr_e
             if magnitude:
                 mag = mag + dr_mag
@@ -699,13 +715,17 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
             weight = torch.where(
                 valid[None, :] & (t.molid_row[None, :] != excl[:, None]),
                 act, 0.0)[:, None, :]
-            e_rows, mag = pair_terms(pos, weight, veto[:, None, None], *tabs)
+            e_rows, mag = pair_terms(t, coords, pos, weight,
+                                     veto[:, None, None], cst, tabs,
+                                     magnitude)
             part = sgn * e_rows.sum(-1)
             ds = None
             if ewald:
-                ds = site_sfac(pos, t.qp)
-                dr_e, dr_mag = recip_delta(ds[0], ds[1], sgn[:, None]
-                                           if torch.is_tensor(sgn) else sgn)
+                ds = site_sfac(t, pos, t.qp, inv_box)
+                dr_e, dr_mag = recip_delta(
+                    ds[0], ds[1],
+                    sgn[:, None] if torch.is_tensor(sgn) else sgn, sre, sim,
+                    cfac)
                 part = part + dr_e
                 if magnitude:
                     mag = mag + dr_mag

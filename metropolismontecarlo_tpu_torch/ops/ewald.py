@@ -1,8 +1,9 @@
 """Ewald summation (counterpart of metropolismontecarlo_tpu/ops/ewald.py).
 
-k-vector table and coefficients, the direct structure factor, the
-reciprocal energy, real-space sum, self and intramolecular terms, and
-the exact molecular virials.  The JAX package's eik-recurrence
+k-vector table and coefficients, the accuracy-targeted parameter choice
+(`tune_parameters`), the direct structure factor, the reciprocal energy,
+real-space sum, self and intramolecular terms, and the exact molecular
+virials.  The JAX package's eik-recurrence
 structure_factor is a later port; `structure_factor` here is the direct
 form (structure_factor_direct there), which the recurrence is gated to
 equal.
@@ -39,6 +40,24 @@ def make_kvectors(nk=5, ksq_max=27, strict=True):
                     ks.append((kx, ky, kz))
                     ws.append(2.0 if kx > 0 else 1.0)
     return np.asarray(ks, dtype=np.int32), np.asarray(ws, dtype=np.float64)
+
+
+def tune_parameters(box, r_cut, tol=1e-5):
+    """Accuracy-targeted Ewald parameters (kappa_L, nk, ksq_max): both
+    truncation errors at the relative level tol.  The real-space tail
+    goes as erfc(kappa r_cut) and the k-space tail as exp(-k~_max^2 /
+    4 kappa^2), so kappa r_cut = sqrt(ln 1/tol) and k~_max = 2 kappa
+    sqrt(ln 1/tol), i.e. nk = ceil(box kappa sqrt(ln 1/tol) / pi).
+    Returns RunParams' conventions: kappa = kappa_L / box and
+    0 < |k|^2 < ksq_max = nk^2 + 1 in integer units."""
+    if not (0.0 < tol < 1.0 and r_cut > 0.0 and box > 0.0):
+        raise ValueError(f"tune_parameters needs 0 < tol < 1 and positive "
+                         f"box and r_cut (box={box}, r_cut={r_cut}, "
+                         f"tol={tol})")
+    s = float(np.sqrt(np.log(1.0 / tol)))
+    kappa = s / r_cut
+    nk = int(np.ceil(box * s * kappa / np.pi))
+    return kappa * box, nk, nk * nk + 1
 
 
 def require_full_f32_matmul(t):

@@ -76,6 +76,12 @@ def random_rotate_quaternion(generator, q, dphi_max):
                                  dtype=q.dtype, device=generator.device))
     u = torch.rand(shape, generator=generator, dtype=q.dtype,
                    device=generator.device)
+    return rotate_quaternion(q, axis, u, dphi_max)
+
+
+def rotate_quaternion(q, axis, u, dphi_max):
+    """random_rotate_quaternion on given draws: q (..., 4) turned by the
+    angle (2 u - 1) dphi_max about the unit axis (..., 3), renormalised."""
     half = 0.5 * (2.0 * u - 1.0) * dphi_max
     rot = torch.cat([torch.cos(half)[..., None],
                      torch.sin(half)[..., None] * axis], dim=-1)
