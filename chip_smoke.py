@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Phase 0  require CUDA; print the card's name and power limit.
-Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu and
-         csrc/gibbs_kernel.cu with nvcc for sm_90a, all at once (cached by
-         a hash of each source under metropolismontecarlo_tpu_torch/_build);
-         ptxas registers and spills of each instantiation.
+Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu,
+         csrc/gibbs_kernel.cu and csrc/flip_kernel.cu with nvcc for sm_90a,
+         all at once (cached by a hash of each source under
+         metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
+         of each instantiation.
 Phase 2  each kernel against its plain PyTorch version on the card, on the
          same inputs.  The sweep kernel, one sweep on shared uniforms:
          SPC/E-64 (ewald, wolf, none; p_translate 0.5 and 0.0), LJ-256,
@@ -122,6 +123,38 @@ Phase 14 the physics gates of docs/validation/run_gibbs_kernel_exchange.py:
          mega="full" against mega=True on <N_liq> (cap 48, boxes 12 / 16,
          256 chains) at the protocol's depth and gates.
 
+Phase 15 the semigrand main path at bench.py's "semigrand" configuration:
+         identical SPC/E blocks cap 64 + 64 (600 K, r_cut 8, box 20, the
+         flagship Ewald), 32 + 32 molecules, xi 2, p_flip 0.3, 1024 chains
+         through Semigrand(mega="full"): init, a 2-cycle melt and two
+         2-cycle blocks (per cycle two sweep launches of 64 moves and one
+         flip launch of 55 flips; drift < 2e-3, S(k) error < 1e-4, N_tot
+         conserved on every chain, both flip acceptances in (0, 1));
+         mega=True from the same start, whose <N_B> must agree within 4
+         combined standard errors; one flip launch on the main path's own
+         arguments against flip_plain (>= 98% of chains agree), timed beside
+         it, the bound and a whole cycle.
+Phase 16 the in-kernel segment of docs/validation/run_semigrand_binomial.py
+         (identical SPC/E blocks cap 24 + 24, N_tot 16, xi 2, p_flip 0.5,
+         256 chains, 3 + 8 blocks of 1200 steps): <N_B> within max(3%, 5
+         s.e.) of 10.667, the variance within 20% of 3.556, drift < 2e-3.
+Phase 17 docs/validation/run_binary_co2_n2.py through
+         BinaryGCMC(mega="full") at the protocol's parameters (CO2/N2 caps
+         96 + 96, 26 A, 300 K, z = (5e-4, 8e-4), p_exchange 0.4, 256
+         chains, 8 + 8 blocks of 1500 steps), then NVT at the sampled
+         composition with per-species MonteCarlo.widom: |beta mu_ex
+         difference| < 0.1 per species, selectivity S > 1, S(k) error <
+         1e-4, drift < 1e-2 and full fractions < 0.02 on every production
+         block.
+
+Phase 2 also holds the flip kernel against flip_plain (`phase2_flip`, 64
+chains, 24 flips, shared uniforms and Philox scores, chain 0 with no
+molecule and chain 1 with both blocks full): identical SPC/E blocks 32 +
+32 under Ewald, Wolf and reference Wolf, and the ragged one-site LJ +
+bent-triatomic blocks with unequal eps and the LJ tail; at most 2 of 64
+chains may differ, energies within 1e-5 of the flips' term magnitudes,
+S(k) within 1e-5 of its norm, N conserved, chains 0 and 1 unchanged.
+
 Phase 2 also holds the Gibbs kernel against sweep_gibbs_plain
 (`phase2_gibbs`, 64 chains, unequal boxes, shared uniforms and Philox
 scores, one chain with an empty source box and one with a full
@@ -236,11 +269,12 @@ def phase1():
     from metropolismontecarlo_tpu_torch.ops.cuda import (
         build,
         delta_energy,
+        flip_kernel,
         gibbs_kernel,
         sweep_kernel,
     )
 
-    names = ("sweep_kernel", "delta_energy", "gibbs_kernel")
+    names = ("sweep_kernel", "delta_energy", "gibbs_kernel", "flip_kernel")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
     # the sweep kernel's template instantiations <kAct, kTmmc, kGlobal> by
@@ -249,7 +283,8 @@ def phase1():
               "ILb1ELb0ELb0E": "<true, false, false> activity",
               "ILb1ELb1ELb0E": "<true, true, false> tmmc",
               "ILb0ELb0ELb1E": "<false, false, true> global layout",
-              "12gibbs_kernel": "two-box Gibbs"}
+              "12gibbs_kernel": "two-box Gibbs",
+              "11flip_kernel": "semigrand flips"}
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s")
         entry = ""
@@ -262,6 +297,7 @@ def phase1():
     sweep_kernel._library()
     delta_energy._library()
     gibbs_kernel._library()
+    flip_kernel._library()
 
 
 def _sweep_args(state, u):
@@ -2656,9 +2692,449 @@ def phase14_water(dev, chains=256, eq_steps=4000, steps=1200, blocks=3):
     return launches
 
 
+FLIP_MAX_DIFFERING = 2      # of 64 chains, phase 2's flip cases
+FLIP_SFAC_TOL = 1e-5        # S(k) against the twin, of the chain's S(k) norm
+
+
+def flip_inputs(system, params, box, xi, n_act, gen, dev):
+    """A two-block f32 state in the flip op's layout: every slot on one
+    lattice in a random orientation, the first n_act[c, s] slots of block s
+    active in chain c, S(k) of the active charges; with the flip tables,
+    each species' constant si2 (C, 2) and the tail's lrc3 (C, 3) or None.
+    Returns (args, tables, si2, lrc3)."""
+    from metropolismontecarlo_tpu_torch.mc.gcmc_binary import (
+        make_binary_slots,
+    )
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        sweep_tables,
+    )
+    from metropolismontecarlo_tpu_torch.ops.cuda.flip_kernel import (
+        FlipTables,
+    )
+    from metropolismontecarlo_tpu_torch.ops.ewald import structure_factor
+
+    ms = make_binary_slots(system, params, dev, torch.float32, neutral=False)
+    C = n_act.shape[0]
+    com, quat, coords = ms.pose_lattice_init(gen, box, C)
+    j = torch.arange(ms.M, device=dev)
+    active = torch.zeros((C, ms.M), dtype=torch.bool, device=dev)
+    for s in range(2):
+        blk = (j >= ms.m0s[s]) & (j < ms.m0s[s] + ms.caps[s])
+        active |= blk & (j - ms.m0s[s] < n_act[:, s, None].to(dev))
+    act, actm = activity_planes(system, active)
+    boxc = torch.full((C,), float(box), device=dev)
+    if ms.use_ewald:
+        sfac = structure_factor(coords.transpose(1, 2),
+                                ms.evs[0].charges_flat * act, ms.kv, boxc)
+    else:
+        sfac = torch.zeros((C, 1, 2), device=dev)
+    si2 = torch.stack([ev.self_intra(boxc) for ev in ms.evs], 1)
+    lrc3 = None
+    if ms.use_lrc:
+        g = ms.lrc_gmat(boxc)
+        lrc3 = torch.stack([g[:, 0, 0], g[:, 0, 1], g[:, 1, 1]], 1) \
+            .contiguous()
+    t_a, t_b = sweep_tables(system, params, ms.kvecs, ms.kweights, dev)
+    args = [coords, com, quat, sfac.contiguous(), boxc,
+            params.temperature * torch.ones((C,), device=dev), act, actm]
+    return ([x.contiguous() for x in args],
+            FlipTables(a=t_a, b=t_b, ln_xi=math.log(xi)),
+            si2.contiguous(), lrc3)
+
+
+def compare_flip(tag, args, ux, tables, si2, lrc3, seed, max_differing=None):
+    """The flip kernel against flip_plain on the same arguments: chains
+    with identical decisions (equal acc/att counts and fingerprint) are
+    compared field by field; N is conserved on every chain of both.
+    max_differing: the most chains allowed to differ (default:
+    MATCH_FRACTION of them must agree).  Returns (the largest of the
+    matched chains' coordinate difference (A) and energy and S(k) relative
+    errors, the kernel's outputs, the chains that agree)."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as op
+
+    k = op.flip(*args, ux, tables, si2, lrc3, seed=seed)
+    p = op.flip_plain(*args, ux, tables, si2, lrc3, seed=seed, magnitude=True)
+    torch.cuda.synchronize()
+    C = args[0].shape[0]
+    same = (k[4][:, 1:6] == p[4][:, 1:6]).all(dim=1)
+    n_diff = int((~same).sum())
+    n_in = args[7].sum(1)
+    conserved = torch.equal(k[6].sum(1), n_in) \
+        and torch.equal(p[6].sum(1), n_in)
+    pos = max(float((k[i] - p[i])[same].abs().max()) for i in (0, 1, 2))
+    mag = p[4][:, op.N_STATS].clamp_min(1.0)
+    e_rel = float(((k[4][:, 0] - p[4][:, 0]).abs() / mag)[same].max())
+    s_norm = torch.clamp_min(torch.linalg.vector_norm(p[3].flatten(1), dim=1),
+                             SFAC_NORM_FLOOR)
+    s_rel = float(((k[3] - p[3]).flatten(1).abs().max(dim=1).values
+                   / s_norm)[same].max())
+    planes = torch.equal(k[5][same], p[5][same]) \
+        and torch.equal(k[6][same], p[6][same])
+    finite = all(bool(torch.isfinite(x).all()) for x in k)
+    att = k[4][:, 3:5].sum(0)
+    print(f"phase {tag}: chains {C}, differing {n_diff}, flips A->B "
+          f"{float(k[4][:, 1].sum()):.0f} of {float(att[0]):.0f}, B->A "
+          f"{float(k[4][:, 2].sum()):.0f} of {float(att[1]):.0f}; coord/com/"
+          f"quat err {pos:.3e}, energy err {e_rel:.3e} of the flips' energy "
+          f"scale, S(k) err {s_rel:.3e} of its norm, activity planes equal "
+          f"{planes}, N conserved {conserved}")
+    allowed = max_differing if max_differing is not None \
+        else (1.0 - MATCH_FRACTION) * C
+    if not (n_diff <= allowed and conserved and finite and planes
+            and pos <= POS_TOL and e_rel <= ENERGY_REL_TOL
+            and s_rel <= FLIP_SFAC_TOL):
+        raise AssertionError(f"{tag}: the flip kernel and its plain version "
+                             f"disagree")
+    return max(pos, e_rel, s_rel), k, same
+
+
+def _semigrand_water(**kw):
+    """bench.py's "semigrand" conventions: SPC/E at 600 K, r_cut 8, the
+    flagship Ewald (kappa L 5.6, nk 5, |k|^2 < 27)."""
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+
+    d = dict(temperature=600.0, r_cut=8.0, cutoff_mode="site",
+             coulomb="ewald", use_lrc=False, p_translate=0.5, dr_max=1.0,
+             dphi_max=0.7, strict_min_image=False)
+    d.update(kw)
+    return RunParams(**d)
+
+
+def phase2_flip(dev, chains=64, n_flip=24):
+    """The flip kernel against flip_plain on shared uniforms and Philox
+    scores, 64 chains (chain 0 with no molecule, chain 1 with both blocks
+    full, so no attempt of it has a free target): identical SPC/E blocks
+    32 + 32 under Ewald, Wolf and reference Wolf; the ragged one-site LJ +
+    bent-triatomic blocks with unequal eps and the LJ tail."""
+    from metropolismontecarlo_tpu_torch.mc.moves import draw_exchange_uniforms
+    from metropolismontecarlo_tpu_torch.models.polyatomic import (
+        lj_trimer_blocks,
+    )
+    from metropolismontecarlo_tpu_torch.models.water import spce_two_blocks
+
+    t0 = time.perf_counter()
+    water = spce_two_blocks(32, 32)
+    cases = (
+        ("spce 32+32 ewald", water, _semigrand_water(), 20.0, 2.0),
+        ("spce 32+32 wolf", water,
+         _semigrand_water(coulomb="wolf", kappa_L=2.0), 20.0, 2.0),
+        ("spce 32+32 wolf_ref", water,
+         _semigrand_water(coulomb="wolf", wolf_style="ref", kappa_L=2.0),
+         20.0, 2.0),
+        ("lj+trimer 32+32 lrc", lj_trimer_blocks(32, 32, eps_a=1.0,
+                                                  eps_b=0.6),
+         _semigrand_water(temperature=2.0, r_cut=2.5, coulomb="none",
+                          use_lrc=True), 9.0, 1.5),
+    )
+    err = 0.0
+    for i, (tag, system, params, box, xi) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(3200 + i)
+        rng = np.random.default_rng(3200 + i)
+        n_act = rng.integers(0, 33, (chains, 2))
+        n_act[0], n_act[1] = 0, 32
+        args, tables, si2, lrc3 = flip_inputs(
+            system, params, box, xi, torch.tensor(n_act), gen, dev)
+        ux = draw_exchange_uniforms(chains, n_flip, gen, dev)
+        e, k, _ = compare_flip(f"2f {tag}", args, ux, tables, si2, lrc3,
+                               seed=71 + i, max_differing=FLIP_MAX_DIFFERING)
+        err = max(err, e)
+        # the empty chain and the chain without a free target: unchanged
+        for c in (0, 1):
+            for x, ref in zip(k[:4] + k[5:], args[:4] + args[6:]):
+                if not torch.equal(x[c], ref[c]):
+                    raise AssertionError(f"2f {tag}: chain {c} changed")
+        if not (float(k[4][0, 3]) == n_flip and float(k[4][:2, 1:3].sum())
+                == 0.0 and float(k[4][1, 3:5].sum()) == n_flip):
+            raise AssertionError(f"2f {tag}: refused attempts miscounted: "
+                                 f"{k[4][:2].tolist()}")
+    print(f"phase 2 flip cases: {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def flip_bound(t, C, A_pad, M, K, n_tot, frac, n_flip):
+    """The least time (ms) of one flip launch, and what sets it: the chain
+    state in and out once, the uniforms and constants read once, against
+    the operations the attempts need (OPS_*): each attempt scores the
+    active slots with Philox, sums the old and the new pose against the
+    other active atoms and builds one dS row over the k-vectors.  n_tot
+    (C,) this run's active counts; both species' tables of t count."""
+    ewald = t.a.coulomb == "ewald"
+    lj = t.a.has_lj.sum().item() + t.b.has_lj.sum().item()
+    qf = (t.a.has_q.sum().item() + t.b.has_q.sum().item()) \
+        if t.a.coulomb != "none" else 0
+    p_avg = 0.5 * (t.a.P + t.b.P)
+    state = 4 * A_pad + 8 * M + 2 * K
+    nbytes = 4 * C * (2 * state + 8 * n_flip + 2 + 2 + 8)
+    n = float(n_tot.double().mean())
+    c_pair = 2 * p_avg * OPS_GEOMETRY + frac * (lj * OPS_LJ
+                                                + qf * OPS_COULOMB)
+    k_flip = K * (qf * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+    ops = C * n_flip * ((n - 1.0) * p_avg * c_pair + k_flip
+                        + n * OPS_PHILOX)
+    return _bound(nbytes, ops)
+
+
+def semigrand_blocks(tag, g, st, blocks, apc, n_tot):
+    """Semigrand.run_blocks of `blocks` cycles each with the drift, S(k),
+    N_tot-conservation and flip-acceptance gates; returns (state,
+    [(<N_B>, s.e.)])."""
+    trace = []
+    for n_cyc in blocks:
+        t0 = time.perf_counter()
+        st, stats = g.run_block(st, n_cyc * apc)
+        torch.cuda.synchronize()
+        print(f"phase{tag} run_block({n_cyc} cycles): "
+              f"{time.perf_counter() - t0:.2f} s, " + ", ".join(
+                  f"{k} {v:.6g}" for k, v in stats.items()))
+        n_chain = st.active.sum(1)
+        if not bool((n_chain == n_tot).all()):
+            raise AssertionError(f"N_tot not conserved: {n_chain.unique()}")
+        if not (stats["drift_max_rel"] < DRIFT_TOL
+                and stats["sfac_err_max"] < SFAC_ABS_TOL
+                and 0.0 < stats["acc_flip_ab"] < 1.0
+                and 0.0 < stats["acc_flip_ba"] < 1.0):
+            raise AssertionError(f"phase{tag}: a gate failed: {stats}")
+        n_b = st.active[:, g.cap_a:].sum(1).double()
+        trace.append((float(n_b.mean()),
+                      float(n_b.std() / math.sqrt(n_b.numel()))))
+    return st, trace
+
+
+def phase15(dev, chains=1024, melt=2, blocks=(2, 2), chunk=128):
+    """The semigrand main path at bench.py's "semigrand" configuration:
+    identical SPC/E blocks cap 64 + 64, Ewald, 600 K, r_cut 8, box 20, 32 +
+    32 molecules, xi 2, p_flip 0.3 (x_per 55), 1024 chains through
+    Semigrand(mega="full"): init, a melt block and two measured blocks (per
+    cycle two sweep launches of 64 moves and one flip launch of 55 flips);
+    mega=True from the same start (<N_B> within 4 combined standard
+    errors); one flip launch on the main path's own arguments against
+    flip_plain, timed beside it, the bound and a whole cycle."""
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        make_mega_flip_fn,
+    )
+    from metropolismontecarlo_tpu_torch.mc.semigrand import Semigrand
+    from metropolismontecarlo_tpu_torch.mc.widom import make_pose_eval
+    from metropolismontecarlo_tpu_torch.models.water import spce_two_blocks
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sw
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t_phase = time.perf_counter()
+    cap, px, xi, n_a, n_b, box = 64, 0.3, 2.0, 32, 32, 20.0
+    system, params = spce_two_blocks(cap, cap), _semigrand_water()
+
+    def build(mega, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return gen, Semigrand(system, params, fugacity_ratio=xi, p_flip=px,
+                              dtype=torch.float32, chunk=chunk, mega=mega,
+                              device=dev, generator=gen)
+
+    gen, g = build("full", 2051)
+    x_per = g.run_steps.x_per
+    apc = 2 * cap + x_per
+    t0 = time.perf_counter()
+    st0 = g.init(box=box, n_a=n_a, n_b=n_b, n_chains=chains)
+    torch.cuda.synchronize()
+    print(f"phase15 init: {time.perf_counter() - t0:.2f} s; caps {cap} + "
+          f"{cap}, A_pad {st0.coords.shape[-1]}, K {st0.sfac.shape[1]}, "
+          f"x_per {x_per} (a cycle: {2 * cap} moves + {x_per} flips), "
+          f"{chains} chains, E mean {float(st0.energy.mean()):.1f} K")
+    op.flip.launches = 0
+    sw.sweep.launches = 0
+    st, trace = semigrand_blocks("15", g, st0, (melt,) + tuple(blocks), apc,
+                                 n_a + n_b)
+    launches, sweeps = op.flip.launches, sw.sweep.launches
+    n_cyc = melt + sum(blocks)
+    print(f"phase15 main path: {n_cyc} cycles, {launches} flip launches, "
+          f"{sweeps} sweep launches; <N_B> " + ", ".join(
+              f"{m:.3f} +- {e:.3f}" for m, e in trace))
+    if launches != n_cyc or sweeps != 2 * n_cyc:
+        raise AssertionError(f"{launches} flip and {sweeps} sweep launches "
+                             f"for {n_cyc} cycles")
+
+    # the hybrid composition from the same start
+    _, g_h = build(True, 2052)
+    t0 = time.perf_counter()
+    _, trace_h = semigrand_blocks("15 hybrid", g_h, st0,
+                                  (melt,) + tuple(blocks), apc, n_a + n_b)
+    print(f"phase15 hybrid blocks: {time.perf_counter() - t0:.2f} s")
+    for (m_f, e_f), (m_h, e_h) in zip(trace, trace_h):
+        tol = 4.0 * math.hypot(e_f, e_h)
+        print(f"phase15 <N_B> full {m_f:.3f} vs hybrid {m_h:.3f}: "
+              f"difference {m_f - m_h:+.3f}, 4 combined standard errors "
+              f"{tol:.3f}")
+        if not abs(m_f - m_h) < tol:
+            raise AssertionError("full and hybrid <N_B> disagree")
+
+    # one flip launch on the main path's arguments: held to the twin, timed
+    kv, kw = make_kvectors(params.nk, params.ksq_max)
+    tables = make_mega_flip_fn(system, params, kv, kw, dev, xi).tables
+    act, actm = activity_planes(system, st.active)
+    ones = torch.ones((chains,), device=dev)
+    args = [x.float().contiguous() for x in (st.coords, st.com, st.quat,
+                                             st.sfac, st.box)] + [
+        params.temperature * ones, act, actm]
+    si2 = torch.stack([make_pose_eval(system, params, kv, kw, dev,
+                                      torch.float32, species=s)
+                       .self_intra(st.box) for s in (0, 1)], 1).contiguous()
+    ux = draw_exchange_uniforms(chains, x_per, gen, dev)
+    err, out, _ = compare_flip("15 flip vs plain", args, ux, tables, si2,
+                               None, seed=97)
+    ms = _time_ms(lambda: op.flip(*args, ux, tables, si2, None, seed=97), 5)
+    plain_ms = _time_ms(lambda: op.flip_plain(*args, ux, tables, si2, None,
+                                              seed=97), 1)
+    cycle_ms = _time_ms(lambda: g.run_steps(st, apc), 3)
+    frac = _active_cutoff_fraction(st, 3, params.r_cut)
+    bound_ms, bound_by = flip_bound(tables, chains, st.coords.shape[-1],
+                                    2 * cap, st.sfac.shape[1],
+                                    st.active.sum(1), frac, x_per)
+    print(f"phase15 one flip launch, {chains} chains, {x_per} flips "
+          f"({float(out[4][:, 1:3].sum(1).mean()):.2f} accepted): kernel "
+          f"{ms:.3f} ms, flip_plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
+          f"ms ({bound_by}; {frac:.4f} of active pairs within the cutoff); "
+          f"a whole cycle {cycle_ms:.3f} ms, the flip launch "
+          f"{100.0 * ms / cycle_ms:.1f}% of it; phase total "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, err, ms, plain_ms, bound_ms, bound_by
+
+
+def phase16(dev, chains=256, equil=3, prod=8, steps=1200):
+    """The in-kernel segment of docs/validation/run_semigrand_binomial.py,
+    uncut: identical SPC/E blocks cap 24 + 24, N_tot 16, box 20, 600 K,
+    Ewald, xi 2, p_flip 0.5, 256 chains, 3 + 8 blocks of 1200 steps through
+    Semigrand(mega="full"): N_B ~ Binomial(16, 2/3), mean within max(3%,
+    5 s.e.) of 10.667 and variance within 20% of 3.556; every production
+    block's drift < 2e-3."""
+    from metropolismontecarlo_tpu_torch.mc.semigrand import Semigrand
+    from metropolismontecarlo_tpu_torch.models.water import spce_two_blocks
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as op
+
+    t0 = time.perf_counter()
+    n_tot, xi = 16, 2.0
+    gen = torch.Generator(device=dev).manual_seed(2053)
+    g = Semigrand(spce_two_blocks(24, 24),
+                  _semigrand_water(strict_min_image=True), fugacity_ratio=xi,
+                  p_flip=0.5, dtype=torch.float32, chunk=chains, mega="full",
+                  device=dev, generator=gen)
+    st = g.init(box=20.0, n_a=8, n_b=8, n_chains=chains)
+    l0 = op.flip.launches
+    for _ in range(equil):
+        st, _ = g.run_block(st, steps)
+    means, varis, worst = [], [], 0.0
+    for _ in range(prod):
+        st, stats = g.run_block(st, steps)
+        worst = max(worst, stats["drift_max_rel"])
+        means.append(stats["nb_mean"])
+        varis.append(stats["nb_var"])
+        if not stats["drift_max_rel"] < DRIFT_TOL:
+            raise AssertionError(f"phase16 drift: {stats}")
+    torch.cuda.synchronize()
+    launches = op.flip.launches - l0
+    p = xi / (1.0 + xi)
+    mean, var = float(np.mean(means)), float(np.mean(varis))
+    sem = float(np.std(means) / np.sqrt(len(means)))
+    ok = abs(mean - n_tot * p) < max(0.03 * n_tot * p, 5 * sem) \
+        and abs(var - n_tot * p * (1 - p)) < 0.2 * n_tot * p * (1 - p)
+    print(f"phase16 <N_B> {mean:.3f} +- {sem:.3f} (exact {n_tot * p:.3f}), "
+          f"var {var:.3f} (exact {n_tot * p * (1 - p):.3f}), worst drift "
+          f"{worst:.2e}, N_tot conserved "
+          f"{bool((st.active.sum(1) == n_tot).all())}; {launches} flip "
+          f"launches (not in the kernels line); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (ok and bool((st.active.sum(1) == n_tot).all())):
+        raise AssertionError("phase16: the Binomial gates failed")
+    return launches
+
+
+def phase17(dev, chains=256, equil=8, prod=8, steps=1500, nvt_chains=256):
+    """docs/validation/run_binary_co2_n2.py with BinaryGCMC(mega="full") at
+    the protocol's own parameters: TraPPE CO2/N2, caps 96 + 96, box 26 A,
+    300 K, z = (5e-4, 8e-4) /A^3, p_exchange 0.4, 256 chains, 8 + 8 blocks
+    of 1500 steps (one sweep launch per species block per cycle, each with
+    its species' 64 exchange attempts); then NVT at the sampled composition
+    with per-species MonteCarlo.widom.  Gates: |beta mu_ex(muVT) - beta
+    mu_ex(Widom)| < 0.1 per species, selectivity S > 1, every production
+    block's S(k) error < 1e-4, drift < 1e-2 and full fractions < 0.02."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.gcmc_binary import BinaryGCMC
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sw
+
+    t0 = time.perf_counter()
+    temp, box, z, caps = 300.0, 26.0, (5e-4, 8e-4), (96, 96)
+    params = RunParams(temperature=temp, r_cut=10.0, cutoff_mode="site",
+                       coulomb="ewald", use_lrc=False, p_translate=0.5,
+                       dr_max=1.5, dphi_max=1.0)
+    gen = torch.Generator(device=dev).manual_seed(2054)
+    g = BinaryGCMC(co2_n2_system(*caps), params, activities=z,
+                   p_exchange=0.4, dtype=torch.float32, chunk=64,
+                   mega="full", device=dev, generator=gen)
+    st = g.init(box=box, n_init=(12, 14), n_chains=chains)
+    l0 = sw.sweep.launches
+    for b in range(equil):
+        st, stats = g.run_block(st, steps)
+    n0 = n1 = 0.0
+    for b in range(prod):
+        st, stats = g.run_block(st, steps)
+        print(f"phase17 prod {b}: <N0> {stats['n0_mean']:.2f} <N1> "
+              f"{stats['n1_mean']:.2f}, acc ins/del {stats['acc_insert0']:.3f}"
+              f"/{stats['acc_delete0']:.3f} {stats['acc_insert1']:.3f}/"
+              f"{stats['acc_delete1']:.3f}, drift "
+              f"{stats['drift_max_rel']:.2e}, S(k) err "
+              f"{stats['sfac_err_max']:.2e}")
+        if not (stats["drift_max_rel"] < 1e-2
+                and stats["sfac_err_max"] < SFAC_ABS_TOL
+                and stats["full_frac0"] < 0.02
+                and stats["full_frac1"] < 0.02):
+            raise AssertionError(f"phase17: a block gate failed: {stats}")
+        n0 += stats["n0_mean"] / prod
+        n1 += stats["n1_mean"] / prod
+    launches = sw.sweep.launches - l0
+    vol = box ** 3
+    bmu = [math.log(z[s] / (n / vol)) for s, n in ((0, n0), (1, n1))]
+    sel = (n0 / n1) / (z[0] / z[1])
+    print(f"phase17 muVT: <N_CO2> {n0:.2f}, <N_N2> {n1:.2f}, beta mu_ex "
+          f"{bmu[0]:+.4f} / {bmu[1]:+.4f}, selectivity {sel:.3f}; {launches} "
+          f"sweep launches (not in the kernels line); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # NVT + per-species Widom at the sampled composition
+    nc, nn = int(round(n0)), int(round(n1))
+    gen2 = torch.Generator(device=dev).manual_seed(2055)
+    mc = MonteCarlo(co2_n2_system(nc, nn), params, device=dev,
+                    generator=gen2)
+    state = mc.init_state(cubic_lattice(nc + nn, box), box=box,
+                          n_chains=nvt_chains)
+    for _ in range(4):
+        state, _ = mc.run_block(state, 100, adjust=True)
+    bsum, cnt = [0.0, 0.0], 0
+    for _ in range(6):
+        state, bstats = mc.run_block(state, 50)
+        for s in (0, 1):
+            w = mc.widom(state, n_insertions=128, species=s)
+            bsum[s] += float(w["boltzmann_mean"].mean())
+        cnt += 1
+    bmu_w = [-math.log(b / cnt) for b in bsum]
+    d = [bmu[s] - bmu_w[s] for s in (0, 1)]
+    ok = all(abs(x) < 0.1 for x in d) and sel > 1.0
+    print(f"phase17 NVT ({nc}, {nn}): Widom beta mu_ex {bmu_w[0]:+.4f} / "
+          f"{bmu_w[1]:+.4f} (drift {bstats['drift_max_rel']:.1e}); "
+          f"differences {d[0]:+.4f} / {d[1]:+.4f} kT (bound 0.1), S > 1 "
+          f"{sel > 1.0}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError("phase17: the binary muVT cross-check failed")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -2676,6 +3152,7 @@ def main():
         print(f"phase 2 global layout and slab cases: "
               f"{time.perf_counter() - t0:.1f} s")
         err2gb = phase2_gibbs(dev)
+        err2f = phase2_flip(dev)
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
         # the new phases (phase 3 keeps its 10-sweep adjust block, which
@@ -2713,8 +3190,14 @@ def main():
         l14 = phase14_ideal(dev) + phase14_water(dev)
         print(f"phase14: {l14} Gibbs kernel launches (not in the kernels "
               f"line); {time.perf_counter() - t0:.1f} s")
+    if 15 in want:
+        l15, err15, ms15, plain15, bound15, by15 = phase15(dev)
+    if 16 in want:
+        phase16(dev)
+    if 17 in want:
+        phase17(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 15)):
+    if want != set(range(2, 18)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -2761,7 +3244,13 @@ def main():
          "source": f"{SRC}/gibbs_kernel.cu",
          "replaces": f"{PALLAS}/gibbs_kernel.py:714", "launches": l13,
          "max_abs_err": max(err2gb, err13), "ms": ms13, "plain_ms": plain13,
-         "bound_ms": bound13, "bound_by": by13, "library_ms": None}]}))
+         "bound_ms": bound13, "bound_by": by13, "library_ms": None},
+        # the cap-64 + 64 SPC/E semigrand cell: 55 flips per launch
+        {"name": "flip_kernel", "route": "cuda",
+         "source": f"{SRC}/flip_kernel.cu",
+         "replaces": f"{PALLAS}/flip_kernel.py:395", "launches": l15,
+         "max_abs_err": max(err2f, err15), "ms": ms15, "plain_ms": plain15,
+         "bound_ms": bound15, "bound_by": by15, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -12,9 +12,11 @@ import numpy as np
 import torch
 
 from metropolismontecarlo_tpu_torch.mc.gcmc import GCMCState
+from metropolismontecarlo_tpu_torch.mc.gcmc_binary import BinaryGCMCState
 from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMCState
 from metropolismontecarlo_tpu_torch.mc.gibbs import GibbsState
 from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsState
+from metropolismontecarlo_tpu_torch.mc.semigrand import SemigrandState
 from metropolismontecarlo_tpu_torch.models.system import SimState, System
 
 _SYSTEM_FIELDS = tuple(f.name for f in dataclasses.fields(System))
@@ -23,6 +25,8 @@ _GCMC_FIELDS = tuple(f.name for f in dataclasses.fields(MolGCMCState))
 _MONO_FIELDS = tuple(f.name for f in dataclasses.fields(GCMCState))
 _GIBBS_FIELDS = tuple(f.name for f in dataclasses.fields(GibbsState))
 _MOL_GIBBS_FIELDS = tuple(f.name for f in dataclasses.fields(MolGibbsState))
+_SEMIGRAND_FIELDS = tuple(f.name for f in dataclasses.fields(SemigrandState))
+_BINARY_FIELDS = tuple(f.name for f in dataclasses.fields(BinaryGCMCState))
 _TMMC_FIELDS = ("cmat", "uhist", "eta")
 
 
@@ -109,6 +113,32 @@ def mol_gibbs_state_to_numpy(state):
     """{field: numpy array} for every MolGibbsState field."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in _MOL_GIBBS_FIELDS}
+
+
+def semigrand_state_from_numpy(arrays, device):
+    """SemigrandState on `device` from a mapping of field name to numpy
+    array (the JAX SemigrandState's fields; its `key` is ignored).  dtypes
+    are kept."""
+    return _from_numpy(SemigrandState, _SEMIGRAND_FIELDS, arrays, device)
+
+
+def semigrand_state_to_numpy(state):
+    """{field: numpy array} for every SemigrandState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _SEMIGRAND_FIELDS}
+
+
+def binary_gcmc_state_from_numpy(arrays, device):
+    """BinaryGCMCState on `device` from a mapping of field name to numpy
+    array (the JAX BinaryGCMCState's fields; its `key` is ignored).  dtypes
+    are kept."""
+    return _from_numpy(BinaryGCMCState, _BINARY_FIELDS, arrays, device)
+
+
+def binary_gcmc_state_to_numpy(state):
+    """{field: numpy array} for every BinaryGCMCState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _BINARY_FIELDS}
 
 
 def tmmc_estimator_to_numpy(t):

@@ -19,6 +19,9 @@
 * The Gibbs cycle, `make_mega_gibbs_fn`: one launch of the two-box Gibbs
   op (ops/cuda/gibbs_kernel.py) per cycle on the MolGibbsState layout,
   2 cap moves and n_exch transfer attempts.
+* The semigrand flips, `make_mega_flip_fn`: one launch of the flip op
+  (ops/cuda/flip_kernel.py) of n_flip identity flips on the
+  SemigrandState layout.
 * The per-move route, `make_sweep_fn`: one molecule move of every chain
   per call, for one species block.  Its proposal reads the same 10
   uniform columns with the same formulas as the sweep kernel, so both
@@ -40,6 +43,7 @@ import torch
 
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as delta_op
+from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as flip_op
 from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as gibbs_op
 from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sweep_op
 from metropolismontecarlo_tpu_torch.ops.lj import _shift_coeffs
@@ -603,6 +607,59 @@ def make_mega_gibbs_fn(system, params, kvecs, kweights, device, n_exch=1):
                 acc, att)
 
     return sweep_gibbs
+
+
+def make_mega_flip_fn(system, params, kvecs, kweights, device,
+                      fugacity_ratio, n_flip=1):
+    """In-kernel semigrand identity flips: returns `flips(com, quat, coords,
+    active, box, sfac, generator, si2, lrc3=None)` running n_flip flip
+    attempts in one flip-op launch (ops/cuda/flip_kernel.py) on the
+    SemigrandState layout (mc/semigrand.py): com (C, M, 3), quat (C, M, 4),
+    coords (C, 3, A_pad), active (C, M) bool, box (C,), sfac (C, K, 2);
+    si2 (C, 2) each species' self + intra constant; lrc3 (C, 3) the LJ
+    tail's [g c00, g c01, g c11] or None.  The displacement and rotation
+    budget composes through the per-block sweep_act launches
+    (make_mega_sweep_fn).  Uniforms come from the generator, the pick scores
+    from a per-launch seed.  Requires exactly two internally uniform species
+    blocks, site cutoff and lj_shift='none'; computes in f32.
+
+    Returns (com, quat, coords, active, sfac, d_e (C,), acc (C, 2) [flip
+    A->B, flip B->A], att (C, 2))."""
+    slices = system.species_slices
+    if len(slices) != 2 or not system.species_uniform:
+        raise ValueError("mega flips require exactly two internally "
+                         "uniform species blocks")
+    if params.cutoff_mode != "site" or params.lj_shift != "none":
+        raise ValueError("mega flips require site cutoff and "
+                         "lj_shift='none'")
+    t_a, t_b = sweep_tables(system, params, kvecs, kweights, device)
+    tables = flip_op.FlipTables(a=t_a, b=t_b,
+                                ln_xi=float(np.log(fugacity_ratio)))
+    f32 = torch.float32
+    launch = [0]
+
+    def flips(com, quat, coords, active, box, sfac, generator, si2,
+              lrc3=None):
+        C = com.shape[0]
+        dev = com.device
+        act, actm = activity_planes(system, active)
+        # the pick scores' stream: one seed per launch
+        seed = (generator.initial_seed() * 0x9E3779B1 + launch[0]) \
+            & 0xFFFFFFFF
+        launch[0] += 1
+        ux = draw_exchange_uniforms(C, n_flip, generator, dev)
+        out = flip_op.flip(
+            *(x.to(f32).contiguous() for x in (coords, com, quat, sfac,
+                                               box)),
+            params.temperature * torch.ones((C,), dtype=f32, device=dev),
+            act, actm, ux, tables, si2.to(f32).contiguous(),
+            None if lrc3 is None else lrc3.to(f32).contiguous(), seed=seed)
+        coords_o, com_o, quat_o, sfac_o, stats, _, actm_o = out
+        return (com_o, quat_o, coords_o, actm_o > 0.5, sfac_o, stats[:, 0],
+                stats[:, 1:3], stats[:, 3:5])
+
+    flips.tables = tables
+    return flips
 
 
 # ---------------- per-move route ----------------------------------------

@@ -45,3 +45,25 @@ def mossa_params(temperature=0.6, **kw):
     )
     defaults.update(kw)
     return RunParams(**defaults)
+
+
+def lj_trimer_blocks(cap_a, cap_b, eps_a=1.0, eps_b=1.0, eps_ab=None,
+                     sigma=1.0):
+    """Two species blocks of unequal widths: cap_a one-site LJ molecules
+    (type 0) then cap_b bent triatomics (type 1), cross eps
+    sqrt(eps_a eps_b) unless given (the semigrand and binary ensembles'
+    ragged system)."""
+    M, P = cap_a + cap_b, 3
+    body = np.zeros((M, P, 3))
+    body[cap_a:] = bent_triatomic_body()
+    masses = np.zeros((M, P))
+    masses[:cap_a, 0] = 1.0
+    masses[cap_a:] = 1.0
+    type_ids = np.zeros((M, P), np.int32)
+    type_ids[cap_a:] = 1
+    ab = np.sqrt(eps_a * eps_b) if eps_ab is None else eps_ab
+    return System(n_mol=M, atoms_per_mol=P, body=body, masses=masses,
+                  charges=np.zeros((M, P)), type_ids=type_ids,
+                  eps_table=np.array([[eps_a, ab], [ab, eps_b]]),
+                  sig_table=np.full((2, 2), sigma), name="lj+trimer",
+                  species=(("A", cap_a, 1), ("B", cap_b, 3)))

@@ -93,3 +93,14 @@ def spce_methane_system(n_w, n_ch4):
                   charges=charges, type_ids=type_ids, eps_table=eps_t,
                   sig_table=sig_t, name="spce+ch4",
                   species=(("spce", n_w, 3), ("ch4", n_ch4, 1)))
+
+
+def spce_two_blocks(cap_a, cap_b):
+    """SPC/E split into two species blocks of identical molecules, cap_a
+    then cap_b slots (the semigrand and binary ensembles' identical-species
+    system; bench.py's "semigrand" uses 64 + 64)."""
+    w = spce_system(cap_a + cap_b)
+    return System(n_mol=cap_a + cap_b, atoms_per_mol=3, body=w.body,
+                  masses=w.masses, charges=w.charges, type_ids=w.type_ids,
+                  eps_table=w.eps_table, sig_table=w.sig_table,
+                  name="spce2x", species=(("wA", cap_a, 3), ("wB", cap_b, 3)))

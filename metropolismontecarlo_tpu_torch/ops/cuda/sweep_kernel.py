@@ -448,6 +448,17 @@ def propose_rotation(w0, x0, y0, z0, um, dphi_max):
     return nw * qn, nx * qn, ny * qn, nz * qn
 
 
+def shoemake(ux_i):
+    """The Shoemake quaternion of one attempt's uniforms ux_i (C, 8),
+    columns 4-6, as four (C, 1) columns."""
+    u1 = ux_i[:, 4:5]
+    th2 = _TWO_PI * (ux_i[:, 5:6] - torch.round(ux_i[:, 5:6]))
+    th3 = _TWO_PI * (ux_i[:, 6:7] - torch.round(ux_i[:, 6:7]))
+    r1, r2 = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0)), torch.sqrt(u1)
+    return (r1 * torch.sin(th2), r1 * torch.cos(th2), r2 * torch.sin(th3),
+            r2 * torch.cos(th3))
+
+
 def trial_pose(ux_i, box, body):
     """The insertion measure shared by exchange attempts and Widom
     ghosts, from one attempt's uniforms ux_i (C, 8): a uniform position
@@ -457,12 +468,7 @@ def trial_pose(ux_i, box, body):
     ct = ux_i[:, 1:4] * box[:, None]
     P = body.shape[0]
     if P > 1:
-        u1 = ux_i[:, 4:5]
-        th2 = _TWO_PI * (ux_i[:, 5:6] - torch.round(ux_i[:, 5:6]))
-        th3 = _TWO_PI * (ux_i[:, 6:7] - torch.round(ux_i[:, 6:7]))
-        r1, r2 = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0)), torch.sqrt(u1)
-        q = (r1 * torch.sin(th2), r1 * torch.cos(th2), r2 * torch.sin(th3),
-             r2 * torch.cos(th3))
+        q = shoemake(ux_i)
         rot = rot_apply(*q, body[:, 0], body[:, 1], body[:, 2])
         atoms = torch.stack([ct[:, d:d + 1] + rot[d] for d in range(3)], 1)
         return ct, torch.cat(q, dim=1), atoms
