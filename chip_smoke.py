@@ -7,7 +7,8 @@ Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu,
          csrc/gibbs_kernel.cu and csrc/flip_kernel.cu with nvcc for sm_90a,
          all at once (cached by a hash of each source under
          metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
-         of each instantiation.
+         of each instantiation (a sweep-kernel spill fails the run); the
+         sweep kernel's blocks per SM at the main paths' shapes.
 Phase 2  each kernel against its plain PyTorch version on the card, on the
          same inputs.  The sweep kernel, one sweep on shared uniforms:
          SPC/E-64 (ewald, wolf, none; p_translate 0.5 and 0.0), LJ-256,
@@ -147,6 +148,15 @@ Phase 17 docs/validation/run_binary_co2_n2.py through
          1e-4, drift < 1e-2 and full fractions < 0.02 on every production
          block.
 
+Phase 2 also holds the sweep kernel's queues of live pair terms against
+sweep_plain (`phase2_compaction`, 64 chains, the gates above): SPC/E-64
+with Wolf at r_cut above L sqrt(3) / 2 (every site pair inside the
+cutoff, every queue full on every chunk), a dilute SPC/E-64 box with no
+pair inside the cutoff, split LJ and Coulomb cutoffs (4.5 / 6 A),
+alternating active and inactive slots with 4 exchange attempts and 2
+ghosts, and SPC/E-33 (99 atoms in A_pad 128: a warp's chunk ends inside
+the atoms and four warps scan nothing).
+
 Phase 2 also holds the flip kernel against flip_plain (`phase2_flip`, 64
 chains, 24 flips, shared uniforms and Philox scores, chain 0 with no
 molecule and chain 1 with both blocks full): identical SPC/E blocks 32 +
@@ -224,11 +234,14 @@ DRIFT_TOL = 2e-3
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# f32 operations counted per (site row, atom lane) pair, from the kernels'
-# code: the minimum-image distance (3 sub, 3 x mul/rint/fma, 5 for d^2,
-# floor, rsqrt, cutoff test) for every pair; the LJ term (1/d^2, s^2, s^6,
-# s^12 - s^6, eps, accumulate) and the Coulomb term (r, kappa r, erfc as
-# ~12, / r, q q, accumulate) for pairs inside the cutoff only
+# f32 operations counted per distance and per pair term, from the kernels'
+# code: a minimum-image distance (3 sub, 3 x mul/rint/fma, 5 for d^2,
+# floor, rsqrt, cutoff test) once per (atom lane, pose) to the pose's
+# centre and once per (atom lane, site) for the atoms within the pose's
+# reach (_reach_fraction: the others cannot hold a pair inside the
+# cutoff); the LJ term (1/d^2, s^2, s^6, s^12 - s^6, eps, accumulate) and
+# the Coulomb term (r, kappa r, erfc as ~12, / r, q q, accumulate) for
+# pairs inside the cutoff only
 OPS_GEOMETRY, OPS_LJ, OPS_COULOMB = 20, 8, 17
 # per k-vector and moved site: phase (6), range reduction (3), sincos
 # (~8), the two accumulations; per k-vector and move: the energy cross
@@ -285,6 +298,7 @@ def phase1():
               "ILb0ELb0ELb1E": "<false, false, true> global layout",
               "12gibbs_kernel": "two-box Gibbs",
               "11flip_kernel": "semigrand flips"}
+    spills = []
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s")
         entry = ""
@@ -294,10 +308,37 @@ def phase1():
                              line.split("'")[1] if "'" in line else "")
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"phase1 ptxas {name} {entry}: {line.strip()}")
+            if name == "sweep_kernel" and "spill" in line \
+                    and not ("0 bytes spill stores" in line
+                             and "0 bytes spill loads" in line):
+                spills.append(f"{entry}: {line.strip()}")
     sweep_kernel._library()
     delta_energy._library()
     gibbs_kernel._library()
     flip_kernel._library()
+    # blocks per SM of the sweep kernel at the main paths' shapes (the
+    # flagship, capacity-512 muVT and TMMC, the 6859-water global layout),
+    # and the shared-memory layout as the kernel counts it against
+    # smem_bytes, which choose_layout decides from
+    for tag, shape in (
+            ("flagship fixed N", (750, 3, 2304, 337, 2, False, False,
+                                  "shared")),
+            ("muVT cap 512", (512, 3, 1536, 337, 2, True, False, "shared")),
+            ("tmmc cap 512", (512, 3, 1536, 337, 2, True, True, "shared")),
+            ("6859 waters global", (6859, 3, 33408, 2874, 2, False, False,
+                                    "global"))):
+        nbytes = sweep_kernel.smem_bytes(*shape)
+        print(f"phase1 occupancy sweep_kernel {tag}: {nbytes} B of shared "
+              f"memory, {sweep_kernel.blocks_per_sm(*shape)} blocks per SM")
+        M, P, A_pad, K, T, use_act, tmmc, layout = shape
+        kernel_bytes = sweep_kernel._library().mmc_sweep_smem_bytes(
+            M, P, A_pad, K, T, int(use_act), int(tmmc),
+            int(layout == "global"))
+        if kernel_bytes != nbytes:
+            raise AssertionError(f"{tag}: csrc/sweep_kernel.cu counts "
+                                 f"{kernel_bytes} B, smem_bytes {nbytes} B")
+    if spills:
+        raise AssertionError(f"the sweep kernel spills: {spills}")
 
 
 def _sweep_args(state, u):
@@ -488,9 +529,10 @@ def _variant_params():
 
 
 def _variant_inputs(dev, seed, tag, system, box, params, n_exchs, n_widoms,
-                    C=64):
+                    C=64, active=None):
     """A lattice state of `system` with about half the slots active (each
-    chain its own mask; chain 0 full, chain 1 empty), its S(k), shared
+    chain its own mask; chain 0 full, chain 1 empty; or the (M,) bool
+    pattern `active` on every chain), its S(k), shared
     uniforms, the exchange constants and an activity near (N / V)
     exp(si / T), which accepts insertions and deletions alike.  Returns
     (mc, state, args, act, actm, uxs, z, consts)."""
@@ -510,8 +552,11 @@ def _variant_inputs(dev, seed, tag, system, box, params, n_exchs, n_widoms,
     quat = diagonal_quats(M) if "co2" in tag else None
     state = mc.init_state(cubic_lattice(M, box), quat=quat, box=box,
                           n_chains=C)
-    active = torch.rand((C, M), generator=gen, device=dev) < 0.5
-    active[0], active[1] = True, False
+    if active is None:
+        active = torch.rand((C, M), generator=gen, device=dev) < 0.5
+        active[0], active[1] = True, False
+    else:
+        active = active.to(dev).expand(C, M).clone()
     act, actm = activity_planes(system, active)
     sfac = state.sfac
     if params.coulomb == "ewald":
@@ -572,6 +617,72 @@ def phase2_variants(dev):
         err = max(err, compare_variant(
             f"2 {tag}", system, args, mc.tables, act, actm, n_exchs,
             n_widoms, uxs, z, consts, 1000 + i))
+    return err
+
+
+def compaction_cases():
+    """Phase 2's cases for the kernel's queues of live pair terms: (tag,
+    system, box, params, active pattern or None).  Every site pair inside
+    the cutoff (r_cut above L sqrt(3) / 2: every queue fills on every
+    chunk); a dilute box with no pair inside it (no live term at all);
+    split LJ and Coulomb cutoffs; alternating active and inactive slots;
+    33 waters, whose 99 atoms fill three warps and three lanes of a
+    fourth, the other four warps scanning nothing."""
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+
+    box_w = 28.24 * (64 / 750) ** (1 / 3)      # the flagship's density
+    water = dict(temperature=298.15, coulomb="ewald", p_translate=0.5,
+                 dr_max=0.3, dphi_max=0.3, slab_mode="off")
+    alternate = torch.arange(64) % 2 == 0
+    return [
+        ("all pairs in cutoff spce64 wolf", spce_system(64), box_w,
+         RunParams(**dict(water, coulomb="wolf",
+                          r_cut=box_w * 3 ** 0.5 / 2 + 0.1,
+                          strict_min_image=False)), None),
+        ("dilute spce64 ewald", spce_system(64), 40.0,
+         RunParams(r_cut=6.0, **water), None),
+        ("split cutoff spce64 ewald", spce_system(64), box_w,
+         RunParams(r_cut=4.5, qq_r_cut=6.0, **water), None),
+        ("alternating activity spce64 ewald", spce_system(64), box_w,
+         RunParams(r_cut=6.0, **water), alternate),
+        ("partial chunk spce33 ewald", spce_system(33),
+         28.24 * (33 / 750) ** (1 / 3), RunParams(r_cut=4.9, **water), None),
+    ]
+
+
+def phase2_compaction(dev, chains=64):
+    """compaction_cases against sweep_plain at the present gates; the
+    activity case with 4 exchange attempts and 2 ghosts.  Returns the
+    largest coordinate difference on matched chains."""
+    import warnings
+
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+
+    err = 0.0
+    for i, (tag, system, box, params, active) in enumerate(
+            compaction_cases()):
+        with warnings.catch_warnings():
+            # the all-pairs case samples the truncated nearest image
+            warnings.simplefilter("ignore")
+            if active is not None:
+                mc, _, args, act, actm, uxs, z, consts = _variant_inputs(
+                    dev, 500 + i, tag, system, box, params, (4,), (2,),
+                    C=chains, active=active)
+                err = max(err, compare_variant(
+                    f"2 {tag}", system, args, mc.tables, act, actm, (4,),
+                    (2,), uxs, z, consts, 1200 + i))
+                continue
+            gen = torch.Generator(device=dev).manual_seed(500 + i)
+            mc = MonteCarlo(system, params, device=dev, generator=gen,
+                            kernel="sweep")
+            state = mc.init_state(cubic_lattice(system.n_mol, box), box=box,
+                                  n_chains=chains)
+        frac = _cutoff_fraction(system, state, params.qq_cut)
+        print(f"phase 2 {tag}: {frac:.4f} of site pairs within "
+              f"{params.qq_cut:.3f} A, A_pad {state.coords.shape[-1]}")
+        err = max(err, compare(f"2 {tag}", mc, state, gen))
     return err
 
 
@@ -1009,12 +1120,69 @@ def _cutoff_fraction(system, state, r_cut, n=4):
     return float((d2 < r_cut ** 2)[:, other].float().mean())
 
 
-def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
-                n_widoms=None, n_del=0.0, tmmc=False, n_sq=None,
-                lanes=None, A_plane=None):
+def _reach_fraction(coords, com, mol, box, r_cut, active=None, n=4,
+                    m_ranges=None, rows=256):
+    """Share of the pairs (molecule m, atom j of another molecule), both
+    active, whose minimum-image distance from m's centre com[m] is below
+    m's reach: r_cut (the largest cutoff) plus the largest distance of m's
+    atoms from that centre.  Only these atoms can hold a site pair inside
+    the cutoff (the minimum image obeys the triangle inequality), so only
+    they need their site distances; every other atom needs one distance
+    to the centre.  coords (C, 3, A_pad), com (C, M, 3), mol (A,) the
+    molecule of each of the first A atom columns, box (C,), active (C, M)
+    or None (all active); from n chains spread over the chain axis, rows
+    molecules at a time.  One share per (first molecule, count) of
+    m_ranges (default: every molecule)."""
+    C, M = com.shape[:2]
+    mol = torch.as_tensor(mol, dtype=torch.long, device=com.device)
+    A = mol.numel()
+    ranges = [(0, M)] if m_ranges is None else list(m_ranges)
+    inside = torch.zeros(M, dtype=torch.float64, device=com.device)
+    total = torch.zeros_like(inside)
+    for c in sorted({round(i * (C - 1) / max(n - 1, 1)) for i in range(n)}):
+        on_m = torch.ones(M, dtype=torch.bool, device=com.device) \
+            if active is None else active[c].bool()
+        on_a = on_m[mol]
+        x, L = coords[c, :, :A].T.to(com.dtype), box[c]
+        d = x - com[c, mol]
+        d = d - L * torch.round(d / L)
+        rad = torch.zeros(M, dtype=com.dtype, device=com.device) \
+            .scatter_reduce(0, mol, d.norm(dim=1), "amax")
+        for m0 in range(0, M, rows):
+            m1 = min(m0 + rows, M)
+            d = x[None, :, :] - com[c, m0:m1, None, :]
+            d = d - L * torch.round(d / L)
+            near = (d * d).sum(-1) < ((r_cut + rad[m0:m1]) ** 2)[:, None]
+            ids = torch.arange(m0, m1, device=com.device)
+            pair = on_m[m0:m1, None] & on_a[None, :] \
+                & (mol[None, :] != ids[:, None])
+            inside[m0:m1] += (near & pair).sum(1).double()
+            total[m0:m1] += pair.sum(1).double()
+    return [float(inside[a:a + k].sum() / total[a:a + k].sum().clamp_min(1))
+            for a, k in ranges]
+
+
+def _system_reach(system, params, state, tables, active=None, n=4):
+    """_reach_fraction of each species block of `tables` in a state of
+    `system` (SimState or MolGCMCState-like, slots in system order), at
+    the larger of the LJ and Coulomb cutoffs."""
+    return _reach_fraction(
+        state.coords, state.com, system.atom_mol_slot[0], state.box,
+        max(params.r_cut, params.qq_cut), active, n,
+        [(t.m_start, t.M) for t in tables])
+
+
+def sweep_bound(system, tables, state, frac, near, n_active=None,
+                n_exchs=None, n_widoms=None, n_del=0.0, tmmc=False,
+                n_sq=None, lanes=None, A_plane=None):
     """The least time (ms) one sweep could take on this card, and what
     sets it: each input and output moved once against the operations the
-    pair and k-space sums need (see OPS_*).  With an activity mask,
+    pair and k-space sums need (see OPS_*): per atom lane and pose one
+    distance to the pose's centre, the site distances for the share
+    near[b] of block b's lanes within the pose's reach (_reach_fraction
+    of the moved molecules, which stands for the exchange and ghost poses
+    too) and the terms for the share frac inside the cutoff.  With an
+    activity mask,
     n_active[b] is the mean number of active molecules of block b: only
     they move and only their atoms are neighbours.  n_exchs[b] / n_widoms[b]
     attempts and ghosts each sum one pose against the active atoms and
@@ -1025,9 +1193,9 @@ def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
     active counts differ (chain c's moves each sum over its own n_c P
     atoms, so the move work goes with the mean of n_c (n_c - 1)).
     lanes[b] (sorted slabs): the mean atom lanes a move of block b scans
-    (slab_lanes), each with its distance; the in-cutoff terms are those of
-    all A atoms, which the window covers; A_plane: the planes' width
-    (A_store)."""
+    (slab_lanes), each with its centre distance; the atoms within reach
+    and the in-cutoff terms are those of all A atoms, which the window
+    covers; A_plane: the planes' width (A_store)."""
     C, M = state.com.shape[:2]
     A, K = system.n_atoms, state.sfac.shape[1]
     A_pad = state.coords.shape[-1] if A_plane is None else A_plane
@@ -1042,11 +1210,12 @@ def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
     for b, t in enumerate(tables):
         lj = t.has_lj.sum().item()
         qf = t.has_q.sum().item() if t.coulomb != "none" else 0
-        c_pair = t.P * OPS_GEOMETRY + frac * (lj * OPS_LJ + qf * OPS_COULOMB)
+        sites = near[b] * t.P * OPS_GEOMETRY + frac * (lj * OPS_LJ
+                                                        + qf * OPS_COULOMB)
+        c_pair = OPS_GEOMETRY + sites
         per_pose = (A - t.P) * c_pair
         if lanes is not None:
-            per_pose = lanes[b] * t.P * OPS_GEOMETRY + (A - t.P) * frac * (
-                lj * OPS_LJ + qf * OPS_COULOMB)
+            per_pose = lanes[b] * OPS_GEOMETRY + (A - t.P) * sites
         ewald = t.coulomb == "ewald"
         k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
         k_move = K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
@@ -1063,9 +1232,12 @@ def sweep_bound(system, tables, state, frac, n_active=None, n_exchs=None,
     return _bound(nbytes, ops)
 
 
-def delta_bound(args, P, frac):
+def delta_bound(args, P, frac, near):
     """The least time (ms) of one delta_energy launch: the planes, rows
-    and outputs moved once against the pair operations of the live rows."""
+    and outputs moved once against the pair operations of the live rows
+    (per lane the old and the new pose's centre distance, the rows'
+    distances for the share `near` within reach, the terms for the share
+    frac inside the cutoff)."""
     x, R = args[0], args[3].shape[1]
     C, A_pad = x.shape
     has_lj, has_q = args[11].sum().item(), args[12].sum().item()
@@ -1074,7 +1246,8 @@ def delta_bound(args, P, frac):
     nbytes = 4 * C * (3 * A_pad + 6 * R)
     rows = int(((args[11] != 0) | (args[12] != 0)).sum())
     ops = C * (int((args[14] >= 0).sum()) - P) * (
-        rows * OPS_GEOMETRY + frac * (has_lj * OPS_LJ + has_q * OPS_COULOMB))
+        2 * OPS_GEOMETRY + near * rows * OPS_GEOMETRY
+        + frac * (has_lj * OPS_LJ + has_q * OPS_COULOMB))
     return _bound(nbytes, ops)
 
 
@@ -1138,11 +1311,14 @@ def time_sweep(tag, mc, state, gen, system):
     plain_ms = _time_ms(
         lambda: sweep_blocks(op.sweep_plain, *args, mc.tables), 1)
     frac = _cutoff_fraction(system, state, mc.params.r_cut)
-    bound_ms, bound_by = sweep_bound(system, mc.tables, state, frac)
+    near = _system_reach(system, mc.params, state, mc.tables)
+    bound_ms, bound_by = sweep_bound(system, mc.tables, state, frac, near)
     print(f"phase{tag} one sweep of {C} chains x {M} moves "
           f"({len(mc.tables)} launches): kernel {ms:.3f} ms, sweep_plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-          f"{frac:.4f} of pairs within the cutoff)")
+          f"{frac:.4f} of pairs within the cutoff, "
+          f"{' / '.join(f'{v:.4f}' for v in near)} of atoms within a "
+          f"pose's reach)")
     return ms, plain_ms, bound_ms, bound_by
 
 
@@ -1263,11 +1439,15 @@ def phase5(dev, mc4, state4, blocks=((2, False),)):
     ms = _time_ms(lambda: dop.delta_energy(*args), 20)
     plain_ms = _time_ms(lambda: dop.delta_energy_plain(*args), 3)
     frac = _cutoff_fraction(system, state, mc.params.r_cut)
-    bound_ms, bound_by = delta_bound(args, body.P, frac)
+    near = _reach_fraction(state.coords, state.com, system.atom_mol_slot[0],
+                           state.box, max(mc.params.r_cut, mc.params.qq_cut),
+                           n=64, m_ranges=[(m, 1)])[0]
+    bound_ms, bound_by = delta_bound(args, body.P, frac, near)
     print(f"phase5 one delta_energy launch, {C} chains x "
           f"{args[0].shape[1]} lanes x {args[3].shape[1]} rows: kernel "
           f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
-          f"{bound_ms * 1e3:.3f} us ({bound_by})")
+          f"{bound_ms * 1e3:.3f} us ({bound_by}; {near:.4f} of atoms within "
+          f"the moved molecule's reach)")
     return launches, err, err_d, ms, plain_ms, bound_ms, bound_by
 
 
@@ -1371,9 +1551,10 @@ def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
     view = SimpleNamespace(active=active, coords=st.coords, box=st.box,
                            com=st.com, sfac=st.sfac)
     frac = _active_cutoff_fraction(view, mc_tables[0].P, params.r_cut)
+    near = _system_reach(system, params, view, mc_tables, active, n=8)
     n_act = float(actm.sum(1).mean())
     bound_ms, bound_by = sweep_bound(
-        system, mc_tables, view, frac, (n_act,), (n_exch,), (n_widom,),
+        system, mc_tables, view, frac, near, (n_act,), (n_exch,), (n_widom,),
         n_exch if tmmc is not None else n_del, tmmc=tmmc is not None,
         n_sq=float((actm.sum(1) ** 2).mean()))
     plain_txt = f"{plain_ms:.3f} ms" if plain else "not run"
@@ -1382,7 +1563,8 @@ def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
           f"{n_exch} attempts ({n_del:.1f} deletions) + {n_widom} ghosts: "
           f"kernel {ms:.3f} ms, sweep_plain {plain_txt}, bound "
           f"{bound_ms:.3f} ms ({bound_by}; {frac:.4f} of active pairs "
-          f"within the cutoff)")
+          f"within the cutoff, {near[0]:.4f} of active atoms within a "
+          f"pose's reach)")
     return err, ms, plain_ms, bound_ms, bound_by
 
 
@@ -2028,15 +2210,17 @@ def phase11(dev, n_mol=6859, box=59.056, chains=256, r_cut=10.0, nk=11,
     ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, mc.tables), 1)
     ms_d = _time_ms(lambda: sweep_blocks(op.sweep, *args_d, dense), 1)
     frac = _cutoff_fraction_tiled(system, state_s, params.r_cut)
+    near = _system_reach(system, params, state_s, mc.tables, n=1)
     lanes = [slab_lanes(system, t) for t in mc.tables]
-    bound, by = sweep_bound(system, mc.tables, state_s, frac, lanes=lanes,
-                            A_plane=cfg["A_store"])
-    bound_d, by_d = sweep_bound(system, dense, state_s, frac)
+    bound, by = sweep_bound(system, mc.tables, state_s, frac, near,
+                            lanes=lanes, A_plane=cfg["A_store"])
+    bound_d, by_d = sweep_bound(system, dense, state_s, frac, near)
     print(f"phase11 one sweep of {chains} chains x {n_mol} moves: slab "
           f"{ms:.3f} ms (bound {bound:.3f} ms, {by}; {lanes[0]:.1f} lanes "
           f"per move), dense global {ms_d:.3f} ms (bound {bound_d:.3f} ms, "
           f"{by_d}; {system.n_atoms - 3} lanes), dense / slab "
-          f"{ms_d / ms:.3f}; {frac:.5f} of pairs within the cutoff")
+          f"{ms_d / ms:.3f}; {frac:.5f} of pairs within the cutoff, "
+          f"{near[0]:.5f} of atoms within a pose's reach")
 
     # the kernel against its twin over the first twin_moves molecules
     # (their windows wrap through the ghost halo)
@@ -2051,9 +2235,9 @@ def phase11(dev, n_mol=6859, box=59.056, chains=256, r_cut=10.0, nk=11,
     td_ms = _time_ms(lambda: sweep_blocks(op.sweep, *args_d, part_d), 1)
     td_plain = _time_ms(lambda: sweep_blocks(op.sweep_plain, *args_d,
                                              part_d), 1)
-    p_bound = sweep_bound(system, part, state_s, frac, lanes=[
+    p_bound = sweep_bound(system, part, state_s, frac, near, lanes=[
         slab_lanes(system, t) for t in part], A_plane=cfg["A_store"])
-    pd_bound = sweep_bound(system, part_d, state_s, frac)
+    pd_bound = sweep_bound(system, part_d, state_s, frac, near)
     print(f"phase11 {twin_moves} moves x {chains} chains: slab kernel "
           f"{t_ms:.3f} ms, sweep_plain {t_plain:.3f} ms, bound "
           f"{p_bound[0]:.3f} ms; dense global kernel {td_ms:.3f} ms, "
@@ -2406,7 +2590,7 @@ def _gibbs_cutoff_fraction(system, coords, active, box2, r_cut, n=4):
     return out
 
 
-def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, n_exch):
+def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, near, n_exch):
     """The least time (ms) of one Gibbs launch, and what sets it: the
     chain state in and out once, the uniforms and constants read once,
     against the operations the pair and k-space sums need (OPS_*): each
@@ -2414,7 +2598,10 @@ def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, n_exch):
     the other active atoms of box b and every k-vector; each transfer sums
     one pose against each box (the source without the candidate) with
     two S(k) rows, and scores the source's active slots with Philox.
-    n_box (C, 2) this run's active counts."""
+    Per atom lane and pose one centre distance, the site distances for the
+    share near[b] within reach (_reach_fraction) and the terms for the
+    share frac[b] inside the cutoff.  n_box (C, 2) this run's active
+    counts."""
     lj = t.has_lj.sum().item()
     qf = t.has_q.sum().item() if t.coulomb != "none" else 0
     ewald = t.coulomb == "ewald"
@@ -2425,13 +2612,14 @@ def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, n_exch):
     n = n_box.double()
     ops = 0.0
     for b in range(2):
-        c_pair = t.P * OPS_GEOMETRY + frac[b] * (lj * OPS_LJ
-                                                 + qf * OPS_COULOMB)
+        c_pair = OPS_GEOMETRY + near[b] * t.P * OPS_GEOMETRY + frac[b] * (
+            lj * OPS_LJ + qf * OPS_COULOMB)
         pairs = float((n[:, b] * (n[:, b] - 1.0)).sum()) * t.P * c_pair
         k_move = K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
         ops += 2 * pairs + float(n[:, b].sum()) * k_move
-    f_mix = 0.5 * (frac[0] + frac[1])
-    c_pair = t.P * OPS_GEOMETRY + f_mix * (lj * OPS_LJ + qf * OPS_COULOMB)
+    f_mix, n_mix = 0.5 * (frac[0] + frac[1]), 0.5 * (near[0] + near[1])
+    c_pair = OPS_GEOMETRY + n_mix * t.P * OPS_GEOMETRY + f_mix * (
+        lj * OPS_LJ + qf * OPS_COULOMB)
     k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
     n_tot = float(n.sum(1).mean())
     ops += C * n_exch * ((n_tot - 1.0) * t.P * c_pair + 2 * k_pose
@@ -2537,16 +2725,22 @@ def phase13(dev, chains=1024, blocks=(2, 2), melt=2, chunk=128,
                                           *rest), 1)
     frac = _gibbs_cutoff_fraction(system, st.coords, st.active, st.box,
                                   params.r_cut)
+    near = [_reach_fraction(st.coords[:, b], st.com[:, b],
+                            system.atom_mol_slot[0], st.box[:, b],
+                            max(params.r_cut, params.qq_cut),
+                            st.active[:, b])[0] for b in range(2)]
     n_box = st.active[:C].sum(2)
     bound_ms, bound_by = gibbs_bound(t, C, st.coords.shape[-1], cap,
-                                     st.sfac.shape[2], n_box, frac, x_per)
+                                     st.sfac.shape[2], n_box, frac, near,
+                                     x_per)
     print(f"phase13 one cycle, {C} chains, N per box "
           f"{float(n_box[:, 0].float().mean()):.1f} / "
           f"{float(n_box[:, 1].float().mean()):.1f}, {2 * cap} moves + "
           f"{x_per} transfers ({float(out[4][:, 6].mean()):.2f} accepted): "
           f"kernel {ms:.3f} ms, sweep_gibbs_plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.3f} ms ({bound_by}; {frac[0]:.4f} / {frac[1]:.4f} "
-          f"of active pairs within the cutoff)")
+          f"of active pairs within the cutoff, {near[0]:.4f} / "
+          f"{near[1]:.4f} of active atoms within a pose's reach)")
 
     # the volume move's share of a cycle
     walls = {}
@@ -2852,13 +3046,16 @@ def phase2_flip(dev, chains=64, n_flip=24):
     return err
 
 
-def flip_bound(t, C, A_pad, M, K, n_tot, frac, n_flip):
+def flip_bound(t, C, A_pad, M, K, n_tot, frac, near, n_flip):
     """The least time (ms) of one flip launch, and what sets it: the chain
     state in and out once, the uniforms and constants read once, against
     the operations the attempts need (OPS_*): each attempt scores the
     active slots with Philox, sums the old and the new pose against the
-    other active atoms and builds one dS row over the k-vectors.  n_tot
-    (C,) this run's active counts; both species' tables of t count."""
+    other active atoms and builds one dS row over the k-vectors: per atom
+    lane and pose one centre distance, the site distances for the share
+    near within reach (_reach_fraction) and the terms for the share frac
+    inside the cutoff.  n_tot (C,) this run's active counts; both
+    species' tables of t count."""
     ewald = t.a.coulomb == "ewald"
     lj = t.a.has_lj.sum().item() + t.b.has_lj.sum().item()
     qf = (t.a.has_q.sum().item() + t.b.has_q.sum().item()) \
@@ -2867,8 +3064,8 @@ def flip_bound(t, C, A_pad, M, K, n_tot, frac, n_flip):
     state = 4 * A_pad + 8 * M + 2 * K
     nbytes = 4 * C * (2 * state + 8 * n_flip + 2 + 2 + 8)
     n = float(n_tot.double().mean())
-    c_pair = 2 * p_avg * OPS_GEOMETRY + frac * (lj * OPS_LJ
-                                                + qf * OPS_COULOMB)
+    c_pair = 2 * OPS_GEOMETRY + near * 2 * p_avg * OPS_GEOMETRY + frac * (
+        lj * OPS_LJ + qf * OPS_COULOMB)
     k_flip = K * (qf * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
     ops = C * n_flip * ((n - 1.0) * p_avg * c_pair + k_flip
                         + n * OPS_PHILOX)
@@ -2988,13 +3185,17 @@ def phase15(dev, chains=1024, melt=2, blocks=(2, 2), chunk=128):
                                               seed=97), 1)
     cycle_ms = _time_ms(lambda: g.run_steps(st, apc), 3)
     frac = _active_cutoff_fraction(st, 3, params.r_cut)
+    near = _reach_fraction(st.coords, st.com, system.atom_mol_slot[0],
+                           st.box, max(params.r_cut, params.qq_cut),
+                           st.active, n=8)[0]
     bound_ms, bound_by = flip_bound(tables, chains, st.coords.shape[-1],
                                     2 * cap, st.sfac.shape[1],
-                                    st.active.sum(1), frac, x_per)
+                                    st.active.sum(1), frac, near, x_per)
     print(f"phase15 one flip launch, {chains} chains, {x_per} flips "
           f"({float(out[4][:, 1:3].sum(1).mean()):.2f} accepted): kernel "
           f"{ms:.3f} ms, flip_plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
-          f"ms ({bound_by}; {frac:.4f} of active pairs within the cutoff); "
+          f"ms ({bound_by}; {frac:.4f} of active pairs within the cutoff, "
+          f"{near:.4f} of active atoms within a pose's reach); "
           f"a whole cycle {cycle_ms:.3f} ms, the flip launch "
           f"{100.0 * ms / cycle_ms:.1f}% of it; phase total "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -3146,6 +3347,7 @@ def main():
     if 2 in want:
         err2, err_d = phase2(dev)
         err2x = phase2_variants(dev)
+        err2c = phase2_compaction(dev)
         err2t, _ = phase2_tmmc(dev)
         t0 = time.perf_counter()
         err2g, _ = phase2_global(dev)
@@ -3207,7 +3409,7 @@ def main():
                      library_ms=None)
     print(json.dumps({"kernels": [
         dict(sweep_row, name="sweep_kernel", launches=l3 + l12,
-             max_abs_err=max(err2, err3), ms=ms3, plain_ms=plain3,
+             max_abs_err=max(err2, err2c, err3), ms=ms3, plain_ms=plain3,
              bound_ms=bound3, bound_by=by3),
         dict(sweep_row, name="sweep_kernel[species blocks]", launches=l4,
              max_abs_err=max(err2, err4, err5), ms=ms4, plain_ms=plain4,

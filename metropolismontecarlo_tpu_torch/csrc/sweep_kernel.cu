@@ -19,39 +19,67 @@
 // overlaps with a +1e30 penalty, takes the Metropolis decision and writes
 // the accepted move back.  Uniforms come from the caller, u (C, M, 10).
 //
-// What bounds it on this card: latency, not bytes.  The moves of a chain
-// form a dependent chain of 750 steps (at the 750-water flagship), each a
-// few microseconds of arithmetic over ~2300 atoms followed by a block-wide
-// reduction and a scalar decision; device memory is touched only to load
-// and store the chain state (~55 KB) and to read 40 B of uniforms per move.
-// The design: the whole chain state (x/y/z, all M_total COM and quaternion
-// rows, S(k), the per-atom type/charge/molecule rows and the k-vectors)
-// lives in shared memory for the whole sweep (the global layout below
-// keeps the atom, COM and quaternion rows in global memory) -- every
-// block's launch loads and stores all of it, so launches chain without a
-// merge step; the atom loop is strided over the block so
-// neighbouring threads read neighbouring words; one warp-shuffle reduction
-// plus one pass over the warp partials per move; the next move's uniforms
-// are prefetched during the current move; chains run in parallel across
-// blocks (2048 chains are ~8 waves at 2 blocks per SM).  Further latency
-// work (fewer barriers per move, warp-specialised proposals, several
-// chains per block) is left for later.
+// What bounds it on this card: instruction issue and latency inside each
+// block, not bytes.  The moves of a chain form a dependent chain of 750
+// steps (at the 750-water flagship), each a pass over ~2300 atoms x 3
+// sites x 2 poses followed by a block-wide sum and a scalar decision;
+// device memory is touched only to load and store the chain state and to
+// read 40 B of uniforms per move.  Only a fifth of the flagship's site
+// pairs lie inside the cutoff, and a pair's LJ + erfc body costs several
+// times its distance.  The design:
+// - Residency: the atom planes and molecule row, S(k), the k-vectors and
+//   the LJ tables live in shared memory for the whole sweep; the COM and
+//   quaternion rows, which only the moved molecule touches, stay in the
+//   chain's own rows of the outputs (copied in at entry, updated in
+//   place), and the per-atom charge and type rows, the same for every
+//   chain, in their global tables (L1).  A 750-water block needs ~58 KB,
+//   and __launch_bounds__ caps the registers so that three blocks share
+//   an SM.
+// - Compacted pair sums in three stages per warp, each on full warps:
+//   (0) 32 consecutive atom columns at a time, the distance to each
+//   pose's centre; the (atom, pose) pairs within the pose's reach (the
+//   largest cutoff plus the pose's radius: exact, the minimum-image
+//   distance obeys the triangle inequality) go to the warp's near ring;
+//   (1) 32 near pairs at a time, the pose's site distances, 3 sites per
+//   step (a ballot per site; a lane's slot follows the live lanes below
+//   it), the triples inside their site's cutoff to the warp's queue of
+//   live terms; (2) 32 live terms at a time, LJ and erfc Coulomb.  A
+//   partial flush of each ends the pass.  A pose's sites are 16-byte rows
+//   (x, y, z, the site's live cutoff^2), one load each.  The exchange,
+//   ghost and tmmc passes run stages 1-2 over every active atom, one
+//   queue per branch.
+// - Proposals off the critical path: move m + 1 does not depend on move
+//   m's outcome (each molecule moves once per launch, and move m touches
+//   none of molecule m + 1's rows), so the last warp builds the next
+//   move's proposal (with activity, for the next active slot) into the
+//   other half of a double buffer while the block sums move m.
+// - Two barriers per move: after the warp partials every thread sums them
+//   in the same order and takes the same decision; P threads write an
+//   accepted move's atoms, seven its COM and quaternion, each thread the
+//   S(k) deltas of its own k-vectors; the second barrier orders those
+//   writes before the next pass.
+// The pair arithmetic (minimum image, d^2 floor, erfc, the order inside a
+// term) is the same for every term; only the order in which terms are
+// summed follows the queues.
 //
 // Semantics kept from the TPU kernel: the molecule-id mask and the COM,
 // quaternion and uniform rows use the global index m_start + m, the atom
 // columns a_start + m * P; old atoms are read from the stored
 // coordinates, never rebuilt from COM + quaternion; new atoms are the
 // floor-wrapped new COM plus R(q_new) body (not wrapped per atom); pair
-// distances use the rintf minimum image with d^2 floored at 1e-4; pads
+// distances use the minimum image rounded to nearest, ties to even
+// (rintf's values, computed on the FMA pipe: round_near) with d^2 floored
+// at 1e-4; pads
 // (molid < 0) and the molecule's own atoms are excluded; S(k) changes only
 // on accept; the energy statistic adds d_e by select, so a rejected move's
 // overflowed delta never enters.
 //
 // Activity (use_act): act (C, A_pad) is 1 on the atoms of active molecule
 // slots and 0 on inactive slots and pads, actm (C, M_total) the same per
-// molecule.  An inactive slot's move is a null move (the block skips it: one
-// chain per block makes the gate block-uniform) and is not counted as an
-// attempt; inactive neighbour lanes add exactly 0.
+// molecule.  An inactive slot's move is a null move (the proposal warp
+// skips to the next active slot: one chain per block makes the skip
+// block-uniform) and is not counted as an attempt; inactive neighbour
+// lanes add exactly 0.
 //
 // Exchanges (n_exch > 0, needs use_act): after the moves, n_exch attempts on
 // uniforms ux (C, n_exch + n_widom, 8) = [type, x, y, z, u1, th2, th3,
@@ -80,8 +108,8 @@
 // Only then does the bias eta (M + 1,) enter the thresholds: ln_acc_ins +=
 // eta[min(n + 1, M)] - eta[n], ln_acc_del += eta[max(n - 1, 0)] - eta[n].
 // Each branch's arithmetic is the n_exch instantiation's (same lane
-// stride, skip test, term order, signs and roundings), so eta = 0 takes
-// the same decisions bit for bit.
+// stride, skip test, queue of its own, term order, signs and roundings),
+// so eta = 0 takes the same decisions bit for bit.
 //
 // Widom (n_widom > 0, needs use_act): after moves and exchanges, n_widom
 // ghost insertions with the same pose and energy code and no writes; wid
@@ -89,17 +117,16 @@
 //
 // Global layout (kGlobal, fixed N only; its own instantiation): for chain
 // states that do not fit a block's shared memory (6859 SPC/E waters with
-// K = 2874 would need ~780 KB) the chain's x/y/z planes and its COM and
-// quaternion rows live in global memory -- the chain's own rows of the
-// output tensors, copied in at entry and updated in place by accepted
-// moves -- and the type/charge/molecule rows are read from their global
-// tables (shared by all chains, so L2 keeps them).  Shared memory keeps
-// the k-vector rows, S(k), the LJ tables, the site rows and the scratch.
-// One chain per block: thread 0's writes of an accepted move are ordered
-// before every other thread's reads by the __syncthreads that follows.
-// The arithmetic, lane stride, skip tests and reduction order are the
-// shared layout's; only where the atom, COM and quaternion words live
-// differs.
+// K = 2874 would need ~430 KB) the chain's x/y/z planes also live in
+// global memory -- the chain's own rows of the output, copied in at entry
+// and updated in place by accepted moves -- and the molecule row is read
+// from its global table (shared by all chains, so L2 keeps it).  Shared
+// memory keeps the k-vector rows, S(k), the LJ tables, the site rows, the
+// queues and the scratch.  The writes of an
+// accepted move are ordered before every other thread's reads by the
+// barrier that ends the move.  The arithmetic, lane order, skip tests,
+// queues and reduction order are the shared layout's; only where the atom
+// words live differs.
 //
 // Sorted slabs (W > 0, global layout): the last species block (atoms
 // [a0_w, a0_w + A_blk)) is kept z-sorted by the caller, and the planes
@@ -129,30 +156,77 @@ constexpr int kUniforms = 10;
 constexpr int kExchUniforms = 8;
 constexpr int kMaxSmemBytes = 232448;
 constexpr float kPDep = 0.5f;  // the exchange type's probability, folded in
+constexpr int kThreads = 256;  // one block per chain
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 3;  // blocks per SM the registers are capped for
+constexpr unsigned kFull = 0xffffffffu;
+// A warp's ring of live pair terms: kQueue entries of a key and a d^2.
+// The key holds the atom column (kKeySite bits), the site (4 bits), the
+// pose's sign (1: new or exchange pose, 0: old pose) and the overlap veto.
+// Triples are appended kChunk sites at a time (at most 32 kChunk
+// entries), so 31 left over plus a chunk fit the ring.
+constexpr int kQueue = 128;
+constexpr int kChunk = 3;
+constexpr int kQueueWords = 2 * kWarps * kQueue;
+// A warp's ring of (atom, pose) pairs within the pose's reach, kNear keys
+// (the atom column with the pose's sign and veto bits): the move pass
+// computes site distances only for these.  One pose of 32 lanes is
+// appended at a time, so 31 left over plus 32 fit the ring.
+constexpr int kNear = 64;
+constexpr int kNearWords = kWarps * kNear;
+constexpr int kKeySite = 20, kKeySign = 24, kKeyVeto = 25;
+constexpr int kMaxColumns = 1 << kKeySite;
+// One proposal's scalars: the new COM and the new pose's squared reach
+// [0, 4), the old COM and the old pose's squared reach [4, 8) (a reach is
+// the largest cutoff plus the pose's radius, with a rounding margin), the
+// new quaternion [8, 12), tsel, the accept uniform and the local move
+// index (M: the sweep is over).
+constexpr int kDec = 16;
 
-// Shared-memory words of one block (M = M_total, the COM/quaternion rows
-// held); ops/cuda/sweep_kernel.py smem_bytes computes the same number.
-// tmmc adds a second slot-pick row (64 words), the deletion pose (3 P), its
-// S(k) row (2 K) and its warp partials (32); the global layout holds no
-// atom and no COM/quaternion rows.
+// Shared-memory words of one block; ops/cuda/sweep_kernel.py smem_bytes
+// computes the same number.  Every layout holds the slot-pick row (64
+// words: 32 x 8 B), the warp queues and near rings, 8 k-vector rows (K),
+// the 4 LJ tables (P T), 23 P-wide site rows (two proposal buffers of an
+// old and a new pose, each site a 16-byte row of x, y, z and its live
+// cutoff^2: 16; the body 3, charge, two flags and the live cutoff^2) and
+// 96 words of scratch (2 x 16 proposal scalars, 16 exchange uniforms, 32
+// warp partials, 16 for the chain's statistics).  The shared layout adds
+// the 4 atom rows x, y, z and molecule (A_pad; charges and types are read
+// from their global tables, the same for every chain), use_act the two
+// activity planes, tmmc a second slot-pick row (64), a second set of warp
+// queues, the deletion pose (4 P), its S(k) row (2 K) and its warp
+// partials (32).
 __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
                                                     int K, int T, int use_act,
                                                     int tmmc, int global) {
-  if (global) return 8 * (size_t)K + 4 * (size_t)P * T + 12 * (size_t)P + 144;
-  return 6 * (size_t)A_pad + 7 * (size_t)M + 8 * (size_t)K +
-         4 * (size_t)P * T + 12 * (size_t)P + 144 +
-         (use_act ? (size_t)A_pad + (size_t)M : 0) +
-         (tmmc ? 2 * (size_t)K + 3 * (size_t)P + 96 : 0);
+  size_t n = 64 + kQueueWords + kNearWords + 8 * (size_t)K +
+             4 * (size_t)P * T + 23 * (size_t)P + 96;
+  if (!global) n += 4 * (size_t)A_pad;
+  if (use_act) n += (size_t)A_pad + (size_t)M;
+  if (tmmc) n += 64 + kQueueWords + 4 * (size_t)P + 2 * (size_t)K + 32;
+  return n;
+}
+
+// rintf(t) for |t| < 2^22 on the FMA pipe: adding and subtracting
+// 1.5 * 2^23 rounds to the nearest integer, ties to even, as rintf does
+// (a zero comes out +0).
+__device__ inline float round_near(float t) {
+  return __fsub_rn(__fadd_rn(t, 12582912.0f), 12582912.0f);
 }
 
 __device__ inline float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+  return v;
+}
+
+__device__ inline float warp_max_all(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
 __device__ inline unsigned long long warp_max_u64(unsigned long long v) {
   for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
+    const unsigned long long o = __shfl_down_sync(kFull, v, off);
     v = o > v ? o : v;
   }
   return v;
@@ -187,6 +261,14 @@ __device__ inline void rot_apply(float w, float x, float y, float z, float bx,
   o[2] = (ww - xx - yy + zz) * bz + 2.0f * ((xz - wy) * bx + (yz + wx) * by);
 }
 
+// A warp's ring of live pair terms (head and tail are warp-uniform).
+struct Queue {
+  int* key;
+  float* d2;
+  int head;
+  int tail;
+};
+
 // kAct: the activity-mask instantiation (use_act), which alone carries the
 // exchange attempts and the ghosts; the other keeps the fixed-N sweep's
 // inner loop and register count free of them.  kTmmc (with kAct): the
@@ -195,7 +277,7 @@ __device__ inline void rot_apply(float w, float x, float y, float z, float bx,
 // of it.  kGlobal (fixed N): the global-memory layout, which alone carries
 // the slab windows.
 template <bool kAct, bool kTmmc, bool kGlobal>
-__global__ void sweep_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
     const float* __restrict__ box_in, const float* __restrict__ temp_in,
@@ -227,17 +309,20 @@ __global__ void sweep_kernel(
   // tmmc's deletion pick has a second row
   unsigned long long* sred64 = reinterpret_cast<unsigned long long*>(smem);
   unsigned long long* sred64d = sred64 + 32;
-  // the shared layout's atom, COM and quaternion rows; the global layout
-  // points these at global memory below and starts S(k) at their place
-  float* sx = smem + (kTmmc ? 128 : 64);
+  // the warp queues (tmmc: a second set for the deletion branch)
+  float* squeue = smem + (kTmmc ? 128 : 64);
+  int* qkey = reinterpret_cast<int*>(squeue);
+  float* qd2 = squeue + kWarps * kQueue;
+  int* qkey2 = reinterpret_cast<int*>(squeue + kQueueWords);
+  float* qd22 = squeue + kQueueWords + kWarps * kQueue;
+  int* qnear = reinterpret_cast<int*>(squeue + (kTmmc ? 2 : 1) * kQueueWords);
+  // the shared layout's atom rows; the global layout points these at
+  // global memory below and starts S(k) at their place
+  float* sx = reinterpret_cast<float*>(qnear + kNearWords);
   float* sy = sx + A_pad;
   float* sz = sy + A_pad;
-  float* sq = sz + A_pad;
-  int* stid = reinterpret_cast<int*>(sq + A_pad);
-  int* smol = stid + A_pad;
-  float* scom = reinterpret_cast<float*>(smol + A_pad);  // (M_total, 3)
-  float* squat = scom + 3 * M_total;                     // (M_total, 4)
-  float* ssre = kGlobal ? sx : squat + 4 * M_total;
+  int* smol = reinterpret_cast<int*>(sz + A_pad);
+  float* ssre = kGlobal ? sx : reinterpret_cast<float*>(smol + A_pad);
   float* ssim = ssre + K;
   float* scfac = ssim + K;
   float* sdre = scfac + K;
@@ -249,29 +334,43 @@ __global__ void sweep_kernel(
   float* ssig2 = seps + P * T;
   float* slam1 = ssig2 + P * T;
   float* slam2 = slam1 + P * T;
-  float* sbody = slam2 + P * T;   // (P, 3)
+  // 16-byte rows from here (every region above is a multiple of 4
+  // words): two proposal buffers of the old then the new pose, each site
+  // (x, y, z, its live cutoff^2)
+  float* spose = slam2 + P * T;   // 2 x 2 x (P, 4)
+  float* sdel = spose + 16 * P;   // (P, 4) tmmc: the deletion pose
+  float* sdec = sdel + (kTmmc ? 4 * P : 0);  // 2 x kDec: proposal scalars
+  float* sux = sdec + 2 * kDec;   // an exchange attempt's 8 uniforms
+  float* sred = sux + 16;         // one partial sum per warp
+  // thread 0's statistics: energy delta, acc/att [trans, rot], acc
+  // [insert, delete], att insert, a decision fingerprint (the sum of the
+  // global index + 1 over accepted moves, which tells a chain whose accept
+  // sequence diverged from one that only matches in its counts; accepted
+  // exchanges add slot + 1, deletions M_total more), sum w, sum w^2
+  float* sstat = sred + 32;
+  float* sbody = sstat + 16;      // (P, 3)
   float* sqp = sbody + 3 * P;
   int* slj = reinterpret_cast<int*>(sqp + P);
   int* sqf = slj + P;
-  float* sold = reinterpret_cast<float*>(sqf + P);  // (P, 3)
-  float* snew = sold + 3 * P;                        // (P, 3)
-  float* su = snew + 3 * P;     // 2 x 16: double-buffered uniforms
-  float* sred = su + 32;        // one partial sum per warp
-  float* sdec = sred + 32;      // 16 words: proposal scalars + decision
-  float* sact = sdec + 16;      // (A_pad) atom activity, with use_act
-  float* sactm = sact + A_pad;  // (M_total) slot activity, with use_act
-  float* sdel = sactm + M_total;  // (P, 3) tmmc: the deletion pose
-  float* sdre2 = sdel + 3 * P;    // (K) tmmc: its structure-factor row
+  float* scut = reinterpret_cast<float*>(sqf + P);  // (P) live cutoff^2
+  float* sact = scut + P;         // (A_pad) atom activity, with use_act
+  float* sactm = sact + A_pad;    // (M_total) slot activity, with use_act
+  float* sdre2 = sactm + M_total;  // (K) tmmc: the deletion's S(k) row
   float* sdim2 = sdre2 + K;
   float* sred2 = sdim2 + K;       // tmmc: its warp partials
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  constexpr int nt = kThreads;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  constexpr int kProposer = kWarps - 1;  // the warp that builds proposals
 
+  // the chain's COM and quaternion rows: its own rows of the outputs,
+  // updated in place
+  float* const scom = com_out + (size_t)c * 3 * M_total;
+  float* const squat = quat_out + (size_t)c * 4 * M_total;
   const float* cin = coords_in + (size_t)c * 3 * A_pad;
   if constexpr (kGlobal) {
     // the chain's own rows of the outputs, updated in place; the per-atom
@@ -279,10 +378,6 @@ __global__ void sweep_kernel(
     sx = coords_out + (size_t)c * 3 * A_pad;
     sy = sx + A_pad;
     sz = sy + A_pad;
-    scom = com_out + (size_t)c * 3 * M_total;
-    squat = quat_out + (size_t)c * 4 * M_total;
-    sq = const_cast<float*>(q_row);
-    stid = const_cast<int*>(tid_row);
     smol = const_cast<int*>(molid_row);
     for (int j = tid; j < 3 * A_pad; j += nt) sx[j] = cin[j];
   } else {
@@ -290,8 +385,6 @@ __global__ void sweep_kernel(
       sx[j] = cin[j];
       sy[j] = cin[A_pad + j];
       sz[j] = cin[2 * A_pad + j];
-      sq[j] = q_row[j];
-      stid[j] = tid_row[j];
       smol[j] = molid_row[j];
       if (kAct) sact[j] = act_in[(size_t)c * A_pad + j];
     }
@@ -303,6 +396,7 @@ __global__ void sweep_kernel(
     scom[i] = com_in[(size_t)c * 3 * M_total + i];
   for (int i = tid; i < 4 * M_total; i += nt)
     squat[i] = quat_in[(size_t)c * 4 * M_total + i];
+  if (tid < 16) sstat[tid] = 0.0f;
   if (kTmmc)
     for (int i = tid; i < 3 * (M + 1); i += nt) {
       cmat_out[(size_t)c * 3 * (M + 1) + i] = 0.0f;
@@ -336,179 +430,357 @@ __global__ void sweep_kernel(
     slam1[i] = lam1_pt[i];
     slam2[i] = lam2_pt[i];
   }
+  const bool split_cut = qrc2 != rc2;
+  const float qcut2 = split_cut ? qrc2 : rc2;
   for (int i = tid; i < 3 * P; i += nt) sbody[i] = body[i];
   for (int i = tid; i < P; i += nt) {
+    const bool lj = has_lj[i] != 0, uq = has_q[i] && coulomb != kNone;
     sqp[i] = qp[i];
-    slj[i] = has_lj[i];
-    sqf[i] = has_q[i] && coulomb != kNone;
+    slj[i] = lj;
+    sqf[i] = uq;
+    // site i adds a term at d^2 iff d^2 < its live cutoff^2: LJ below
+    // rc2, Coulomb below qcut2 (-1: neither)
+    scut[i] = lj ? (uq ? fmaxf(rc2, qcut2) : rc2) : (uq ? qcut2 : -1.0f);
   }
   float sh_w = 0.0f;
   if (coulomb == kWolf) {
     const float qrc = sqrtf(qrc2);
     sh_w = erfcf(kappa * qrc) / qrc;
   }
-  const bool split_cut = qrc2 != rc2;
+  // the largest cutoff: a pose's reach is this plus the pose's radius
+  const float rc_max = sqrtf(fmaxf(rc2, qcut2));
   const float* u_chain = u_in + ((size_t)c * M_total + m_start) * kUniforms;
-  if (tid < kUniforms) su[tid] = u_chain[tid];
-  __syncthreads();
 
-  // stats: energy delta, acc/att [trans, rot], and a decision fingerprint
-  // (the sum of the global index + 1 over accepted moves) that tells a chain whose accept
-  // sequence diverged from one that only matches in its counts
-  // (accepted exchanges add slot + 1, deletions M_total more)
-  float st_e = 0.0f, st_acc_t = 0.0f, st_acc_r = 0.0f, st_att_t = 0.0f,
-        st_att_r = 0.0f, st_fp = 0.0f, st_acc_i = 0.0f, st_acc_d = 0.0f,
-        st_att_i = 0.0f;
-
-  for (int m = 0; m < M; ++m) {
-    const int mg = m_start + m;  // global molecule index
-    const float* um = su + (m & 1) * 16;
-    // prefetch the next move's uniforms into the other buffer (its last
-    // reader, thread 0 at move m-1, finished before the barrier that
-    // closed move m-1)
-    if (tid >= 32 && tid < 32 + kUniforms && m + 1 < M)
-      su[((m + 1) & 1) * 16 + tid - 32] = u_chain[(size_t)(m + 1) * kUniforms + tid - 32];
-    if (kAct && sact[a_start + m * P] == 0.0f) {
-      // inactive slot: a null move, not an attempt (the barrier orders the
-      // prefetch above before the next move's reads)
-      __syncthreads();
-      continue;
+  // ---- pair terms: distances on every lane, live terms through queues ----
+  auto dist2 = [&](float xj, float yj, float zj, float ax, float ay,
+                   float az) -> float {
+    float dx = xj - ax, dy = yj - ay, dz = zj - az;
+    dx -= box * round_near(dx * inv_box);
+    dy -= box * round_near(dy * inv_box);
+    dz -= box * round_near(dz * inv_box);
+    return fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+  };
+  // One live term: LJ (with the linear shift) plus real-space Coulomb, the
+  // +1e30 veto on an attractive overlap when the key asks for it, negated
+  // for the old pose.
+  auto live_term = [&](int key, float d2) -> float {
+    const int j = key & (kMaxColumns - 1);
+    const int p = (key >> kKeySite) & 15;
+    const int tj = __ldg(tid_row + j);
+    const float qj = __ldg(q_row + j);
+    const bool m_lj = d2 < rc2;
+    const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
+    const float inv_r = rsqrtf(d2);
+    const float inv_d2 = inv_r * inv_r;
+    float contrib = 0.0f;
+    if (slj[p] != 0 && m_lj) {
+      const float s2 = ssig2[p * T + tj] * inv_d2;
+      const float s6 = s2 * s2 * s2;
+      float pot = seps[p * T + tj] * (s6 * s6 - s6);
+      if (lj_linear) pot += slam1[p * T + tj] + slam2[p * T + tj] * sqrtf(d2);
+      contrib = pot;
     }
+    if (sqf[p] != 0 && m_qq) {
+      const float qq = (factor * sqp[p]) * qj;
+      const float r = d2 * inv_r;
+      float cp;
+      if (coulomb == kBare)
+        cp = qq * inv_r;
+      else if (coulomb == kWolf)
+        cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
+      else
+        cp = qq * (erfcf(kappa * r) * inv_r);
+      if (((key >> kKeyVeto) & 1) && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
+      contrib += cp;
+    }
+    return ((key >> kKeySign) & 1) ? contrib : -contrib;
+  };
+  // the queue's n (<= 32, warp-uniform) oldest entries, one per lane
+  auto flush = [&](Queue& q, float& acc, int n) {
+    __syncwarp();
+    if (lane < n) {
+      const int s = (q.head + lane) & (kQueue - 1);
+      acc += live_term(q.key[s], q.d2[s]);
+    }
+    q.head += n;
+    __syncwarp();
+  };
+  // the lanes' live triples of sites p0 + k, k < min(n, kChunk) (key:
+  // key0 with site p0), appended site by site in lane order; every 32
+  // queued are evaluated at once
+  auto push = [&](Queue& q, float& acc, int n, const bool* live,
+                  const float* d2, int key0) {
+    unsigned bal[kChunk], any = 0u;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      bal[k] = k < n ? __ballot_sync(kFull, live[k]) : 0u;
+      any |= bal[k];
+    }
+    if (!any) return;
+    int before = q.tail;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k < n && live[k]) {
+        const int s = (before + __popc(bal[k] & lanes_below)) & (kQueue - 1);
+        q.key[s] = key0 + (k << kKeySite);
+        q.d2[s] = d2[k];
+      }
+      before += __popc(bal[k]);
+    }
+    q.tail = before;
+    while (q.tail - q.head >= 32) flush(q, acc, 32);
+  };
+  auto drain = [&](Queue& q, float& acc) {
+    if (q.tail > q.head) flush(q, acc, q.tail - q.head);
+  };
 
-    if (tid == 0) {
-      const float* cm = scom + 3 * mg;
-      const float* q0 = squat + 4 * mg;
-      float tsel = 1.0f;
-      float q1[4] = {q0[0], q0[1], q0[2], q0[3]};
-      if (use_rot) {
-        tsel = um[0] < p_translate ? 1.0f : 0.0f;
-        const float e1 = fmaxf(um[5], 1e-12f), e2 = um[6];
-        const float e3 = fmaxf(um[7], 1e-12f), e4 = um[8];
-        const float r1 = sqrtf(-2.0f * logf(e1));
-        const float r2 = sqrtf(-2.0f * logf(e3));
-        float s2, c2, s4, c4;
-        sincosf(kTwoPi * (e2 - rintf(e2)), &s2, &c2);
-        sincosf(kTwoPi * (e4 - rintf(e4)), &s4, &c4);
-        const float g1 = r1 * c2, g2 = r1 * s2, g3 = r2 * c4;
-        const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
-        const float half = 0.5f * ((2.0f * um[9] - 1.0f) * dphi_max);
-        float sh, rw;
-        sincosf(half, &sh, &rw);
-        sh = sh * gn;
-        const float rx = sh * g1, ry = sh * g2, rz = sh * g3;
-        const float w0 = q0[0], x0 = q0[1], y0 = q0[2], z0 = q0[3];
-        const float nw = rw * w0 - rx * x0 - ry * y0 - rz * z0;
-        const float nx = rw * x0 + rx * w0 + ry * z0 - rz * y0;
-        const float ny = rw * y0 - rx * z0 + ry * w0 + rz * x0;
-        const float nz = rw * z0 + rx * y0 - ry * x0 + rz * w0;
-        const float qn = rsqrtf(nw * nw + nx * nx + ny * ny + nz * nz);
-        if (tsel == 0.0f) {
-          q1[0] = nw * qn;
-          q1[1] = nx * qn;
-          q1[2] = ny * qn;
-          q1[3] = nz * qn;
+  // ---- the proposal warp's work ----
+  // the next move after local move m: m + 1, or with activity the next
+  // active slot; M ends the sweep
+  auto next_move = [&](int m) -> int {
+    if (!kAct) return m + 1;
+    for (int base = m + 1; base < M; base += 32) {
+      const int i = base + lane;
+      const unsigned bal =
+          __ballot_sync(kFull, i < M && sact[a_start + i * P] != 0.0f);
+      if (bal) return base + __ffs(bal) - 1;
+    }
+    return M;
+  };
+  // lane i < 10 loads uniform i of move m, lane i < 7 COM/quaternion
+  // word i: issued a pass ahead of their use
+  auto prefetch = [&](int m, float& u_pre, float& c_pre) {
+    if (m >= M) return;
+    const int mg = m_start + m;
+    if (lane < kUniforms) u_pre = u_chain[(size_t)m * kUniforms + lane];
+    if (lane < 3)
+      c_pre = scom[3 * mg + lane];
+    else if (lane < 7)
+      c_pre = squat[4 * mg + lane - 3];
+  };
+  // the proposal of local move m into buffer b: every lane computes the
+  // molecule's scalars, lane p < P places site p
+  auto propose = [&](int m, int b, float u_pre, float c_pre) {
+    float* dec = sdec + kDec * b;
+    if (m >= M) {
+      if (lane == 0) dec[14] = (float)M;
+      return;
+    }
+    float um[kUniforms], cm[3], q0[4];
+    for (int i = 0; i < kUniforms; ++i) um[i] = __shfl_sync(kFull, u_pre, i);
+    for (int d = 0; d < 3; ++d) cm[d] = __shfl_sync(kFull, c_pre, d);
+    for (int i = 0; i < 4; ++i) q0[i] = __shfl_sync(kFull, c_pre, 3 + i);
+    float tsel = 1.0f;
+    float q1[4] = {q0[0], q0[1], q0[2], q0[3]};
+    if (use_rot) {
+      tsel = um[0] < p_translate ? 1.0f : 0.0f;
+      const float e1 = fmaxf(um[5], 1e-12f), e2 = um[6];
+      const float e3 = fmaxf(um[7], 1e-12f), e4 = um[8];
+      const float r1 = sqrtf(-2.0f * logf(e1));
+      const float r2 = sqrtf(-2.0f * logf(e3));
+      float s2, c2, s4, c4;
+      sincosf(kTwoPi * (e2 - rintf(e2)), &s2, &c2);
+      sincosf(kTwoPi * (e4 - rintf(e4)), &s4, &c4);
+      const float g1 = r1 * c2, g2 = r1 * s2, g3 = r2 * c4;
+      const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
+      const float half = 0.5f * ((2.0f * um[9] - 1.0f) * dphi_max);
+      float sh, rw;
+      sincosf(half, &sh, &rw);
+      sh = sh * gn;
+      const float rx = sh * g1, ry = sh * g2, rz = sh * g3;
+      const float w0 = q0[0], x0 = q0[1], y0 = q0[2], z0 = q0[3];
+      const float nw = rw * w0 - rx * x0 - ry * y0 - rz * z0;
+      const float nx = rw * x0 + rx * w0 + ry * z0 - rz * y0;
+      const float ny = rw * y0 - rx * z0 + ry * w0 + rz * x0;
+      const float nz = rw * z0 + rx * y0 - ry * x0 + rz * w0;
+      const float qn = rsqrtf(nw * nw + nx * nx + ny * ny + nz * nz);
+      if (tsel == 0.0f) {
+        q1[0] = nw * qn;
+        q1[1] = nx * qn;
+        q1[2] = ny * qn;
+        q1[3] = nz * qn;
+      }
+    }
+    float nc[3];
+    for (int d = 0; d < 3; ++d) {
+      const float v = cm[d] + tsel * (um[1 + d] - 0.5f) * dr_max;
+      nc[d] = v - box * floorf(v * inv_box);
+    }
+    float* so = spose + 8 * P * b;
+    float* sn = so + 4 * P;
+    const int a0 = a_start + m * P;
+    float r_old = 0.0f, r_new = 0.0f;
+    if (lane < P) {
+      const int p = lane;
+      const float xo[3] = {sx[a0 + p], sy[a0 + p], sz[a0 + p]};
+      float o[3] = {0.0f, 0.0f, 0.0f};
+      if (P > 1)
+        rot_apply(q1[0], q1[1], q1[2], q1[3], sbody[3 * p], sbody[3 * p + 1],
+                  sbody[3 * p + 2], o);
+      float xn[3];
+      for (int d = 0; d < 3; ++d) {
+        so[4 * p + d] = xo[d];
+        xn[d] = nc[d] + o[d];
+        sn[4 * p + d] = xn[d];
+      }
+      so[4 * p + 3] = scut[p];
+      sn[4 * p + 3] = scut[p];
+      r_old = sqrtf(dist2(xo[0], xo[1], xo[2], cm[0], cm[1], cm[2]));
+      r_new = sqrtf(dist2(xn[0], xn[1], xn[2], nc[0], nc[1], nc[2]));
+    }
+    r_old = warp_max_all(r_old);
+    r_new = warp_max_all(r_new);
+    if (lane == 0) {
+      const float reach_n = (rc_max + r_new) * 1.0001f + 1e-3f;
+      const float reach_o = (rc_max + r_old) * 1.0001f + 1e-3f;
+      for (int d = 0; d < 3; ++d) {
+        dec[d] = nc[d];
+        dec[4 + d] = cm[d];
+      }
+      dec[3] = reach_n * reach_n;
+      dec[7] = reach_o * reach_o;
+      for (int i = 0; i < 4; ++i) dec[8 + i] = q1[i];
+      dec[12] = tsel;
+      dec[13] = um[4];
+      dec[14] = (float)m;
+    }
+  };
+
+  // The n (<= 32, warp-uniform) oldest (atom, pose) pairs of the near
+  // ring qn, one per lane: the site distances of the pose the key's sign
+  // bit names (pose_old or pose_new), the live triples into the queue q.
+  auto near_flush = [&](Queue& qn, Queue& q, float& acc, int n,
+                        const float* pose_old, const float* pose_new) {
+    __syncwarp();
+    const bool ok = lane < n;
+    const int key = ok ? qn.key[(qn.head + lane) & (kNear - 1)] : 0;
+    qn.head += n;
+    __syncwarp();
+    const int j = key & (kMaxColumns - 1);
+    const int s = (key >> kKeySign) & 1;
+    float xj = 0.0f, yj = 0.0f, zj = 0.0f;
+    if (ok) {
+      xj = sx[j];
+      yj = sy[j];
+      zj = sz[j];
+    }
+    const float4* a = reinterpret_cast<const float4*>(s ? pose_new : pose_old);
+    for (int p0 = 0; p0 < P; p0 += kChunk) {
+      bool live[kChunk];
+      float d2[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        live[k] = false;
+        d2[k] = 0.0f;
+        if (ok && p0 + k < P) {
+          const float4 site = a[p0 + k];
+          d2[k] = dist2(xj, yj, zj, site.x, site.y, site.z);
+          live[k] = d2[k] < site.w;
         }
       }
-      float nc[3];
-      for (int d = 0; d < 3; ++d) {
-        const float v = cm[d] + tsel * (um[1 + d] - 0.5f) * dr_max;
-        nc[d] = v - box * floorf(v * inv_box);
-      }
-      const int a0 = a_start + m * P;
-      for (int p = 0; p < P; ++p) {
-        sold[3 * p] = sx[a0 + p];
-        sold[3 * p + 1] = sy[a0 + p];
-        sold[3 * p + 2] = sz[a0 + p];
-        float o[3] = {0.0f, 0.0f, 0.0f};
-        if (P > 1)
-          rot_apply(q1[0], q1[1], q1[2], q1[3], sbody[3 * p], sbody[3 * p + 1],
-                    sbody[3 * p + 2], o);
-        for (int d = 0; d < 3; ++d) snew[3 * p + d] = nc[d] + o[d];
-      }
-      for (int d = 0; d < 3; ++d) sdec[d] = nc[d];
-      for (int i = 0; i < 4; ++i) sdec[3 + i] = q1[i];
-      sdec[7] = tsel;
+      push(q, acc, P - p0, live, d2, key | p0 << kKeySite);
+    }
+  };
+  // the lanes' (atom, pose) pairs within reach (key: atom column, sign and
+  // veto bits) appended in lane order; 32 queued go through stage 1
+  auto near_push = [&](Queue& qn, Queue& q, float& acc, bool near, int key,
+                       const float* pose_old, const float* pose_new) {
+    const unsigned bal = __ballot_sync(kFull, near);
+    if (!bal) return;
+    if (near) qn.key[(qn.tail + __popc(bal & lanes_below)) & (kNear - 1)] = key;
+    qn.tail += __popc(bal);
+    if (qn.tail - qn.head >= 32)
+      near_flush(qn, q, acc, 32, pose_old, pose_new);
+  };
+  // One warp's 32 atom lanes j (ok: the lane is a neighbour of the mover)
+  // against the old and the new pose of the proposal (pose, dec): the
+  // (atom, pose) pairs within the pose's reach go to the near ring.
+  auto move_lanes = [&](Queue& qn, Queue& q, float& acc, int j, bool ok,
+                        const float* pose, const float* dec) {
+    float xj = 0.0f, yj = 0.0f, zj = 0.0f;
+    if (ok) {
+      xj = sx[j];
+      yj = sy[j];
+      zj = sz[j];
+    }
+    for (int s = 0; s < 2; ++s) {
+      const float4 c = reinterpret_cast<const float4*>(dec)[s ? 0 : 1];
+      const bool near = ok && dist2(xj, yj, zj, c.x, c.y, c.z) < c.w;
+      near_push(qn, q, acc, near, j | s << kKeySign | s << kKeyVeto, pose,
+                pose + 4 * P);
+    }
+  };
+
+  __syncthreads();
+  {
+    // the first move's proposal
+    if (warp == kProposer) {
+      float u_pre = 0.0f, c_pre = 0.0f;
+      const int m0 = next_move(-1);
+      prefetch(m0, u_pre, c_pre);
+      propose(m0, 0, u_pre, c_pre);
     }
     __syncthreads();
+  }
+
+  for (int it = 0;; ++it) {
+    const int b = it & 1;
+    const float* dec = sdec + kDec * b;
+    const int m = (int)dec[14];
+    if (m >= M) break;  // block-uniform: every thread reads one word
+    const int mg = m_start + m;  // global molecule index
+    const int a0 = a_start + m * P;
+    const float* pose = spose + 8 * P * b;
+    // the proposal warp starts the next proposal's loads
+    int m_next = M;
+    float u_pre = 0.0f, c_pre = 0.0f;
+    if (warp == kProposer) {
+      m_next = next_move(m);
+      prefetch(m_next, u_pre, c_pre);
+    }
 
     // ---- old and new site sums over the atom lanes ----
     float part = 0.0f;
-    // one atom lane j: its old and new pair terms into part
-    auto lane_terms = [&](int j) {
-      const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
-      const int tj = stid[j];
-      for (int p = 0; p < P; ++p) {
-        const bool lj = slj[p] != 0;
-        const bool uq = sqf[p] != 0;
-        const float eps4 = lj ? seps[p * T + tj] : 0.0f;
-        const float sig2 = lj ? ssig2[p * T + tj] : 0.0f;
-        const float l1 = lj ? slam1[p * T + tj] : 0.0f;
-        const float l2 = lj ? slam2[p * T + tj] : 0.0f;
-        const float qq = (factor * sqp[p]) * qj;
-        for (int s = 0; s < 2; ++s) {
-          const float* a = (s ? snew : sold) + 3 * p;
-          float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
-          dx -= box * rintf(dx * inv_box);
-          dy -= box * rintf(dy * inv_box);
-          dz -= box * rintf(dz * inv_box);
-          const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
-          const bool m_lj = d2 < rc2;
-          const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
-          const float inv_r = rsqrtf(d2);
-          const float inv_d2 = inv_r * inv_r;
-          float contrib = 0.0f;
-          if (lj && m_lj) {
-            const float s2 = sig2 * inv_d2;
-            const float s6 = s2 * s2 * s2;
-            float pot = eps4 * (s6 * s6 - s6);
-            if (lj_linear) pot += l1 + l2 * sqrtf(d2);
-            contrib = pot;
-          }
-          if (uq && m_qq) {
-            const float r = d2 * inv_r;
-            float cp;
-            if (coulomb == kBare)
-              cp = qq * inv_r;
-            else if (coulomb == kWolf)
-              cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
-            else
-              cp = qq * (erfcf(kappa * r) * inv_r);
-            if (s == 1 && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
-            contrib += cp;
-          }
-          part += s ? contrib : -contrib;
-        }
-      }
-    };
+    Queue q{qkey + warp * kQueue, qd2 + warp * kQueue, 0, 0};
+    Queue qn{qnear + warp * kNear, nullptr, 0, 0};
     bool dense = true;
     if constexpr (kGlobal) {
       if (W > 0) {
         // sorted slabs: the other blocks' column segments, then the window
         dense = false;
-        const int a0 = a_start + m * P;
         for (int sg = 0; sg < n_seg; ++sg) {
           const int b0 = segs[2 * sg], b1 = b0 + segs[2 * sg + 1];
-          for (int j = b0 + tid; j < b1; j += nt)
-            if (j < a0 || j >= a0 + P) lane_terms(j);
+          for (int jb = b0 + warp * 32; jb < b1; jb += nt) {
+            const int j = jb + lane;
+            move_lanes(qn, q, part, j, j < b1 && (j < a0 || j >= a0 + P),
+                       pose, dec);
+          }
         }
         const int wb = wst[mg];
         const bool in_w = a0 >= a0_w;  // the mover is in the sorted block
-        for (int j = wb + tid; j < wb + W; j += nt) {
-          if (j < a0_w) continue;  // the window's alignment overhang
-          if (in_w && ((j >= a0 && j < a0 + P) ||
-                       (j >= a0 + A_blk && j < a0 + A_blk + P)))
-            continue;
-          lane_terms(j);
+        for (int jb = wb + warp * 32; jb < wb + W; jb += nt) {
+          const int j = jb + lane;
+          // the window's alignment overhang and the mover's own columns
+          const bool own = in_w && ((j >= a0 && j < a0 + P) ||
+                                    (j >= a0 + A_blk && j < a0 + A_blk + P));
+          move_lanes(qn, q, part, j, j < wb + W && j >= a0_w && !own, pose,
+                     dec);
         }
       }
     }
     if (dense)
-      for (int j = tid; j < A_pad; j += nt) {
-        const int mj = smol[j];
-        if (mj < 0 || mj == mg) continue;
-        if (kAct && sact[j] == 0.0f) continue;
-        lane_terms(j);
+      for (int jb = warp * 32; jb < A_pad; jb += nt) {
+        const int j = jb + lane;
+        bool ok = j < A_pad;
+        if (ok) {
+          const int mj = smol[j];
+          ok = mj >= 0 && mj != mg && (!kAct || sact[j] != 0.0f);
+        }
+        move_lanes(qn, q, part, j, ok, pose, dec);
       }
+    if (qn.tail > qn.head)
+      near_flush(qn, q, part, qn.tail - qn.head, pose, pose + 4 * P);
+    drain(q, part);
 
     // ---- incremental S(k) and the reciprocal energy delta ----
     if (ewald) {
@@ -517,11 +789,11 @@ __global__ void sweep_kernel(
         const float kx = skx[k], ky = sky[k], kz = skz[k];
         float dre = 0.0f, dim = 0.0f;
         for (int s = 0; s < 2; ++s) {
-          const float* a = s ? snew : sold;
+          const float* a = pose + 4 * P * s;
           for (int p = 0; p < P; ++p) {
             if (!sqf[p]) continue;
-            float ph = tpl * (kx * a[3 * p] + ky * a[3 * p + 1] + kz * a[3 * p + 2]);
-            ph -= kTwoPi * rintf(ph * kInvTwoPi);
+            float ph = tpl * (kx * a[4 * p] + ky * a[4 * p + 1] + kz * a[4 * p + 2]);
+            ph -= kTwoPi * round_near(ph * kInvTwoPi);
             float sn, cs;
             sincosf(ph, &sn, &cs);
             const float qps = s ? sqp[p] : -sqp[p];
@@ -537,60 +809,63 @@ __global__ void sweep_kernel(
     }
 
     part = warp_sum(part);
+    if (warp == kProposer) propose(m_next, b ^ 1, u_pre, c_pre);
     if (lane == 0) sred[warp] = part;
     __syncthreads();
 
+    // every thread: the same sum in the same order, the same decision
+    float d_e = 0.0f;
+    for (int w = 0; w < kWarps; ++w) d_e += sred[w];
+    const float beta_de = d_e / temp;
+    // the overlap penalty makes beta_de huge: exp(-beta_de) == 0 rejects
+    const bool accept = (beta_de < 0.0f) || (dec[13] < expf(-beta_de));
     if (tid == 0) {
-      float d_e = 0.0f;
-      for (int w = 0; w < nwarps; ++w) d_e += sred[w];
-      const float beta_de = d_e / temp;
-      // the overlap penalty makes beta_de huge: exp(-beta_de) == 0 rejects
-      const bool accept = (beta_de < 0.0f) || (um[4] < expf(-beta_de));
-      const float tsel = sdec[7];
-      st_att_t += tsel;
-      st_att_r += 1.0f - tsel;
+      const float tsel = dec[12];
+      sstat[3] += tsel;
+      sstat[4] += 1.0f - tsel;
       if (accept) {
-        st_e += d_e;
-        st_acc_t += tsel;
-        st_acc_r += 1.0f - tsel;
-        st_fp += (float)(mg + 1);
-        for (int d = 0; d < 3; ++d) scom[3 * mg + d] = sdec[d];
-        for (int i = 0; i < 4; ++i) squat[4 * mg + i] = sdec[3 + i];
-        const int a0 = a_start + m * P;
-        for (int p = 0; p < P; ++p) {
-          sx[a0 + p] = snew[3 * p];
-          sy[a0 + p] = snew[3 * p + 1];
-          sz[a0 + p] = snew[3 * p + 2];
-        }
-        if constexpr (kGlobal)
-          if (W > 0 && a0 >= a0_w)
-            // a head molecule's ghost twin (the halo may end inside it)
-            for (int p = 0; p < P && a0 + p - a0_w < W; ++p) {
-              sx[a0 + A_blk + p] = snew[3 * p];
-              sy[a0 + A_blk + p] = snew[3 * p + 1];
-              sz[a0 + A_blk + p] = snew[3 * p + 2];
-            }
+        sstat[0] += d_e;
+        sstat[1] += tsel;
+        sstat[2] += 1.0f - tsel;
+        sstat[8] += (float)(mg + 1);
       }
-      sdec[8] = accept ? 1.0f : 0.0f;
+    }
+    if (accept) {
+      const float* sn = pose + 4 * P;
+      if (tid < P) {
+        sx[a0 + tid] = sn[4 * tid];
+        sy[a0 + tid] = sn[4 * tid + 1];
+        sz[a0 + tid] = sn[4 * tid + 2];
+        if constexpr (kGlobal)
+          if (W > 0 && a0 >= a0_w && a0 + tid - a0_w < W) {
+            // a head molecule's ghost twin (the halo may end inside it)
+            sx[a0 + A_blk + tid] = sn[4 * tid];
+            sy[a0 + A_blk + tid] = sn[4 * tid + 1];
+            sz[a0 + A_blk + tid] = sn[4 * tid + 2];
+          }
+      } else if (tid >= 32 && tid < 32 + 3) {
+        scom[3 * mg + tid - 32] = dec[tid - 32];
+      } else if (tid >= 35 && tid < 35 + 4) {
+        squat[4 * mg + tid - 35] = dec[8 + tid - 35];
+      }
+      if (ewald)
+        // each thread adds the deltas of the k-vectors it computed
+        for (int k = tid; k < K; k += nt) {
+          ssre[k] += sdre[k];
+          ssim[k] += sdim[k];
+        }
     }
     __syncthreads();
-    if (ewald && sdec[8] != 0.0f) {
-      // each thread adds the deltas of the k-vectors it computed
-      for (int k = tid; k < K; k += nt) {
-        ssre[k] += sdre[k];
-        ssim[k] += sdim[k];
-      }
-    }
   }
-  __syncthreads();
 
-  float wsum = 0.0f, wsum2 = 0.0f;
   if (kAct && (n_exch > 0 || n_widom > 0)) {
     const float beta = 1.0f / temp;
     const float si_c = si_in[c], wc_c = wc_in[c];
     const float lnzv = n_exch > 0 ? logf(z_in[c] * box * box * box) : 0.0f;
     const float* ux_chain = ux_in + (size_t)c * (n_exch + n_widom) * kExchUniforms;
-    float* ux = su;  // this attempt's 8 uniforms
+    float* ux = sux;         // this attempt's 8 uniforms
+    float* snew = spose + 4 * P;  // the attempt's pose (buffer 0's new rows)
+    float* sxd = sdec;       // its scalars: COM, quaternion, decision [8]
 
     // n: this block's active slots, counted once and then tracked
     float cnt = 0.0f;
@@ -599,47 +874,66 @@ __global__ void sweep_kernel(
     if (lane == 0) sred[warp] = cnt;
     __syncthreads();
     float n_act = 0.0f;
-    for (int w = 0; w < nwarps; ++w) n_act += sred[w];
+    for (int w = 0; w < kWarps; ++w) n_act += sred[w];
     __syncthreads();
 
-    // One pair term of site p of pose a against the atom lane (xj, yj, zj,
-    // qj, tj): LJ plus real-space Coulomb, the +1e30 overlap veto on
-    // attractive contacts when `veto`.
-    auto pair_term = [&](const float* a, int p, float xj, float yj, float zj,
-                         float qj, int tj, bool veto) -> float {
-      const bool lj = slj[p] != 0;
-      const bool uq = sqf[p] != 0;
-      const float qq = (factor * sqp[p]) * qj;
-      float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
-      dx -= box * rintf(dx * inv_box);
-      dy -= box * rintf(dy * inv_box);
-      dz -= box * rintf(dz * inv_box);
-      const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
-      const bool m_lj = d2 < rc2;
-      const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
-      const float inv_r = rsqrtf(d2);
-      const float inv_d2 = inv_r * inv_r;
-      float contrib = 0.0f;
-      if (lj && m_lj) {
-        const float s2 = ssig2[p * T + tj] * inv_d2;
-        const float s6 = s2 * s2 * s2;
-        float pot = seps[p * T + tj] * (s6 * s6 - s6);
-        if (lj_linear) pot += slam1[p * T + tj] + slam2[p * T + tj] * sqrtf(d2);
-        contrib = pot;
+    // One or two poses against every active atom of other molecules than
+    // their own: pose 0 (snew, excluding molecule excl0, veto0) into acc0
+    // and, with two, pose 1 (sdel, excl1, veto1) into acc1, each through a
+    // queue of its own, so that each branch sums in a one-pose pass's order.
+    auto exch_lanes = [&](bool two, int excl0, int excl1, bool veto0,
+                          bool veto1, float& acc0, float& acc1) {
+      Queue q0{qkey + warp * kQueue, qd2 + warp * kQueue, 0, 0};
+      Queue q1{qkey2 + warp * kQueue, qd22 + warp * kQueue, 0, 0};
+      const int k0 = 1 << kKeySign | (veto0 ? 1 : 0) << kKeyVeto;
+      const int k1 = 1 << kKeySign | (veto1 ? 1 : 0) << kKeyVeto;
+      for (int jb = warp * 32; jb < A_pad; jb += nt) {
+        const int j = jb + lane;
+        int mj = -1;
+        bool on = false;
+        if (j < A_pad) {
+          mj = smol[j];
+          on = mj >= 0 && sact[j] != 0.0f;
+        }
+        if (!__any_sync(kFull, on)) continue;
+        float xj = 0.0f, yj = 0.0f, zj = 0.0f;
+        if (on) {
+          xj = sx[j];
+          yj = sy[j];
+          zj = sz[j];
+        }
+        const bool ok0 = on && mj != excl0, ok1 = on && mj != excl1;
+        for (int p0 = 0; p0 < P; p0 += kChunk) {
+          bool live[kChunk];
+          float d2[kChunk];
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            live[k] = false;
+            d2[k] = 0.0f;
+            if (p0 + k < P) {
+              const float4 site = reinterpret_cast<const float4*>(snew)[p0 + k];
+              d2[k] = dist2(xj, yj, zj, site.x, site.y, site.z);
+              live[k] = ok0 && d2[k] < site.w;
+            }
+          }
+          push(q0, acc0, P - p0, live, d2, j | p0 << kKeySite | k0);
+          if (two) {
+#pragma unroll
+            for (int k = 0; k < kChunk; ++k) {
+              live[k] = false;
+              d2[k] = 0.0f;
+              if (p0 + k < P) {
+                const float4 site = reinterpret_cast<const float4*>(sdel)[p0 + k];
+                d2[k] = dist2(xj, yj, zj, site.x, site.y, site.z);
+                live[k] = ok1 && d2[k] < site.w;
+              }
+            }
+            push(q1, acc1, P - p0, live, d2, j | p0 << kKeySite | k1);
+          }
+        }
       }
-      if (uq && m_qq) {
-        const float r = d2 * inv_r;
-        float cp;
-        if (coulomb == kBare)
-          cp = qq * inv_r;
-        else if (coulomb == kWolf)
-          cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
-        else
-          cp = qq * (erfcf(kappa * r) * inv_r);
-        if (veto && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
-        contrib += cp;
-      }
-      return contrib;
+      drain(q0, acc0);
+      if (two) drain(q1, acc1);
     };
 
     // The structure-factor row of pose a at k-vector k, and the reciprocal
@@ -652,8 +946,8 @@ __global__ void sweep_kernel(
       dim = 0.0f;
       for (int p = 0; p < P; ++p) {
         if (!sqf[p]) continue;
-        float ph = tpl * (kx * a[3 * p] + ky * a[3 * p + 1] + kz * a[3 * p + 2]);
-        ph -= kTwoPi * rintf(ph * kInvTwoPi);
+        float ph = tpl * (kx * a[4 * p] + ky * a[4 * p + 1] + kz * a[4 * p + 2]);
+        ph -= kTwoPi * round_near(ph * kInvTwoPi);
         float sn, cs;
         sincosf(ph, &sn, &cs);
         dre += sqp[p] * cs;
@@ -670,14 +964,8 @@ __global__ void sweep_kernel(
     // removing it; leaves the pose's structure-factor row in sdre/sdim.
     // One thread's partial sum.
     auto pose_part = [&](int excl, bool veto, float sgn) -> float {
-      float pair = 0.0f;
-      for (int j = tid; j < A_pad; j += nt) {
-        const int mj = smol[j];
-        if (mj < 0 || mj == excl || sact[j] == 0.0f) continue;
-        const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
-        const int tj = stid[j];
-        for (int p = 0; p < P; ++p) pair += pair_term(snew + 3 * p, p, xj, yj, zj, qj, tj, veto);
-      }
+      float pair = 0.0f, unused = 0.0f;
+      exch_lanes(false, excl, -1, veto, false, pair, unused);
       float part = sgn * pair;
       if (ewald)
         for (int k = tid; k < K; k += nt) {
@@ -692,22 +980,12 @@ __global__ void sweep_kernel(
 
     // Both branches of a tmmc attempt in one pass: each atom lane is loaded
     // once and feeds the insertion pose's (snew, excl_i) and the deletion
-    // pose's (sdel, excl_d) sums, each summed in pose_part's order with its
-    // arithmetic; the S(k) rows go to sdre/sdim and sdre2/sdim2.
+    // pose's (sdel, excl_d) queues, each summed in pose_part's order with
+    // its arithmetic; the S(k) rows go to sdre/sdim and sdre2/sdim2.
     auto pose_part2 = [&](int excl_i, int excl_d, bool veto_i, bool veto_d,
                           float sgn_i, float sgn_d, float& part_i, float& part_d) {
       float pair_i = 0.0f, pair_d = 0.0f;
-      for (int j = tid; j < A_pad; j += nt) {
-        const int mj = smol[j];
-        if (mj < 0 || sact[j] == 0.0f) continue;
-        const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
-        const int tj = stid[j];
-        const bool use_i = mj != excl_i, use_d = mj != excl_d;
-        for (int p = 0; p < P; ++p) {
-          if (use_i) pair_i += pair_term(snew + 3 * p, p, xj, yj, zj, qj, tj, veto_i);
-          if (use_d) pair_d += pair_term(sdel + 3 * p, p, xj, yj, zj, qj, tj, veto_d);
-        }
-      }
+      exch_lanes(true, excl_i, excl_d, veto_i, veto_d, pair_i, pair_d);
       part_i = sgn_i * pair_i;
       part_d = sgn_d * pair_d;
       if (ewald)
@@ -731,7 +1009,7 @@ __global__ void sweep_kernel(
     };
 
     // Thread 0: the trial pose of uniforms ux[1..6] (uniform position,
-    // Shoemake quaternion; identity for P = 1) into snew and sdec[0..6].
+    // Shoemake quaternion; identity for P = 1) into snew and sxd[0..6].
     auto trial_pose = [&]() {
       float q[4] = {1.0f, 0.0f, 0.0f, 0.0f};
       if (P > 1) {
@@ -745,14 +1023,15 @@ __global__ void sweep_kernel(
         q[2] = r2 * s3;
         q[3] = r2 * c3;
       }
-      for (int d = 0; d < 3; ++d) sdec[d] = ux[1 + d] * box;
-      for (int i = 0; i < 4; ++i) sdec[3 + i] = q[i];
+      for (int d = 0; d < 3; ++d) sxd[d] = ux[1 + d] * box;
+      for (int i = 0; i < 4; ++i) sxd[3 + i] = q[i];
       for (int p = 0; p < P; ++p) {
         float o[3] = {0.0f, 0.0f, 0.0f};
         if (P > 1)
           rot_apply(q[0], q[1], q[2], q[3], sbody[3 * p], sbody[3 * p + 1],
                     sbody[3 * p + 2], o);
-        for (int d = 0; d < 3; ++d) snew[3 * p + d] = sdec[d] + o[d];
+        for (int d = 0; d < 3; ++d) snew[4 * p + d] = sxd[d] + o[d];
+        snew[4 * p + 3] = scut[p];
       }
     };
 
@@ -766,7 +1045,7 @@ __global__ void sweep_kernel(
     const float e_c = kTmmc ? e_in[c] : 0.0f;
     auto block_max = [&](const unsigned long long* row) {
       unsigned long long b = 0ull;
-      for (int w = 0; w < nwarps; ++w) b = row[w] > b ? row[w] : b;
+      for (int w = 0; w < kWarps; ++w) b = row[w] > b ? row[w] : b;
       return b;
     };
     // no candidate (a full or an empty block): any slot of the block, the
@@ -823,9 +1102,10 @@ __global__ void sweep_kernel(
         if (kTmmc || !is_ins) {
           float* pd = kTmmc ? sdel : snew;
           for (int p = 0; p < P; ++p) {
-            pd[3 * p] = sx[a0_d + p];
-            pd[3 * p + 1] = sy[a0_d + p];
-            pd[3 * p + 2] = sz[a0_d + p];
+            pd[4 * p] = sx[a0_d + p];
+            pd[4 * p + 1] = sy[a0_d + p];
+            pd[4 * p + 2] = sz[a0_d + p];
+            pd[4 * p + 3] = scut[p];
           }
         }
       }
@@ -848,10 +1128,10 @@ __global__ void sweep_kernel(
       if (tid == 0) {
         float du = 0.0f, ln_acc;
         bool can;
-        for (int w = 0; w < nwarps; ++w) du += sred[w];
+        for (int w = 0; w < kWarps; ++w) du += sred[w];
         if (kTmmc) {
           float du_d = 0.0f;
-          for (int w = 0; w < nwarps; ++w) du_d += sred2[w];
+          for (int w = 0; w < kWarps; ++w) du_d += sred2[w];
           const float du_i = __fadd_rn(du, exch_const(sgn_i));
           du_d = __fadd_rn(du_d, exch_const(sgn_d));
           float la_i = __fsub_rn(lnzv - logf(n_act + 1.0f), __fmul_rn(beta, du_i));
@@ -865,7 +1145,7 @@ __global__ void sweep_kernel(
           cm[0] += (1.0f - up) - dn;
           cm[1] += up;
           cm[2] += dn;
-          const float e = e_c + st_e;
+          const float e = e_c + sstat[0];
           float* uh = uhist_out + ((size_t)c * (M + 1) + row) * 3;
           uh[0] += 1.0f;
           uh[1] += e;
@@ -885,31 +1165,31 @@ __global__ void sweep_kernel(
         }
         const float ln_u = logf(fmaxf(ux[7], 1e-30f));
         const bool ok = can && ln_u < ln_acc;
-        st_att_i += is_ins ? 1.0f : 0.0f;
+        sstat[7] += is_ins ? 1.0f : 0.0f;
         if (ok) {
-          st_e += du;
-          st_fp += (float)(slot + 1 + (is_ins ? 0 : M_total));
+          sstat[0] += du;
+          sstat[8] += (float)(slot + 1 + (is_ins ? 0 : M_total));
           const float on = is_ins ? 1.0f : 0.0f;
           sactm[slot] = on;
           for (int p = 0; p < P; ++p) sact[a0 + p] = on;
           if (is_ins) {
-            st_acc_i += 1.0f;
+            sstat[5] += 1.0f;
             for (int p = 0; p < P; ++p) {
-              sx[a0 + p] = snew[3 * p];
-              sy[a0 + p] = snew[3 * p + 1];
-              sz[a0 + p] = snew[3 * p + 2];
+              sx[a0 + p] = snew[4 * p];
+              sy[a0 + p] = snew[4 * p + 1];
+              sz[a0 + p] = snew[4 * p + 2];
             }
-            for (int d = 0; d < 3; ++d) scom[3 * slot + d] = sdec[d];
+            for (int d = 0; d < 3; ++d) scom[3 * slot + d] = sxd[d];
             if (P > 1)
-              for (int i = 0; i < 4; ++i) squat[4 * slot + i] = sdec[3 + i];
+              for (int i = 0; i < 4; ++i) squat[4 * slot + i] = sxd[3 + i];
           } else {
-            st_acc_d += 1.0f;
+            sstat[6] += 1.0f;
           }
         }
-        sdec[8] = ok ? 1.0f : 0.0f;
+        sxd[8] = ok ? 1.0f : 0.0f;
       }
       __syncthreads();
-      if (sdec[8] != 0.0f) {
+      if (sxd[8] != 0.0f) {
         n_act += sgn;
         if (ewald) {
           const float* dre = kTmmc && !is_ins ? sdre2 : sdre;
@@ -934,12 +1214,12 @@ __global__ void sweep_kernel(
       __syncthreads();
       if (tid == 0) {
         float du = 0.0f;
-        for (int w = 0; w < nwarps; ++w) du += sred[w];
+        for (int w = 0; w < kWarps; ++w) du += sred[w];
         du += si_c + wc_c * (2.0f * n_act + 1.0f);
         // a vetoed ghost carries +1e30: w = 0
         const float w = expf(-beta * du);
-        wsum += w;
-        wsum2 += w * w;
+        sstat[9] += w;
+        sstat[10] += w * w;
       }
     }
     __syncthreads();
@@ -956,10 +1236,6 @@ __global__ void sweep_kernel(
     if (kAct)
       for (int i = tid; i < M_total; i += nt)
         actm_out[(size_t)c * M_total + i] = sactm[i];
-    for (int i = tid; i < 3 * M_total; i += nt)
-      com_out[(size_t)c * 3 * M_total + i] = scom[i];
-    for (int i = tid; i < 4 * M_total; i += nt)
-      quat_out[(size_t)c * 4 * M_total + i] = squat[i];
   }
   for (int k = tid; k < K; k += nt) {
     sfac_out[((size_t)c * K + k) * 2] = ssre[k];
@@ -967,20 +1243,29 @@ __global__ void sweep_kernel(
   }
   if (tid == 0) {
     float* st = stats_out + (size_t)c * kStats;
-    st[0] = st_e;
-    st[1] = st_acc_t;
-    st[2] = st_acc_r;
-    st[3] = st_att_t;
-    st[4] = st_att_r;
-    st[5] = st_acc_i;
-    st[6] = st_acc_d;
-    st[7] = st_att_i;
-    st[8] = st_fp;
+    for (int i = 0; i < kStats; ++i) st[i] = sstat[i];
     if (kAct) {
-      wid_out[(size_t)c * 2] = wsum;
-      wid_out[(size_t)c * 2 + 1] = wsum2;
+      wid_out[(size_t)c * 2] = sstat[9];
+      wid_out[(size_t)c * 2 + 1] = sstat[10];
     }
   }
+}
+
+using SweepKernel = decltype(&sweep_kernel<false, false, false>);
+
+SweepKernel pick_kernel(int use_act, int tmmc, int global) {
+  return tmmc      ? sweep_kernel<true, true, false>
+         : use_act ? sweep_kernel<true, false, false>
+         : global  ? sweep_kernel<false, false, true>
+                   : sweep_kernel<false, false, false>;
+}
+
+// Lets the instantiation take `smem` bytes of dynamic shared memory.
+cudaError_t allow_smem(SweepKernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -991,20 +1276,38 @@ extern "C" size_t mmc_sweep_smem_bytes(int M, int P, int A_pad, int K, int T,
          sweep_smem_floats(M, P, A_pad, K, T, use_act, tmmc, global);
 }
 
+// Blocks of this shape one SM holds at once (the CUDA occupancy
+// calculator: shared memory and registers); a negative CUDA error code on
+// failure.
+extern "C" int mmc_sweep_blocks_per_sm(int M, int P, int A_pad, int K, int T,
+                                       int use_act, int tmmc, int global) {
+  const size_t smem =
+      mmc_sweep_smem_bytes(M, P, A_pad, K, T, use_act, tmmc, global);
+  if (smem > (size_t)kMaxSmemBytes) return 0;
+  const SweepKernel kernel = pick_kernel(use_act, tmmc, global);
+  cudaError_t e = allow_smem(kernel, smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                      smem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
 extern "C" const char* mmc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches one sweep of one species block (grid = C chains) on `stream`;
-// returns the CUDA error code of the launch (0 on success).  com/quat/u/actm
-// hold all M_total molecules' rows.  All pointers are device pointers to
-// contiguous f32 (int32 for the flag and row tables) tensors; act, actm,
-// act_out, actm_out and wid_out are read and written only with use_act, ux,
-// z, si and wc only with n_exch + n_widom > 0 (which needs use_act), eta
-// (M + 1), e_in (C), cmat_out and uhist_out (C, M + 1, 3) only with tmmc
-// (which needs n_exch > 0).  global selects the global-memory layout (fixed
-// N only); with W > 0 (which needs it) wst (M_total,) and segs (n_seg, 2)
-// int32 give the slab windows and segments.
+// Launches one sweep of one species block (grid = C chains of 256
+// threads) on `stream`; returns the CUDA error code of the launch (0 on
+// success).  com/quat/u/actm hold all M_total molecules' rows.  All
+// pointers are device pointers to contiguous f32 (int32 for the flag and
+// row tables) tensors; act, actm, act_out, actm_out and wid_out are read
+// and written only with use_act, ux, z, si and wc only with n_exch +
+// n_widom > 0 (which needs use_act), eta (M + 1), e_in (C), cmat_out and
+// uhist_out (C, M + 1, 3) only with tmmc (which needs n_exch > 0).  global
+// selects the global-memory layout (fixed N only); with W > 0 (which needs
+// it) wst (M_total,) and segs (n_seg, 2) int32 give the slab windows and
+// segments.
 extern "C" int mmc_sweep_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* box, const void* temp, const void* drmax, const void* dphi,
@@ -1024,24 +1327,19 @@ extern "C" int mmc_sweep_launch(
     float d2_overlap, float p_translate, float factor, void* stream) {
   const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T, use_act,
                                            tmmc, global);
-  if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > 1024 ||
-      threads % 32 != 0 || C < 1 || M < 1 || m_start < 0 || a_start < 0 ||
+  if (smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 || M < 1 ||
+      P < 1 || P > 16 || A_pad > kMaxColumns || (!global && A_pad % 4) ||
+      m_start < 0 || a_start < 0 ||
       m_start + M > M_total || a_start + M * P > A_pad || n_exch < 0 ||
       n_widom < 0 || ((n_exch > 0 || n_widom > 0) && !use_act) ||
       (tmmc && n_exch < 1) || (global && use_act) || W < 0 ||
       (W > 0 && (!global || !wst || (n_seg > 0 && !segs) || n_seg < 0 ||
                  W > A_blk || a0_w < 0 || a0_w + A_blk + W > A_pad)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tmmc ? sweep_kernel<true, true, false>
-                : use_act ? sweep_kernel<true, false, false>
-                : global ? sweep_kernel<false, false, true>
-                         : sweep_kernel<false, false, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const SweepKernel kernel = pick_kernel(use_act, tmmc, global);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coords), static_cast<const float*>(com),
       static_cast<const float*>(quat), static_cast<const float*>(sfac),
       static_cast<const float*>(box), static_cast<const float*>(temp),

@@ -35,11 +35,12 @@ the other blocks as column segments and one W-wide window of the sorted
 block at tables.wst[m], and an accepted head molecule also updates its
 ghost twin (see csrc/sweep_kernel.cu).
 
-The kernel keeps a chain's state in one thread block's shared memory
-when it fits (layout "shared"); otherwise, and always with slabs, the
-atom planes and COM/quaternion rows stay in global memory (layout
-"global", fixed N only).  `sweep` picks the layout before the launch;
-layout="global" forces it.
+The kernel keeps a chain's atom planes in one thread block's shared
+memory when they fit (layout "shared"); otherwise, and always with
+slabs, they stay in global memory (layout "global", fixed N only).  The
+COM and quaternion rows and the per-atom charge and type rows stay in
+global memory in both layouts.  `sweep` picks the layout before the
+launch; layout="global" forces it.
 
 Random numbers come from outside: u (C, M_total, 10) uniforms in [0, 1),
 one row per molecule of the whole system, whose columns are [selector, dx, dy, dz, accept, e1, e2, e3, e4, angle] (the
@@ -142,22 +143,46 @@ class SweepTables:
 LAYOUTS = ("shared", "global")
 
 
+QUEUE_WORDS = 2 * (THREADS // 32) * 128  # the warp queues: 128 entries
+NEAR_WORDS = (THREADS // 32) * 64        # the warps' near rings: 64 keys
+
+
 def smem_bytes(M, P, A_pad, K, T, use_act=False, tmmc=False,
                layout="shared"):
-    """Dynamic shared memory of one block, M the COM/quaternion rows held
-    (all molecules of the system); must match sweep_smem_floats in
-    csrc/sweep_kernel.cu: 6 atom rows, 7 COM/quaternion rows, 8 k-vector
-    rows, 4 (P, T) LJ tables, 12 P-wide site rows (body 3, charge, two
-    flags, old and new positions 3 each), 144 words of reduction and
-    decision scratch, with use_act the two activity planes, and with tmmc
-    a second slot-pick row (64 words), the deletion pose (3 P), its S(k)
-    row (2 K) and its warp partials (32).  The global layout holds no
-    atom and no COM/quaternion rows."""
-    if layout == "global":
-        return 4 * (8 * K + 4 * P * T + 12 * P + 144)
-    return 4 * (6 * A_pad + 7 * M + 8 * K + 4 * P * T + 12 * P + 144
-                + (A_pad + M if use_act else 0)
-                + (2 * K + 3 * P + 96 if tmmc else 0))
+    """Dynamic shared memory of one block, M the molecules of the system;
+    must match sweep_smem_floats in csrc/sweep_kernel.cu.  Every layout:
+    the slot-pick row (64 words), the warp queues of live pair terms
+    (QUEUE_WORDS) and of (atom, pose) pairs within reach (NEAR_WORDS), 8
+    k-vector rows, 4 (P, T) LJ tables, 23 P-wide site rows (two proposal
+    buffers of an old and a new pose, each site a 16-byte row of x, y, z
+    and its live cutoff^2: 16; the body 3, charge, two flags and the live
+    cutoff^2) and 96 words of scratch (two proposals' scalars, exchange
+    uniforms, warp partials, the chain's statistics).  The shared layout
+    adds 4 atom rows (x, y, z, molecule), use_act the two activity planes
+    (A_pad + M), tmmc a second slot-pick row (64), a second set of warp
+    queues, the deletion pose (4 P), its S(k) row (2 K) and its warp
+    partials (32).  The COM and quaternion rows and the per-atom charge
+    and type rows stay in global memory in both layouts."""
+    n = 64 + QUEUE_WORDS + NEAR_WORDS + 8 * K + 4 * P * T + 23 * P + 96
+    if layout != "global":
+        n += 4 * A_pad
+    if use_act:
+        n += A_pad + M
+    if tmmc:
+        n += 64 + QUEUE_WORDS + 4 * P + 2 * K + 32
+    return 4 * n
+
+
+def blocks_per_sm(M, P, A_pad, K, T, use_act=False, tmmc=False,
+                  layout="shared"):
+    """Blocks of this shape one SM holds at once, by the CUDA occupancy
+    calculator (shared memory and the instantiation's registers); needs
+    the card."""
+    n = _library().mmc_sweep_blocks_per_sm(
+        M, P, A_pad, K, T, int(use_act), int(tmmc), int(layout == "global"))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def choose_layout(M, P, A_pad, K, T, use_act=False, tmmc=False,
@@ -364,6 +389,8 @@ def _library():
     lib.mmc_sweep_launch.restype = ci
     lib.mmc_sweep_smem_bytes.argtypes = [ci] * 8
     lib.mmc_sweep_smem_bytes.restype = ctypes.c_size_t
+    lib.mmc_sweep_blocks_per_sm.argtypes = [ci] * 8
+    lib.mmc_sweep_blocks_per_sm.restype = ci
     lib.mmc_cuda_error_string.argtypes = [ci]
     lib.mmc_cuda_error_string.restype = ctypes.c_char_p
     return lib

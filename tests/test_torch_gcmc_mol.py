@@ -739,30 +739,38 @@ def test_philox_scores_are_the_first_word_of_slot_attempt_seed_chain():
 
 def test_smem_bytes_counts_every_region_of_the_layout():
     """The kernel's shared-memory regions, added up (an earlier count
-    left out one of the twelve P-wide site rows)."""
+    left out one of the P-wide site rows).  The COM and quaternion rows
+    and the per-atom charge and type rows live in global memory, so no
+    region grows with the molecule count but the activity planes."""
     M, P, A, K, T = 750, 3, 2304, 337, 2
+    # 8 warps x 128 live pair terms (key + d^2) and 64 near (atom, pose)
+    queues = 2 * 8 * 128 + 8 * 64
     regions = (64                       # slot-pick reduction, 32 x 8 B
-               + 6 * A                  # x, y, z, q, type, molecule
-               + 3 * M + 4 * M          # COM, quaternion
+               + queues                 # live pair terms, near pairs
+               + 4 * A                  # x, y, z, molecule
                + 8 * K                  # S re/im, cfac, dS re/im, kx, ky, kz
                + 4 * P * T              # eps, sig2, lam1, lam2
-               + 3 * P + P + P + P      # body, charge, LJ flag, charge flag
-               + 3 * P + 3 * P          # old and new positions
-               + 32 + 32 + 16)          # uniforms, warp partials, decision
+               + 3 * P + P + P + P + P  # body, charge, LJ/charge flag, cut
+               + 2 * (4 * P + 4 * P)    # two proposals: old, new site rows
+               + 2 * 16 + 16 + 32       # proposals, uniforms, partials
+               + 16)                    # the chain's statistics
     assert sweep_op.smem_bytes(M, P, A, K, T) == 4 * regions
     assert sweep_op.smem_bytes(M, P, A, K, T, True) == 4 * (regions + A + M)
-    assert 2 * sweep_op.smem_bytes(M, P, A, K, T) <= sweep_op.MAX_SMEM_BYTES
-    # capacity-512 SPC/E muVT with its activity planes
-    assert sweep_op.smem_bytes(512, 3, 1536, 337, 2, True) < 80 * 1024
-    # the global layout keeps the atom, COM and quaternion rows in global
-    # memory: whatever the atom and molecule counts, the rest remains
-    glob = regions - 6 * A - 7 * M
+    assert sweep_op.smem_bytes(10, P, A, K, T) == 4 * regions
+    # three flagship blocks per SM: 228 KB, 1 KB of it reserved per block
+    assert 3 * (sweep_op.smem_bytes(M, P, A, K, T) + 1024) <= 228 * 1024
+    # capacity-512 SPC/E muVT with its activity planes: three too
+    muvt = sweep_op.smem_bytes(512, 3, 1536, 337, 2, True)
+    assert 3 * (muvt + 1024) <= 228 * 1024
+    # the global layout keeps the atom rows in global memory too: whatever
+    # the atom and molecule counts, the rest remains
+    glob = regions - 4 * A
     for shape in ((M, P, A, K, T), (6859, 3, 33408, K, T)):
         assert sweep_op.smem_bytes(*shape, layout="global") == 4 * glob
     # the 6859-water cell: K = 2874, two blocks per SM
     big = sweep_op.smem_bytes(6859, 3, 33408, 2874, 2, layout="global")
-    assert big == 4 * (8 * 2874 + 4 * 3 * 2 + 12 * 3 + 144)
-    assert 2 * big <= 228 * 1024
+    assert big == 4 * (64 + queues + 8 * 2874 + 4 * 3 * 2 + 23 * 3 + 96)
+    assert 2 * (big + 1024) <= 228 * 1024
 
 
 def test_bridge_roundtrips_the_muvt_state():

@@ -206,9 +206,28 @@ def test_sweep_wrapper_rejects_bad_inputs(bad):
 
 def test_smem_layout_fits_the_flagship():
     """750 SPC/E waters with the reference's Ewald table keep one chain's
-    state in a block's shared memory with room for two blocks per SM."""
+    atom planes in a block's shared memory with room for three blocks per
+    SM (228 KB, 1 KB of it reserved per block)."""
     system = water_t.spce_system(750)
     kv, _ = make_kvectors(5, 27)
     nbytes = sweep_op.smem_bytes(750, 3, system.n_atoms_padded, len(kv), 2)
     assert system.n_atoms_padded == 2304 and len(kv) == 337
-    assert 2 * nbytes <= sweep_op.MAX_SMEM_BYTES
+    assert 3 * (nbytes + 1024) <= 228 * 1024
+    assert sweep_op.choose_layout(750, 3, 2304, 337, 2) == "shared"
+
+
+def test_choose_layout_takes_shared_for_activity_states_that_now_fit():
+    """Capacity-2048 SPC/E with its activity planes: 150 KB without the
+    COM and quaternion rows and the per-atom charge and type rows (which
+    stay in global memory), so the shared layout takes it; with those
+    7 M + 2 A_pad words it would not fit.  Twice that capacity fits
+    neither layout (the global one runs fixed N only)."""
+    shape = (2048, 3, 6144, 337, 2)
+    nbytes = sweep_op.smem_bytes(*shape, use_act=True)
+    assert nbytes <= sweep_op.MAX_SMEM_BYTES
+    assert nbytes + 4 * (7 * 2048 + 2 * 6144) > sweep_op.MAX_SMEM_BYTES
+    assert sweep_op.choose_layout(*shape, use_act=True) == "shared"
+    assert sweep_op.choose_layout(*shape, use_act=True, tmmc=True) \
+        == "shared"
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep_op.choose_layout(4096, 3, 12288, 337, 2, use_act=True)

@@ -361,18 +361,22 @@ def test_multi_block_tmmc_is_refused():
 
 
 def test_smem_bytes_counts_the_tmmc_regions():
-    """The tmmc instantiation adds a second 32 x 8 B slot-pick row, the
-    deletion pose (3 P), its S(k) row (2 K) and its warp partials (32)."""
+    """The tmmc instantiation adds a second 32 x 8 B slot-pick row, a
+    second set of warp queues (the deletion branch's live pair terms),
+    the deletion pose (4 P), its S(k) row (2 K) and its warp partials
+    (32)."""
     M, P, A, K, T = 512, 3, 1536, 337, 2
+    queues = 2 * 8 * 128
     base = sweep_op.smem_bytes(M, P, A, K, T, True)
-    assert sweep_op.smem_bytes(M, P, A, K, T, True, True) == \
-        base + 4 * (64 + 3 * P + 2 * K + 32)
-    # capacity-512 SPC/E TMMC: three blocks would fit an SM's 227 KB
-    assert 3 * sweep_op.smem_bytes(M, P, A, K, T, True, True) \
-        <= sweep_op.MAX_SMEM_BYTES
+    tmmc = sweep_op.smem_bytes(M, P, A, K, T, True, True)
+    assert tmmc == base + 4 * (64 + queues + 4 * P + 2 * K + 32)
+    # capacity-512 SPC/E TMMC: three blocks fit an SM's 228 KB (1 KB of
+    # it reserved per block)
+    assert 3 * (tmmc + 1024) <= 228 * 1024
     # the monatomic capacity-192 LJ (A_pad 256, a dummy S(k) row)
     assert sweep_op.smem_bytes(192, 1, 256, 1, 1, True, True) == \
-        4 * (6 * 256 + 7 * 192 + 8 + 4 + 12 + 144 + 256 + 192 + 2 + 3 + 96)
+        4 * (64 + queues + 8 * 64 + 4 * 256 + 8 + 4 + 23 + 96 + 256 + 192
+             + 64 + queues + 4 + 2 + 32)
 
 
 def test_bridge_roundtrips_the_estimator_state():
