@@ -7,7 +7,8 @@ Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu,
          csrc/gibbs_kernel.cu and csrc/flip_kernel.cu with nvcc for sm_90a,
          all at once (cached by a hash of each source under
          metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
-         of each instantiation (a sweep-kernel spill fails the run); the
+         of each instantiation (a spill of the sweep, Gibbs or flip
+         kernel fails the run); the
          sweep kernel's blocks per SM at the main paths' shapes.
 Phase 2  each kernel against its plain PyTorch version on the card, on the
          same inputs.  The sweep kernel, one sweep on shared uniforms:
@@ -160,8 +161,8 @@ the atoms and four warps scan nothing).
 Phase 2 also holds the flip kernel against flip_plain (`phase2_flip`, 64
 chains, 24 flips, shared uniforms and Philox scores, chain 0 with no
 molecule and chain 1 with both blocks full): identical SPC/E blocks 32 +
-32 under Ewald, Wolf and reference Wolf, and the ragged one-site LJ +
-bent-triatomic blocks with unequal eps and the LJ tail; at most 2 of 64
+32 under Ewald, Wolf, reference Wolf and bare Coulomb, and the ragged
+one-site LJ + bent-triatomic blocks with unequal eps and the LJ tail; at most 2 of 64
 chains may differ, energies within 1e-5 of the flips' term magnitudes,
 S(k) within 1e-5 of its norm, N conserved, chains 0 and 1 unchanged.
 
@@ -169,10 +170,19 @@ Phase 2 also holds the Gibbs kernel against sweep_gibbs_plain
 (`phase2_gibbs`, 64 chains, unequal boxes, shared uniforms and Philox
 scores, one chain with an empty source box and one with a full
 destination box): SPC/E cap 32 with Ewald and with Wolf, the
-linear-shift triatomic cap 16 without charges, LJ cap 64, and a two-block
-CO2/N2 case (24 + 8) through m_start / a_start; at most 2 of 64 chains
+linear-shift triatomic cap 16 without charges, LJ cap 64, a two-block
+CO2/N2 case (24 + 8) through m_start / a_start, and SPC/E cap 32 with the
+linear LJ shift under Ewald and Wolf and with bare Coulomb with and
+without it (every instantiation of the kernel runs); at most 2 of 64 chains
 may differ, energies within 1e-5 of the cycle's term magnitudes, S(k)
 within 1e-5 of its norm, N conserved on every chain.
+
+Phase 2 also holds both kernels against their twins on stress cases
+(`phase2_gibbs_stress`, `phase2_flip_stress`, 64 chains each, the gates
+above; the states are drawn on the CPU and moved to the card, so the CPU
+tests check the same ones): every site pair inside the cutoff, none inside
+it, split LJ and Coulomb cutoffs, a Gibbs box whose reach ring holds every
+atom, one active slot in a Gibbs box and in a flip species block.
 
 Phase 2 also holds the global layout (`phase2_global`): on SPC/E-64,
 LJ-256 and the two-block CO2/N2 case the global-layout launch against the
@@ -243,10 +253,13 @@ PEAK_F32_OPS_PER_S = 67e12
 # the Coulomb term (r, kappa r, erfc as ~12, / r, q q, accumulate) for
 # pairs inside the cutoff only
 OPS_GEOMETRY, OPS_LJ, OPS_COULOMB = 20, 8, 17
-# per k-vector and moved site: phase (6), range reduction (3), sincos
-# (~8), the two accumulations; per k-vector and move: the energy cross
-# term (8)
-OPS_K_SITE, OPS_K_MOVE = 20, 8
+# k-space by per-site eik tables (the Gibbs and flip kernels' algorithm;
+# structure_factor's eikx/eiky/eikz): per charged site of a pose three rows
+# e^{i 2 pi n x / L}, |n| <= nk, each one sincos (the phase and its
+# reduction 5, sincospif ~8) and nk complex products (4 each); per
+# k-vector and charged site two complex products and the accumulation (8);
+# per k-vector and move the energy cross term (8)
+OPS_SINCOS, OPS_CMUL, OPS_K_SITE, OPS_K_MOVE = 13, 4, 8, 8
 # per candidate slot of a deletion pick: 10 Philox rounds of two 32 x 32
 # products (high and low words), three xors and two key additions
 OPS_PHILOX = 90
@@ -255,6 +268,7 @@ DEPOSIT_TOL = 1e-4         # cmat, of the row's deposit count (+ its
 #   energy scale's ENERGY_REL_TOL: the f32 error of a deposit exp(ln_acc)
 #   is beta pa x the error of du, which the terms' magnitudes set)
 
+STRESS_CHAINS = 64         # chains of each phase 2 stress case
 SRC = "metropolismontecarlo_tpu_torch/csrc"
 PALLAS = "metropolismontecarlo_tpu/ops/pallas"
 
@@ -295,9 +309,14 @@ def phase1():
     labels = {"ILb0ELb0ELb0E": "<false, false, false> fixed N",
               "ILb1ELb0ELb0E": "<true, false, false> activity",
               "ILb1ELb1ELb0E": "<true, true, false> tmmc",
-              "ILb0ELb0ELb1E": "<false, false, true> global layout",
-              "12gibbs_kernel": "two-box Gibbs",
-              "11flip_kernel": "semigrand flips"}
+              "ILb0ELb0ELb1E": "<false, false, true> global layout"}
+    # the Gibbs kernel's <Coulomb form, linear LJ shift> and the flip
+    # kernel's <Coulomb form> instantiations
+    for q, form in enumerate(("none", "erfc", "wolf", "bare")):
+        labels[f"12gibbs_kernelILi{q}ELb0E"] = f"two-box Gibbs <{form}>"
+        labels[f"12gibbs_kernelILi{q}ELb1E"] = \
+            f"two-box Gibbs <{form}, linear LJ>"
+        labels[f"11flip_kernelILi{q}E"] = f"semigrand flips <{form}>"
     spills = []
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s")
@@ -308,7 +327,7 @@ def phase1():
                              line.split("'")[1] if "'" in line else "")
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"phase1 ptxas {name} {entry}: {line.strip()}")
-            if name == "sweep_kernel" and "spill" in line \
+            if name != "delta_energy" and "spill" in line \
                     and not ("0 bytes spill stores" in line
                              and "0 bytes spill loads" in line):
                 spills.append(f"{entry}: {line.strip()}")
@@ -338,7 +357,8 @@ def phase1():
             raise AssertionError(f"{tag}: csrc/sweep_kernel.cu counts "
                                  f"{kernel_bytes} B, smem_bytes {nbytes} B")
     if spills:
-        raise AssertionError(f"the sweep kernel spills: {spills}")
+        raise AssertionError(f"a sweep, Gibbs or flip kernel instantiation "
+                             f"spills: {spills}")
 
 
 def _sweep_args(state, u):
@@ -1177,7 +1197,9 @@ def sweep_bound(system, tables, state, frac, near, n_active=None,
                 n_sq=None, lanes=None, A_plane=None):
     """The least time (ms) one sweep could take on this card, and what
     sets it: each input and output moved once against the operations the
-    pair and k-space sums need (see OPS_*): per atom lane and pose one
+    pair and k-space sums need (see OPS_*; a pose's S(k) row by k_pose_ops,
+    from per-site eik tables, which this kernel does not build: it takes
+    a sincos per k-vector and site): per atom lane and pose one
     distance to the pose's centre, the site distances for the share
     near[b] of block b's lanes within the pose's reach (_reach_fraction
     of the moved molecules, which stands for the exchange and ghost poses
@@ -1217,8 +1239,8 @@ def sweep_bound(system, tables, state, frac, near, n_active=None,
         if lanes is not None:
             per_pose = lanes[b] * OPS_GEOMETRY + (A - t.P) * sites
         ewald = t.coulomb == "ewald"
-        k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
-        k_move = K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+        k_pose = k_pose_ops(K, t.nk, qf) + K * OPS_K_MOVE if ewald else 0
+        k_move = 2 * k_pose_ops(K, t.nk, qf) + K * OPS_K_MOVE if ewald else 0
         if n_active is None:
             ops += C * t.M * (2 * per_pose + k_move)
         else:
@@ -1249,6 +1271,13 @@ def delta_bound(args, P, frac, near):
         2 * OPS_GEOMETRY + near * rows * OPS_GEOMETRY
         + frac * (has_lj * OPS_LJ + has_q * OPS_COULOMB))
     return _bound(nbytes, ops)
+
+
+def k_pose_ops(K, nk, sites):
+    """The operations of one pose's S(k) row over K k-vectors from its
+    charged sites' eik tables (OPS_SINCOS, OPS_CMUL, OPS_K_SITE): per site
+    three table rows, then per k-vector and site two complex products."""
+    return sites * (3 * (OPS_SINCOS + nk * OPS_CMUL) + K * OPS_K_SITE)
 
 
 def _bound(nbytes, ops):
@@ -2458,10 +2487,13 @@ def compare_gibbs(tag, args, us, tables, act, actm, n_exchs, uxs, consts,
     return max(pos, e_rel, s_rel), k
 
 
-def _gibbs_case(dev, system, params, boxes, chains, seed, n_exch):
+def _gibbs_case(dev, system, params, boxes, chains, seed, n_exch,
+                one_in_box0=False):
     """Phase 2 inputs of one Gibbs case: random N per chain and box, chain
     0 with box 1 empty and chain 1 with box 0 full, each of their attempts
-    directed box 1 -> 0 (an empty source, a full destination)."""
+    directed box 1 -> 0 (an empty source, a full destination).  With
+    one_in_box0 (one species block), every chain's box 0 holds one active
+    slot and box 1 at least one."""
     from metropolismontecarlo_tpu_torch.mc.moves import (
         draw_exchange_uniforms,
         draw_uniforms,
@@ -2477,9 +2509,13 @@ def _gibbs_case(dev, system, params, boxes, chains, seed, n_exch):
     rng = np.random.default_rng(seed)
     n_act = np.stack([rng.integers(0, cap + 1, (chains, 2))
                       for cap in caps], axis=2)                   # (C, 2, S)
-    n_act[0, 1] = 0
-    n_act[0, 0] = caps
-    n_act[1, 0] = caps
+    if one_in_box0:
+        n_act[:, 0] = 1
+        n_act[:, 1] = np.maximum(n_act[:, 1], 1)
+    else:
+        n_act[0, 1] = 0
+        n_act[0, 0] = caps
+        n_act[1, 0] = caps
     n_act = torch.tensor(n_act)
     coords, com, quat, sfac, box2, act, actm = gibbs_planes(
         system, boxes, n_act, gen, dev, kv)
@@ -2490,7 +2526,8 @@ def _gibbs_case(dev, system, params, boxes, chains, seed, n_exch):
     uxs = []
     for _ in tables:
         ux = draw_exchange_uniforms(chains, n_exch, gen, dev)
-        ux[:2, :, 0] = 0.9
+        if not one_in_box0:
+            ux[:2, :, 0] = 0.9
         uxs.append(ux)
     consts = gibbs_consts(system, params, kv, kw, box2)
     return args, us, tables, act, actm, [n_exch] * len(tables), uxs, consts
@@ -2501,7 +2538,10 @@ def phase2_gibbs(dev, chains=64):
     Philox scores, unequal boxes, 64 chains (one with an empty source box,
     one with a full destination box): SPC/E cap 32 with Ewald and with
     Wolf, the linear-shift triatomic cap 16 without charges, LJ cap 64,
-    and a two-block CO2/N2 case through m_start / a_start."""
+    a two-block CO2/N2 case through m_start / a_start, and SPC/E cap 32
+    with the linear LJ shift under Ewald and Wolf and with bare Coulomb
+    with and without it: every <Coulomb form, linear LJ> instantiation
+    of the kernel runs."""
     from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
     from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
     from metropolismontecarlo_tpu_torch.models.polyatomic import (
@@ -2536,6 +2576,16 @@ def phase2_gibbs(dev, chains=64):
          RunParams(**dict(water, temperature=300.0, r_cut=7.0, kappa_L=kl2,
                           nk=nk2, ksq_max=ksq2, dr_max=0.5)), (18.0, 24.0),
          10),
+        ("spce-32 ewald linear", spce_system(32),
+         RunParams(**dict(water, lj_shift="linear")), (10.5, 14.0), 24),
+        ("spce-32 wolf linear", spce_system(32),
+         RunParams(**dict(water, coulomb="wolf", kappa_L=2.0,
+                          lj_shift="linear")), (10.5, 14.0), 24),
+        ("spce-32 bare", spce_system(32),
+         RunParams(**dict(water, coulomb="bare")), (10.5, 14.0), 24),
+        ("spce-32 bare linear", spce_system(32),
+         RunParams(**dict(water, coulomb="bare", lj_shift="linear")),
+         (10.5, 14.0), 24),
     )
     err = 0.0
     for i, (tag, system, params, boxes, n_exch) in enumerate(cases):
@@ -2545,6 +2595,95 @@ def phase2_gibbs(dev, chains=64):
                              max_differing=GIBBS_MAX_DIFFERING)
         err = max(err, e)
     print(f"phase 2 Gibbs cases: {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def gibbs_stress_cases():
+    """Phase 2's stress cases for the Gibbs kernel's queues, reach ring and
+    move skips, SPC/E cap 32 per box: (tag, system, params, boxes, n_exch,
+    one_in_box0).  Every site pair inside the cutoff in both boxes (r_cut
+    above L sqrt(3) / 2 of the larger box: every queue fills on every
+    chunk); dilute boxes with no pair inside it; split LJ and Coulomb
+    cutoffs; a box 0 whose every atom lies within every pose's reach (r_cut
+    + the pose's radius above its L sqrt(3) / 2, r_cut below it: the near
+    ring holds every lane, not every pair is live); box 0 with one active
+    slot of 32 (31 null moves skipped, its one molecule transferred out)."""
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
+
+    kl, nk, ksq = tune_parameters(14.0, 5.0, 1e-3)
+    water = dict(temperature=500.0, r_cut=5.0, cutoff_mode="site",
+                 coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
+                 p_translate=0.5, dr_max=0.3, dphi_max=0.4, use_lrc=False,
+                 strict_min_image=False)
+    kl16, nk16, ksq16 = tune_parameters(16.0, 8.0, 1e-3)
+    box_w = 28.24 * (32 / 750) ** (1 / 3)      # the flagship's density
+    return [
+        ("all pairs in cutoff spce32 wolf", spce_system(32),
+         RunParams(**dict(water, coulomb="wolf", kappa_L=2.0,
+                          r_cut=11.0 * 3 ** 0.5 / 2 + 0.1)), (10.0, 11.0),
+         24, False),
+        ("dilute spce32 ewald", spce_system(32),
+         RunParams(**dict(water, r_cut=6.0)), (40.0, 44.0), 24, False),
+        ("split cutoff spce32 ewald", spce_system(32),
+         RunParams(**dict(water, r_cut=4.5, qq_r_cut=6.0)), (10.5, 14.0),
+         24, False),
+        ("reach holds every atom spce32 ewald", spce_system(32),
+         RunParams(**dict(water, r_cut=8.0, kappa_L=kl16, nk=nk16,
+                          ksq_max=ksq16)), (box_w, 16.0), 24, False),
+        ("one active slot spce32 ewald", spce_system(32), RunParams(**water),
+         (10.5, 14.0), 24, True),
+    ]
+
+
+def _to_device(x, dev):
+    """x with every tensor in it (in lists, tuples and the kernels' table
+    dataclasses) moved to dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, dev) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _to_device(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def gibbs_stress_inputs(dev, i, chains=STRESS_CHAINS):
+    """Gibbs stress case i (gibbs_stress_cases) and its inputs (as
+    _gibbs_case's) at seed 3150 + i, drawn on the CPU and moved to dev: a
+    run on the CPU builds the states that the card compares."""
+    import warnings
+
+    case = gibbs_stress_cases()[i]
+    _, system, params, boxes, n_exch, one = case
+    with warnings.catch_warnings():
+        # the all-pairs case samples the truncated nearest image
+        warnings.simplefilter("ignore")
+        inputs = _gibbs_case("cpu", system, params, boxes, chains, 3150 + i,
+                             n_exch, one_in_box0=one)
+    return case, _to_device(inputs, dev)
+
+
+def phase2_gibbs_stress(dev):
+    """gibbs_stress_cases against sweep_gibbs_plain at the phase 2 Gibbs
+    gates.  Returns the largest error of the matched chains."""
+    t0 = time.perf_counter()
+    err = 0.0
+    for i in range(len(gibbs_stress_cases())):
+        (tag, system, params, *_), inputs = gibbs_stress_inputs(dev, i)
+        args, actm = inputs[0], inputs[4]
+        frac = _gibbs_cutoff_fraction(system, args[0], actm > 0.5, args[4],
+                                      max(params.r_cut, params.qq_cut))
+        print(f"phase 2g {tag}: {frac[0]:.4f} / {frac[1]:.4f} of active "
+              f"pairs within {max(params.r_cut, params.qq_cut):.3f} A, "
+              f"N box 0 {float(inputs[4][:, 0].sum(1).mean()):.2f}")
+        e, _ = compare_gibbs(f"2g {tag}", *inputs, seed=150 + i,
+                             max_differing=GIBBS_MAX_DIFFERING)
+        err = max(err, e)
+    print(f"phase 2 Gibbs stress cases: {time.perf_counter() - t0:.1f} s")
     return err
 
 
@@ -2595,9 +2734,10 @@ def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, near, n_exch):
     chain state in and out once, the uniforms and constants read once,
     against the operations the pair and k-space sums need (OPS_*): each
     active slot of box b moves once, its old and new poses summed against
-    the other active atoms of box b and every k-vector; each transfer sums
-    one pose against each box (the source without the candidate) with
-    two S(k) rows, and scores the source's active slots with Philox.
+    the other active atoms of box b and every k-vector (k_pose_ops: from
+    the charged sites' eik tables); each transfer sums one pose against
+    each box (the source without the candidate) with two S(k) rows, and
+    scores the source's active slots with Philox.
     Per atom lane and pose one centre distance, the site distances for the
     share near[b] within reach (_reach_fraction) and the terms for the
     share frac[b] inside the cutoff.  n_box (C, 2) this run's active
@@ -2615,12 +2755,13 @@ def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, near, n_exch):
         c_pair = OPS_GEOMETRY + near[b] * t.P * OPS_GEOMETRY + frac[b] * (
             lj * OPS_LJ + qf * OPS_COULOMB)
         pairs = float((n[:, b] * (n[:, b] - 1.0)).sum()) * t.P * c_pair
-        k_move = K * (2 * t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+        k_move = 2 * k_pose_ops(K, t.nk, qf) + K * OPS_K_MOVE if ewald \
+            else 0
         ops += 2 * pairs + float(n[:, b].sum()) * k_move
     f_mix, n_mix = 0.5 * (frac[0] + frac[1]), 0.5 * (near[0] + near[1])
     c_pair = OPS_GEOMETRY + n_mix * t.P * OPS_GEOMETRY + f_mix * (
         lj * OPS_LJ + qf * OPS_COULOMB)
-    k_pose = K * (t.P * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+    k_pose = k_pose_ops(K, t.nk, qf) + K * OPS_K_MOVE if ewald else 0
     n_tot = float(n.sum(1).mean())
     ops += C * n_exch * ((n_tot - 1.0) * t.P * c_pair + 2 * k_pose
                          + 0.5 * n_tot * OPS_PHILOX)
@@ -2707,6 +2848,14 @@ def phase13(dev, chains=1024, blocks=(2, 2), melt=2, chunk=128,
     # one cycle on the main path's arguments: timed, and held to the twin
     kv, kw = make_kvectors(params.nk, params.ksq_max)
     (t,) = sweep_tables(system, params, kv, kw, dev)
+    A_off, K = st.coords.shape[-1], st.sfac.shape[2]
+    regs, local, per_sm = op.occupancy(t, cap, A_off, K)
+    print(f"phase13 gibbs_kernel registers: {regs} per thread")
+    print(f"phase13 gibbs_kernel local memory (stack frame and spills): "
+          f"{local} B per thread")
+    print(f"phase13 gibbs_kernel blocks per SM: {per_sm} "
+          f"({op.gibbs_smem_bytes(cap, t.P, A_off, K, t.eps.shape[1], t.nk)}"
+          f" B of shared memory per block)")
     C = chains if twin_chains is None else twin_chains
     act, actm = activity_planes(system, st.active[:C].reshape(2 * C, cap))
     ones = torch.ones((C,), device=dev)
@@ -2999,7 +3148,8 @@ def phase2_flip(dev, chains=64, n_flip=24):
     """The flip kernel against flip_plain on shared uniforms and Philox
     scores, 64 chains (chain 0 with no molecule, chain 1 with both blocks
     full, so no attempt of it has a free target): identical SPC/E blocks
-    32 + 32 under Ewald, Wolf and reference Wolf; the ragged one-site LJ +
+    32 + 32 under Ewald, Wolf, reference Wolf and bare Coulomb (every
+    <Coulomb form> instantiation of the kernel); the ragged one-site LJ +
     bent-triatomic blocks with unequal eps and the LJ tail."""
     from metropolismontecarlo_tpu_torch.mc.moves import draw_exchange_uniforms
     from metropolismontecarlo_tpu_torch.models.polyatomic import (
@@ -3020,6 +3170,8 @@ def phase2_flip(dev, chains=64, n_flip=24):
                                                   eps_b=0.6),
          _semigrand_water(temperature=2.0, r_cut=2.5, coulomb="none",
                           use_lrc=True), 9.0, 1.5),
+        ("spce 32+32 bare", water, _semigrand_water(coulomb="bare"), 20.0,
+         2.0),
     )
     err = 0.0
     for i, (tag, system, params, box, xi) in enumerate(cases):
@@ -3046,12 +3198,79 @@ def phase2_flip(dev, chains=64, n_flip=24):
     return err
 
 
+def flip_stress_cases():
+    """Phase 2's stress cases for the flip kernel's queues and picks,
+    identical SPC/E blocks 32 + 32: (tag, system, params, box, xi,
+    one_in_a).  Every site pair inside the cutoff (r_cut above L sqrt(3) /
+    2); a dilute box with no pair inside it; split LJ and Coulomb cutoffs;
+    species A with one active slot in every chain (its flips empty the
+    block)."""
+    from metropolismontecarlo_tpu_torch.models.water import spce_two_blocks
+
+    box_w = 28.24 * (64 / 750) ** (1 / 3)      # the flagship's density
+    water = spce_two_blocks(32, 32)
+    return [
+        ("all pairs in cutoff spce 32+32 wolf", water,
+         _semigrand_water(coulomb="wolf", kappa_L=2.0,
+                          r_cut=box_w * 3 ** 0.5 / 2 + 0.1), box_w, 2.0,
+         False),
+        ("dilute spce 32+32 ewald", water, _semigrand_water(r_cut=6.0), 40.0,
+         2.0, False),
+        ("split cutoff spce 32+32 ewald", water,
+         _semigrand_water(r_cut=4.5, qq_r_cut=6.0), 20.0, 2.0, False),
+        ("one active A slot spce 32+32 ewald", water, _semigrand_water(),
+         20.0, 0.5, True),
+    ]
+
+
+def flip_stress_inputs(dev, i, chains=STRESS_CHAINS, n_flip=24):
+    """Flip stress case i (flip_stress_cases) and its inputs at seed 3250 +
+    i, drawn on the CPU and moved to dev (a run on the CPU builds the
+    states that the card compares): random N per chain and block (A at one
+    slot with one_in_a), the attempts' uniforms.  Returns (case, (args,
+    tables, si2, lrc3, ux))."""
+    import warnings
+
+    from metropolismontecarlo_tpu_torch.mc.moves import draw_exchange_uniforms
+
+    case = flip_stress_cases()[i]
+    _, system, params, box, xi, one = case
+    seed = 3250 + i
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    n_act = rng.integers(0, 33, (chains, 2))
+    if one:
+        n_act[:, 0] = 1
+    with warnings.catch_warnings():
+        # the all-pairs case samples the truncated nearest image
+        warnings.simplefilter("ignore")
+        args, tables, si2, lrc3 = flip_inputs(
+            system, params, box, xi, torch.tensor(n_act), gen, "cpu")
+    ux = draw_exchange_uniforms(chains, n_flip, gen, "cpu")
+    return case, _to_device((args, tables, si2, lrc3, ux), dev)
+
+
+def phase2_flip_stress(dev):
+    """flip_stress_cases against flip_plain at the phase 2 flip gates.
+    Returns the largest error of the matched chains."""
+    t0 = time.perf_counter()
+    err = 0.0
+    for i in range(len(flip_stress_cases())):
+        (tag, *_), (args, tables, si2, lrc3, ux) = flip_stress_inputs(dev, i)
+        e, _, _ = compare_flip(f"2f {tag}", args, ux, tables, si2, lrc3,
+                               seed=170 + i, max_differing=FLIP_MAX_DIFFERING)
+        err = max(err, e)
+    print(f"phase 2 flip stress cases: {time.perf_counter() - t0:.1f} s")
+    return err
+
+
 def flip_bound(t, C, A_pad, M, K, n_tot, frac, near, n_flip):
     """The least time (ms) of one flip launch, and what sets it: the chain
     state in and out once, the uniforms and constants read once, against
     the operations the attempts need (OPS_*): each attempt scores the
     active slots with Philox, sums the old and the new pose against the
-    other active atoms and builds one dS row over the k-vectors: per atom
+    other active atoms and builds one dS row over the k-vectors from the
+    two poses' charged sites' eik tables (k_pose_ops): per atom
     lane and pose one centre distance, the site distances for the share
     near within reach (_reach_fraction) and the terms for the share frac
     inside the cutoff.  n_tot (C,) this run's active counts; both
@@ -3066,7 +3285,7 @@ def flip_bound(t, C, A_pad, M, K, n_tot, frac, near, n_flip):
     n = float(n_tot.double().mean())
     c_pair = 2 * OPS_GEOMETRY + near * 2 * p_avg * OPS_GEOMETRY + frac * (
         lj * OPS_LJ + qf * OPS_COULOMB)
-    k_flip = K * (qf * OPS_K_SITE + OPS_K_MOVE) if ewald else 0
+    k_flip = k_pose_ops(K, t.a.nk, qf) + K * OPS_K_MOVE if ewald else 0
     ops = C * n_flip * ((n - 1.0) * p_avg * c_pair + k_flip
                         + n * OPS_PHILOX)
     return _bound(nbytes, ops)
@@ -3169,6 +3388,15 @@ def phase15(dev, chains=1024, melt=2, blocks=(2, 2), chunk=128):
     # one flip launch on the main path's arguments: held to the twin, timed
     kv, kw = make_kvectors(params.nk, params.ksq_max)
     tables = make_mega_flip_fn(system, params, kv, kw, dev, xi).tables
+    A_pad, K = st.coords.shape[-1], st.sfac.shape[1]
+    regs, local, per_sm = op.occupancy(tables, 2 * cap, A_pad, K)
+    print(f"phase15 flip_kernel registers: {regs} per thread")
+    print(f"phase15 flip_kernel local memory (stack frame and spills): "
+          f"{local} B per thread")
+    nbytes = op.flip_smem_bytes(2 * cap, tables.a.P, tables.b.P, A_pad, K,
+                                tables.a.eps.shape[1], tables.a.nk)
+    print(f"phase15 flip_kernel blocks per SM: {per_sm} ({nbytes} B of "
+          f"shared memory per block)")
     act, actm = activity_planes(system, st.active)
     ones = torch.ones((chains,), device=dev)
     args = [x.float().contiguous() for x in (st.coords, st.com, st.quat,
@@ -3353,8 +3581,8 @@ def main():
         err2g, _ = phase2_global(dev)
         print(f"phase 2 global layout and slab cases: "
               f"{time.perf_counter() - t0:.1f} s")
-        err2gb = phase2_gibbs(dev)
-        err2f = phase2_flip(dev)
+        err2gb = max(phase2_gibbs(dev), phase2_gibbs_stress(dev))
+        err2f = max(phase2_flip(dev), phase2_flip_stress(dev))
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
         # the new phases (phase 3 keeps its 10-sweep adjust block, which

@@ -33,135 +33,100 @@
 // stats (C, 8): [d_e, acc A->B, acc B->A, att A->B, att B->A, decision
 // fingerprint (slot + 1 per accepted flip), 0, 0].
 //
-// What bounds it on this card: latency, not bytes.  An attempt is one pass
-// over the chain's atom lanes (both poses' site sums) and its k-vectors, two
-// block reductions and a scalar decision, all dependent on the previous
+// What bounds it on this card: latency and instruction issue inside each
+// block (three blocks of 8 warps share an SM's 4 schedulers), not bytes.
+// An attempt is one pass
+// over the chain's atom lanes (both poses' site sums) and its k-vectors, a
+// block reduction and a scalar decision, all dependent on the previous
 // attempt; device memory is touched only to load and store the chain state.
-// The design: the whole chain state (atom, slot and activity rows, S(k),
-// cfac, both species' LJ rows and templates) lives in shared memory for the
-// launch (~31 KB at the semigrand flagship, three blocks per SM); the
-// flip's direction is uniform over the block, so an attempt scans two poses
-// (old and new) and builds one dS row, where the TPU kernel evaluates both
-// directions and selects; the pick and both blocks' first free slots come
-// from one pass of 64-bit-key max-reductions.
+// The design (the move body of csrc/sweep_kernel.cu, carried over; each
+// step measured in turns with the previous build on one card, PERF.md):
+// - Residency and occupancy: the atom planes, the molecule row, S(k),
+//   cfac, the packed k-vector indices and both species' LJ rows and
+//   templates live in shared memory for the launch; the COM and quaternion
+//   rows stay in the chain's own rows of the outputs (copied in at entry,
+//   updated in place), the per-atom charge and type rows in their global
+//   tables; the real-space Coulomb form is a template parameter and
+//   __launch_bounds__(256, 3) caps the registers (three blocks per SM).
+// - A list of the active atoms' columns (and each column's place in it),
+//   kept current by the accepted flips: the old identity's columns leave
+//   it, each swapped with the last entry, the new one's join at its end.
+//   An attempt scans only the listed atoms, an equal share per warp; half
+//   the slots of a semigrand chain are inactive.
+// - Compacted pair sums: both poses' site distances against 16-byte site
+//   rows (x, y, z, the site's live cutoff^2), a ballot per site, the live
+//   triples into a warp queue, LJ + erfc on full warps of live terms
+//   (stages 1-2 of sweep_kernel.cu; a reach ring around the slot's centre,
+//   which both identities share, did not pay).
+// - k-space from per-site eik tables: for each charged site of both poses
+//   the rows q e^{i 2 pi n x / L}, e^{i 2 pi n y / L}, e^{i 2 pi n z / L},
+//   |n| <= nk (charge and sign folded into the x row), each built from one
+//   sincospif by the recurrence e^{i n t} = e^{i (n - 1) t} e^{i t}, so a
+//   k-vector's dS costs two complex products per site instead of a
+//   sincosf; each thread keeps two k-vectors' chains of loads in flight.
+// - Proposals one step ahead: the next attempt's Shoemake orientation, both
+//   species' rotated templates and accept uniform (one warp, its uniforms
+//   loaded at the start of the pass) and its Philox scores (every thread,
+//   one slot each) are built during the current pass; they depend only on
+//   ux and the attempt index.  The pick depends on activity: after a
+//   decision every warp redoes it on its own (a few keys per lane and one
+//   warp max; the other block's first free slot by a ballot), so no
+//   barrier orders it.
+// - Every thread takes the same decision from the warp partials summed in
+//   the same order: an attempt takes two barriers when rejected (the two
+//   poses' rows and tables, built by the block after the pick; the
+//   partials) and three when accepted (the write-back).
+// The pair arithmetic (minimum image, d^2 floor, erfc, the order inside a
+// term) is the same for every term; only the order in which terms are
+// summed follows the queues.
 //
-// Semantics kept from the TPU kernel: pair distances use the rintf minimum
-// image with d^2 floored at 1e-4; pads (molid < 0), inactive atoms and the
-// flipped molecule's own atoms are excluded; the quaternion written is the
-// Shoemake one for either species (a one-site species ignores it).
+// Semantics kept from the TPU kernel: pair distances use the minimum image
+// rounded to nearest (ties to even, on the FMA pipe) with d^2 floored at
+// 1e-4; pads (molid < 0), inactive atoms and the flipped molecule's own
+// atoms are excluded; the quaternion written is the Shoemake one for either
+// species (a one-site species ignores it).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mmc_common.cuh"
+
 namespace {
 
-enum Coulomb { kNone = 0, kEwald = 1, kWolf = 2, kWolfRef = 3, kBare = 4 };
-
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kInvTwoPi = 0.15915494309189535f;
 constexpr int kStats = 8;
 constexpr int kFlipUniforms = 8;
-constexpr int kMaxSmemBytes = 232448;
-// 256 threads per block with a register cap that fits three blocks per SM:
-// the launch is latency-bound, and the third block hides more of it than
-// the registers the cap takes away (ptxas: 77 with the cap, 92 without)
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 3;
+// A live pair term's queue key (mmc_common.cuh Queue): the atom column
+// (kKeySite bits), the site's row in the two species' site table (5 bits:
+// A's P0 sites, then B's P1), the pose's sign (1: the new identity, veto
+// on; 0: the old one).
+constexpr int kKeySign = 25;
+constexpr int kDec = 8;  // an attempt's quaternion [0, 4) and accept uniform
 
 // Shared-memory words of one block; ops/cuda/flip_kernel.py flip_smem_bytes
-// computes the same number: three slot-pick rows (3 x 32 x 8 B), x/y/z/act
-// (4 A_pad), charge/type/molecule (3 A_pad), COM/quaternion/slot activity
-// (8 M), 8 k rows (S re/im, cfac, dS re/im, kx, ky, kz), both species' (P,
-// T) eps and sigma^2 tables, both species' 6 P-wide site rows (body 3,
-// charge, two flags), the old and new poses (3 max(P0, P1) each), 64 words
-// of uniforms, warp partials and decision scratch.
+// computes the same number: the warp queues; the old and new poses' site
+// rows (2 x 4 pmax) and eik tables (2 pmax x 3 rows of 2 nk + 1 complex:
+// 12 pmax (2 nk + 1)); two proposal buffers of both species' rotated
+// templates and the attempt's scalars (2 x (3 (P0 + P1) + 8)); x/y/z, the
+// active-atom list, each column's place in it and the molecule row (6
+// A_pad); slot activity (M); 6 k rows (S re/im, cfac, dS re/im, the packed
+// k indices); both species' (P, T) eps and sigma^2 tables; both species' 7
+// P-wide site rows (body 3, charge, two flags, live cutoff^2); two rows of
+// Philox scores (2 M); 33 words of warp partials, statistics and the list's
+// length.
 __host__ __device__ inline size_t flip_smem_floats(int M, int P0, int P1,
-                                                   int A_pad, int K, int T) {
+                                                   int A_pad, int K, int T,
+                                                   int nk) {
   const int pmax = P0 > P1 ? P0 : P1;
-  return 192 + 7 * (size_t)A_pad + 8 * (size_t)M + 8 * (size_t)K +
-         2 * (size_t)(P0 + P1) * T + 6 * (size_t)(P0 + P1) + 6 * (size_t)pmax +
-         64;
+  return kQueueWords + 8 * (size_t)pmax + 12 * (size_t)pmax * (2 * nk + 1) +
+         2 * (3 * (size_t)(P0 + P1) + kDec) + 6 * (size_t)A_pad +
+         3 * (size_t)M + 6 * (size_t)K + 2 * (size_t)(P0 + P1) * T +
+         7 * (size_t)(P0 + P1) + 33;
 }
 
-__device__ inline float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ inline unsigned long long warp_max_u64(unsigned long long v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
-
-// First output word of Philox4x32-10 (Salmon et al., SC 2011) for counter
-// (c0, c1, 0, 0) and key (k0, k1); the sweep kernel's deletion scores.
-__device__ inline uint32_t philox_word(uint32_t c0, uint32_t c1, uint32_t k0,
-                                       uint32_t k1) {
-  uint32_t c2 = 0u, c3 = 0u;
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-// R(q) b, the same expansion as the TPU kernel's _rot_apply.
-__device__ inline void rot_apply(float w, float x, float y, float z, float bx,
-                                 float by, float bz, float* o) {
-  const float ww = w * w, xx = x * x, yy = y * y, zz = z * z;
-  const float wx = w * x, wy = w * y, wz = w * z;
-  const float xy = x * y, xz = x * z, yz = y * z;
-  o[0] = (ww + xx - yy - zz) * bx + 2.0f * ((xy - wz) * by + (xz + wy) * bz);
-  o[1] = (ww - xx + yy - zz) * by + 2.0f * ((xy + wz) * bx + (yz - wx) * bz);
-  o[2] = (ww - xx - yy + zz) * bz + 2.0f * ((xz - wy) * bx + (yz + wx) * by);
-}
-
-__device__ inline unsigned long long block_max(const unsigned long long* row,
-                                               int nwarps) {
-  unsigned long long v = 0ull;
-  for (int w = 0; w < nwarps; ++w) v = row[w] > v ? row[w] : v;
-  return v;
-}
-
-// One species' tables in shared memory: (P, T) LJ rows by neighbour type and
-// the P-wide site rows.  Attempts take plain pointer copies of the old and
-// the new identity's fields (a reference picked at run time would put the
-// pair in local memory).
-struct Species {
-  const float* eps;   // 4 eps
-  const float* sig2;
-  const float* body;  // (P, 3)
-  const float* qp;
-  const int* lj;
-  const int* qf;      // has_q and a Coulomb style
-  int P;
-};
-
-__device__ inline Species pick_species(bool first, const Species& s0,
-                                       const Species& s1) {
-  Species s;
-  s.eps = first ? s0.eps : s1.eps;
-  s.sig2 = first ? s0.sig2 : s1.sig2;
-  s.body = first ? s0.body : s1.body;
-  s.qp = first ? s0.qp : s1.qp;
-  s.lj = first ? s0.lj : s1.lj;
-  s.qf = first ? s0.qf : s1.qf;
-  s.P = first ? s0.P : s1.P;
-  return s;
-}
-
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) flip_kernel(
+template <int kQ>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) flip_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
     const float* __restrict__ act_in, const float* __restrict__ actm_in,
@@ -180,89 +145,106 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) flip_kernel(
     float* __restrict__ quat_out, float* __restrict__ sfac_out,
     float* __restrict__ act_out, float* __restrict__ actm_out,
     float* __restrict__ stats_out, int cap_a, int cap_b, int P0, int P1,
-    int a0_b, int A_pad, int K, int T, int coulomb, int n_flip,
+    int a0_b, int A_pad, int K, int T, int nk, int ewald, int n_flip,
     unsigned int seed, float rc2, float qrc2, float kappa_l, float d2_overlap,
     float ln_xi, float factor) {
   extern __shared__ float smem[];
-  // the slot-pick rows first (8-byte aligned): pick, first free A, first
-  // free B
-  unsigned long long* sred_p = reinterpret_cast<unsigned long long*>(smem);
-  unsigned long long* sred_fa = sred_p + 32;
-  unsigned long long* sred_fb = sred_fa + 32;
   const int M = cap_a + cap_b;
   const int pmax = P0 > P1 ? P0 : P1;
-  float* sx = smem + 192;
+  const int W = 2 * nk + 1;  // an eik row's entries
+  const int TW = 6 * W;      // words of one site's three rows
+  int* qkey = reinterpret_cast<int*>(smem);
+  float* qd2 = smem + kWarps * kQueue;
+  // 16-byte rows from here: the old pose's site rows, then the new one's
+  float* sold = smem + kQueueWords;  // (pmax, 4)
+  float* snew = sold + 4 * pmax;     // (pmax, 4)
+  float* stab = snew + 4 * pmax;     // old then new: 2 pmax x TW
+  // two proposal buffers: both species' rotated templates (P0 + P1, 3) and
+  // the attempt's scalars
+  float* soff = stab + 2 * pmax * TW;
+  const int prop_words = 3 * (P0 + P1) + kDec;
+  float* sx = soff + 2 * prop_words;
   float* sy = sx + A_pad;
   float* sz = sy + A_pad;
-  float* sact = sz + A_pad;
-  float* sq = sact + A_pad;
-  int* stid = reinterpret_cast<int*>(sq + A_pad);
-  int* smol = stid + A_pad;
-  float* scom = reinterpret_cast<float*>(smol + A_pad);  // (M, 3)
-  float* squat = scom + 3 * M;                           // (M, 4)
-  float* sactm = squat + 4 * M;                          // (M)
+  // the active atoms' columns, listed in slist[i], i < n_l, and each
+  // column's place in that list (-1: inactive)
+  int* spos = reinterpret_cast<int*>(sz + A_pad);
+  int* slist = spos + A_pad;
+  int* smol = slist + A_pad;
+  float* sactm = reinterpret_cast<float*>(smol + A_pad);  // (M)
   float* ssre = sactm + M;
   float* ssim = ssre + K;
   float* scfac = ssim + K;
   float* sdre = scfac + K;
   float* sdim = sdre + K;
-  float* skx = sdim + K;
-  float* sky = skx + K;
-  float* skz = sky + K;
-  float* seps0 = skz + K;          // (P0, T)
-  float* ssig0 = seps0 + P0 * T;
-  float* seps1 = ssig0 + P0 * T;   // (P1, T)
-  float* ssig1 = seps1 + P1 * T;
-  float* sbody0 = ssig1 + P1 * T;  // (P0, 3)
-  float* sqp0 = sbody0 + 3 * P0;
-  int* slj0 = reinterpret_cast<int*>(sqp0 + P0);
-  int* sqf0 = slj0 + P0;
-  float* sbody1 = reinterpret_cast<float*>(sqf0 + P0);  // (P1, 3)
-  float* sqp1 = sbody1 + 3 * P1;
-  int* slj1 = reinterpret_cast<int*>(sqp1 + P1);
-  int* sqf1 = slj1 + P1;
-  float* sold = reinterpret_cast<float*>(sqf1 + P1);  // (pmax, 3)
-  float* snew = sold + 3 * pmax;                        // (pmax, 3)
-  float* su = snew + 3 * pmax;  // 16: this attempt's uniforms
-  float* sred = su + 16;        // one partial sum per warp
-  float* sdec = sred + 32;      // 16 words: proposal scalars + decision
+  int* skidx = reinterpret_cast<int*>(sdim + K);  // (K) packed k indices
+  // the two species' site table: A's P0 sites, then B's P1 (PS rows)
+  const int PS = P0 + P1;
+  float* seps = reinterpret_cast<float*>(skidx + K);  // (PS, T) 4 eps
+  float* ssig2 = seps + PS * T;
+  float* sbody = ssig2 + PS * T;   // (PS, 3)
+  float* sqp = sbody + 3 * PS;
+  int* slj = reinterpret_cast<int*>(sqp + PS);
+  int* sqf = slj + PS;             // has_q and a Coulomb style
+  float* scut = reinterpret_cast<float*>(sqf + PS);  // live cutoff^2
+  unsigned* sscore = reinterpret_cast<unsigned*>(scut + PS);  // 2 x M
+  float* sred = reinterpret_cast<float*>(sscore + 2 * M);  // 16 partials
+  // thread 0's statistics ([15]: a k-vector out of range)
+  float* sstat = sred + 16;
+  int* snl = reinterpret_cast<int*>(sstat + 16);  // the list's length
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  constexpr int nt = kThreads;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  constexpr int kProposer = kWarps - 1;  // the warp that builds proposals
 
+  // the chain's COM and quaternion rows: its own rows of the outputs,
+  // updated in place
+  float* const scom = com_out + (size_t)c * 3 * M;
+  float* const squat = quat_out + (size_t)c * 4 * M;
   const float* cin = coords_in + (size_t)c * 3 * A_pad;
   for (int j = tid; j < A_pad; j += nt) {
     sx[j] = cin[j];
     sy[j] = cin[A_pad + j];
     sz[j] = cin[2 * A_pad + j];
-    sact[j] = act_in[(size_t)c * A_pad + j];
-    sq[j] = q_row[j];
-    stid[j] = tid_row[j];
     smol[j] = molid_row[j];
+  }
+  if (warp == 0) {
+    // the active-atom list, in column order
+    int n = 0;
+    for (int base = 0; base < A_pad; base += 32) {
+      const int j = base + lane;
+      const bool on = j < A_pad && act_in[(size_t)c * A_pad + j] != 0.0f;
+      const unsigned bal = __ballot_sync(kFull, on);
+      if (j < A_pad) spos[j] = on ? n + __popc(bal & lanes_below) : -1;
+      if (on) slist[n + __popc(bal & lanes_below)] = j;
+      n += __popc(bal);
+    }
+    if (lane == 0) *snl = n;
   }
   for (int i = tid; i < M; i += nt) sactm[i] = actm_in[(size_t)c * M + i];
   for (int i = tid; i < 3 * M; i += nt) scom[i] = com_in[(size_t)c * 3 * M + i];
   for (int i = tid; i < 4 * M; i += nt) squat[i] = quat_in[(size_t)c * 4 * M + i];
+  if (tid < 16) sstat[tid] = 0.0f;
 
   const float box = box_in[c];
   const float inv_box = 1.0f / box;
   const float kappa = kappa_l * inv_box;
   float sh_w = 0.0f;
-  if (coulomb == kWolf) {
+  if (kQ == kQWolf) {
     const float qrc = sqrtf(qrc2);
     sh_w = erfcf(kappa * qrc) / qrc;
   }
   const float beta = 1.0f / temp_in[c];
-  const bool ewald = coulomb == kEwald;
+  bool k_bad = false;
   for (int k = tid; k < K; k += nt) {
     const float kx = kvec[3 * k], ky = kvec[3 * k + 1], kz = kvec[3 * k + 2];
-    skx[k] = kx;
-    sky[k] = ky;
-    skz[k] = kz;
+    const int nx = (int)rintf(kx), ny = (int)rintf(ky), nz = (int)rintf(kz);
+    if (ewald && (abs(nx) > nk || abs(ny) > nk || abs(nz) > nk)) k_bad = true;
+    skidx[k] = (nx + nk) | (ny + nk) << 8 | (nz + nk) << 16;
     ssre[k] = sfac_in[((size_t)c * K + k) * 2];
     ssim[k] = sfac_in[((size_t)c * K + k) * 2 + 1];
     if (ewald) {
@@ -272,39 +254,29 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) flip_kernel(
       scfac[k] = kw[k] * (kTwoPi / vol) * expf(-kt2 / (4.0f * kappa * kappa)) / kt2;
     }
   }
-  for (int i = tid; i < P0 * T; i += nt) {
-    seps0[i] = 4.0f * eps0[i];
-    ssig0[i] = sig20[i];
+  for (int i = tid; i < PS * T; i += nt) {
+    const bool first = i < P0 * T;
+    seps[i] = 4.0f * (first ? eps0[i] : eps1[i - P0 * T]);
+    ssig2[i] = first ? sig20[i] : sig21[i - P0 * T];
   }
-  for (int i = tid; i < P1 * T; i += nt) {
-    seps1[i] = 4.0f * eps1[i];
-    ssig1[i] = sig21[i];
-  }
-  for (int i = tid; i < 3 * P0; i += nt) sbody0[i] = body0[i];
-  for (int i = tid; i < 3 * P1; i += nt) sbody1[i] = body1[i];
-  for (int i = tid; i < P0; i += nt) {
-    sqp0[i] = qp0[i];
-    slj0[i] = has_lj0[i];
-    sqf0[i] = has_q0[i] && coulomb != kNone;
-  }
-  for (int i = tid; i < P1; i += nt) {
-    sqp1[i] = qp1[i];
-    slj1[i] = has_lj1[i];
-    sqf1[i] = has_q1[i] && coulomb != kNone;
-  }
-  const Species spA = {seps0, ssig0, sbody0, sqp0, slj0, sqf0, P0};
-  const Species spB = {seps1, ssig1, sbody1, sqp1, slj1, sqf1, P1};
   const bool split_cut = qrc2 != rc2;
+  const float qcut2 = split_cut ? qrc2 : rc2;
+  for (int i = tid; i < 3 * PS; i += nt)
+    sbody[i] = i < 3 * P0 ? body0[i] : body1[i - 3 * P0];
+  for (int i = tid; i < PS; i += nt) {
+    const bool first = i < P0;
+    const int p = first ? i : i - P0;
+    const bool lj = (first ? has_lj0 : has_lj1)[p] != 0;
+    const bool uq = kQ != kQNone && (first ? has_q0 : has_q1)[p] != 0;
+    sqp[i] = (first ? qp0 : qp1)[p];
+    slj[i] = lj;
+    sqf[i] = uq;
+    scut[i] = lj ? (uq ? fmaxf(rc2, qcut2) : rc2) : (uq ? qcut2 : -1.0f);
+  }
   const float si_a = si2_in[2 * c], si_b = si2_in[2 * c + 1];
   const bool use_lrc = lrc3_in != nullptr;
-  float g00 = 0.0f, g01 = 0.0f, g11 = 0.0f;
-  if (use_lrc) {
-    g00 = lrc3_in[3 * c];
-    g01 = lrc3_in[3 * c + 1];
-    g11 = lrc3_in[3 * c + 2];
-  }
 
-  // live per-species counts, counted once and then tracked by thread 0
+  // live per-species counts, counted once and then tracked by every thread
   float cnt_a = 0.0f, cnt_b = 0.0f;
   for (int i = tid; i < M; i += nt) {
     const float on = sactm[i] > 0.5f ? 1.0f : 0.0f;
@@ -314,219 +286,343 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) flip_kernel(
   cnt_b = warp_sum(cnt_b);
   if (lane == 0) {
     sred[warp] = cnt_a;
-    sdec[warp] = cnt_b;   // nwarps <= 8
+    sred[8 + warp] = cnt_b;
   }
   __syncthreads();
+  if (k_bad) sstat[15] = 1.0f;
+  int n_l = *snl;  // every thread tracks the list's length
   float n_a = 0.0f, n_b = 0.0f;
-  for (int w = 0; w < nwarps; ++w) {
+  for (int w = 0; w < kWarps; ++w) {
     n_a += sred[w];
-    n_b += sdec[w];
+    n_b += sred[8 + w];
   }
 
-  // One pair term of site p (species s) of pose a against the atom lane
-  // (xj, yj, zj, qj, tj): LJ plus real-space Coulomb, the +1e30 overlap
-  // veto on attractive contacts when `veto`.
-  auto pair_term = [&](const Species& s, const float* a, int p, float xj,
-                       float yj, float zj, float qj, int tj, bool veto) -> float {
-    float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
-    dx -= box * rintf(dx * inv_box);
-    dy -= box * rintf(dy * inv_box);
-    dz -= box * rintf(dz * inv_box);
-    const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+  // ---- pair terms: distances on every lane, live terms through queues ----
+  auto dist2 = [&](float xj, float yj, float zj, float ax, float ay,
+                   float az) -> float {
+    float dx = xj - ax, dy = yj - ay, dz = zj - az;
+    dx -= box * round_near(dx * inv_box);
+    dy -= box * round_near(dy * inv_box);
+    dz -= box * round_near(dz * inv_box);
+    return fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+  };
+  // One live term of site-table row p of the old (negated) or the new (the
+  // +1e30 veto on an attractive overlap) identity: LJ plus real-space
+  // Coulomb.
+  auto live_term = [&](int key, float d2) -> float {
+    const int j = key & (kMaxColumns - 1);
+    const int p = (key >> kKeySite) & 31;
+    const bool is_new = (key >> kKeySign) & 1;
+    const int tj = __ldg(tid_row + j);
     const bool m_lj = d2 < rc2;
     const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
     const float inv_r = rsqrtf(d2);
     const float inv_d2 = inv_r * inv_r;
     float contrib = 0.0f;
-    if (s.lj[p] && m_lj) {
-      const float s2 = s.sig2[p * T + tj] * inv_d2;
+    if (slj[p] && m_lj) {
+      const float s2 = ssig2[p * T + tj] * inv_d2;
       const float s6 = s2 * s2 * s2;
-      contrib = s.eps[p * T + tj] * (s6 * s6 - s6);
+      contrib = seps[p * T + tj] * (s6 * s6 - s6);
     }
-    if (s.qf[p] && m_qq) {
-      const float qq = (factor * s.qp[p]) * qj;
-      const float r = d2 * inv_r;
+    if (kQ != kQNone && sqf[p] && m_qq) {
+      const float qq = (factor * sqp[p]) * __ldg(q_row + j);
       float cp;
-      if (coulomb == kBare)
+      if (kQ == kQBare) {
         cp = qq * inv_r;
-      else if (coulomb == kWolf)
-        cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
-      else
-        cp = qq * (erfcf(kappa * r) * inv_r);
-      if (veto && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
+      } else {
+        const float r = d2 * inv_r;
+        if (kQ == kQWolf)
+          cp = qq * (erfcf(kappa * r) * inv_r - sh_w);
+        else
+          cp = qq * (erfcf(kappa * r) * inv_r);
+      }
+      if (is_new && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
       contrib += cp;
     }
-    return contrib;
+    return is_new ? contrib : -contrib;
+  };
+  // a warp queue's live terms into acc (mmc_common.cuh Queue)
+  auto push = [&](Queue& q, float& acc, int n, const bool* live,
+                  const float* d2, int key0) {
+    q.push(n, live, d2, key0, lane,
+           [&](int key, float dd) { acc += live_term(key, dd); });
+  };
+  auto drain = [&](Queue& q, float& acc) {
+    q.drain(lane, [&](int key, float dd) { acc += live_term(key, dd); });
   };
 
-  // The structure-factor row of species-s pose a at k-vector k.
-  auto k_row = [&](const Species& s, const float* a, int k, float& dre, float& dim) {
-    const float tpl = kTwoPi * inv_box;
-    const float kx = skx[k], ky = sky[k], kz = skz[k];
-    dre = 0.0f;
-    dim = 0.0f;
-    for (int p = 0; p < s.P; ++p) {
-      if (!s.qf[p]) continue;
-      float ph = tpl * (kx * a[3 * p] + ky * a[3 * p + 1] + kz * a[3 * p + 2]);
-      ph -= kTwoPi * rintf(ph * kInvTwoPi);
-      float sn, cs;
-      sincosf(ph, &sn, &cs);
-      dre += s.qp[p] * cs;
-      dim += s.qp[p] * sn;
+  // ---- eik tables: the P sites of a pose (site-table rows g0 + p) into
+  // tab (P x TW words), sign * q folded into the x row, from coordinates
+  // pos(p, axis); one row (p, axis) per thread of first, first + stride,
+  // ... ----
+  auto build_tables = [&](float* tab, int g0, int P, auto pos, float sgn,
+                          int first, int stride) {
+    for (int r = first; r < 3 * P; r += stride) {
+      const int p = r / 3, axis = r - 3 * p;
+      if (!sqf[g0 + p]) continue;
+      eik_row(reinterpret_cast<float2*>(tab + p * TW) + axis * W, nk,
+              pos(p, axis), inv_box, axis == 0 ? sgn * sqp[g0 + p] : 1.0f);
+    }
+  };
+  // dS at the k-vectors k0 and k0 + nt (the second when below K), added
+  // into dre/dim: the sum over the charged sites of a pose's tables of x y
+  // z, two independent chains of loads and products per site
+  auto k_sum2 = [&](const float* tab, int g0, int P, int k0, float* dre,
+                    float* dim) {
+    const bool two = k0 + nt < K;
+    const int idx0 = skidx[k0], idx1 = two ? skidx[k0 + nt] : idx0;
+    for (int p = 0; p < P; ++p) {
+      if (!sqf[g0 + p]) continue;
+      eik_add2(reinterpret_cast<const float2*>(tab + p * TW), W, idx0, idx1,
+               dre, dim);
     }
   };
 
-  float st_e = 0.0f, st_acc_ab = 0.0f, st_acc_ba = 0.0f, st_att_ab = 0.0f,
-        st_att_ba = 0.0f, st_fp = 0.0f;
+  // ---- proposals: every thread the Philox scores (score + 1) of attempt
+  // x, one slot each, into row x & 1; the proposal warp its Shoemake
+  // orientation, both species' rotated templates and its accept uniform
+  // into buffer x & 1 ----
   const float* ux_chain = ux_in + (size_t)c * n_flip * kFlipUniforms;
+  auto scores = [&](int x) {
+    unsigned* row = sscore + (x & 1) * M;
+    for (int i = tid; i < M; i += nt)
+      row[i] = (philox_word((uint32_t)i, (uint32_t)x, seed, (uint32_t)c) >> 8) + 1u;
+  };
+  // lane i < 8 loads uniform i of attempt x (a pass ahead of its use)
+  auto prefetch = [&](int x) -> float {
+    return lane < kFlipUniforms ? ux_chain[(size_t)x * kFlipUniforms + lane] : 0.0f;
+  };
+  auto propose = [&](int x, float v) {
+    float* off = soff + (x & 1) * prop_words;
+    float* dec = off + 3 * (P0 + P1);
+    const float u1 = __shfl_sync(kFull, v, 4);
+    const float u5 = __shfl_sync(kFull, v, 5);
+    const float u6 = __shfl_sync(kFull, v, 6);
+    float s2, c2, s3, c3;
+    sincos_turns(u5, &s2, &c2);
+    sincos_turns(u6, &s3, &c3);
+    const float r1 = sqrtf(fmaxf(1.0f - u1, 0.0f)), r2 = sqrtf(u1);
+    const float q[4] = {r1 * s2, r1 * c2, r2 * s3, r2 * c3};
+    for (int i = lane; i < PS; i += 32) {
+      float o[3] = {0.0f, 0.0f, 0.0f};
+      if ((i < P0 ? P0 : P1) > 1)
+        rot_apply(q[0], q[1], q[2], q[3], sbody[3 * i], sbody[3 * i + 1],
+                  sbody[3 * i + 2], o);
+      for (int d = 0; d < 3; ++d) off[3 * i + d] = o[d];
+    }
+    if (lane < 4) dec[lane] = q[lane];
+    if (lane == 7) dec[4] = v;
+  };
+
+  if (n_flip > 0) {
+    scores(0);
+    if (warp == kProposer) propose(0, prefetch(0));
+  }
+  __syncthreads();
 
   for (int fi = 0; fi < n_flip; ++fi) {
-    __syncthreads();  // the last readers of su, sred and the pick rows are done
-    if (tid < kFlipUniforms) su[tid] = ux_chain[(size_t)fi * kFlipUniforms + tid];
-
-    // the pick (key (score + 1, ~slot)) and each block's first free slot
-    // (key (1, ~slot)) in one pass
-    unsigned long long best_p = 0ull, best_fa = 0ull, best_fb = 0ull;
-    for (int i = tid; i < M; i += nt) {
-      const uint32_t low = 0xFFFFFFFFu - (uint32_t)i;
+    const int b = fi & 1;
+    const bool more = fi + 1 < n_flip;
+    const float* off_b = soff + b * prop_words;
+    const float* dec = off_b + 3 * (P0 + P1);
+    // the pick, in every warp alike: key (score, ~slot) over the active
+    // slots
+    const unsigned* row = sscore + b * M;
+    unsigned long long best = 0ull;
+    for (int i = lane; i < M; i += 32)
       if (sactm[i] > 0.5f) {
-        const uint32_t bits = philox_word((uint32_t)i, (uint32_t)fi, seed, (uint32_t)c) >> 8;
-        const unsigned long long key = ((unsigned long long)(bits + 1u) << 32) | low;
-        best_p = key > best_p ? key : best_p;
-      } else {
-        const unsigned long long key = (1ull << 32) | low;
-        if (i < cap_a)
-          best_fa = key > best_fa ? key : best_fa;
-        else
-          best_fb = key > best_fb ? key : best_fb;
+        const unsigned long long key =
+            ((unsigned long long)row[i] << 32) | (0xFFFFFFFFu - (uint32_t)i);
+        best = key > best ? key : best;
+      }
+    best = warp_max_u64(best);
+    const int slot = (int)(0xFFFFFFFFu - (uint32_t)(best & 0xFFFFFFFFull));
+    const bool is_a = best == 0ull || slot < cap_a;
+    // the target: the other block's first free slot (M: none)
+    int tgt = M;
+    if (best != 0ull) {
+      const int t0 = is_a ? cap_a : 0, t1 = is_a ? M : cap_a;
+      for (int base = t0; base < t1; base += 32) {
+        const int i = base + lane;
+        const unsigned bal = __ballot_sync(kFull, i < t1 && !(sactm[i] > 0.5f));
+        if (bal) {
+          tgt = base + __ffs(bal) - 1;
+          break;
+        }
       }
     }
-    best_p = warp_max_u64(best_p);
-    best_fa = warp_max_u64(best_fa);
-    best_fb = warp_max_u64(best_fb);
-    if (lane == 0) {
-      sred_p[warp] = best_p;
-      sred_fa[warp] = best_fa;
-      sred_fb[warp] = best_fb;
-    }
-    __syncthreads();
-    const unsigned long long kp = block_max(sred_p, nwarps);
-    if (kp == 0ull) {
-      // no active slot: the TPU kernel's degenerate pick is slot 0, an
-      // A -> B attempt that can never be accepted (block-uniform)
-      if (tid == 0) st_att_ab += 1.0f;
+    if (tid == 0) sstat[is_a ? 3 : 4] += 1.0f;
+    if (tgt == M) {
+      // no active slot (the TPU kernel's degenerate pick is slot 0, an
+      // A -> B attempt that can never be accepted) or no free target:
+      // refused, nothing written (block-uniform)
+      __syncthreads();  // the last readers of buffer b ^ 1 are done
+      if (more) {
+        scores(fi + 1);
+        if (warp == kProposer) propose(fi + 1, prefetch(fi + 1));
+      }
+      __syncthreads();
       continue;
     }
-    const int slot = (int)(0xFFFFFFFFu - (uint32_t)(kp & 0xFFFFFFFFull));
-    const bool is_a = slot < cap_a;
-    if (tid == 0) {
-      if (is_a) st_att_ab += 1.0f; else st_att_ba += 1.0f;
-    }
-    const unsigned long long kt = block_max(is_a ? sred_fb : sred_fa, nwarps);
-    // no free slot in the target block: refused, nothing written
-    if (kt == 0ull) continue;
-    const int tgt = (int)(0xFFFFFFFFu - (uint32_t)(kt & 0xFFFFFFFFull));
-    const Species so = pick_species(is_a, spA, spB);   // the old identity
-    const Species sn = pick_species(is_a, spB, spA);   // the new one
+    // the old and the new identity: site-table rows from g_o / g_n
+    const int g_o = is_a ? 0 : P0, g_n = is_a ? P0 : 0;
+    const int P_o = is_a ? P0 : P1, P_n = is_a ? P1 : P0;
     const int col_old = is_a ? slot * P0 : a0_b + (slot - cap_a) * P1;
     const int col_new = is_a ? a0_b + (tgt - cap_a) * P1 : tgt * P0;
+    const float* off_n = off_b + 3 * g_n;  // the new rotated template
 
-    if (tid == 0) {
-      // the fresh Shoemake orientation of the new identity at the old COM
-      const float u1 = su[4];
-      float s2, c2, s3, c3;
-      sincosf(kTwoPi * (su[5] - rintf(su[5])), &s2, &c2);
-      sincosf(kTwoPi * (su[6] - rintf(su[6])), &s3, &c3);
-      const float r1 = sqrtf(fmaxf(1.0f - u1, 0.0f)), r2 = sqrtf(u1);
-      const float q[4] = {r1 * s2, r1 * c2, r2 * s3, r2 * c3};
-      const float* cm = scom + 3 * slot;
-      for (int d = 0; d < 3; ++d) sdec[d] = cm[d];
-      for (int k = 0; k < 4; ++k) sdec[3 + k] = q[k];
-      for (int p = 0; p < sn.P; ++p) {
-        float o[3] = {0.0f, 0.0f, 0.0f};
-        if (sn.P > 1)
-          rot_apply(q[0], q[1], q[2], q[3], sn.body[3 * p], sn.body[3 * p + 1],
-                    sn.body[3 * p + 2], o);
-        for (int d = 0; d < 3; ++d) snew[3 * p + d] = cm[d] + o[d];
-      }
-      for (int p = 0; p < so.P; ++p) {
-        sold[3 * p] = sx[col_old + p];
-        sold[3 * p + 1] = sy[col_old + p];
-        sold[3 * p + 2] = sz[col_old + p];
-      }
+    // the block: both poses' site rows and eik tables
+    if (tid < P_o) {
+      sold[4 * tid] = sx[col_old + tid];
+      sold[4 * tid + 1] = sy[col_old + tid];
+      sold[4 * tid + 2] = sz[col_old + tid];
+      sold[4 * tid + 3] = scut[g_o + tid];
+    } else if (tid >= 32 && tid < 32 + P_n) {
+      const int p = tid - 32;
+      for (int d = 0; d < 3; ++d) snew[4 * p + d] = scom[3 * slot + d] + off_n[3 * p + d];
+      snew[4 * p + 3] = scut[g_n + p];
+    }
+    if (ewald) {
+      build_tables(stab, g_o, P_o,
+                   [&](int p, int axis) {
+                     return (axis == 0 ? sx : axis == 1 ? sy : sz)[col_old + p];
+                   },
+                   -1.0f, tid, nt);
+      build_tables(stab + pmax * TW, g_n, P_n,
+                   [&](int p, int axis) {
+                     return scom[3 * slot + axis] + off_n[3 * p + axis];
+                   },
+                   1.0f, (tid + 128) & (nt - 1), nt);
     }
     __syncthreads();
+    // the proposal warp starts the next attempt's loads
+    float ux_pre = 0.0f;
+    if (warp == kProposer && more) ux_pre = prefetch(fi + 1);
 
     // both identities' site sums over the atom lanes
     float part = 0.0f;
-    for (int j = tid; j < A_pad; j += nt) {
-      const int mj = smol[j];
-      if (mj < 0 || mj == slot || sact[j] == 0.0f) continue;
-      const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[j];
-      const int tj = stid[j];
-      for (int p = 0; p < so.P; ++p)
-        part -= pair_term(so, sold + 3 * p, p, xj, yj, zj, qj, tj, false);
-      for (int p = 0; p < sn.P; ++p)
-        part += pair_term(sn, snew + 3 * p, p, xj, yj, zj, qj, tj, true);
+    {
+      Queue q{qkey + warp * kQueue, qd2 + warp * kQueue, 0, 0};
+      // the active atoms, an equal share of the list per warp
+      const int per = (n_l + kWarps - 1) / kWarps;
+      const int hi = min((warp + 1) * per, n_l);
+      for (int ib = warp * per; ib < hi; ib += 32) {
+        const int i = ib + lane;
+        bool on = i < hi;
+        int j = 0;
+        float xj = 0.0f, yj = 0.0f, zj = 0.0f;
+        if (on) {
+          j = slist[i];
+          on = smol[j] != slot;
+          xj = sx[j];
+          yj = sy[j];
+          zj = sz[j];
+        }
+        for (int s = 0; s < 2; ++s) {
+          const float4* a = reinterpret_cast<const float4*>(s ? snew : sold);
+          const int P = s ? P_n : P_o;
+          const int key = j | (s ? g_n : g_o) << kKeySite | s << kKeySign;
+          for (int p0 = 0; p0 < P; p0 += kChunk) {
+            bool live[kChunk];
+            float d2[kChunk];
+#pragma unroll
+            for (int k = 0; k < kChunk; ++k) {
+              live[k] = false;
+              d2[k] = 0.0f;
+              if (on && p0 + k < P) {
+                const float4 site = a[p0 + k];
+                d2[k] = dist2(xj, yj, zj, site.x, site.y, site.z);
+                live[k] = d2[k] < site.w;
+              }
+            }
+            push(q, part, P - p0, live, d2, key + (p0 << kKeySite));
+          }
+        }
+      }
+      drain(q, part);
     }
+    if (more) scores(fi + 1);
     if (ewald) {
-      for (int k = tid; k < K; k += nt) {
-        float re_n, im_n, re_o, im_o;
-        k_row(sn, snew, k, re_n, im_n);
-        k_row(so, sold, k, re_o, im_o);
-        const float dre = re_n - re_o, dim = im_n - im_o;
-        sdre[k] = dre;
-        sdim[k] = dim;
-        const float cross = 2.0f * (ssre[k] * dre + ssim[k] * dim) + dre * dre + dim * dim;
-        part += factor * (scfac[k] * cross);
+      for (int k0 = tid; k0 < K; k0 += 2 * nt) {
+        float dre[2] = {0.0f, 0.0f}, dim[2] = {0.0f, 0.0f};
+        k_sum2(stab, g_o, P_o, k0, dre, dim);
+        k_sum2(stab + pmax * TW, g_n, P_n, k0, dre, dim);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = k0 + j * nt;
+          if (k >= K) break;
+          sdre[k] = dre[j];
+          sdim[k] = dim[j];
+          const float cross = 2.0f * (ssre[k] * dre[j] + ssim[k] * dim[j]) +
+                              dre[j] * dre[j] + dim[j] * dim[j];
+          part += factor * (scfac[k] * cross);
+        }
       }
     }
     part = warp_sum(part);
+    if (warp == kProposer && more) propose(fi + 1, ux_pre);
     if (lane == 0) sred[warp] = part;
     __syncthreads();
 
-    if (tid == 0) {
-      float du = 0.0f;
-      for (int w = 0; w < nwarps; ++w) du += sred[w];
-      du += is_a ? si_b - si_a : si_a - si_b;
-      if (use_lrc) {
-        // the tail's flip delta, affine in the live counts
-        const float d_ab = -(2.0f * n_a - 1.0f) * g00 + (2.0f * n_b + 1.0f) * g11 +
-                           2.0f * (n_a - n_b - 1.0f) * g01;
-        const float d_ba = (2.0f * n_a + 1.0f) * g00 - (2.0f * n_b - 1.0f) * g11 +
-                           2.0f * (n_b - n_a - 1.0f) * g01;
-        du += is_a ? d_ab : d_ba;
-      }
-      const float ln_acc = (is_a ? ln_xi : -ln_xi) - beta * du;
-      const float ln_u = logf(fmaxf(su[7], 1e-30f));
-      const bool ok = ln_u < ln_acc;
-      if (ok) {
-        st_e += du;
-        if (is_a) st_acc_ab += 1.0f; else st_acc_ba += 1.0f;
-        st_fp += (float)(slot + 1);
-        n_a += is_a ? -1.0f : 1.0f;
-        n_b += is_a ? 1.0f : -1.0f;
-        sactm[slot] = 0.0f;
-        sactm[tgt] = 1.0f;
-        for (int p = 0; p < so.P; ++p) sact[col_old + p] = 0.0f;
-        for (int p = 0; p < sn.P; ++p) {
-          sact[col_new + p] = 1.0f;
-          sx[col_new + p] = snew[3 * p];
-          sy[col_new + p] = snew[3 * p + 1];
-          sz[col_new + p] = snew[3 * p + 2];
-        }
-        for (int d = 0; d < 3; ++d) scom[3 * tgt + d] = sdec[d];
-        for (int k = 0; k < 4; ++k) squat[4 * tgt + k] = sdec[3 + k];
-      }
-      sdec[8] = ok ? 1.0f : 0.0f;
+    // every thread: the same sum in the same order, the same decision
+    float du = 0.0f;
+    for (int w = 0; w < kWarps; ++w) du += sred[w];
+    du += is_a ? si_b - si_a : si_a - si_b;
+    if (use_lrc) {
+      // the tail's flip delta, affine in the live counts
+      const float g00 = lrc3_in[3 * c], g01 = lrc3_in[3 * c + 1],
+                  g11 = lrc3_in[3 * c + 2];
+      const float d_ab = -(2.0f * n_a - 1.0f) * g00 + (2.0f * n_b + 1.0f) * g11 +
+                         2.0f * (n_a - n_b - 1.0f) * g01;
+      const float d_ba = (2.0f * n_a + 1.0f) * g00 - (2.0f * n_b - 1.0f) * g11 +
+                         2.0f * (n_b - n_a - 1.0f) * g01;
+      du += is_a ? d_ab : d_ba;
     }
-    __syncthreads();
-    if (ewald && sdec[8] != 0.0f)
+    const float ln_acc = (is_a ? ln_xi : -ln_xi) - beta * du;
+    const float ln_u = logf(fmaxf(dec[4], 1e-30f));
+    if (!(ln_u < ln_acc)) continue;
+    if (tid == 0) {
+      sstat[0] += du;
+      sstat[is_a ? 1 : 2] += 1.0f;
+      sstat[5] += (float)(slot + 1);
+      sactm[slot] = 0.0f;
+      sactm[tgt] = 1.0f;
+      // the old identity's atoms leave the list (each swapped with the last
+      // entry), the new one's join it
+      int n = n_l;
+      for (int p = 0; p < P_o; ++p) {
+        const int i = spos[col_old + p];
+        const int last = slist[n - 1];
+        slist[i] = last;
+        spos[last] = i;
+        spos[col_old + p] = -1;
+        --n;
+      }
+      for (int p = 0; p < P_n; ++p) {
+        slist[n] = col_new + p;
+        spos[col_new + p] = n++;
+      }
+    }
+    if (tid >= 32 && tid < 32 + P_n) {
+      const int p = tid - 32;
+      sx[col_new + p] = snew[4 * p];
+      sy[col_new + p] = snew[4 * p + 1];
+      sz[col_new + p] = snew[4 * p + 2];
+    } else if (tid >= 64 && tid < 64 + 3) {
+      scom[3 * tgt + tid - 64] = scom[3 * slot + tid - 64];
+    } else if (tid >= 67 && tid < 67 + 4) {
+      squat[4 * tgt + tid - 67] = dec[tid - 67];
+    }
+    n_a += is_a ? -1.0f : 1.0f;
+    n_b += is_a ? 1.0f : -1.0f;
+    n_l += P_n - P_o;
+    if (ewald)
       // each thread adds the deltas of the k-vectors it computed
       for (int k = tid; k < K; k += nt) {
         ssre[k] += sdre[k];
         ssim[k] += sdim[k];
       }
+    __syncthreads();
   }
   __syncthreads();
 
@@ -535,47 +631,84 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) flip_kernel(
     cout[j] = sx[j];
     cout[A_pad + j] = sy[j];
     cout[2 * A_pad + j] = sz[j];
-    act_out[(size_t)c * A_pad + j] = sact[j];
+    act_out[(size_t)c * A_pad + j] = spos[j] >= 0 ? 1.0f : 0.0f;
   }
   for (int i = tid; i < M; i += nt) actm_out[(size_t)c * M + i] = sactm[i];
-  for (int i = tid; i < 3 * M; i += nt) com_out[(size_t)c * 3 * M + i] = scom[i];
-  for (int i = tid; i < 4 * M; i += nt) quat_out[(size_t)c * 4 * M + i] = squat[i];
   for (int k = tid; k < K; k += nt) {
     sfac_out[((size_t)c * K + k) * 2] = ssre[k];
     sfac_out[((size_t)c * K + k) * 2 + 1] = ssim[k];
   }
   if (tid == 0) {
     float* st = stats_out + (size_t)c * kStats;
-    st[0] = st_e;
-    st[1] = st_acc_ab;
-    st[2] = st_acc_ba;
-    st[3] = st_att_ab;
-    st[4] = st_att_ba;
-    st[5] = st_fp;
+    for (int i = 0; i < 6; ++i) st[i] = sstat[i];
     st[6] = 0.0f;
     st[7] = 0.0f;
+    if (sstat[15] != 0.0f) st[0] = nanf("");  // a k-vector beyond nk
   }
+}
+
+using FlipKernel = decltype(&flip_kernel<kQNone>);
+
+// The instantiation of a Coulomb style.
+FlipKernel pick_kernel(int coulomb) {
+  switch (coulomb) {
+    case kNone: return flip_kernel<kQNone>;
+    case kWolf: return flip_kernel<kQWolf>;
+    case kBare: return flip_kernel<kQBare>;
+    default: return flip_kernel<kQErfc>;
+  }
+}
+
+// Lets the instantiation take `smem` bytes of dynamic shared memory.
+cudaError_t allow_smem(FlipKernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
 
 extern "C" size_t mmc_flip_smem_bytes(int M, int P0, int P1, int A_pad, int K,
-                                      int T) {
-  return sizeof(float) * flip_smem_floats(M, P0, P1, A_pad, K, T);
+                                      int T, int nk) {
+  return sizeof(float) * flip_smem_floats(M, P0, P1, A_pad, K, T, nk);
+}
+
+// The instantiation's registers per thread, local memory per thread (stack
+// frame and spills, bytes) and the blocks of this shape one SM holds at
+// once (the CUDA occupancy calculator) into out[0..2]; returns the CUDA
+// error code (0 on success).
+extern "C" int mmc_flip_occupancy(int coulomb, int M, int P0, int P1,
+                                  int A_pad, int K, int T, int nk, int* out) {
+  const FlipKernel kernel = pick_kernel(coulomb);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = 0;
+  const size_t smem = mmc_flip_smem_bytes(M, P0, P1, A_pad, K, T, nk);
+  if (smem > (size_t)kMaxSmemBytes) return 0;
+  e = allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      kThreads, smem);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* mmc_flip_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches n_flip flip attempts of every chain (grid = C chains) on `stream`;
-// returns the CUDA error code of the launch (0 on success).  All pointers are
-// device pointers to contiguous f32 (int32 for the flag and row tables)
-// tensors: coords (C, 3, A_pad), com (C, M, 3), quat (C, M, 4), sfac (C, K,
-// 2), act (C, A_pad), actm (C, M), box/temp (C), si2 (C, 2), lrc3 (C, 3) or
-// null (no LJ tail), ux (C, n_flip, 8); per species s: body (P_s, 3), qp
-// (P_s), eps/sig2 (P_s, T), has_lj/has_q (P_s); tid/molid/q rows (A_pad),
-// kvec (K, 3), kw (K).
+// Launches n_flip flip attempts of every chain (grid = C chains of 256
+// threads) on `stream`; returns the CUDA error code of the launch (0 on
+// success).  All pointers are device pointers to contiguous f32 (int32 for
+// the flag and row tables) tensors: coords (C, 3, A_pad), com (C, M, 3),
+// quat (C, M, 4), sfac (C, K, 2), act (C, A_pad), actm (C, M), box/temp
+// (C), si2 (C, 2), lrc3 (C, 3) or null (no LJ tail), ux (C, n_flip, 8); per
+// species s: body (P_s, 3), qp (P_s), eps/sig2 (P_s, T), has_lj/has_q
+// (P_s); tid/molid/q rows (A_pad), kvec (K, 3) whose integer components
+// are at most nk in magnitude (else the energy statistic is NaN), kw (K).
 extern "C" int mmc_flip_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* act, const void* actm, const void* box, const void* temp,
@@ -587,20 +720,20 @@ extern "C" int mmc_flip_launch(
     const void* kvec, const void* kw, void* coords_out, void* com_out,
     void* quat_out, void* sfac_out, void* act_out, void* actm_out,
     void* stats_out, int C, int cap_a, int cap_b, int P0, int P1, int a0_b,
-    int A_pad, int K, int T, int coulomb, int n_flip, unsigned int seed,
-    int threads, float rc2, float qrc2, float kappa_l, float d2_overlap,
-    float ln_xi, float factor, void* stream) {
-  const size_t smem = mmc_flip_smem_bytes(cap_a + cap_b, P0, P1, A_pad, K, T);
-  if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > kThreads ||
-      threads % 32 != 0 || C < 1 || cap_a < 1 || cap_b < 1 || P0 < 1 ||
-      P1 < 1 || a0_b < cap_a * P0 || a0_b + cap_b * P1 > A_pad || n_flip < 0)
+    int A_pad, int K, int T, int nk, int coulomb, int n_flip,
+    unsigned int seed, int threads, float rc2, float qrc2, float kappa_l,
+    float d2_overlap, float ln_xi, float factor, void* stream) {
+  const size_t smem =
+      mmc_flip_smem_bytes(cap_a + cap_b, P0, P1, A_pad, K, T, nk);
+  if (smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 ||
+      cap_a < 1 || cap_b < 1 || P0 < 1 || P1 < 1 || P0 > 16 || P1 > 16 ||
+      nk < 0 || nk > 127 || A_pad > kMaxColumns ||
+      a0_b < cap_a * P0 || a0_b + cap_b * P1 > A_pad || n_flip < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  flip_kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const FlipKernel kernel = pick_kernel(coulomb);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coords), static_cast<const float*>(com),
       static_cast<const float*>(quat), static_cast<const float*>(sfac),
       static_cast<const float*>(act), static_cast<const float*>(actm),
@@ -619,6 +752,7 @@ extern "C" int mmc_flip_launch(
       static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
       static_cast<float*>(act_out), static_cast<float*>(actm_out),
       static_cast<float*>(stats_out), cap_a, cap_b, P0, P1, a0_b, A_pad, K, T,
-      coulomb, n_flip, seed, rc2, qrc2, kappa_l, d2_overlap, ln_xi, factor);
+      nk, coulomb == kEwald, n_flip, seed, rc2, qrc2, kappa_l, d2_overlap,
+      ln_xi, factor);
   return static_cast<int>(cudaGetLastError());
 }

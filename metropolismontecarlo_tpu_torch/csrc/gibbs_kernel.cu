@@ -39,99 +39,125 @@
 // type, charge and molecule rows are one box's (A_off): both boxes hold the
 // same slots.
 //
-// What bounds it on this card: latency, not bytes.  One cycle of the
-// flagship (cap 128 x 2 SPC/E, K = 783) is 256 dependent moves and 110
-// dependent transfers, each a pass over <= 512 lanes and 783 k-vectors, a
-// block reduction and a scalar decision; device memory is touched only to
-// load and store the chain state (~60 KB) and the uniforms.  The design:
-// the chain's whole two-box state (atom, slot and activity rows, both S(k)
-// rows, both cfac rows, the k-vectors) lives in shared memory for the whole
-// cycle, so the scans read nothing from device memory; a move scans only its
-// own box's half of the lanes; a transfer reads the candidate's columns and
-// writes the new slot's directly (the TPU kernel uses full-row one-hot
-// reductions); slots are picked by one block max-reduction over 64-bit keys
-// that finds the deletion and the insertion slot together; the next move's
-// uniforms are prefetched during the current move; chains run in parallel
-// across blocks (~67 KB of shared memory and ~120 registers per thread:
-// two 256-thread blocks per SM).
+// What bounds it on this card: latency and instruction issue inside each
+// block (three blocks of 8 warps share an SM's 4 schedulers), not bytes.
+// One cycle of the flagship (cap 128 x 2 SPC/E, K = 783) is ~106 dependent
+// moves and 110 dependent transfers, each a pass over a box's 512 lanes
+// and 783 k-vectors, a block reduction and a decision; device memory is
+// touched only to load and store the chain state (~60 KB) and the
+// uniforms.  Only a third to a half of the active atoms lie within a
+// pose's reach, and a pair's LJ + erfc body costs several times its
+// distance.  The design (the move body of csrc/sweep_kernel.cu, carried
+// over; each step measured in turns with the previous build on one card,
+// PERF.md):
+// - Residency and occupancy: both boxes' atom planes, the molecule row,
+//   both S(k) and cfac rows and the k-vector indices live in shared memory
+//   for the whole cycle; the COM and quaternion rows, which only the moved
+//   or inserted molecule touches, stay in the chain's own rows of the
+//   outputs (copied in at entry, updated in place), and the per-atom
+//   charge and type rows, the same for every chain, in their global
+//   tables.  The real-space Coulomb form and the linear LJ shift are
+//   template parameters, and __launch_bounds__(256, 3) caps the registers:
+//   ~71 KB and three blocks per SM at the flagship.
+// - Compacted pair sums in three warp stages (sweep_kernel.cu): centre
+//   distances of 32 atoms at a time to each pose of a move, the (atom,
+//   pose) pairs within the pose's reach (largest cutoff plus the pose's
+//   radius, widened by 1e-4 relative plus 1e-3 A: exact by the triangle
+//   inequality) into a near ring; their site distances against 16-byte
+//   site rows (x, y, z, the site's live cutoff^2), a ballot per site, the
+//   live triples into a queue; LJ + erfc on full warps of live terms.  A
+//   transfer's two poses run stages 1-2 over every active atom of their
+//   boxes (no reach ring), in one queue whose key's sign bit sends each
+//   term to its pose's sum.
+// - k-space from per-site eik tables: for each charged site of a pose, the
+//   rows q e^{i 2 pi n x / L}, e^{i 2 pi n y / L}, e^{i 2 pi n z / L} for
+//   |n| <= nk (the charge and the pose's sign folded into the x row; the
+//   negative n are the conjugates), in the box of the sum, each row from
+//   one sincospif by the recurrence e^{i n t} = e^{i (n - 1) t} e^{i t}.  A
+//   k-vector's phase factor is then two complex products instead of a
+//   sincosf: a pose costs 3 P sincospif instead of P K sincosf, and each
+//   thread keeps two k-vectors' chains of loads in flight.
+//   sincospif's argument reduction is exact, so no slow path or stack
+//   frame is built.
+// - Proposals one step ahead on one warp: move i + 1 does not depend on
+//   move i's outcome (each slot moves once per launch and move i touches
+//   none of slot i + 1's rows), so the last warp builds the next active
+//   slot's proposal -- pose rows and eik tables -- into the other half of a
+//   double buffer while the block sums move i.  It skips inactive slots, so
+//   an inactive slot costs no barrier.  A transfer's direction, fresh pose
+//   and its tables depend only on ux and the attempt index, so the same
+//   warp builds them an attempt ahead; every thread computes the next
+//   attempt's Philox scores (one per slot) during the current pass.  The
+//   pick depends on activity: after a decision every warp redoes it on its
+//   own (the source's largest key, the destination's first free slot: a few
+//   keys per lane and one warp max), so no barrier orders it.
+// - Every thread takes the same decision: after the warp partials every
+//   thread sums them in the same order.  A move takes two barriers (the
+//   partials; the write-back), a transfer two when it is rejected and three
+//   when accepted (the deletion pose's rows and tables, built by the block
+//   after the pick; the partials; the write-back).  P threads write an
+//   accepted pose, seven its COM and quaternion, each thread the S(k)
+//   deltas of its own k-vectors.
+// The pair arithmetic (minimum image, d^2 floor, erfc, the order inside a
+// term) is the same for every term; only the order in which terms are
+// summed follows the queues.
 //
 // Semantics kept from the TPU kernel: old atoms are read from the stored
 // coordinates; new atoms are the floor-wrapped new COM plus R(q_new) body;
-// pair distances use the rintf minimum image with d^2 floored at 1e-4; pads
-// (molid < 0), inactive atoms and the molecule's own atoms are excluded;
-// S(k) changes only on accept; energy statistics add deltas by select.
+// pair distances use the minimum image rounded to nearest (ties to even, on
+// the FMA pipe) with d^2 floored at 1e-4; pads (molid < 0), inactive atoms
+// and the molecule's own atoms are excluded; S(k) changes only on accept;
+// energy statistics add deltas by select.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mmc_common.cuh"
+
 namespace {
 
-enum Coulomb { kNone = 0, kEwald = 1, kWolf = 2, kWolfRef = 3, kBare = 4 };
-
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kInvTwoPi = 0.15915494309189535f;
 constexpr int kStats = 8;
 constexpr int kUniforms = 10;
 constexpr int kExchUniforms = 8;
-constexpr int kMaxSmemBytes = 232448;
+// A live pair term's queue key (mmc_common.cuh Queue): the plane column
+// (kKeySite bits), the site (4 bits), the pose's sign (1: new or inserted
+// pose, 0: old or deleted pose) and the overlap veto.
+constexpr int kKeySign = 24, kKeyVeto = 25;
+// A warp's ring of (atom, pose) pairs within the pose's reach (moves).
+constexpr int kNear = 64;
+constexpr int kNearWords = kWarps * kNear;
+// One proposal's scalars.  A move: the new COM and the new pose's squared
+// reach [0, 4), the old COM and the old pose's squared reach [4, 8), the
+// new quaternion [8, 12), tsel, the accept uniform and the move index (2 M:
+// the moves are over).  A transfer: the fresh COM [0, 3), its quaternion
+// [3, 7), the accept uniform, the source box.
+constexpr int kDec = 16;
+constexpr int kScratch = 2 * kDec + 32 + 16 + 8;
 
 // Shared-memory words of one block; ops/cuda/gibbs_kernel.py
-// gibbs_smem_bytes computes the same number: two slot-pick rows (2 x 32 x
-// 8 B), x/y/z/act over both boxes (8 A_off), q/type/molecule of one box
-// (3 A_off), COM/quaternion/slot activity over both boxes (16 m_off), 13 k
-// rows (S re/im and cfac per box, insertion and deletion dS re/im, kx, ky,
-// kz), 4 (P, T) LJ tables, 15 P-wide site rows, 112 words of scratch.
+// gibbs_smem_bytes computes the same number.  The warp queues and near
+// rings; two proposal buffers, each an old and a new pose of P 16-byte site
+// rows (16 P) and their eik tables (2 P x 3 rows of 2 nk + 1 complex: 24 P
+// (2 nk + 1)); x/y/z/activity over both boxes (8 A_off) and one box's
+// molecule row (A_off); slot activity over both boxes (2 m_off); 11 k rows
+// (S re/im and cfac per box, the move's or insertion's and the deletion's
+// dS re/im, the packed k-vector indices); 4 (P, T) LJ tables; 7 P-wide site
+// rows (body 3, charge, two flags, live cutoff^2); two rows of Philox
+// scores (4 m_off); 88 words of scratch (two proposals' scalars, two rows of
+// warp partials, the statistics, the box constants).
 __host__ __device__ inline size_t gibbs_smem_floats(int m_off, int P,
-                                                    int A_off, int K, int T) {
-  return 128 + 11 * (size_t)A_off + 16 * (size_t)m_off + 13 * (size_t)K +
-         4 * (size_t)P * T + 15 * (size_t)P + 112;
+                                                    int A_off, int K, int T,
+                                                    int nk) {
+  return kQueueWords + kNearWords + 16 * (size_t)P +
+         24 * (size_t)P * (2 * nk + 1) + 9 * (size_t)A_off +
+         6 * (size_t)m_off + 11 * (size_t)K + 4 * (size_t)P * T +
+         7 * (size_t)P + kScratch;
 }
 
-__device__ inline float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ inline unsigned long long warp_max_u64(unsigned long long v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
-
-// First output word of Philox4x32-10 (Salmon et al., SC 2011) for counter
-// (c0, c1, 0, 0) and key (k0, k1); the sweep kernel's deletion scores.
-__device__ inline uint32_t philox_word(uint32_t c0, uint32_t c1, uint32_t k0,
-                                       uint32_t k1) {
-  uint32_t c2 = 0u, c3 = 0u;
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-// R(q) b, the same expansion as the TPU kernel's _rot_apply.
-__device__ inline void rot_apply(float w, float x, float y, float z, float bx,
-                                 float by, float bz, float* o) {
-  const float ww = w * w, xx = x * x, yy = y * y, zz = z * z;
-  const float wx = w * x, wy = w * y, wz = w * z;
-  const float xy = x * y, xz = x * z, yz = y * z;
-  o[0] = (ww + xx - yy - zz) * bx + 2.0f * ((xy - wz) * by + (xz + wy) * bz);
-  o[1] = (ww - xx + yy - zz) * by + 2.0f * ((xy + wz) * bx + (yz - wx) * bz);
-  o[2] = (ww - xx - yy + zz) * bz + 2.0f * ((xz - wy) * bx + (yz + wx) * by);
-}
-
-__global__ void gibbs_kernel(
+template <int kQ, bool kLinear>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gibbs_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
     const float* __restrict__ act_in, const float* __restrict__ actm_in,
@@ -150,24 +176,32 @@ __global__ void gibbs_kernel(
     float* __restrict__ sfac_out, float* __restrict__ stats_out,
     float* __restrict__ act_out, float* __restrict__ actm_out, int M,
     int m_off, int m_start, int a_start, int P, int A_off, int K, int T,
-    int coulomb, int lj_linear, int use_rot, int n_exch, unsigned int seed,
-    float rc2, float qrc2, float kappa_l, float d2_overlap, float p_translate,
+    int nk, int ewald, int use_rot, int n_exch, unsigned int seed, float rc2,
+    float qrc2, float kappa_l, float d2_overlap, float p_translate,
     float factor) {
   extern __shared__ float smem[];
-  // the slot-pick rows first (8-byte aligned): insertion, deletion
-  unsigned long long* sred64 = reinterpret_cast<unsigned long long*>(smem);
-  unsigned long long* sred64d = sred64 + 32;
+  const int W = 2 * nk + 1;   // an eik row's entries
+  const int TW = 6 * W;       // words of one site's three rows
+  int* qkey = reinterpret_cast<int*>(smem);
+  float* qd2 = smem + kWarps * kQueue;
+  int* qnear = reinterpret_cast<int*>(smem + kQueueWords);
+  // 16-byte rows from here: two proposal buffers of an old then a new pose
+  // (a transfer: the deletion pose, then the inserted one)
+  float* spose = smem + kQueueWords + kNearWords;  // 2 x 2 x (P, 4)
+  float* stab = spose + 16 * P;                     // 2 x 2 x P x TW
+  float* sdec = stab + 4 * P * TW;  // 2 x kDec: proposal scalars (16-byte)
+  float* sred = sdec + 2 * kDec;    // 16 partials (a second row at +16)
+  // thread 0's statistics: per-box energy deltas, acc/att [trans, rot],
+  // accepted transfers, a decision fingerprint; [15] a k-vector out of range
+  float* sstat = sred + 32;
+  float* sbox = sstat + 16;       // per box: L, 1 / L, kappa, Wolf shift
   const int A2 = 2 * A_off, M2 = 2 * m_off;
-  float* sx = smem + 128;        // (2 A_off) both boxes
+  float* sx = sbox + 8;           // (2 A_off) both boxes
   float* sy = sx + A2;
   float* sz = sy + A2;
   float* sact = sz + A2;
-  float* sq = sact + A2;         // (A_off) one box's rows
-  int* stid = reinterpret_cast<int*>(sq + A_off);
-  int* smol = stid + A_off;
-  float* scom = reinterpret_cast<float*>(smol + A_off);  // (2 m_off, 3)
-  float* squat = scom + 3 * M2;                          // (2 m_off, 4)
-  float* sactm = squat + 4 * M2;                         // (2 m_off)
+  int* smol = reinterpret_cast<int*>(sact + A2);     // (A_off) one box's
+  float* sactm = reinterpret_cast<float*>(smol + A_off);  // (2 m_off)
   float* ssre = sactm + M2;      // (2, K) per box
   float* ssim = ssre + 2 * K;
   float* scfac = ssim + 2 * K;
@@ -175,10 +209,8 @@ __global__ void gibbs_kernel(
   float* sdim = sdre + K;
   float* sdre2 = sdim + K;       // (K) a deletion's dS
   float* sdim2 = sdre2 + K;
-  float* skx = sdim2 + K;
-  float* sky = skx + K;
-  float* skz = sky + K;
-  float* seps = skz + K;          // (P, T)
+  int* skidx = reinterpret_cast<int*>(sdim2 + K);  // (K) packed k indices
+  float* seps = reinterpret_cast<float*>(skidx + K);  // (P, T)
   float* ssig2 = seps + P * T;
   float* slam1 = ssig2 + P * T;
   float* slam2 = slam1 + P * T;
@@ -186,21 +218,21 @@ __global__ void gibbs_kernel(
   float* sqp = sbody + 3 * P;
   int* slj = reinterpret_cast<int*>(sqp + P);
   int* sqf = slj + P;
-  float* sold = reinterpret_cast<float*>(sqf + P);  // (P, 3)
-  float* snew = sold + 3 * P;                        // (P, 3)
-  float* sdel = snew + 3 * P;                        // (P, 3)
-  float* su = sdel + 3 * P;     // 2 x 16: double-buffered uniforms
-  float* sred = su + 32;        // one partial sum per warp
-  float* sred2 = sred + 32;     // a second row of them
-  float* sdec = sred2 + 32;     // 16 words: proposal scalars + decision
+  float* scut = reinterpret_cast<float*>(sqf + P);   // (P) live cutoff^2
+  unsigned* sscore = reinterpret_cast<unsigned*>(scut + P);  // 2 x (2 m_off)
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  constexpr int nt = kThreads;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  constexpr int kProposer = kWarps - 1;  // the warp that builds proposals
 
+  // the chain's COM and quaternion rows: its own rows of the outputs,
+  // updated in place
+  float* const scom = com_out + (size_t)c * 3 * M2;
+  float* const squat = quat_out + (size_t)c * 4 * M2;
   const float* cin = coords_in + (size_t)c * 6 * A_off;
   for (int j = tid; j < A_off; j += nt) {
     for (int b = 0; b < 2; ++b) {
@@ -208,42 +240,44 @@ __global__ void gibbs_kernel(
       sy[b * A_off + j] = cin[(3 * b + 1) * A_off + j];
       sz[b * A_off + j] = cin[(3 * b + 2) * A_off + j];
     }
-    sq[j] = q_row[j];
-    stid[j] = tid_row[j];
     smol[j] = molid_row[j];
   }
   for (int j = tid; j < A2; j += nt) sact[j] = act_in[(size_t)c * A2 + j];
   for (int i = tid; i < M2; i += nt) sactm[i] = actm_in[(size_t)c * M2 + i];
   for (int i = tid; i < 3 * M2; i += nt) scom[i] = com_in[(size_t)c * 3 * M2 + i];
   for (int i = tid; i < 4 * M2; i += nt) squat[i] = quat_in[(size_t)c * 4 * M2 + i];
-
-  // per-box constants, as scalar pairs picked by selects (no local-memory
-  // arrays): length, inverse length, kappa, Wolf shift
-  const float L0 = box2_in[2 * c], L1 = box2_in[2 * c + 1];
-  const float inv0 = 1.0f / L0, inv1 = 1.0f / L1;
-  const float kap0 = kappa_l * inv0, kap1 = kappa_l * inv1;
-  float shw0 = 0.0f, shw1 = 0.0f;
-  if (coulomb == kWolf) {
-    const float qrc = sqrtf(qrc2);
-    shw0 = erfcf(kap0 * qrc) / qrc;
-    shw1 = erfcf(kap1 * qrc) / qrc;
+  if (tid < 16) sstat[tid] = 0.0f;
+  if (tid < 2) {
+    const float L = box2_in[2 * c + tid];
+    const float inv = 1.0f / L;
+    const float kap = kappa_l * inv;
+    sbox[4 * tid] = L;
+    sbox[4 * tid + 1] = inv;
+    sbox[4 * tid + 2] = kap;
+    float shw = 0.0f;
+    if (kQ == kQWolf) {
+      const float qrc = sqrtf(qrc2);
+      shw = erfcf(kap * qrc) / qrc;
+    }
+    sbox[4 * tid + 3] = shw;
   }
-  auto pick = [](int b, float v0, float v1) { return b ? v1 : v0; };
   const float temp = temp_in[c];
   const float dr_max = drmax_in[c];
   const float dphi_max = dphi_in[c];
-  const bool ewald = coulomb == kEwald;
+  const float L0 = box2_in[2 * c], L1 = box2_in[2 * c + 1];
+  bool k_bad = false;
   for (int k = tid; k < K; k += nt) {
     const float kx = kvec[3 * k], ky = kvec[3 * k + 1], kz = kvec[3 * k + 2];
-    skx[k] = kx;
-    sky[k] = ky;
-    skz[k] = kz;
+    const int nx = (int)rintf(kx), ny = (int)rintf(ky), nz = (int)rintf(kz);
+    if (ewald && (abs(nx) > nk || abs(ny) > nk || abs(nz) > nk)) k_bad = true;
+    skidx[k] = (nx + nk) | (ny + nk) << 8 | (nz + nk) << 16;
     for (int b = 0; b < 2; ++b) {
       ssre[b * K + k] = sfac_in[(((size_t)c * 2 + b) * K + k) * 2];
       ssim[b * K + k] = sfac_in[(((size_t)c * 2 + b) * K + k) * 2 + 1];
       if (ewald) {
-        const float L = pick(b, L0, L1), kap = pick(b, kap0, kap1);
-        const float tpl = kTwoPi * pick(b, inv0, inv1);
+        const float L = b ? L1 : L0;
+        const float inv = 1.0f / L, kap = kappa_l * inv;
+        const float tpl = kTwoPi * inv;
         const float kt2 = tpl * tpl * (kx * kx + ky * ky + kz * kz);
         const float vol = L * L * L;
         scfac[b * K + k] =
@@ -257,253 +291,444 @@ __global__ void gibbs_kernel(
     slam1[i] = lam1_pt[i];
     slam2[i] = lam2_pt[i];
   }
+  const bool split_cut = qrc2 != rc2;
+  const float qcut2 = split_cut ? qrc2 : rc2;
   for (int i = tid; i < 3 * P; i += nt) sbody[i] = body[i];
   for (int i = tid; i < P; i += nt) {
+    const bool lj = has_lj[i] != 0, uq = kQ != kQNone && has_q[i] != 0;
     sqp[i] = qp[i];
-    slj[i] = has_lj[i];
-    sqf[i] = has_q[i] && coulomb != kNone;
+    slj[i] = lj;
+    sqf[i] = uq;
+    scut[i] = lj ? (uq ? fmaxf(rc2, qcut2) : rc2) : (uq ? qcut2 : -1.0f);
   }
-  const bool split_cut = qrc2 != rc2;
+  // the largest cutoff: a pose's reach is this plus the pose's radius
+  const float rc_max = sqrtf(fmaxf(rc2, qcut2));
   __syncthreads();
+  if (k_bad) sstat[15] = 1.0f;
 
-  // One pair term of site p of pose a against the atom lane (xj, yj, zj,
-  // qj, tj) in a box of length L (inverse inv, kappa kap, Wolf shift shw):
-  // LJ plus real-space Coulomb, the +1e30 overlap veto on attractive
-  // contacts when `veto`.
-  auto pair_term = [&](const float* a, int p, float xj, float yj, float zj,
-                       float qj, int tj, float L, float inv, float kap,
-                       float shw, bool veto) -> float {
-    const bool lj = slj[p] != 0;
-    const bool uq = sqf[p] != 0;
-    const float qq = (factor * sqp[p]) * qj;
-    float dx = xj - a[0], dy = yj - a[1], dz = zj - a[2];
-    dx -= L * rintf(dx * inv);
-    dy -= L * rintf(dy * inv);
-    dz -= L * rintf(dz * inv);
-    const float d2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+  // ---- pair terms: distances on every lane, live terms through queues ----
+  auto dist2 = [&](float xj, float yj, float zj, float ax, float ay, float az,
+                   float L, float inv) -> float {
+    float dx = xj - ax, dy = yj - ay, dz = zj - az;
+    dx -= L * round_near(dx * inv);
+    dy -= L * round_near(dy * inv);
+    dz -= L * round_near(dz * inv);
+    return fmaxf(dx * dx + dy * dy + dz * dz, 1e-4f);
+  };
+  // One live term: LJ (with the linear shift) plus real-space Coulomb with
+  // the constants of the column's box, the +1e30 veto on an attractive
+  // overlap when the key asks for it, negated for the old or deleted pose.
+  auto live_term = [&](int key, float d2) -> float {
+    const int j = key & (kMaxColumns - 1);
+    const int p = (key >> kKeySite) & 15;
+    const int bx = j >= A_off ? 1 : 0;
+    const int jl = j - bx * A_off;
+    const int tj = __ldg(tid_row + jl);
     const bool m_lj = d2 < rc2;
     const bool m_qq = split_cut ? d2 < qrc2 : m_lj;
     const float inv_r = rsqrtf(d2);
     const float inv_d2 = inv_r * inv_r;
+    // r from the reciprocal root, for the linear shift as for erfc: no
+    // IEEE square root and its slow path in the term
+    const float r = d2 * inv_r;
     float contrib = 0.0f;
-    if (lj && m_lj) {
+    if (slj[p] != 0 && m_lj) {
       const float s2 = ssig2[p * T + tj] * inv_d2;
       const float s6 = s2 * s2 * s2;
       float pot = seps[p * T + tj] * (s6 * s6 - s6);
-      if (lj_linear) pot += slam1[p * T + tj] + slam2[p * T + tj] * sqrtf(d2);
+      if (kLinear) pot += slam1[p * T + tj] + slam2[p * T + tj] * r;
       contrib = pot;
     }
-    if (uq && m_qq) {
-      const float r = d2 * inv_r;
+    if (kQ != kQNone && sqf[p] != 0 && m_qq) {
+      const float qq = (factor * sqp[p]) * __ldg(q_row + jl);
       float cp;
-      if (coulomb == kBare)
+      if (kQ == kQBare) {
         cp = qq * inv_r;
-      else if (coulomb == kWolf)
-        cp = qq * (erfcf(kap * r) * inv_r - shw);
-      else
-        cp = qq * (erfcf(kap * r) * inv_r);
-      if (veto && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
+      } else {
+        const float kap = sbox[4 * bx + 2];
+        if (kQ == kQWolf)
+          cp = qq * (erfcf(kap * r) * inv_r - sbox[4 * bx + 3]);
+        else
+          cp = qq * (erfcf(kap * r) * inv_r);
+      }
+      if (((key >> kKeyVeto) & 1) && d2 < d2_overlap && qq < 0.0f) cp = 1e30f;
       contrib += cp;
     }
-    return contrib;
+    return ((key >> kKeySign) & 1) ? contrib : -contrib;
+  };
+  // a warp queue's live terms (mmc_common.cuh Queue): the old or deleted
+  // pose's into acc0, the others into acc1
+  auto push = [&](Queue& q, float& acc0, float& acc1, int n, const bool* live,
+                  const float* d2, int key0) {
+    q.push(n, live, d2, key0, lane, [&](int key, float dd) {
+      const float t = live_term(key, dd);
+      if ((key >> kKeySign) & 1)
+        acc1 += t;
+      else
+        acc0 += t;
+    });
+  };
+  auto drain = [&](Queue& q, float& acc0, float& acc1) {
+    q.drain(lane, [&](int key, float dd) {
+      const float t = live_term(key, dd);
+      if ((key >> kKeySign) & 1)
+        acc1 += t;
+      else
+        acc0 += t;
+    });
+  };
+  // stage 1 of one lane: the site distances of the pose rows `pose` (veto
+  // and sign in key) to the atom (xj, yj, zj) when ok, live triples queued
+  auto site_stage = [&](Queue& q, float& acc0, float& acc1, bool ok, float xj,
+                        float yj, float zj, const float* pose, float L,
+                        float inv, int key) {
+    const float4* a = reinterpret_cast<const float4*>(pose);
+    for (int p0 = 0; p0 < P; p0 += kChunk) {
+      bool live[kChunk];
+      float d2[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        live[k] = false;
+        d2[k] = 0.0f;
+        if (ok && p0 + k < P) {
+          const float4 site = a[p0 + k];
+          d2[k] = dist2(xj, yj, zj, site.x, site.y, site.z, L, inv);
+          live[k] = d2[k] < site.w;
+        }
+      }
+      push(q, acc0, acc1, P - p0, live, d2, key | p0 << kKeySite);
+    }
+  };
+  // The n (<= 32, warp-uniform) oldest (atom, pose) pairs of the near ring,
+  // one per lane, through stage 1 against the pose the key's sign names.
+  auto near_flush = [&](Queue& qn, Queue& q, float& acc0, float& acc1, int n,
+                        const float* pose, float L, float inv) {
+    __syncwarp();
+    const bool ok = lane < n;
+    const int key = ok ? qn.key[(qn.head + lane) & (kNear - 1)] : 0;
+    qn.head += n;
+    __syncwarp();
+    const int j = key & (kMaxColumns - 1);
+    const int s = (key >> kKeySign) & 1;
+    float xj = 0.0f, yj = 0.0f, zj = 0.0f;
+    if (ok) {
+      xj = sx[j];
+      yj = sy[j];
+      zj = sz[j];
+    }
+    site_stage(q, acc0, acc1, ok, xj, yj, zj, pose + 4 * P * s, L, inv, key);
   };
 
-  // The structure-factor row of pose a at k-vector k in a box of inverse
-  // length inv.
-  auto k_row = [&](const float* a, int k, float inv, float& dre, float& dim) {
-    const float tpl = kTwoPi * inv;
-    const float kx = skx[k], ky = sky[k], kz = skz[k];
-    dre = 0.0f;
-    dim = 0.0f;
-    for (int p = 0; p < P; ++p) {
+  // ---- eik tables and the k-space rows ----
+  // The rows of the n_pose poses' sites (pose s, site p: table (s P + p)
+  // TW) of tab, sign sgn(s) * q_p folded into the x row, from coordinates
+  // pos(s, p, axis), in a box of inverse length inv: one row (s, p, axis)
+  // per thread of first, first + stride, ...
+  auto build_tables = [&](float* tab, int n_pose, auto pos, auto sgn,
+                          float inv, int first, int stride) {
+    for (int r = first; r < 3 * P * n_pose; r += stride) {
+      const int sp = r / 3, axis = r - 3 * sp;
+      const int s = sp / P, p = sp - s * P;
       if (!sqf[p]) continue;
-      float ph = tpl * (kx * a[3 * p] + ky * a[3 * p + 1] + kz * a[3 * p + 2]);
-      ph -= kTwoPi * rintf(ph * kInvTwoPi);
-      float sn, cs;
-      sincosf(ph, &sn, &cs);
-      dre += sqp[p] * cs;
-      dim += sqp[p] * sn;
+      eik_row(reinterpret_cast<float2*>(tab + sp * TW) + axis * W, nk,
+              pos(s, p, axis), inv, axis == 0 ? sgn(s) * sqp[p] : 1.0f);
+    }
+  };
+  // The structure-factor rows of the poses of `n_pose` consecutive site
+  // tables at the k-vectors k0 and k0 + nt (the second when below K): the
+  // sum over charged sites of x y z, two independent chains of loads and
+  // products per site.
+  auto k_sum2 = [&](const float* tab, int n_pose, int k0, float* dre,
+                    float* dim) {
+    const bool two = k0 + nt < K;
+    const int idx0 = skidx[k0], idx1 = two ? skidx[k0 + nt] : idx0;
+    for (int j = 0; j < 2; ++j) {
+      dre[j] = 0.0f;
+      dim[j] = 0.0f;
+    }
+    for (int s = 0; s < n_pose; ++s)
+      for (int p = 0; p < P; ++p) {
+        if (!sqf[p]) continue;
+        eik_add2(reinterpret_cast<const float2*>(tab + (s * P + p) * TW), W,
+                 idx0, idx1, dre, dim);
+      }
+  };
+
+  // ---- moves: the proposal warp's work ----
+  const int M2m = 2 * M;  // move indices: box 0's M, then box 1's
+  // the next move after move i: the next active slot; 2 M ends the moves
+  auto next_move = [&](int i) -> int {
+    for (int base = i + 1; base < M2m; base += 32) {
+      const int n = base + lane;
+      bool on = false;
+      if (n < M2m) {
+        const int b = n >= M ? 1 : 0;
+        on = sact[b * A_off + a_start + (n - b * M) * P] != 0.0f;
+      }
+      const unsigned bal = __ballot_sync(kFull, on);
+      if (bal) return base + __ffs(bal) - 1;
+    }
+    return M2m;
+  };
+  auto slot_of_move = [&](int i) {
+    const int b = i >= M ? 1 : 0;
+    return b * m_off + m_start + i - b * M;
+  };
+  // lane i < 10 loads uniform i of move i, lane i < 7 COM/quaternion word
+  // i: issued a pass ahead of their use
+  auto prefetch = [&](int i, float& u_pre, float& c_pre) {
+    if (i >= M2m) return;
+    const int slot = slot_of_move(i);
+    if (lane < kUniforms)
+      u_pre = u_in[((size_t)c * M2m + i) * kUniforms + lane];
+    if (lane < 3)
+      c_pre = scom[3 * slot + lane];
+    else if (lane < 7)
+      c_pre = squat[4 * slot + lane - 3];
+  };
+  // the proposal of move i into buffer b: every lane computes the
+  // molecule's scalars, lane p < P places site p, then the warp builds the
+  // two poses' eik tables
+  auto propose = [&](int i, int b, float u_pre, float c_pre) {
+    float* dec = sdec + kDec * b;
+    if (i >= M2m) {
+      if (lane == 0) dec[14] = (float)M2m;
+      return;
+    }
+    const int bx = i >= M ? 1 : 0;
+    const float box = sbox[4 * bx], inv_box = sbox[4 * bx + 1];
+    float um[kUniforms], cm[3], q0[4];
+    for (int k = 0; k < kUniforms; ++k) um[k] = __shfl_sync(kFull, u_pre, k);
+    for (int d = 0; d < 3; ++d) cm[d] = __shfl_sync(kFull, c_pre, d);
+    for (int k = 0; k < 4; ++k) q0[k] = __shfl_sync(kFull, c_pre, 3 + k);
+    float tsel = 1.0f;
+    float q1[4] = {q0[0], q0[1], q0[2], q0[3]};
+    if (use_rot) {
+      tsel = um[0] < p_translate ? 1.0f : 0.0f;
+      const float e1 = fmaxf(um[5], 1e-12f), e2 = um[6];
+      const float e3 = fmaxf(um[7], 1e-12f), e4 = um[8];
+      const float r1 = sqrtf(-2.0f * logf(e1));
+      const float r2 = sqrtf(-2.0f * logf(e3));
+      float s2, c2, s4, c4;
+      sincos_turns(e2, &s2, &c2);
+      sincos_turns(e4, &s4, &c4);
+      const float g1 = r1 * c2, g2 = r1 * s2, g3 = r2 * c4;
+      const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
+      const float half = 0.5f * ((2.0f * um[9] - 1.0f) * dphi_max);
+      float sh, rw;
+      sincospif(half * 0.3183098861837907f, &sh, &rw);
+      sh = sh * gn;
+      const float rx = sh * g1, ry = sh * g2, rz = sh * g3;
+      const float w0 = q0[0], x0 = q0[1], y0 = q0[2], z0 = q0[3];
+      const float nw = rw * w0 - rx * x0 - ry * y0 - rz * z0;
+      const float nx = rw * x0 + rx * w0 + ry * z0 - rz * y0;
+      const float ny = rw * y0 - rx * z0 + ry * w0 + rz * x0;
+      const float nz = rw * z0 + rx * y0 - ry * x0 + rz * w0;
+      const float qn = rsqrtf(nw * nw + nx * nx + ny * ny + nz * nz);
+      if (tsel == 0.0f) {
+        q1[0] = nw * qn;
+        q1[1] = nx * qn;
+        q1[2] = ny * qn;
+        q1[3] = nz * qn;
+      }
+    }
+    float nc[3];
+    for (int d = 0; d < 3; ++d) {
+      const float v = cm[d] + tsel * (um[1 + d] - 0.5f) * dr_max;
+      nc[d] = v - box * floorf(v * inv_box);
+    }
+    float* so = spose + 8 * P * b;
+    float* sn = so + 4 * P;
+    const int a0 = bx * A_off + a_start + (i - bx * M) * P;
+    float r_old = 0.0f, r_new = 0.0f;
+    if (lane < P) {
+      const int p = lane;
+      const float xo[3] = {sx[a0 + p], sy[a0 + p], sz[a0 + p]};
+      float o[3] = {0.0f, 0.0f, 0.0f};
+      if (P > 1)
+        rot_apply(q1[0], q1[1], q1[2], q1[3], sbody[3 * p], sbody[3 * p + 1],
+                  sbody[3 * p + 2], o);
+      float xn[3];
+      for (int d = 0; d < 3; ++d) {
+        so[4 * p + d] = xo[d];
+        xn[d] = nc[d] + o[d];
+        sn[4 * p + d] = xn[d];
+      }
+      so[4 * p + 3] = scut[p];
+      sn[4 * p + 3] = scut[p];
+      r_old = sqrtf(dist2(xo[0], xo[1], xo[2], cm[0], cm[1], cm[2], box, inv_box));
+      r_new = sqrtf(dist2(xn[0], xn[1], xn[2], nc[0], nc[1], nc[2], box, inv_box));
+    }
+    r_old = warp_max_all(r_old);
+    r_new = warp_max_all(r_new);
+    if (lane == 0) {
+      const float reach_n = (rc_max + r_new) * 1.0001f + 1e-3f;
+      const float reach_o = (rc_max + r_old) * 1.0001f + 1e-3f;
+      for (int d = 0; d < 3; ++d) {
+        dec[d] = nc[d];
+        dec[4 + d] = cm[d];
+      }
+      dec[3] = reach_n * reach_n;
+      dec[7] = reach_o * reach_o;
+      for (int k = 0; k < 4; ++k) dec[8 + k] = q1[k];
+      dec[12] = tsel;
+      dec[13] = um[4];
+      dec[14] = (float)i;
+    }
+    if (ewald) {
+      __syncwarp();
+      build_tables(stab + 2 * P * TW * b, 2,
+                   [&](int s, int p, int axis) { return so[4 * P * s + 4 * p + axis]; },
+                   [](int s) { return s ? 1.0f : -1.0f; }, inv_box, lane, 32);
     }
   };
 
-  // stats: per-box energy deltas, acc/att [trans, rot], accepted transfers
-  // and a decision fingerprint
-  float st_e0 = 0.0f, st_e1 = 0.0f;
-  float st_acc_t = 0.0f, st_acc_r = 0.0f, st_att_t = 0.0f, st_att_r = 0.0f,
-        st_acc_x = 0.0f, st_fp = 0.0f;
+  // One warp's 32 atom lanes j (ok: a neighbour of the mover) against the
+  // old and the new pose of a move (pose, dec): the (atom, pose) pairs
+  // within the pose's reach go to the near ring, 32 at a time on through
+  // stage 1.
+  auto move_lanes = [&](Queue& qn, Queue& q, float& acc0, float& acc1, int j,
+                        bool ok, const float* pose, const float* dec, float L,
+                        float inv) {
+    float xj = 0.0f, yj = 0.0f, zj = 0.0f;
+    if (ok) {
+      xj = sx[j];
+      yj = sy[j];
+      zj = sz[j];
+    }
+    for (int s = 0; s < 2; ++s) {
+      const float4 cc = reinterpret_cast<const float4*>(dec)[s ? 0 : 1];
+      const bool near = ok && dist2(xj, yj, zj, cc.x, cc.y, cc.z, L, inv) < cc.w;
+      const unsigned bal = __ballot_sync(kFull, near);
+      if (!bal) continue;
+      if (near)
+        qn.key[(qn.tail + __popc(bal & lanes_below)) & (kNear - 1)] =
+            j | s << kKeySign | s << kKeyVeto;
+      qn.tail += __popc(bal);
+      if (qn.tail - qn.head >= 32) near_flush(qn, q, acc0, acc1, 32, pose, L, inv);
+    }
+  };
 
-  for (int b = 0; b < 2; ++b) {
-    const float box = pick(b, L0, L1), inv_box = pick(b, inv0, inv1);
-    const float kappa = pick(b, kap0, kap1), sh_w = pick(b, shw0, shw1);
-    float* sre_b = ssre + b * K;
-    float* sim_b = ssim + b * K;
-    const float* cf_b = scfac + b * K;
-    const int col0 = b * A_off;
-    const float* u_box = u_in + ((size_t)c * 2 * M + (size_t)b * M) * kUniforms;
-    if (tid < kUniforms) su[tid] = u_box[tid];
-    __syncthreads();
+  __syncthreads();
+  if (warp == kProposer) {
+    // the first move's proposal
+    float u_pre = 0.0f, c_pre = 0.0f;
+    const int i0 = next_move(-1);
+    prefetch(i0, u_pre, c_pre);
+    propose(i0, 0, u_pre, c_pre);
+  }
+  __syncthreads();
 
-    for (int i = 0; i < M; ++i) {
-      const int mloc = m_start + i;     // the slot within its box
-      const int slot = b * m_off + mloc;
-      const int a0 = col0 + a_start + i * P;
-      const float* um = su + (i & 1) * 16;
-      // prefetch the next move's uniforms into the other buffer (its last
-      // reader, thread 0 at move i-1, finished before the barrier that
-      // closed move i-1)
-      if (tid >= 32 && tid < 32 + kUniforms && i + 1 < M)
-        su[((i + 1) & 1) * 16 + tid - 32] = u_box[(size_t)(i + 1) * kUniforms + tid - 32];
-      if (sact[a0] == 0.0f) {
-        // an inactive slot: a null move, not an attempt
-        __syncthreads();
-        continue;
-      }
+  for (int it = 0;; ++it) {
+    const int b = it & 1;
+    const float* dec = sdec + kDec * b;
+    const int i = (int)dec[14];
+    if (i >= M2m) break;  // block-uniform: every thread reads one word
+    const int bx = i >= M ? 1 : 0;
+    const int mloc = m_start + i - bx * M;  // the slot within its box
+    const int slot = bx * m_off + mloc;
+    const int col0 = bx * A_off;
+    const int a0 = col0 + a_start + (i - bx * M) * P;
+    const float box = sbox[4 * bx], inv_box = sbox[4 * bx + 1];
+    const float* pose = spose + 8 * P * b;
+    // the proposal warp starts the next proposal's loads
+    int i_next = M2m;
+    float u_pre = 0.0f, c_pre = 0.0f;
+    if (warp == kProposer) {
+      i_next = next_move(i);
+      prefetch(i_next, u_pre, c_pre);
+    }
 
-      if (tid == 0) {
-        const float* cm = scom + 3 * slot;
-        const float* q0 = squat + 4 * slot;
-        float tsel = 1.0f;
-        float q1[4] = {q0[0], q0[1], q0[2], q0[3]};
-        if (use_rot) {
-          tsel = um[0] < p_translate ? 1.0f : 0.0f;
-          const float e1 = fmaxf(um[5], 1e-12f), e2 = um[6];
-          const float e3 = fmaxf(um[7], 1e-12f), e4 = um[8];
-          const float r1 = sqrtf(-2.0f * logf(e1));
-          const float r2 = sqrtf(-2.0f * logf(e3));
-          float s2, c2, s4, c4;
-          sincosf(kTwoPi * (e2 - rintf(e2)), &s2, &c2);
-          sincosf(kTwoPi * (e4 - rintf(e4)), &s4, &c4);
-          const float g1 = r1 * c2, g2 = r1 * s2, g3 = r2 * c4;
-          const float gn = rsqrtf(g1 * g1 + g2 * g2 + g3 * g3 + 1e-20f);
-          const float half = 0.5f * ((2.0f * um[9] - 1.0f) * dphi_max);
-          float sh, rw;
-          sincosf(half, &sh, &rw);
-          sh = sh * gn;
-          const float rx = sh * g1, ry = sh * g2, rz = sh * g3;
-          const float w0 = q0[0], x0 = q0[1], y0 = q0[2], z0 = q0[3];
-          const float nw = rw * w0 - rx * x0 - ry * y0 - rz * z0;
-          const float nx = rw * x0 + rx * w0 + ry * z0 - rz * y0;
-          const float ny = rw * y0 - rx * z0 + ry * w0 + rz * x0;
-          const float nz = rw * z0 + rx * y0 - ry * x0 + rz * w0;
-          const float qn = rsqrtf(nw * nw + nx * nx + ny * ny + nz * nz);
-          if (tsel == 0.0f) {
-            q1[0] = nw * qn;
-            q1[1] = nx * qn;
-            q1[2] = ny * qn;
-            q1[3] = nz * qn;
-          }
-        }
-        float nc[3];
-        for (int d = 0; d < 3; ++d) {
-          const float v = cm[d] + tsel * (um[1 + d] - 0.5f) * dr_max;
-          nc[d] = v - box * floorf(v * inv_box);
-        }
-        for (int p = 0; p < P; ++p) {
-          sold[3 * p] = sx[a0 + p];
-          sold[3 * p + 1] = sy[a0 + p];
-          sold[3 * p + 2] = sz[a0 + p];
-          float o[3] = {0.0f, 0.0f, 0.0f};
-          if (P > 1)
-            rot_apply(q1[0], q1[1], q1[2], q1[3], sbody[3 * p], sbody[3 * p + 1],
-                      sbody[3 * p + 2], o);
-          for (int d = 0; d < 3; ++d) snew[3 * p + d] = nc[d] + o[d];
-        }
-        for (int d = 0; d < 3; ++d) sdec[d] = nc[d];
-        for (int q = 0; q < 4; ++q) sdec[3 + q] = q1[q];
-        sdec[7] = tsel;
-      }
-      __syncthreads();
-
-      // ---- old and new site sums over this box's atom lanes ----
-      float part = 0.0f;
-      for (int jl = tid; jl < A_off; jl += nt) {
+    // ---- old and new site sums over this box's atom lanes ----
+    float acc0 = 0.0f, acc1 = 0.0f;
+    Queue q{qkey + warp * kQueue, qd2 + warp * kQueue, 0, 0};
+    Queue qn{qnear + warp * kNear, nullptr, 0, 0};
+    for (int jb = warp * 32; jb < A_off; jb += nt) {
+      const int jl = jb + lane;
+      bool ok = jl < A_off;
+      if (ok) {
         const int mj = smol[jl];
-        if (mj < 0 || mj == mloc) continue;
-        const int j = col0 + jl;
-        if (sact[j] == 0.0f) continue;
-        const float xj = sx[j], yj = sy[j], zj = sz[j], qj = sq[jl];
-        const int tj = stid[jl];
-        for (int p = 0; p < P; ++p) {
-          part -= pair_term(sold + 3 * p, p, xj, yj, zj, qj, tj, box, inv_box,
-                            kappa, sh_w, false);
-          part += pair_term(snew + 3 * p, p, xj, yj, zj, qj, tj, box, inv_box,
-                            kappa, sh_w, true);
-        }
+        ok = mj >= 0 && mj != mloc && sact[col0 + jl] != 0.0f;
       }
+      move_lanes(qn, q, acc0, acc1, col0 + jl, ok, pose, dec, box, inv_box);
+    }
+    if (qn.tail > qn.head)
+      near_flush(qn, q, acc0, acc1, qn.tail - qn.head, pose, box, inv_box);
+    drain(q, acc0, acc1);
+    float part = acc0 + acc1;
 
-      // ---- incremental S(k) of this box and the reciprocal delta ----
-      if (ewald) {
-        const float tpl = kTwoPi * inv_box;
-        for (int k = tid; k < K; k += nt) {
-          const float kx = skx[k], ky = sky[k], kz = skz[k];
-          float dre = 0.0f, dim = 0.0f;
-          for (int s = 0; s < 2; ++s) {
-            const float* a = s ? snew : sold;
-            for (int p = 0; p < P; ++p) {
-              if (!sqf[p]) continue;
-              float ph = tpl * (kx * a[3 * p] + ky * a[3 * p + 1] + kz * a[3 * p + 2]);
-              ph -= kTwoPi * rintf(ph * kInvTwoPi);
-              float sn, cs;
-              sincosf(ph, &sn, &cs);
-              const float qps = s ? sqp[p] : -sqp[p];
-              dre += qps * cs;
-              dim += qps * sn;
-            }
-          }
-          sdre[k] = dre;
-          sdim[k] = dim;
-          const float cross = 2.0f * (sre_b[k] * dre + sim_b[k] * dim) + dre * dre + dim * dim;
+    // ---- incremental S(k) of this box and the reciprocal delta ----
+    if (ewald) {
+      const float* tab = stab + 2 * P * TW * b;
+      const float* sre_b = ssre + bx * K;
+      const float* sim_b = ssim + bx * K;
+      const float* cf_b = scfac + bx * K;
+      for (int k0 = tid; k0 < K; k0 += 2 * nt) {
+        float dre[2], dim[2];
+        k_sum2(tab, 2, k0, dre, dim);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = k0 + j * nt;
+          if (k >= K) break;
+          sdre[k] = dre[j];
+          sdim[k] = dim[j];
+          const float cross = 2.0f * (sre_b[k] * dre[j] + sim_b[k] * dim[j]) +
+                              dre[j] * dre[j] + dim[j] * dim[j];
           part += factor * (cf_b[k] * cross);
         }
       }
+    }
 
-      part = warp_sum(part);
-      if (lane == 0) sred[warp] = part;
-      __syncthreads();
+    part = warp_sum(part);
+    if (warp == kProposer) propose(i_next, b ^ 1, u_pre, c_pre);
+    if (lane == 0) sred[warp] = part;
+    __syncthreads();
 
-      if (tid == 0) {
-        float d_e = 0.0f;
-        for (int w = 0; w < nwarps; ++w) d_e += sred[w];
-        const float beta_de = d_e / temp;
-        // the overlap penalty makes beta_de huge: exp(-beta_de) == 0 rejects
-        const bool accept = (beta_de < 0.0f) || (um[4] < expf(-beta_de));
-        const float tsel = sdec[7];
-        st_att_t += tsel;
-        st_att_r += 1.0f - tsel;
-        if (accept) {
-          if (b) st_e1 += d_e; else st_e0 += d_e;
-          st_acc_t += tsel;
-          st_acc_r += 1.0f - tsel;
-          st_fp += (float)(slot + 1);
-          for (int d = 0; d < 3; ++d) scom[3 * slot + d] = sdec[d];
-          for (int q = 0; q < 4; ++q) squat[4 * slot + q] = sdec[3 + q];
-          for (int p = 0; p < P; ++p) {
-            sx[a0 + p] = snew[3 * p];
-            sy[a0 + p] = snew[3 * p + 1];
-            sz[a0 + p] = snew[3 * p + 2];
-          }
-        }
-        sdec[8] = accept ? 1.0f : 0.0f;
-      }
-      __syncthreads();
-      if (ewald && sdec[8] != 0.0f) {
-        // each thread adds the deltas of the k-vectors it computed
-        for (int k = tid; k < K; k += nt) {
-          sre_b[k] += sdre[k];
-          sim_b[k] += sdim[k];
-        }
+    // every thread: the same sum in the same order, the same decision
+    float d_e = 0.0f;
+    for (int w = 0; w < kWarps; ++w) d_e += sred[w];
+    const float beta_de = d_e / temp;
+    // the overlap penalty makes beta_de huge: exp(-beta_de) == 0 rejects
+    const bool accept = (beta_de < 0.0f) || (dec[13] < expf(-beta_de));
+    if (tid == 0) {
+      const float tsel = dec[12];
+      sstat[4] += tsel;
+      sstat[5] += 1.0f - tsel;
+      if (accept) {
+        sstat[bx] += d_e;
+        sstat[2] += tsel;
+        sstat[3] += 1.0f - tsel;
+        sstat[7] += (float)(slot + 1);
       }
     }
-    __syncthreads();  // the last readers of su are done before it refills
+    if (accept) {
+      const float* sn = pose + 4 * P;
+      if (tid < P) {
+        sx[a0 + tid] = sn[4 * tid];
+        sy[a0 + tid] = sn[4 * tid + 1];
+        sz[a0 + tid] = sn[4 * tid + 2];
+      } else if (tid >= 32 && tid < 32 + 3) {
+        scom[3 * slot + tid - 32] = dec[tid - 32];
+      } else if (tid >= 35 && tid < 35 + 4) {
+        squat[4 * slot + tid - 35] = dec[8 + tid - 35];
+      }
+      if (ewald)
+        // each thread adds the deltas of the k-vectors it computed
+        for (int k = tid; k < K; k += nt) {
+          ssre[bx * K + k] += sdre[k];
+          ssim[bx * K + k] += sdim[k];
+        }
+    }
+    __syncthreads();
   }
 
   if (n_exch > 0) {
     const float beta = 1.0f / temp;
     const float* ux_chain = ux_in + (size_t)c * n_exch * kExchUniforms;
-    float* ux = su;  // this attempt's 8 uniforms
     const float ln_l0 = logf(L0), ln_l1 = logf(L1);
 
-    // N of this block in each box, counted once and then tracked
+    // N of this block in each box, counted once and then tracked by every
+    // thread
     float cnt0 = 0.0f, cnt1 = 0.0f;
     for (int i = tid; i < M; i += nt) {
       cnt0 += sactm[m_start + i] > 0.5f ? 1.0f : 0.0f;
@@ -513,121 +738,177 @@ __global__ void gibbs_kernel(
     cnt1 = warp_sum(cnt1);
     if (lane == 0) {
       sred[warp] = cnt0;
-      sred2[warp] = cnt1;
+      sred[16 + warp] = cnt1;
     }
     __syncthreads();
     float n_b0 = 0.0f, n_b1 = 0.0f;
-    for (int w = 0; w < nwarps; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       n_b0 += sred[w];
-      n_b1 += sred2[w];
+      n_b1 += sred[16 + w];
     }
-    auto block_max = [&](const unsigned long long* row) {
-      unsigned long long v = 0ull;
-      for (int w = 0; w < nwarps; ++w) v = row[w] > v ? row[w] : v;
-      return v;
+
+    // every thread: the Philox scores of attempt x for the block's slots of
+    // both boxes (score + 1; 0 is never a score) into row x & 1
+    auto scores = [&](int x) {
+      unsigned* row = sscore + (x & 1) * M2;
+      for (int i = tid; i < 2 * M; i += nt) {
+        const int bx = i >= M ? 1 : 0;
+        const int id = bx * m_off + m_start + i - bx * M;
+        row[i] = (philox_word((uint32_t)id, (uint32_t)x, seed, (uint32_t)c) >> 8) + 1u;
+      }
+    };
+    // the proposal warp: attempt x's direction, fresh pose (uniform in the
+    // destination volume, Shoemake quaternion; the identity for P = 1) and
+    // its eik tables into buffer b's second half
+    auto xpropose = [&](int x, int b) {
+      float* dec = sdec + kDec * b;
+      float* sn = spose + 8 * P * b + 4 * P;
+      float v = 0.0f;
+      if (lane < kExchUniforms) v = ux_chain[(size_t)x * kExchUniforms + lane];
+      float ux[kExchUniforms];
+      for (int k = 0; k < kExchUniforms; ++k) ux[k] = __shfl_sync(kFull, v, k);
+      const int dst = ux[0] < 0.5f ? 1 : 0;
+      const float L_d = sbox[4 * dst], inv_d = sbox[4 * dst + 1];
+      float q[4] = {1.0f, 0.0f, 0.0f, 0.0f};
+      if (P > 1) {
+        const float u1 = ux[4];
+        float s2, c2, s3, c3;
+        sincos_turns(ux[5], &s2, &c2);
+        sincos_turns(ux[6], &s3, &c3);
+        const float r1 = sqrtf(fmaxf(1.0f - u1, 0.0f)), r2 = sqrtf(u1);
+        q[0] = r1 * s2;
+        q[1] = r1 * c2;
+        q[2] = r2 * s3;
+        q[3] = r2 * c3;
+      }
+      float ct[3];
+      for (int d = 0; d < 3; ++d) ct[d] = ux[1 + d] * L_d;
+      if (lane < P) {
+        const int p = lane;
+        float o[3] = {0.0f, 0.0f, 0.0f};
+        if (P > 1)
+          rot_apply(q[0], q[1], q[2], q[3], sbody[3 * p], sbody[3 * p + 1],
+                    sbody[3 * p + 2], o);
+        for (int d = 0; d < 3; ++d) sn[4 * p + d] = ct[d] + o[d];
+        sn[4 * p + 3] = scut[p];
+      }
+      if (lane == 0) {
+        for (int d = 0; d < 3; ++d) dec[d] = ct[d];
+        for (int k = 0; k < 4; ++k) dec[3 + k] = q[k];
+        dec[7] = ux[7];
+        dec[8] = (float)(1 - dst);
+      }
+      if (ewald) {
+        __syncwarp();
+        build_tables(stab + 2 * P * TW * b + P * TW, 1,
+                     [&](int, int p, int axis) { return sn[4 * p + axis]; },
+                     [](int) { return 1.0f; }, inv_d, lane, 32);
+      }
     };
 
+    scores(0);
+    if (warp == kProposer) xpropose(0, 0);
+    __syncthreads();
+
     for (int xi = 0; xi < n_exch; ++xi) {
-      __syncthreads();  // the last readers of ux, sred and sred64 are done
-      if (tid < kExchUniforms) ux[tid] = ux_chain[(size_t)xi * kExchUniforms + tid];
-      __syncthreads();
-      const int src = ux[0] < 0.5f ? 0 : 1;
+      const int b = xi & 1;
+      const float* dec = sdec + kDec * b;
+      const bool more = xi + 1 < n_exch;
+      const int src = dec[8] > 0.5f ? 1 : 0;
       const int dst = 1 - src;
-      const float n_src = pick(src, n_b0, n_b1), n_dst = pick(dst, n_b0, n_b1);
+      const float n_src = src ? n_b1 : n_b0, n_dst = src ? n_b0 : n_b1;
       // an empty source or a full destination: refused, nothing read or
       // written through the slot indices (block-uniform)
-      if (!(n_src > 0.5f && n_dst < (float)M - 0.5f)) continue;
+      if (!(n_src > 0.5f && n_dst < (float)M - 0.5f)) {
+        __syncthreads();  // the last readers of buffer b ^ 1 are done
+        if (more) {
+          scores(xi + 1);
+          if (warp == kProposer) xpropose(xi + 1, b ^ 1);
+        }
+        __syncthreads();
+        continue;
+      }
 
-      // slot pick in one pass: the source's active slot with the largest
-      // score (key (score + 1, ~slot)) and the destination's first free slot
-      // (key (1, ~slot))
-      unsigned long long best_i = 0ull, best_d = 0ull;
-      for (int i = tid; i < M; i += nt) {
-        const int s_id = src * m_off + m_start + i;
-        const int d_id = dst * m_off + m_start + i;
-        if (sactm[s_id] > 0.5f) {
-          const uint32_t bits = philox_word((uint32_t)s_id, (uint32_t)xi, seed, (uint32_t)c) >> 8;
+      // the pick, in every warp alike: the source's active slot with the
+      // largest key (score, ~slot) and the destination's first free slot
+      const unsigned* row = sscore + b * M2;
+      unsigned long long best = 0ull;
+      for (int i = lane; i < M; i += 32) {
+        const int id = src * m_off + m_start + i;
+        if (sactm[id] > 0.5f) {
           const unsigned long long key =
-              ((unsigned long long)(bits + 1u) << 32) | (0xFFFFFFFFu - (uint32_t)s_id);
-          best_d = key > best_d ? key : best_d;
-        }
-        if (!(sactm[d_id] > 0.5f)) {
-          const unsigned long long key = (1ull << 32) | (0xFFFFFFFFu - (uint32_t)d_id);
-          best_i = key > best_i ? key : best_i;
+              ((unsigned long long)row[src * M + i] << 32) | (0xFFFFFFFFu - (uint32_t)id);
+          best = key > best ? key : best;
         }
       }
-      best_i = warp_max_u64(best_i);
-      best_d = warp_max_u64(best_d);
-      if (lane == 0) {
-        sred64[warp] = best_i;
-        sred64d[warp] = best_d;
+      best = warp_max_u64(best);
+      const int del_slot = (int)(0xFFFFFFFFu - (uint32_t)(best & 0xFFFFFFFFull));
+      int ins_loc = m_start;
+      for (int base = 0; base < M; base += 32) {
+        const int i = base + lane;
+        const unsigned bal = __ballot_sync(
+            kFull, i < M && !(sactm[dst * m_off + m_start + i] > 0.5f));
+        if (bal) {
+          ins_loc = m_start + base + __ffs(bal) - 1;
+          break;
+        }
       }
-      __syncthreads();
-      const int ins_slot = (int)(0xFFFFFFFFu - (uint32_t)(block_max(sred64) & 0xFFFFFFFFull));
-      const int del_slot = (int)(0xFFFFFFFFu - (uint32_t)(block_max(sred64d) & 0xFFFFFFFFull));
+      const int ins_slot = dst * m_off + ins_loc;
       const int del_loc = del_slot - src * m_off;   // within the source box
-      const int ins_loc = ins_slot - dst * m_off;
       const int a0_d = src * A_off + a_start + (del_loc - m_start) * P;
       const int a0_i = dst * A_off + a_start + (ins_loc - m_start) * P;
-      const float L_s = pick(src, L0, L1), inv_s = pick(src, inv0, inv1);
-      const float kap_s = pick(src, kap0, kap1), shw_s = pick(src, shw0, shw1);
-      const float L_d = pick(dst, L0, L1), inv_d = pick(dst, inv0, inv1);
-      const float kap_d = pick(dst, kap0, kap1), shw_d = pick(dst, shw0, shw1);
+      const float L_s = sbox[4 * src], inv_s = sbox[4 * src + 1];
+      const float L_d = sbox[4 * dst], inv_d = sbox[4 * dst + 1];
+      float* sdel = spose + 8 * P * b;   // the candidate's rows
+      const float* sins = sdel + 4 * P;  // the fresh pose's rows
+      float* tab = stab + 2 * P * TW * b;
 
-      if (tid == 0) {
-        // the fresh pose, uniform in the destination volume (Shoemake
-        // quaternion; the identity for P = 1)
-        float q[4] = {1.0f, 0.0f, 0.0f, 0.0f};
-        if (P > 1) {
-          const float u1 = ux[4];
-          float s2, c2, s3, c3;
-          sincosf(kTwoPi * (ux[5] - rintf(ux[5])), &s2, &c2);
-          sincosf(kTwoPi * (ux[6] - rintf(ux[6])), &s3, &c3);
-          const float r1 = sqrtf(fmaxf(1.0f - u1, 0.0f)), r2 = sqrtf(u1);
-          q[0] = r1 * s2;
-          q[1] = r1 * c2;
-          q[2] = r2 * s3;
-          q[3] = r2 * c3;
-        }
-        for (int d = 0; d < 3; ++d) sdec[d] = ux[1 + d] * L_d;
-        for (int k = 0; k < 4; ++k) sdec[3 + k] = q[k];
-        for (int p = 0; p < P; ++p) {
-          float o[3] = {0.0f, 0.0f, 0.0f};
-          if (P > 1)
-            rot_apply(q[0], q[1], q[2], q[3], sbody[3 * p], sbody[3 * p + 1],
-                      sbody[3 * p + 2], o);
-          for (int d = 0; d < 3; ++d) snew[3 * p + d] = sdec[d] + o[d];
-          // the deletion candidate's stored pose
-          sdel[3 * p] = sx[a0_d + p];
-          sdel[3 * p + 1] = sy[a0_d + p];
-          sdel[3 * p + 2] = sz[a0_d + p];
-        }
+      // the block: the candidate's stored pose as site rows and eik tables
+      if (tid < P) {
+        sdel[4 * tid] = sx[a0_d + tid];
+        sdel[4 * tid + 1] = sy[a0_d + tid];
+        sdel[4 * tid + 2] = sz[a0_d + tid];
+        sdel[4 * tid + 3] = scut[tid];
       }
+      if (ewald)
+        build_tables(tab, 1,
+                     [&](int, int p, int axis) {
+                       return (axis == 0 ? sx : axis == 1 ? sy : sz)[a0_d + p];
+                     },
+                     [](int) { return 1.0f; }, inv_s, tid, nt);
       __syncthreads();
 
       // the candidate against its source box (its own atoms excluded, veto
-      // off) and the fresh pose against the destination box (veto on)
-      float pair_d = 0.0f, pair_i = 0.0f;
-      for (int jl = tid; jl < A_off; jl += nt) {
-        const int mj = smol[jl];
-        if (mj < 0) continue;
-        const float qj = sq[jl];
-        const int tj = stid[jl];
-        const int js = src * A_off + jl, jd = dst * A_off + jl;
-        if (mj != del_loc && sact[js] != 0.0f) {
-          const float xj = sx[js], yj = sy[js], zj = sz[js];
-          for (int p = 0; p < P; ++p)
-            pair_d += pair_term(sdel + 3 * p, p, xj, yj, zj, qj, tj, L_s, inv_s,
-                                kap_s, shw_s, false);
+      // off: acc0, negated) and the fresh pose against the destination box
+      // (veto on: acc1), one queue
+      float acc0 = 0.0f, acc1 = 0.0f;
+      {
+        Queue q{qkey + warp * kQueue, qd2 + warp * kQueue, 0, 0};
+        for (int jb = warp * 32; jb < A_off; jb += nt) {
+          const int jl = jb + lane;
+          int mj = -1;
+          if (jl < A_off) mj = smol[jl];
+          const bool on_s = mj >= 0 && mj != del_loc && sact[src * A_off + jl] != 0.0f;
+          const bool on_d = mj >= 0 && sact[dst * A_off + jl] != 0.0f;
+          for (int s = 0; s < 2; ++s) {
+            const bool on = s ? on_d : on_s;
+            if (!__any_sync(kFull, on)) continue;
+            const int j = (s ? dst : src) * A_off + jl;
+            float xj = 0.0f, yj = 0.0f, zj = 0.0f;
+            if (on) {
+              xj = sx[j];
+              yj = sy[j];
+              zj = sz[j];
+            }
+            site_stage(q, acc0, acc1, on, xj, yj, zj, s ? sins : sdel,
+                       s ? L_d : L_s, s ? inv_d : inv_s,
+                       j | s << kKeySign | s << kKeyVeto);
+          }
         }
-        if (sact[jd] != 0.0f) {
-          const float xj = sx[jd], yj = sy[jd], zj = sz[jd];
-          for (int p = 0; p < P; ++p)
-            pair_i += pair_term(snew + 3 * p, p, xj, yj, zj, qj, tj, L_d, inv_d,
-                                kap_d, shw_d, true);
-        }
+        drain(q, acc0, acc1);
       }
-      float part_d = -pair_d, part_i = pair_i;
+      if (more) scores(xi + 1);
+      float part_d = acc0, part_i = acc1;
       if (ewald) {
         const float* re_s = ssre + src * K;
         const float* im_s = ssim + src * K;
@@ -635,77 +916,87 @@ __global__ void gibbs_kernel(
         const float* re_d = ssre + dst * K;
         const float* im_d = ssim + dst * K;
         const float* cf_d = scfac + dst * K;
-        for (int k = tid; k < K; k += nt) {
-          float dre, dim;
-          k_row(sdel, k, inv_s, dre, dim);
-          sdre2[k] = dre;
-          sdim2[k] = dim;
-          float cross = -2.0f * (re_s[k] * dre + im_s[k] * dim) + dre * dre + dim * dim;
-          part_d += factor * (cf_s[k] * cross);
-          k_row(snew, k, inv_d, dre, dim);
-          sdre[k] = dre;
-          sdim[k] = dim;
-          cross = 2.0f * (re_d[k] * dre + im_d[k] * dim) + dre * dre + dim * dim;
-          part_i += factor * (cf_d[k] * cross);
+        for (int k0 = tid; k0 < K; k0 += 2 * nt) {
+          float dre[2], dim[2];
+          k_sum2(tab, 1, k0, dre, dim);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int k = k0 + j * nt;
+            if (k >= K) break;
+            sdre2[k] = dre[j];
+            sdim2[k] = dim[j];
+            const float cross = -2.0f * (re_s[k] * dre[j] + im_s[k] * dim[j]) +
+                                dre[j] * dre[j] + dim[j] * dim[j];
+            part_d += factor * (cf_s[k] * cross);
+          }
+          k_sum2(tab + P * TW, 1, k0, dre, dim);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int k = k0 + j * nt;
+            if (k >= K) break;
+            sdre[k] = dre[j];
+            sdim[k] = dim[j];
+            const float cross = 2.0f * (re_d[k] * dre[j] + im_d[k] * dim[j]) +
+                                dre[j] * dre[j] + dim[j] * dim[j];
+            part_i += factor * (cf_d[k] * cross);
+          }
         }
       }
       part_d = warp_sum(part_d);
       part_i = warp_sum(part_i);
+      if (warp == kProposer && more) xpropose(xi + 1, b ^ 1);
       if (lane == 0) {
         sred[warp] = part_d;
-        sred2[warp] = part_i;
+        sred[16 + warp] = part_i;
       }
       __syncthreads();
 
+      // every thread: the same sums, the same decision
+      float du_d = 0.0f, du_i = 0.0f;
+      for (int w = 0; w < kWarps; ++w) {
+        du_d += sred[w];
+        du_i += sred[16 + w];
+      }
+      du_d += -si2_in[2 * c + src] + wc2_in[2 * c + src] * (-2.0f * n_src + 1.0f);
+      du_i += si2_in[2 * c + dst] + wc2_in[2 * c + dst] * (2.0f * n_dst + 1.0f);
+      const float du = du_d + du_i;
+      const float ln_acc = logf(fmaxf(n_src, 1.0f)) - logf(n_dst + 1.0f) +
+                           3.0f * ((dst ? ln_l1 : ln_l0) - (src ? ln_l1 : ln_l0)) -
+                           beta * du;
+      const float ln_u = logf(fmaxf(dec[7], 1e-30f));
+      if (!(ln_u < ln_acc)) continue;
       if (tid == 0) {
-        float du_d = 0.0f, du_i = 0.0f;
-        for (int w = 0; w < nwarps; ++w) {
-          du_d += sred[w];
-          du_i += sred2[w];
-        }
-        du_d += -si2_in[2 * c + src] + wc2_in[2 * c + src] * (-2.0f * n_src + 1.0f);
-        du_i += si2_in[2 * c + dst] + wc2_in[2 * c + dst] * (2.0f * n_dst + 1.0f);
-        const float du = du_d + du_i;
-        const float ln_acc = logf(fmaxf(n_src, 1.0f)) - logf(n_dst + 1.0f) +
-                             3.0f * (pick(dst, ln_l0, ln_l1) - pick(src, ln_l0, ln_l1)) -
-                             beta * du;
-        const float ln_u = logf(fmaxf(ux[7], 1e-30f));
-        const bool ok = ln_u < ln_acc;
-        if (ok) {
-          st_e0 += src ? du_i : du_d;
-          st_e1 += src ? du_d : du_i;
-          st_acc_x += 1.0f;
-          st_fp += (float)(del_slot + 1 + 2 * m_off);
-          sactm[del_slot] = 0.0f;
-          sactm[ins_slot] = 1.0f;
-          for (int p = 0; p < P; ++p) {
-            sact[a0_d + p] = 0.0f;
-            sact[a0_i + p] = 1.0f;
-            sx[a0_i + p] = snew[3 * p];
-            sy[a0_i + p] = snew[3 * p + 1];
-            sz[a0_i + p] = snew[3 * p + 2];
-          }
-          for (int d = 0; d < 3; ++d) scom[3 * ins_slot + d] = sdec[d];
-          if (P > 1)
-            for (int k = 0; k < 4; ++k) squat[4 * ins_slot + k] = sdec[3 + k];
-        }
-        sdec[8] = ok ? 1.0f : 0.0f;
+        sstat[0] += src ? du_i : du_d;
+        sstat[1] += src ? du_d : du_i;
+        sstat[6] += 1.0f;
+        sstat[7] += (float)(del_slot + 1 + 2 * m_off);
+        sactm[del_slot] = 0.0f;
+        sactm[ins_slot] = 1.0f;
       }
+      if (tid < P) {
+        sact[a0_d + tid] = 0.0f;
+        sact[a0_i + tid] = 1.0f;
+        sx[a0_i + tid] = sins[4 * tid];
+        sy[a0_i + tid] = sins[4 * tid + 1];
+        sz[a0_i + tid] = sins[4 * tid + 2];
+      } else if (tid >= 32 && tid < 32 + 3) {
+        scom[3 * ins_slot + tid - 32] = dec[tid - 32];
+      } else if (tid >= 35 && tid < 35 + 4 && P > 1) {
+        squat[4 * ins_slot + tid - 35] = dec[3 + tid - 35];
+      }
+      n_b0 += src ? 1.0f : -1.0f;
+      n_b1 += src ? -1.0f : 1.0f;
+      if (ewald)
+        for (int k = tid; k < K; k += nt) {
+          ssre[src * K + k] -= sdre2[k];
+          ssim[src * K + k] -= sdim2[k];
+          ssre[dst * K + k] += sdre[k];
+          ssim[dst * K + k] += sdim[k];
+        }
       __syncthreads();
-      if (sdec[8] != 0.0f) {
-        n_b0 += src ? 1.0f : -1.0f;
-        n_b1 += src ? -1.0f : 1.0f;
-        if (ewald)
-          for (int k = tid; k < K; k += nt) {
-            ssre[src * K + k] -= sdre2[k];
-            ssim[src * K + k] -= sdim2[k];
-            ssre[dst * K + k] += sdre[k];
-            ssim[dst * K + k] += sdim[k];
-          }
-      }
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   float* cout = coords_out + (size_t)c * 6 * A_off;
   for (int j = tid; j < A_off; j += nt)
@@ -716,8 +1007,6 @@ __global__ void gibbs_kernel(
     }
   for (int j = tid; j < A2; j += nt) act_out[(size_t)c * A2 + j] = sact[j];
   for (int i = tid; i < M2; i += nt) actm_out[(size_t)c * M2 + i] = sactm[i];
-  for (int i = tid; i < 3 * M2; i += nt) com_out[(size_t)c * 3 * M2 + i] = scom[i];
-  for (int i = tid; i < 4 * M2; i += nt) quat_out[(size_t)c * 4 * M2 + i] = squat[i];
   for (int k = tid; k < K; k += nt)
     for (int b = 0; b < 2; ++b) {
       sfac_out[(((size_t)c * 2 + b) * K + k) * 2] = ssre[b * K + k];
@@ -725,33 +1014,80 @@ __global__ void gibbs_kernel(
     }
   if (tid == 0) {
     float* st = stats_out + (size_t)c * kStats;
-    st[0] = st_e0;
-    st[1] = st_e1;
-    st[2] = st_acc_t;
-    st[3] = st_acc_r;
-    st[4] = st_att_t;
-    st[5] = st_att_r;
-    st[6] = st_acc_x;
-    st[7] = st_fp;
+    for (int i = 0; i < kStats; ++i) st[i] = sstat[i];
+    if (sstat[15] != 0.0f) st[0] = st[1] = nanf("");  // a k-vector beyond nk
   }
+}
+
+using GibbsKernel = decltype(&gibbs_kernel<kQNone, false>);
+
+// The instantiation of a Coulomb style and LJ shift.
+GibbsKernel pick_kernel(int coulomb, int lj_linear) {
+  const int q = coulomb == kNone   ? kQNone
+                : coulomb == kWolf ? kQWolf
+                : coulomb == kBare ? kQBare
+                                   : kQErfc;
+  switch (2 * q + (lj_linear ? 1 : 0)) {
+    case 0: return gibbs_kernel<kQNone, false>;
+    case 1: return gibbs_kernel<kQNone, true>;
+    case 2: return gibbs_kernel<kQErfc, false>;
+    case 3: return gibbs_kernel<kQErfc, true>;
+    case 4: return gibbs_kernel<kQWolf, false>;
+    case 5: return gibbs_kernel<kQWolf, true>;
+    case 6: return gibbs_kernel<kQBare, false>;
+    default: return gibbs_kernel<kQBare, true>;
+  }
+}
+
+// Lets the instantiation take `smem` bytes of dynamic shared memory.
+cudaError_t allow_smem(GibbsKernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
 
 extern "C" size_t mmc_gibbs_smem_bytes(int m_off, int P, int A_off, int K,
-                                       int T) {
-  return sizeof(float) * gibbs_smem_floats(m_off, P, A_off, K, T);
+                                       int T, int nk) {
+  return sizeof(float) * gibbs_smem_floats(m_off, P, A_off, K, T, nk);
+}
+
+// The instantiation's registers per thread, local memory per thread (stack
+// frame and spills, bytes) and the blocks of this shape one SM holds at
+// once (the CUDA occupancy calculator) into out[0..2]; returns the CUDA
+// error code (0 on success).
+extern "C" int mmc_gibbs_occupancy(int coulomb, int lj_linear, int m_off,
+                                   int P, int A_off, int K, int T, int nk,
+                                   int* out) {
+  const GibbsKernel kernel = pick_kernel(coulomb, lj_linear);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = 0;
+  const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T, nk);
+  if (smem > (size_t)kMaxSmemBytes) return 0;
+  e = allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      kThreads, smem);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* mmc_gibbs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches one Gibbs call of one species block (grid = C chains) on
-// `stream`; returns the CUDA error code of the launch (0 on success).  All
-// pointers are device pointers to contiguous f32 (int32 for the flag and
-// row tables) tensors in the layout described at the top; ux, si2 and wc2
-// are read only with n_exch > 0.
+// Launches one Gibbs call of one species block (grid = C chains of 256
+// threads) on `stream`; returns the CUDA error code of the launch (0 on
+// success).  All pointers are device pointers to contiguous f32 (int32 for
+// the flag and row tables) tensors in the layout described at the top; ux,
+// si2 and wc2 are read only with n_exch > 0.  nk bounds the k-vectors'
+// integer components (|n| <= nk; a launch whose k-vectors exceed it returns
+// NaN energy statistics).
 extern "C" int mmc_gibbs_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* act, const void* actm, const void* box2, const void* temp,
@@ -763,22 +1099,21 @@ extern "C" int mmc_gibbs_launch(
     const void* kvec, const void* kw, void* coords_out, void* com_out,
     void* quat_out, void* sfac_out, void* stats_out, void* act_out,
     void* actm_out, int C, int M, int m_off, int m_start, int a_start, int P,
-    int A_off, int K, int T, int coulomb, int lj_linear, int use_rot,
+    int A_off, int K, int T, int nk, int coulomb, int lj_linear, int use_rot,
     int n_exch, unsigned int seed, int threads, float rc2, float qrc2,
     float kappa_l, float d2_overlap, float p_translate, float factor,
     void* stream) {
-  const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T);
-  if (smem > (size_t)kMaxSmemBytes || threads < 64 || threads > 1024 ||
-      threads % 32 != 0 || C < 1 || M < 1 || P < 1 || m_start < 0 ||
-      a_start < 0 || m_start + M > m_off || a_start + M * P > A_off ||
-      n_exch < 0 || (n_exch > 0 && (!ux || !si2 || !wc2)))
+  const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T, nk);
+  if (smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 || M < 1 ||
+      P < 1 || P > 16 || nk < 0 || nk > 127 || 2 * A_off > kMaxColumns ||
+      m_start < 0 || a_start < 0 || m_start + M > m_off ||
+      a_start + M * P > A_off || n_exch < 0 ||
+      (n_exch > 0 && (!ux || !si2 || !wc2)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gibbs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  gibbs_kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const GibbsKernel kernel = pick_kernel(coulomb, lj_linear);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coords), static_cast<const float*>(com),
       static_cast<const float*>(quat), static_cast<const float*>(sfac),
       static_cast<const float*>(act), static_cast<const float*>(actm),
@@ -796,7 +1131,7 @@ extern "C" int mmc_gibbs_launch(
       static_cast<float*>(com_out), static_cast<float*>(quat_out),
       static_cast<float*>(sfac_out), static_cast<float*>(stats_out),
       static_cast<float*>(act_out), static_cast<float*>(actm_out), M, m_off,
-      m_start, a_start, P, A_off, K, T, coulomb, lj_linear, use_rot, n_exch,
-      seed, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
+      m_start, a_start, P, A_off, K, T, nk, coulomb == kEwald, use_rot,
+      n_exch, seed, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

@@ -145,37 +145,25 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mmc_common.cuh"
+
 namespace {
 
-enum Coulomb { kNone = 0, kEwald = 1, kWolf = 2, kWolfRef = 3, kBare = 4 };
-
-constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvTwoPi = 0.15915494309189535f;
 constexpr int kStats = 9;
 constexpr int kUniforms = 10;
 constexpr int kExchUniforms = 8;
-constexpr int kMaxSmemBytes = 232448;
 constexpr float kPDep = 0.5f;  // the exchange type's probability, folded in
-constexpr int kThreads = 256;  // one block per chain
-constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 3;  // blocks per SM the registers are capped for
-constexpr unsigned kFull = 0xffffffffu;
-// A warp's ring of live pair terms: kQueue entries of a key and a d^2.
-// The key holds the atom column (kKeySite bits), the site (4 bits), the
-// pose's sign (1: new or exchange pose, 0: old pose) and the overlap veto.
-// Triples are appended kChunk sites at a time (at most 32 kChunk
-// entries), so 31 left over plus a chunk fit the ring.
-constexpr int kQueue = 128;
-constexpr int kChunk = 3;
-constexpr int kQueueWords = 2 * kWarps * kQueue;
+// A live pair term's queue key (mmc_common.cuh Queue): the atom column
+// (kKeySite bits), the site (4 bits), the pose's sign (1: new or exchange
+// pose, 0: old pose) and the overlap veto.
+constexpr int kKeySign = 24, kKeyVeto = 25;
 // A warp's ring of (atom, pose) pairs within the pose's reach, kNear keys
 // (the atom column with the pose's sign and veto bits): the move pass
 // computes site distances only for these.  One pose of 32 lanes is
 // appended at a time, so 31 left over plus 32 fit the ring.
 constexpr int kNear = 64;
 constexpr int kNearWords = kWarps * kNear;
-constexpr int kKeySite = 20, kKeySign = 24, kKeyVeto = 25;
-constexpr int kMaxColumns = 1 << kKeySite;
 // One proposal's scalars: the new COM and the new pose's squared reach
 // [0, 4), the old COM and the old pose's squared reach [4, 8) (a reach is
 // the largest cutoff plus the pose's radius, with a rounding margin), the
@@ -206,68 +194,6 @@ __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
   if (tmmc) n += 64 + kQueueWords + 4 * (size_t)P + 2 * (size_t)K + 32;
   return n;
 }
-
-// rintf(t) for |t| < 2^22 on the FMA pipe: adding and subtracting
-// 1.5 * 2^23 rounds to the nearest integer, ties to even, as rintf does
-// (a zero comes out +0).
-__device__ inline float round_near(float t) {
-  return __fsub_rn(__fadd_rn(t, 12582912.0f), 12582912.0f);
-}
-
-__device__ inline float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-  return v;
-}
-
-__device__ inline float warp_max_all(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ inline unsigned long long warp_max_u64(unsigned long long v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(kFull, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
-
-// First output word of Philox4x32-10 (Salmon et al., SC 2011) for counter
-// (c0, c1, 0, 0) and key (k0, k1).
-__device__ inline uint32_t philox_word(uint32_t c0, uint32_t c1, uint32_t k0,
-                                       uint32_t k1) {
-  uint32_t c2 = 0u, c3 = 0u;
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-// R(q) b, the same expansion as the TPU kernel's rot_apply.
-__device__ inline void rot_apply(float w, float x, float y, float z, float bx,
-                                 float by, float bz, float* o) {
-  const float ww = w * w, xx = x * x, yy = y * y, zz = z * z;
-  const float wx = w * x, wy = w * y, wz = w * z;
-  const float xy = x * y, xz = x * z, yz = y * z;
-  o[0] = (ww + xx - yy - zz) * bx + 2.0f * ((xy - wz) * by + (xz + wy) * bz);
-  o[1] = (ww - xx + yy - zz) * by + 2.0f * ((xy + wz) * bx + (yz - wx) * bz);
-  o[2] = (ww - xx - yy + zz) * bz + 2.0f * ((xz - wy) * bx + (yz + wx) * by);
-}
-
-// A warp's ring of live pair terms (head and tail are warp-uniform).
-struct Queue {
-  int* key;
-  float* d2;
-  int head;
-  int tail;
-};
 
 // kAct: the activity-mask instantiation (use_act), which alone carries the
 // exchange attempts and the ghosts; the other keeps the fixed-N sweep's
@@ -495,43 +421,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     }
     return ((key >> kKeySign) & 1) ? contrib : -contrib;
   };
-  // the queue's n (<= 32, warp-uniform) oldest entries, one per lane
-  auto flush = [&](Queue& q, float& acc, int n) {
-    __syncwarp();
-    if (lane < n) {
-      const int s = (q.head + lane) & (kQueue - 1);
-      acc += live_term(q.key[s], q.d2[s]);
-    }
-    q.head += n;
-    __syncwarp();
-  };
-  // the lanes' live triples of sites p0 + k, k < min(n, kChunk) (key:
-  // key0 with site p0), appended site by site in lane order; every 32
-  // queued are evaluated at once
+  // a warp queue's live terms into acc (mmc_common.cuh Queue)
   auto push = [&](Queue& q, float& acc, int n, const bool* live,
                   const float* d2, int key0) {
-    unsigned bal[kChunk], any = 0u;
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      bal[k] = k < n ? __ballot_sync(kFull, live[k]) : 0u;
-      any |= bal[k];
-    }
-    if (!any) return;
-    int before = q.tail;
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      if (k < n && live[k]) {
-        const int s = (before + __popc(bal[k] & lanes_below)) & (kQueue - 1);
-        q.key[s] = key0 + (k << kKeySite);
-        q.d2[s] = d2[k];
-      }
-      before += __popc(bal[k]);
-    }
-    q.tail = before;
-    while (q.tail - q.head >= 32) flush(q, acc, 32);
+    q.push(n, live, d2, key0, lane,
+           [&](int key, float dd) { acc += live_term(key, dd); });
   };
   auto drain = [&](Queue& q, float& acc) {
-    if (q.tail > q.head) flush(q, acc, q.tail - q.head);
+    q.drain(lane, [&](int key, float dd) { acc += live_term(key, dd); });
   };
 
   // ---- the proposal warp's work ----

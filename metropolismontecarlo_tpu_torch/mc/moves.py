@@ -279,7 +279,8 @@ def sweep_tables(system, params, kvecs, kweights, device, cfg=None):
 
     tid_row, molid_row, q_row = _shared_rows(system, cfg)
     shared = dict(tid_row=i32(tid_row), molid_row=i32(molid_row),
-                  q_row=f32(q_row), kvec=f32(kvec), kw=f32(kw))
+                  q_row=f32(q_row), kvec=f32(kvec), kw=f32(kw),
+                  nk=int(np.rint(np.abs(kvec)).max()))
     if cfg is not None:
         segs = [(a0, (m1 - m0) * p)
                 for _, m0, m1, p, a0 in system.species_slices[:-1]]

@@ -2,9 +2,9 @@
 
 Each csrc/<name>.cu has a plain C interface.  It is compiled by nvcc for
 Hopper (sm_90a) into a shared library, cached under _build/ by a hash of
-its source and flags, and loaded with ctypes; the op module that uses it
-declares the argument types.  Nothing is compiled at import: the first
-launch builds.
+its source, the shared device header (csrc/mmc_common.cuh) and the flags,
+and loaded with ctypes; the op module that uses it declares the argument
+types.  Nothing is compiled at import: the first launch builds.
 """
 
 import ctypes
@@ -18,6 +18,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+COMMON_HEADER = CSRC_DIR / "mmc_common.cuh"  # included by every kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,7 +35,7 @@ def build(name):
     """Compile csrc/<name>.cu unless a build of the same source exists.
     Returns (library path, seconds spent, compiler output)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(src.read_bytes() + COMMON_HEADER.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():

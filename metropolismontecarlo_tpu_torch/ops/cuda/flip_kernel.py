@@ -46,15 +46,16 @@ from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     MAX_SITES,
     MAX_SMEM_BYTES,
     N_EXCH_UNIFORMS,
+    QUEUE_WORDS,
     THREADS,
     SweepTables,
     box_constants,
     pair_terms,
     philox_scores,
+    recip_delta,
     rot_apply,
     shoemake,
     site_sfac,
-    recip_delta,
 )
 from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
 
@@ -82,29 +83,51 @@ class FlipTables:
             raise ValueError("the flip op runs unshifted LJ on dense planes")
 
 
-def flip_smem_bytes(M, P0, P1, A_pad, K, T):
+def flip_smem_bytes(M, P0, P1, A_pad, K, T, nk):
     """Dynamic shared memory of one block; must match flip_smem_floats in
-    csrc/flip_kernel.cu: three slot-pick rows (3 x 32 x 8 B), 7 atom rows
-    (x, y, z, activity, charge, type, molecule), 8 slot rows (COM 3,
-    quaternion 4, activity), 8 k rows (S re/im, cfac, dS re/im, kx, ky,
-    kz), both species' (P, T) eps and sigma^2 tables, both species' 6 P-wide
-    site rows (body 3, charge, two flags), the old and new poses (3 max(P0,
-    P1) each) and 64 words of uniforms, warp partials and decision
-    scratch."""
-    return 4 * (192 + 7 * A_pad + 8 * M + 8 * K + 2 * (P0 + P1) * T
-                + 6 * (P0 + P1) + 6 * max(P0, P1) + 64)
+    csrc/flip_kernel.cu: the warp queues of live pair terms (QUEUE_WORDS);
+    the old and new poses' 16-byte site rows (2 x 4 max(P0, P1)) and eik
+    tables (per pose and site three rows of 2 nk + 1 complex: 12 max(P0,
+    P1) (2 nk + 1)); two proposal buffers of both species' rotated
+    templates and the attempt's quaternion and accept uniform (2 x (3 (P0 +
+    P1) + 8)); 6 atom rows (x, y, z, the list of active atom columns, each
+    column's place in it, molecule); the slot activity (M); 6 k rows (S
+    re/im, cfac, dS re/im, the packed k indices); both species' (P, T) eps
+    and sigma^2 tables; both species' 7 P-wide site rows (body 3, charge,
+    two flags, live cutoff^2); two rows of Philox scores (2 M) and 33 words
+    of warp partials, statistics and the list's length.  The
+    COM and quaternion rows and the per-atom charge and type rows stay in
+    global memory."""
+    pmax = max(P0, P1)
+    return 4 * (QUEUE_WORDS + 8 * pmax + 12 * pmax * (2 * nk + 1)
+                + 2 * (3 * (P0 + P1) + 8) + 6 * A_pad + 3 * M + 6 * K
+                + 2 * (P0 + P1) * T + 7 * (P0 + P1) + 33)
 
 
-def check_smem(M, P0, P1, A_pad, K, T):
+def check_smem(M, P0, P1, A_pad, K, T, nk):
     """Raise, with the byte count, when a chain's state does not fit one
     block's shared memory (the flip op has no global layout)."""
-    nbytes = flip_smem_bytes(M, P0, P1, A_pad, K, T)
+    nbytes = flip_smem_bytes(M, P0, P1, A_pad, K, T, nk)
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"the semigrand chain state needs {nbytes} B of "
                          f"shared memory, over the {MAX_SMEM_BYTES} B a "
                          f"block may use (M={M}, A_pad={A_pad}, K={K}, "
-                         f"P0={P0}, P1={P1})")
+                         f"P0={P0}, P1={P1}, nk={nk})")
     return nbytes
+
+
+def occupancy(t, M, A_pad, K):
+    """(registers per thread, local memory per thread in bytes -- stack
+    frame and spills --, blocks per SM) of the kernel instantiation that
+    FlipTables t launch, at this shape, from the CUDA runtime; needs the
+    card."""
+    out = (ctypes.c_int * 3)()
+    err = _library().mmc_flip_occupancy(
+        COULOMB_CODES[t.a.coulomb], M, t.a.P, t.b.P, A_pad, K,
+        t.a.eps.shape[1], t.a.nk, out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return tuple(out)
 
 
 def _check_inputs(coords, com, quat, sfac, box, temp, act, actm, ux, t,
@@ -156,7 +179,7 @@ def _check_inputs(coords, com, quat, sfac, box, temp, act, actm, ux, t,
             or name.startswith("has_")
         if x.dtype != (torch.int32 if int_field else torch.float32):
             raise ValueError(f"{name}: dtype {x.dtype}")
-    check_smem(M, t.a.P, t.b.P, A_pad, K, T)
+    check_smem(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk)
 
 
 def flip(coords, com, quat, sfac, box, temp, act, actm, ux, tables, si2,
@@ -189,8 +212,8 @@ def _launch(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2, lrc3,
     lib = _library()
     C, _, A_pad = coords.shape
     M, K, T = com.shape[1], sfac.shape[1], t.a.eps.shape[1]
-    if lib.mmc_flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T) \
-            != flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T):
+    if lib.mmc_flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk) \
+            != flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk):
         raise RuntimeError("csrc/flip_kernel.cu and flip_smem_bytes "
                            "disagree on the shared-memory layout")
     outs = (torch.empty_like(coords), torch.empty_like(com),
@@ -209,7 +232,7 @@ def _launch(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2, lrc3,
            a.kvec, a.kw)
     err = lib.mmc_flip_launch(
         *(ptr(x) for x in ins + outs), C, a.M, b.M, a.P, b.P, b.a_start,
-        A_pad, K, T, COULOMB_CODES[a.coulomb], ux.shape[1],
+        A_pad, K, T, a.nk, COULOMB_CODES[a.coulomb], ux.shape[1],
         int(seed) & 0xFFFFFFFF, THREADS, a.rc2, a.qrc2, a.kappa_l,
         a.d2_overlap, float(t.ln_xi), COULOMB_FACTOR,
         torch.cuda.current_stream(coords.device).cuda_stream)
@@ -230,11 +253,13 @@ def _library():
 
     lib = load_library("flip_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_flip_launch.argtypes = [vp] * 35 + [ci] * 11 + [ctypes.c_uint] \
+    lib.mmc_flip_launch.argtypes = [vp] * 35 + [ci] * 12 + [ctypes.c_uint] \
         + [ci] + [cf] * 6 + [vp]
     lib.mmc_flip_launch.restype = ci
-    lib.mmc_flip_smem_bytes.argtypes = [ci] * 6
+    lib.mmc_flip_smem_bytes.argtypes = [ci] * 7
     lib.mmc_flip_smem_bytes.restype = ctypes.c_size_t
+    lib.mmc_flip_occupancy.argtypes = [ci] * 8 + [ctypes.c_void_p]
+    lib.mmc_flip_occupancy.restype = ci
     lib.mmc_flip_error_string.argtypes = [ci]
     lib.mmc_flip_error_string.restype = ctypes.c_char_p
     return lib

@@ -57,8 +57,10 @@ from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     COULOMB_CODES,
     MAX_SITES,
     MAX_SMEM_BYTES,
+    NEAR_WORDS,
     N_EXCH_UNIFORMS,
     N_UNIFORMS,
+    QUEUE_WORDS,
     THREADS,
     SweepTables,
     box_constants,
@@ -83,30 +85,49 @@ N_STATS = 8
 GibbsTables = SweepTables
 
 
-def gibbs_smem_bytes(m_off, P, A_off, K, T):
+def gibbs_smem_bytes(m_off, P, A_off, K, T, nk):
     """Dynamic shared memory of one block; must match gibbs_smem_floats
-    in csrc/gibbs_kernel.cu: the two slot-pick rows (2 x 32 x 8 B), 8
-    two-box atom rows (x, y, z, activity: 2 A_off each), 3 one-box
-    per-atom rows (charge, type, molecule), 16 slot rows over both boxes
-    (COM 3, quaternion 4, activity 1: 2 m_off each), 13 k rows (S re/im
-    and cfac per box, the insertion's and the deletion's dS re/im, kx,
-    ky, kz), 4 (P, T) LJ tables, 15 P-wide site rows (body 3, charge, two
-    flags, old, new and deletion positions 3 each) and 112 words of
-    uniforms, warp partials (two rows) and decision scratch."""
-    return 4 * (128 + 8 * A_off + 3 * A_off + 16 * m_off + 13 * K
-                + 4 * P * T + 15 * P + 112)
+    in csrc/gibbs_kernel.cu: the warp queues of live pair terms
+    (QUEUE_WORDS) and of (atom, pose) pairs within reach (NEAR_WORDS);
+    two proposal buffers, each an old and a new pose of P 16-byte site
+    rows (16 P) and their eik tables (per pose and site three rows of 2 nk
+    + 1 complex: 24 P (2 nk + 1)); 8 two-box atom rows (x, y, z,
+    activity: 2 A_off each) and one box's molecule row; the two-box slot
+    activity (2 m_off); 11 k rows (S re/im and cfac per box, the move's
+    or insertion's and the deletion's dS re/im, the packed k indices); 4
+    (P, T) LJ tables; 7 P-wide site rows (body 3, charge, two flags, live
+    cutoff^2); two rows of Philox scores (2 x 2 m_off) and 88 words of
+    scratch (two proposals' scalars, two rows of warp partials, the
+    statistics, the box constants).  The COM and quaternion rows and the
+    per-atom charge and type rows stay in global memory."""
+    return 4 * (QUEUE_WORDS + NEAR_WORDS + 16 * P + 24 * P * (2 * nk + 1)
+                + 9 * A_off + 6 * m_off + 11 * K + 4 * P * T + 7 * P + 88)
 
 
-def check_smem(m_off, P, A_off, K, T):
+def check_smem(m_off, P, A_off, K, T, nk):
     """Raise, with the byte count, when a chain's two-box state does not
     fit one block's shared memory (the Gibbs op has no global layout)."""
-    nbytes = gibbs_smem_bytes(m_off, P, A_off, K, T)
+    nbytes = gibbs_smem_bytes(m_off, P, A_off, K, T, nk)
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"the two-box chain state needs {nbytes} B of "
                          f"shared memory, over the {MAX_SMEM_BYTES} B a "
                          f"block may use (m_off={m_off}, A_off={A_off}, "
-                         f"K={K}, P={P})")
+                         f"K={K}, P={P}, nk={nk})")
     return nbytes
+
+
+def occupancy(t, m_off, A_off, K):
+    """(registers per thread, local memory per thread in bytes -- stack
+    frame and spills --, blocks per SM) of the kernel instantiation that
+    tables t launch, at this shape, from the CUDA runtime; needs the
+    card."""
+    out = (ctypes.c_int * 3)()
+    err = _library().mmc_gibbs_occupancy(
+        COULOMB_CODES[t.coulomb], int(t.lj_shift == "linear"), m_off, t.P,
+        A_off, K, t.eps.shape[1], t.nk, out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return tuple(out)
 
 
 def _check_inputs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
@@ -158,7 +179,7 @@ def _check_inputs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
         int_field = name in ("tid_row", "molid_row", "has_lj", "has_q")
         if x.dtype != (torch.int32 if int_field else torch.float32):
             raise ValueError(f"{name}: dtype {x.dtype}")
-    check_smem(m_off, t.P, A_off, K, T)
+    check_smem(m_off, t.P, A_off, K, T, t.nk)
 
 
 def sweep_gibbs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
@@ -195,8 +216,8 @@ def _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u, t, act,
     lib = _library()
     C, _, _, A_off = coords.shape
     m_off, K, T = com.shape[2], sfac.shape[2], t.eps.shape[1]
-    if lib.mmc_gibbs_smem_bytes(m_off, t.P, A_off, K, T) \
-            != gibbs_smem_bytes(m_off, t.P, A_off, K, T):
+    if lib.mmc_gibbs_smem_bytes(m_off, t.P, A_off, K, T, t.nk) \
+            != gibbs_smem_bytes(m_off, t.P, A_off, K, T, t.nk):
         raise RuntimeError("csrc/gibbs_kernel.cu and gibbs_smem_bytes "
                            "disagree on the shared-memory layout")
     outs = (torch.empty_like(coords), torch.empty_like(com),
@@ -213,7 +234,7 @@ def _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u, t, act,
            t.has_lj, t.has_q, t.tid_row, t.molid_row, t.q_row, t.kvec, t.kw)
     err = lib.mmc_gibbs_launch(
         *(ptr(x) for x in ins + outs), C, t.M, m_off, t.m_start, t.a_start,
-        t.P, A_off, K, T, COULOMB_CODES[t.coulomb],
+        t.P, A_off, K, T, t.nk, COULOMB_CODES[t.coulomb],
         int(t.lj_shift == "linear"), int(t.use_rot), int(n_exch),
         int(seed) & 0xFFFFFFFF, THREADS, t.rc2, t.qrc2, t.kappa_l,
         t.d2_overlap, t.p_translate, COULOMB_FACTOR,
@@ -234,11 +255,13 @@ def _library():
 
     lib = load_library("gibbs_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_gibbs_launch.argtypes = [vp] * 34 + [ci] * 13 + [ctypes.c_uint] \
+    lib.mmc_gibbs_launch.argtypes = [vp] * 34 + [ci] * 14 + [ctypes.c_uint] \
         + [ci] + [cf] * 6 + [vp]
     lib.mmc_gibbs_launch.restype = ci
-    lib.mmc_gibbs_smem_bytes.argtypes = [ci] * 5
+    lib.mmc_gibbs_smem_bytes.argtypes = [ci] * 6
     lib.mmc_gibbs_smem_bytes.restype = ctypes.c_size_t
+    lib.mmc_gibbs_occupancy.argtypes = [ci] * 8 + [vp]
+    lib.mmc_gibbs_occupancy.restype = ci
     lib.mmc_gibbs_error_string.argtypes = [ci]
     lib.mmc_gibbs_error_string.restype = ctypes.c_char_p
     return lib

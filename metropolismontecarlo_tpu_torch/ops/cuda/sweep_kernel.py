@@ -97,8 +97,10 @@ class SweepTables:
     LJ rows by neighbour type (lam pre-scaled: the shift is
     lam1 + lam2 * r); has_lj/has_q (P,) int32 site flags; tid_row/
     molid_row (A_pad,) int32 (pads -1); q_row (A_pad,); kvec (K, 3);
-    kw (K,).  Sorted slabs (W > 0): the sorted block's first column a0_w
-    and width A_blk, the window width W, wst (M_total,) int32 each
+    kw (K,); nk the largest |integer component| of kvec (the extent of
+    the Gibbs and flip kernels' per-site eik tables).  Sorted slabs (W >
+    0): the sorted block's first column a0_w and width A_blk, the window
+    width W, wst (M_total,) int32 each
     molecule's window start, segs (n_seg, 2) int32 the other blocks'
     [first column, width]; the rows are then A_store wide (ghost halo
     type and charge copied, molecule -1)."""
@@ -128,6 +130,7 @@ class SweepTables:
     q_row: torch.Tensor
     kvec: torch.Tensor
     kw: torch.Tensor
+    nk: int = 0
     a0_w: int = 0
     A_blk: int = 0
     W: int = 0

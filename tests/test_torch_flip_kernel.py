@@ -338,14 +338,19 @@ def _tables_to(t, device):
 
 
 def test_flip_smem_bytes_counts_every_region():
-    """Three slot-pick rows (192 words), 7 atom rows, 8 slot rows, 8 k rows,
-    both species' (P, T) eps and sigma^2 tables, both species' 6 P-wide
-    site rows, the two poses at max(P0, P1), 64 words of scratch."""
-    M, P0, P1, A, K, T = 128, 1, 3, 384, 337, 2
-    words = (192 + 7 * A + 8 * M + 8 * K + 2 * P0 * T + 2 * P1 * T
-             + 6 * P0 + 6 * P1 + 3 * 3 + 3 * 3 + 64)
-    assert flip_op.flip_smem_bytes(M, P0, P1, A, K, T) == 4 * words
+    """The warp queues (2048 words), the old and new poses' site rows and
+    eik tables at max(P0, P1), two proposal buffers of both species'
+    rotated templates and 8 scalars, 6 atom rows (x, y, z, the active-atom
+    list, each column's place in it, molecule), the slot activity, 6 k
+    rows, both species' (P, T) eps and sigma^2 tables, both species' 7
+    P-wide site rows, two rows of Philox scores, 33 words of scratch."""
+    M, P0, P1, A, K, T, nk = 128, 1, 3, 384, 337, 2, 5
+    W = 2 * nk + 1
+    words = (2 * 8 * 128 + 2 * 4 * 3 + 2 * 3 * 3 * W * 2
+             + 2 * (3 * (P0 + P1) + 8) + 6 * A + M + 6 * K
+             + 2 * P0 * T + 2 * P1 * T + 7 * P0 + 7 * P1 + 2 * M + 33)
+    assert flip_op.flip_smem_bytes(M, P0, P1, A, K, T, nk) == 4 * words
     # bench.py's "semigrand" state fits with room for several blocks per SM
-    assert flip_op.check_smem(128, 3, 3, 384, 337, 2) < 40000
+    assert flip_op.check_smem(128, 3, 3, 512, 337, 2, 5) < 40000
     with pytest.raises(ValueError, match="shared memory"):
-        flip_op.check_smem(4096, 3, 3, 12288, 337, 2)
+        flip_op.check_smem(4096, 3, 3, 12288, 337, 2, 5)

@@ -472,22 +472,28 @@ def test_input_checks():
 
 def test_gibbs_smem_bytes_counts_every_region_of_the_layout():
     """The kernel's shared-memory regions, added up; the flagship (cap 128
-    SPC/E per box, A_pad 512, K 783) leaves shared memory for three
-    blocks per SM (registers allow two), and a state over a block's limit
-    is refused with its byte count."""
-    m_off, P, A, K, T = 128, 3, 512, 783, 2
-    regions = (2 * 32 * 2                 # two slot-pick rows, 32 x 8 B
-               + 4 * 2 * A                # x, y, z, activity, both boxes
-               + 3 * A                    # charge, type, molecule (a box)
-               + 2 * m_off * (3 + 4 + 1)  # COM, quaternion, slot activity
-               + 2 * 3 * K                # S re/im and cfac per box
-               + 4 * K + 3 * K            # two dS re/im rows; kx, ky, kz
-               + 4 * P * T                # eps, sig2, lam1, lam2
-               + 3 * P + 3 * P            # body, charge + two flags
-               + 3 * 3 * P                # old, new, deletion poses
-               + 32 + 32 + 32 + 16)       # uniforms, 2 partials, decision
-    assert gibbs_op.gibbs_smem_bytes(m_off, P, A, K, T) == 4 * regions
-    assert 3 * 4 * regions <= 228 * 1024
-    assert gibbs_op.check_smem(m_off, P, A, K, T) == 4 * regions
+    SPC/E per box, A_pad 512, K 783, nk 7) leaves shared memory for three
+    blocks per SM (the registers are capped for three), and a state over a
+    block's limit is refused with its byte count."""
+    m_off, P, A, K, T, nk = 128, 3, 512, 783, 2, 7
+    W = 2 * nk + 1
+    regions = (2 * 8 * 128               # warp queues: 8 x 128 (key, d^2)
+               + 8 * 64                  # the warps' near rings
+               + 2 * 2 * 4 * P           # two buffers of old/new site rows
+               + 2 * 2 * P * 3 * W * 2   # their eik tables (complex rows)
+               + 4 * 2 * A               # x, y, z, activity, both boxes
+               + A                       # molecule (one box's row)
+               + 2 * m_off               # slot activity, both boxes
+               + 2 * 3 * K               # S re/im and cfac per box
+               + 4 * K + K               # two dS re/im rows; k indices
+               + 4 * P * T               # eps, sig2, lam1, lam2
+               + 3 * P + 4 * P           # body; charge, 2 flags, cutoff
+               + 2 * 2 * m_off           # two rows of Philox scores
+               + 2 * 16 + 32 + 16 + 8)   # proposals, partials, stats, box
+    assert gibbs_op.gibbs_smem_bytes(m_off, P, A, K, T, nk) == 4 * regions
+    # three blocks and their 1 KB of reserved shared memory fit an SM's
+    # 228 KB
+    assert 3 * (4 * regions + 1024) <= 228 * 1024
+    assert gibbs_op.check_smem(m_off, P, A, K, T, nk) == 4 * regions
     with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
-        gibbs_op.check_smem(512, 3, 1536, 2874, 2)
+        gibbs_op.check_smem(1024, 3, 3072, 2874, 2, 11)
