@@ -7,9 +7,10 @@ Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu,
          csrc/gibbs_kernel.cu and csrc/flip_kernel.cu with nvcc for sm_90a,
          all at once (cached by a hash of each source under
          metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
-         of each instantiation (a spill of the sweep, Gibbs or flip
-         kernel fails the run); the
-         sweep kernel's blocks per SM at the main paths' shapes.
+         of each instantiation (a spill of any instantiation of any kernel
+         fails the run); the sweep kernel's blocks per SM at the main
+         paths' shapes, and the delta-energy kernel's registers, local
+         memory and blocks per SM at the per-move path's.
 Phase 2  each kernel against its plain PyTorch version on the card, on the
          same inputs.  The sweep kernel, one sweep on shared uniforms:
          SPC/E-64 (ewald, wolf, none; p_translate 0.5 and 0.0), LJ-256,
@@ -17,8 +18,12 @@ Phase 2  each kernel against its plain PyTorch version on the card, on the
          (32 + 32) and a ragged mixture (16 SPC/E + 16 one-site CH4, where
          a block's first atom column differs from m_start * P).  The
          delta-energy kernel on CO2/N2 mixtures' proposals, for every
-         Coulomb style, at 32 + 32 (A_pad 256, one lane per thread) and
-         160 + 40 (A_pad 768, three lane passes per thread).
+         Coulomb style, at 32 + 32 (A_pad 256) and 160 + 40 (A_pad 768),
+         and on its stress cases (`phase2_delta_stress`, 64 chains, states
+         drawn on the CPU): every lane within reach and inside the
+         cutoff, a dilute box, split cutoffs, SPC/E's H rows without LJ,
+         one-site LJ (P = 1) and a 16-site ring (R = 32); a misaligned
+         plane, which the wrapper and the launcher must refuse.
 Phase 3  the flagship main path: 750 SPC/E waters, Ewald, 2048 chains
          through MonteCarlo.init_state and three run_blocks (one sweep
          kernel launch per sweep), the drift gate and sane acceptance
@@ -31,12 +36,23 @@ Phase 4  the mixture main path: 600 CO2 + 150 N2 (TraPPE), Ewald, 37 A,
          the kernel against sweep_plain, one sweep of both timed.
 Phase 5  the per-move route: the same mixture as one block of differing
          templates (species=None, which "auto" sends to the delta-energy
-         kernel), from phase 4's end state: a 2-sweep run_block with M
-         delta-energy launches per sweep and the drift gate; one sweep of
-         this route against one whole-sweep-route sweep on the same
-         uniforms; delta_energy against its plain version on the main
-         path's arguments (2048 chains x 2304 lanes x 8 rows), and one
-         launch and one plain call of it timed.
+         kernel), from phase 4's end state: one eager sweep under
+         torch.profiler (device time by kernel, busy time and idle gaps,
+         wall time per move); the sweep's CUDA graph captured alone
+         (time, launches recorded, device memory held); two run_blocks of
+         one sweep on a fresh MonteCarlo, the first capturing the graph
+         inside its sweep, the second replaying it, with M delta-energy
+         launches per sweep (plus the capture's warm-up launches) and the
+         drift gate; one graph sweep against one eager sweep on the same
+         uniforms and state (coords, com, quat, sfac, energy, step, att
+         and acc equal bit for bit), both timed, and the sweeps after
+         which the capture has paid for itself; the eager sweep against
+         one whole-sweep-route sweep on the same uniforms; delta_energy
+         against its plain version on the main path's arguments (2048
+         chains x 2304 lanes x 8 rows), one wrapper call (host time
+         included: the kernels line's ms), one launch's device time
+         (launches replayed from a graph: device_ms) and one plain call
+         timed.
 
 Phase 2 also holds the kernel's activity, exchange and Widom arguments
 against sweep_plain (64 chains, shared uniforms and Philox scores): the
@@ -215,8 +231,9 @@ activity planes, quaternions within 1e-3 and Widom sums within 1e-3
 of w; measured ~3e-5 for water at 500 K).  Every
 phase raises on failure, so the script exits non-zero; the
 line before the last lists every kernel with its launches on its main
-path, error, time, plain time and bound; the last line of a passing run
-is the device JSON.
+path, error, time, plain time and bound (delta_energy's time is a wrapper
+call's, host time included; its device_ms is a launch's device time); the
+last line of a passing run is the device JSON.
 """
 
 import argparse
@@ -312,11 +329,13 @@ def phase1():
               "ILb0ELb0ELb1E": "<false, false, true> global layout"}
     # the Gibbs kernel's <Coulomb form, linear LJ shift> and the flip
     # kernel's <Coulomb form> instantiations
+    # (the delta-energy kernel's <Coulomb form> too)
     for q, form in enumerate(("none", "erfc", "wolf", "bare")):
         labels[f"12gibbs_kernelILi{q}ELb0E"] = f"two-box Gibbs <{form}>"
         labels[f"12gibbs_kernelILi{q}ELb1E"] = \
             f"two-box Gibbs <{form}, linear LJ>"
         labels[f"11flip_kernelILi{q}E"] = f"semigrand flips <{form}>"
+        labels[f"19delta_energy_kernelILi{q}E"] = f"delta energy <{form}>"
     spills = []
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s")
@@ -327,14 +346,22 @@ def phase1():
                              line.split("'")[1] if "'" in line else "")
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"phase1 ptxas {name} {entry}: {line.strip()}")
-            if name != "delta_energy" and "spill" in line \
-                    and not ("0 bytes spill stores" in line
-                             and "0 bytes spill loads" in line):
-                spills.append(f"{entry}: {line.strip()}")
+            if "spill" in line and not ("0 bytes spill stores" in line
+                                        and "0 bytes spill loads" in line):
+                spills.append(f"{name} {entry}: {line.strip()}")
     sweep_kernel._library()
     delta_energy._library()
     gibbs_kernel._library()
     flip_kernel._library()
+    # the delta-energy kernel at the per-move main path's shape (R 8 rows,
+    # T 4 types) as the runtime reports it
+    threads = delta_energy.THREADS
+    smem = delta_energy._library().mmc_delta_smem_bytes(8, 4, threads)
+    for style in ("none", "ewald", "wolf", "bare"):
+        regs, local, blocks = delta_energy.occupancy(style, 8, 4)
+        print(f"phase1 occupancy delta_energy <{style}> {threads} threads: "
+              f"{regs} registers, {local} B local, {smem} B of shared "
+              f"memory, {blocks} blocks per SM")
     # blocks per SM of the sweep kernel at the main paths' shapes (the
     # flagship, capacity-512 muVT and TMMC, the 6859-water global layout),
     # and the shared-memory layout as the kernel counts it against
@@ -357,8 +384,7 @@ def phase1():
             raise AssertionError(f"{tag}: csrc/sweep_kernel.cu counts "
                                  f"{kernel_bytes} B, smem_bytes {nbytes} B")
     if spills:
-        raise AssertionError(f"a sweep, Gibbs or flip kernel instantiation "
-                             f"spills: {spills}")
+        raise AssertionError(f"a kernel instantiation spills: {spills}")
 
 
 def _sweep_args(state, u):
@@ -917,6 +943,161 @@ def phase2(dev, chains=2048):
     return err, err_d
 
 
+def ring16_system(n_mol):
+    """A rigid ring of 16 sites (radius 2.5 A) as one species: even sites
+    with LJ (eps 50 K, sigma 3 A) and charge -0.25 e, odd sites with
+    charge +0.25 e and no LJ.  The port's molecule builders give at most 3
+    sites (R = 8 rows); this ring gives R = 32, the kernel's largest."""
+    from metropolismontecarlo_tpu_torch.models.system import System
+
+    ang = 2.0 * np.pi * np.arange(16) / 16
+    body = np.stack([2.5 * np.cos(ang), 2.5 * np.sin(ang), np.zeros(16)], -1)
+    odd = np.arange(16) % 2
+    return System(n_mol=n_mol, atoms_per_mol=16,
+                  body=np.tile(body, (n_mol, 1, 1)),
+                  masses=np.ones((n_mol, 16)),
+                  charges=np.tile(np.where(odd, 0.25, -0.25), (n_mol, 1)),
+                  type_ids=np.tile(odd, (n_mol, 1)).astype(np.int32),
+                  eps_table=np.array([[50.0, 0.0], [0.0, 0.0]]),
+                  sig_table=np.array([[3.0, 2.0], [2.0, 1.0]]),
+                  name="ring16")
+
+
+def delta_stress_cases():
+    """Phase 2's stress cases for the delta-energy kernel's compaction and
+    rows: (tag, system, box, params, moved molecule).  Every atom lane
+    within the moved rows' reach and every site pair inside the cutoff
+    (r_cut above L sqrt(3) / 2); a dilute box with no lane within reach;
+    split LJ and Coulomb cutoffs (4.5 / 6 A); SPC/E, whose H rows have
+    charge and no LJ; one-site LJ (P = 1: a pose of radius 0); the
+    16-site ring (R = 32 rows)."""
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.models.monatomic import (
+        lj_box_for_density,
+        lj_system,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+
+    box_w = 28.24 * (64 / 750) ** (1 / 3)      # the flagship's density
+    box_lj = lj_box_for_density(256, 0.75)
+    water = dict(temperature=298.15, coulomb="ewald", p_translate=0.5,
+                 dr_max=0.3, dphi_max=0.3)
+    mix = dataclasses.replace(co2_n2_system(32, 32), species=None)
+    return [
+        ("every lane in reach and cutoff spce64 wolf", spce_system(64), box_w,
+         RunParams(**dict(water, coulomb="wolf",
+                          r_cut=box_w * 3 ** 0.5 / 2 + 0.1,
+                          strict_min_image=False)), 17),
+        ("dilute spce64 ewald", spce_system(64), 40.0,
+         RunParams(r_cut=6.0, **water), 17),
+        ("split cutoff co2/n2 32+32 ewald", mix, 37.0 * (64 / 750) ** (1 / 3),
+         mixture_params(r_cut=4.5, qq_r_cut=6.0), 40),
+        ("rows without LJ spce64 ewald", spce_system(64), box_w,
+         RunParams(r_cut=6.0, **water), 17),
+        ("P = 1 lj256", lj_system(256), box_lj,
+         RunParams(temperature=1.0, r_cut=2.5, coulomb="none",
+                   p_translate=1.0, dr_max=box_lj / 30), 100),
+        ("R = 32 ring16x27 ewald", ring16_system(27), 24.0,
+         mixture_params(r_cut=7.0), 13),
+    ]
+
+
+def delta_stress_inputs(dev, i, chains=STRESS_CHAINS):
+    """Delta stress case i (delta_stress_cases) at seed 3250 + i, drawn on
+    the CPU and moved to dev: (case, state, delta_energy's arguments for
+    the move of the case's molecule, P).  The state is a lattice start
+    (the CO2/N2 case along the cube diagonal, the others in random
+    orientations) without an energy recompute."""
+    import warnings
+
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import draw_uniforms
+    from metropolismontecarlo_tpu_torch.ops.quaternions import (
+        random_quaternion,
+    )
+
+    case = delta_stress_cases()[i]
+    _, system, box, params, m = case
+    gen = torch.Generator().manual_seed(3250 + i)
+    with warnings.catch_warnings():
+        # the every-lane case samples the truncated nearest image
+        warnings.simplefilter("ignore")
+        mc = MonteCarlo(system, params, device="cpu", generator=gen,
+                        kernel="move")
+    M = system.n_mol
+    com = torch.as_tensor(cubic_lattice(M, box), dtype=torch.float32)
+    com = com[None].expand(chains, M, 3).contiguous()
+    if system.name == "co2+n2":
+        quat = torch.as_tensor(diagonal_quats(M), dtype=torch.float32)
+        quat = quat[None].expand(chains, M, 4).contiguous()
+    else:
+        quat = random_quaternion(gen, (chains, M), dtype=torch.float32)
+    state = mc._new_state(com, quat, torch.full((chains,), float(box)))
+    body = next(b for m0, m1, b in mc.move_bodies if m0 <= m < m1)
+    u = draw_uniforms(chains, 1, gen, "cpu")[:, 0]
+    pr = body.propose(state.com, state.quat, state.coords, state.box, u,
+                      state.dr_max, state.dphi_max, m)
+    args = body.delta_args(pr, state.coords, state.box, m)
+    return case, _to_device(state, dev), _to_device(args, dev), body.P
+
+
+def misaligned_planes(args):
+    """delta_energy's arguments with the coordinate planes copied into a
+    buffer one float past a 16-byte boundary."""
+    x = args[0]
+    C, A_pad = x.shape
+    buf = torch.empty(C * 3 * A_pad + 1, dtype=x.dtype, device=x.device)
+    planes = buf[1:].view(C, 3, A_pad)
+    for d in range(3):
+        planes[:, d] = args[d]
+    return (planes[:, 0], planes[:, 1], planes[:, 2]) + tuple(args[3:])
+
+
+def phase2_delta_stress(dev):
+    """delta_stress_cases against delta_energy_plain (check_delta's gates);
+    then a misaligned plane, which the wrapper and the launcher must both
+    refuse.  Returns the largest |d_e| difference (K)."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as dop
+
+    t0 = time.perf_counter()
+    err = 0.0
+    for i in range(len(delta_stress_cases())):
+        (tag, system, _, params, m), state, args, P = \
+            delta_stress_inputs(dev, i)
+        r_cut = max(params.r_cut, params.qq_cut)
+        near = _reach_fraction(state.coords, state.com,
+                               system.atom_mol_slot[0], state.box, r_cut,
+                               m_ranges=[(m, 1)])[0]
+        frac = _cutoff_fraction(system, state, r_cut)
+        print(f"phase 2e {tag}: R {args[3].shape[1]}, P {P}, A_pad "
+              f"{args[0].shape[1]}, {near:.4f} of atoms within molecule "
+              f"{m}'s reach, {frac:.4f} of site pairs within {r_cut:.3f} A")
+        err = max(err, check_delta(f"2e delta_energy {tag}", args, P))
+    bad = misaligned_planes(args)
+    try:
+        dop.delta_energy(*bad)
+    except ValueError as e:
+        print(f"phase 2e misaligned plane: the wrapper refuses it ({e})")
+    else:
+        raise AssertionError("delta_energy took a misaligned plane")
+    C, R = args[3].shape
+    outs = tuple(torch.empty((C, R), device=dev) for _ in range(3))
+    tensors = tuple(bad[:7]) + tuple(bad[8:16])
+    try:
+        dop._launch(tensors, bad[7], bad[16], outs)
+    except RuntimeError as e:
+        print(f"phase 2e misaligned plane: the launcher refuses it ({e})")
+    else:
+        raise AssertionError("the delta_energy launcher took a misaligned "
+                             "plane")
+    torch.cuda.synchronize()
+    print(f"phase 2 delta_energy stress cases: {time.perf_counter() - t0:.1f}"
+          f" s")
+    return err
+
+
 # ---------------- the global layout and sorted slabs -------------------
 
 
@@ -1287,11 +1468,12 @@ def _bound(nbytes, ops):
 
 
 def main_path(tag, mc, state, blocks, launches_per_sweep, counter,
-              reset=True):
+              reset=True, extra=0):
     """run_blocks with the launch count, drift gate and acceptance
     checked; `counter` is the wrapper whose .launches counts the path's
     kernel (set to 0 first unless reset is False: the launch check then
-    counts from the caller's reset).  Returns (state, launches)."""
+    counts from the caller's reset), `extra` the launches expected beyond
+    launches_per_sweep per sweep.  Returns (state, launches)."""
     if reset:
         counter.launches = 0
     launches0 = counter.launches
@@ -1313,9 +1495,10 @@ def main_path(tag, mc, state, blocks, launches_per_sweep, counter,
                                and 0.05 < m["acc_rot"] < 0.95):
             raise AssertionError(f"acceptance out of range: {m}")
     launches = counter.launches
-    if launches - launches0 != launches_per_sweep * sweeps:
+    if launches - launches0 != launches_per_sweep * sweeps + extra:
         raise AssertionError(f"kernel launched {launches} times for "
-                             f"{sweeps} sweeps, {launches_per_sweep} each")
+                             f"{sweeps} sweeps, {launches_per_sweep} each "
+                             f"and {extra} more")
     if not bool(torch.isfinite(state.energy).all()):
         raise AssertionError("non-finite chain energies")
     print(f"phase{tag} main path: {sweeps} sweeps, "
@@ -1409,6 +1592,71 @@ def phase4(dev, n_co2=600, n_n2=150, box=37.0, chains=2048, r_cut=10.0,
     return (launches, err) + timing + (mc, state)
 
 
+def _graph_ms(fn, reps):
+    """Device time (ms) of one fn() call: reps calls captured in one CUDA
+    graph, replayed once to warm and once timed, so no host enqueue time
+    enters (fn must be capturable)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _time_ms(graph.replay, 1) / reps
+
+
+def profile_moves(tag, mc, state, u, top=12):
+    """One eager per-move sweep (mc/moves.py run_moves on copies of the
+    state, on uniforms u) under torch.profiler (device activity): the
+    device time by kernel, the device's busy time (the union of its
+    kernel, copy and set intervals) and the idle gaps between them, and
+    the wall time per move."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from metropolismontecarlo_tpu_torch.mc.moves import run_moves
+
+    s = dataclasses.replace(state, com=state.com.clone(),
+                            quat=state.quat.clone(),
+                            coords=state.coords.clone())
+    M = u.shape[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_moves(mc.move_bodies, s, u)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_events:
+        raise AssertionError(f"{tag}: the profiler traced no device time")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy, idle, end = 0.0, 0.0, spans[0][0]
+    for a, b in spans:
+        if a > end:
+            idle += a - end
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in dev_events:
+        n = e.name if len(e.name) <= 90 else e.name[:87] + "..."
+        t, k = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + e.time_range.end - e.time_range.start, k + 1)
+    print(f"phase{tag} profiled eager per-move sweep: {wall:.3f} s for {M} "
+          f"moves under the profiler ({1e3 * wall / M:.3f} ms per move); "
+          f"device busy {busy / 1e6:.4f} s ({busy / M:.2f} us per move), "
+          f"idle gaps {idle / 1e6:.4f} s ({idle / M:.2f} us per move, "
+          f"{idle / (busy + idle):.4f} of the span), {len(dev_events)} "
+          f"device events")
+    for n, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"phase{tag} device time by kernel: {t / 1e3:10.3f} ms, {k:6d}"
+              f" x, {t / M:8.3f} us per move: {n}")
+    print(f"phase{tag} profile processed in {time.perf_counter() - t1:.1f} "
+          f"s")
+
+
 def phase5(dev, mc4, state4, blocks=((2, False),)):
     from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
     from metropolismontecarlo_tpu_torch.mc.moves import (
@@ -1418,17 +1666,55 @@ def phase5(dev, mc4, state4, blocks=((2, False),)):
     from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as dop
     from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
 
+    t_phase = time.perf_counter()
     system = dataclasses.replace(mc4.system, species=None)
     gen = torch.Generator(device=dev).manual_seed(2028)
     mc = MonteCarlo(system, mc4.params, device=dev, generator=gen)
     if mc.route != "move":
         raise AssertionError(f"species=None mixture took route {mc.route}")
     M = system.n_mol
-    state, launches = main_path("5", mc, state4, blocks, M, dop.delta_energy)
+    C = state4.com.shape[0]
+
+    # where an eager per-move sweep's time goes, before the graph
+    u = draw_uniforms(C, M, torch.Generator(device=dev).manual_seed(2029),
+                      dev)
+    profile_moves("5", mc, state4, u)
+
+    # the sweep graph's capture alone, on a MonteCarlo of its own: its time
+    # and the device memory it holds, its private pool (the allocator's
+    # segments of that pool) and its static buffers
+    mc_g = MonteCarlo(system, mc4.params, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    graph = mc_g.capture_sweep(state4)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_id = tuple(graph.graph.pool())
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool_id)
+    buffers = sum(t.nbytes for t in graph.static.values()) + graph.u.nbytes
+    print(f"phase5 sweep graph: captured in {capture_s:.3f} s (warm-up "
+          f"included), {graph.launches} delta_energy launches recorded; "
+          f"graph pool {pool} B ({pool / 2 ** 30:.3f} GiB), static buffers "
+          f"{buffers} B")
+    if graph.launches != M:
+        raise AssertionError(f"the sweep graph recorded {graph.launches} "
+                             f"launches, not {M}")
+    if not 0 < pool <= 4 * 2 ** 30:
+        raise AssertionError(f"the sweep graph's pool is {pool} B, not in "
+                             f"(0, 4 GiB]")
+    del mc_g, graph
+
+    # the main path on a fresh MonteCarlo: the first run_block captures
+    # the sweep graph inside its sweep (the warm-up's one counted launch
+    # per body is the `extra`), the second only replays it.  On the graph
+    # the count is the launches the capture recorded times the replays
+    print("phase5 the first run_block below captures the sweep graph (a "
+          "fresh MonteCarlo), the second replays it")
+    state, launches = main_path("5", mc, state4, blocks, M, dop.delta_energy,
+                                extra=len(mc.move_bodies))
 
     # one sweep of each route on the same uniforms; sweep_plain gives the
     # sweep's energy scale
-    C = state.com.shape[0]
     u = draw_uniforms(C, M, gen, state.com.device)
     args = _sweep_args(state, u)
     k = sweep_blocks(op.sweep, *args, mc4.tables)
@@ -1446,11 +1732,31 @@ def phase5(dev, mc4, state4, blocks=((2, False),)):
             fp += accept.float() * (m + 1)
     torch.cuda.synchronize()
     move_sweep_s = time.perf_counter() - t0
+    graph_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = mc.move_sweep(state, u)
+        torch.cuda.synchronize()
+        graph_s.append(time.perf_counter() - t0)
+    replay_ms = _time_ms(mc.capture_sweep(state).graph.replay, 3)
+    print(f"phase5 per-move sweep: {move_sweep_s:.3f} s for {M} moves eager"
+          f"; on the graph {' / '.join(f'{t:.4f}' for t in graph_s)} s "
+          f"(replay alone {replay_ms:.3f} ms); capture {capture_s:.3f} s, "
+          f"paid for after {capture_s / (move_sweep_s - min(graph_s)):.2f} "
+          f"sweeps")
+    fields = ("coords", "com", "quat", "sfac", "energy", "step", "att",
+              "acc")
+    diffs = {f: float((getattr(g, f).double() - getattr(s, f).double())
+                      .abs().max()) for f in fields}
+    print(f"phase5 graph sweep vs eager sweep on the same uniforms: largest "
+          f"differences {diffs}")
+    if not all(torch.equal(getattr(g, f), getattr(s, f)) for f in fields):
+        raise AssertionError("the graph sweep and the eager sweep differ")
     acc, att = (s.acc - state.acc).float(), (s.att - state.att).float()
     mv = torch.cat([acc[:, :2], att[:, :2], fp[:, None]], 1)
     same = (mv == k[4][:, [1, 2, 3, 4, op.N_STATS - 1]]).all(dim=1)
-    print(f"phase5 per-move sweep: {move_sweep_s:.3f} s for {M} moves; "
-          f"acc/att {mv[:, :4].sum(0).tolist()} vs whole sweep "
+    print(f"phase5 acc/att {mv[:, :4].sum(0).tolist()} vs whole sweep "
           f"{k[4][:, 1:5].sum(0).tolist()}")
     d_e = (s.energy - state.energy)[:, None]
     err = _check_match("5 per-move vs whole-sweep route", C, same,
@@ -1458,13 +1764,21 @@ def phase5(dev, mc4, state4, blocks=((2, False),)):
                        (k[0], k[1], k[3], k[4]), e_scale)
 
     # delta_energy against its plain version on the arguments the main
-    # path gives it, then one launch and one plain call timed
+    # path gives it, then one wrapper call (host time included: the
+    # kernels line's ms), one launch's device time (launches replayed
+    # from a graph, so no host time enters: device_ms) and one plain call
     _, _, body = mc.move_bodies[0]
     m = M // 2
     pr = body.propose(state.com, state.quat, state.coords, state.box,
                       u[:, m], state.dr_max, state.dphi_max, m)
     args = body.delta_args(pr, state.coords, state.box, m)
     err_d = check_delta(f"5 delta_energy main path m={m}", args, body.P)
+    R = args[3].shape[1]
+    tensors = tuple(args[:7]) + tuple(args[8:16])
+    outs = tuple(torch.empty((C, R), device=dev) for _ in range(3))
+
+    device_ms = _graph_ms(lambda: dop._launch(tensors, m, args[16], outs),
+                          20)
     ms = _time_ms(lambda: dop.delta_energy(*args), 20)
     plain_ms = _time_ms(lambda: dop.delta_energy_plain(*args), 3)
     frac = _cutoff_fraction(system, state, mc.params.r_cut)
@@ -1473,11 +1787,13 @@ def phase5(dev, mc4, state4, blocks=((2, False),)):
                            n=64, m_ranges=[(m, 1)])[0]
     bound_ms, bound_by = delta_bound(args, body.P, frac, near)
     print(f"phase5 one delta_energy launch, {C} chains x "
-          f"{args[0].shape[1]} lanes x {args[3].shape[1]} rows: kernel "
-          f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
+          f"{args[0].shape[1]} lanes x {R} rows ({dop.THREADS} threads): "
+          f"wrapper call with its host time {ms * 1e3:.3f} us, device time "
+          f"{device_ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
           f"{bound_ms * 1e3:.3f} us ({bound_by}; {near:.4f} of atoms within "
           f"the moved molecule's reach)")
-    return launches, err, err_d, ms, plain_ms, bound_ms, bound_by
+    print(f"phase5: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err, err_d, ms, device_ms, plain_ms, bound_ms, bound_by
 
 
 def _n_stats(state):
@@ -3574,6 +3890,7 @@ def main():
     dev = torch.device("cuda", 0)
     if 2 in want:
         err2, err_d = phase2(dev)
+        err_d = max(err_d, phase2_delta_stress(dev))
         err2x = phase2_variants(dev)
         err2c = phase2_compaction(dev)
         err2t, _ = phase2_tmmc(dev)
@@ -3593,8 +3910,8 @@ def main():
         l4, err4, ms4, plain4, bound4, by4, mc4, state4 = phase4(
             dev, blocks=((4, True), (2, False), (2, False)))
     if 5 in want:
-        l5, err5, err_d5, ms5, plain5, bound5, by5 = phase5(
-            dev, mc4, state4, blocks=((1, False),))
+        l5, err5, err_d5, ms5, dev_ms5, plain5, bound5, by5 = phase5(
+            dev, mc4, state4, blocks=((1, False), (1, False)))
     if 6 in want:
         ((l6, err6, ms6, plain6, bound6, by6),
          (l6h, err6h, ms6h, plain6h, bound6h, by6h)) = phase6(dev)
@@ -3645,8 +3962,9 @@ def main():
         {"name": "delta_energy", "route": "cuda",
          "source": f"{SRC}/delta_energy.cu",
          "replaces": f"{PALLAS}/delta_energy.py:159", "launches": l5,
-         "max_abs_err": max(err_d, err_d5), "ms": ms5, "plain_ms": plain5,
-         "bound_ms": bound5, "bound_by": by5, "library_ms": None},
+         "max_abs_err": max(err_d, err_d5), "ms": ms5, "device_ms": dev_ms5,
+         "plain_ms": plain5, "bound_ms": bound5, "bound_by": by5,
+         "library_ms": None},
         dict(sweep_row, name="sweep_kernel[use_act]",
              launches=l6h + l9m + l10m, max_abs_err=max(err2x, err6h),
              ms=ms6h, plain_ms=plain6h, bound_ms=bound6h, bound_by=by6h),

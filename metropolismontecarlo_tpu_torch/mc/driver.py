@@ -6,7 +6,8 @@ once, in storage order, by one of three routes (the JAX package's
 "mega", "tpu" and jnp routes):
 
 * "sweep": one whole-sweep kernel launch per species block;
-* "move": one delta-energy kernel launch per molecule move;
+* "move": one delta-energy kernel launch per molecule move, on the card
+  each sweep's moves as one replayed CUDA graph (capture_sweep);
 * "plain": per-move plain tensor code, for the conventions neither kernel
   runs (com/first cutoffs, the linear shift with several templates per
   block, the Ewald surface term, float64).
@@ -38,11 +39,13 @@ import torch
 
 from metropolismontecarlo_tpu_torch.mc.adjust import adjust_dmax
 from metropolismontecarlo_tpu_torch.mc.moves import (
+    MoveSweepGraph,
     delta_kernel_supported,
     draw_uniforms,
     make_mega_sweep_fn,
     make_sweep_fn,
     mega_supported,
+    move_graph_key,
     slab_config,
 )
 from metropolismontecarlo_tpu_torch.mc.npt import make_volume_move_fn
@@ -58,6 +61,7 @@ from metropolismontecarlo_tpu_torch.models.energy import (
 )
 from metropolismontecarlo_tpu_torch.models.system import SimState
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import N_UNIFORMS
 from metropolismontecarlo_tpu_torch.ops.quaternions import (
     fit_quaternions,
     random_quaternion,
@@ -186,6 +190,7 @@ class MonteCarlo:
                  make_sweep_fn(system, params, self.kvecs, self.kweights,
                                self.device, dtype, self.route == "move", sl))
                 for sl in system.species_slices)
+        self._move_graphs = {}
         self._volume_move = None
         if (params.pressure is not None or pressure_ladder is not None) \
                 and params.p_volume > 0.0:
@@ -371,14 +376,38 @@ class MonteCarlo:
         C, M = state.com.shape[:2]
         u = draw_uniforms(C, M, self.generator, state.com.device).to(
             self.dtype)
-        # the bodies update com/quat/coords in place: work on copies
-        state = dataclasses.replace(state, com=state.com.clone(),
-                                    quat=state.quat.clone(),
-                                    coords=state.coords.clone())
-        for m0, m1, body in self.move_bodies:
-            for m in range(m0, m1):
-                state, _ = body(state, m, u[:, m])
-        return state
+        return self.move_sweep(state, u)
+
+    def move_sweep(self, state, u):
+        """The per-move routes' moves of one sweep on uniforms u (C, M, 10),
+        through the static buffers kept for states of this shape and dtype
+        (mc/moves.py MoveSweepGraph): on the "move" route on the card one
+        replay of the sweep's CUDA graph (capture_sweep), else every body
+        in turn on those buffers."""
+        return self._move_sweeper(state)(state, u)
+
+    def capture_sweep(self, state):
+        """The "move" route's sweep graph for states shaped like `state`,
+        captured on the first call for each shape and dtype; sweeps
+        capture it on their own, so calling this first only takes the
+        capture (and its warm-up launches) out of the first sweep."""
+        if self.route != "move" or self.device.type != "cuda":
+            raise ValueError("sweep graphs are captured for the \"move\" "
+                             "route on the card")
+        return self._move_sweeper(state)
+
+    def _move_sweeper(self, state):
+        key = move_graph_key(state)
+        sweeper = self._move_graphs.get(key)
+        if sweeper is None:
+            C, M = state.com.shape[:2]
+            u = torch.zeros((C, M, N_UNIFORMS), dtype=self.dtype,
+                            device=state.com.device)
+            sweeper = MoveSweepGraph(
+                self.move_bodies, state, u,
+                graph=self.route == "move" and self.device.type == "cuda")
+            self._move_graphs[key] = sweeper
+        return sweeper
 
     def run_steps(self, state, n_steps, adjust=False):
         """n_steps sweeps; with adjust, steer the step sizes toward the

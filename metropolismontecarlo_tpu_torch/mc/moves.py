@@ -29,7 +29,8 @@
   comes from the delta-energy op (kernel branch: site cutoff, unshifted
   LJ, f32, no Ewald surface term) or from plain tensor code
   (`pair_energy_rows`: every cutoff mode, the linear shift, the surface
-  term, float64).
+  term, float64).  `run_moves` runs a sweep's moves through the bodies;
+  `MoveSweepGraph` runs them as one captured CUDA graph on the card.
 
 Not ported yet, and refused rather than skipped: neighbour lists.
 """
@@ -967,3 +968,89 @@ def make_sweep_fn(system, params, kvecs, kweights, device,
     delta_kernel_supported is false), else the plain pair_energy_rows."""
     return _MoveBody(system, params, kvecs, kweights, device, dtype,
                      use_kernel, species)
+
+
+# ---------------- the per-move route's sweep ----------------------------
+
+# The SimState fields the move bodies read or write: a sweep's graph holds
+# a static buffer of each (MoveSweepGraph).
+MOVE_FIELDS = ("com", "quat", "coords", "sfac", "energy", "box", "temp",
+               "dr_max", "dphi_max", "step", "att", "acc")
+
+
+def run_moves(bodies, state, u):
+    """One sweep's moves: body(state, m, u[:, m]) for every (m0, m1, body)
+    of `bodies` in order and m in [m0, m1), on uniforms u (C, M, 10).  The
+    bodies update state.com/quat/coords IN PLACE; returns the last
+    state."""
+    for m0, m1, body in bodies:
+        for m in range(m0, m1):
+            state, _ = body(state, m, u[:, m])
+    return state
+
+
+def move_graph_key(state):
+    """The shapes and dtypes of the fields a sweep's graph holds."""
+    return tuple((f, tuple(getattr(state, f).shape), getattr(state, f).dtype)
+                 for f in MOVE_FIELDS)
+
+
+class MoveSweepGraph:
+    """run_moves over `bodies` on static buffers, for states shaped like
+    `state`: one buffer per MOVE_FIELDS field and one for the uniforms.
+    A call copies the state and u (C, M, 10) into them, runs the moves and
+    returns the state with those fields cloned out of them.
+
+    With graph=True (CUDA tensors) the moves are captured once, here, as
+    one CUDA graph that each call replays.  The capture needs warm-up work
+    first: one move per body on scratch copies of the buffers (real
+    launches, counted as such; nothing is drawn from any generator).  A
+    failed capture or replay raises.  The capture itself launches nothing,
+    so it leaves delta_energy.launches as it found it; a replay adds the
+    launches the capture recorded (self.launches), so the count after n
+    replays is the captured count times n.  With graph=False every call
+    runs the bodies on the buffers (run_moves)."""
+
+    def __init__(self, bodies, state, u, graph):
+        self.bodies = bodies
+        self.fields = MOVE_FIELDS
+        self.static = {f: getattr(state, f).clone() for f in self.fields}
+        self.u = u.clone()
+        # the moves read the buffers, and the state's other fields as they
+        # are now (the moves neither read nor write those)
+        self._state_in = dataclasses.replace(state, **self.static)
+        self.graph, self._out, self.launches = None, None, 0
+        if graph:
+            self._capture()
+
+    def _capture(self):
+        dev = self.u.device
+        scratch = dataclasses.replace(
+            self._state_in, **{f: t.clone() for f, t in self.static.items()})
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for m0, _, body in self.bodies:
+                scratch, _ = body(scratch, m0, self.u[:, m0])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        del scratch
+        n0 = delta_op.delta_energy.launches
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._out = run_moves(self.bodies, self._state_in, self.u)
+        self.launches = delta_op.delta_energy.launches - n0
+        delta_op.delta_energy.launches = n0
+
+    def __call__(self, state, u):
+        for f, t in self.static.items():
+            t.copy_(getattr(state, f))
+        self.u.copy_(u)
+        if self.graph is None:
+            out = run_moves(self.bodies, self._state_in, self.u)
+        else:
+            self.graph.replay()
+            delta_op.delta_energy.launches += self.launches
+            out = self._out
+        return dataclasses.replace(
+            state, **{f: getattr(out, f).clone() for f in self.fields})

@@ -25,7 +25,7 @@ from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import COULOMB_CODES
 ROW_GROUP = 8       # rows are padded to a multiple of this
 MAX_ROWS = 32
 MAX_TYPES = 64
-THREADS = 256
+THREADS = 128       # threads per chain (one block per chain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +72,16 @@ def _check_inputs(x, y, z, mx, my, mz, box, eps, sig2, q8, has_lj, has_q,
         int_field = name in ("has_lj", "has_q", "tid_row", "molid_row")
         if t.dtype != (torch.int32 if int_field else torch.float32):
             raise ValueError(f"{name}: dtype {t.dtype}")
+    # the kernel reads the planes and the molecule ids as 16-byte vectors
+    if A_pad % 4 or x.stride(0) % 4:
+        raise ValueError(f"planes: A_pad {A_pad} and the row stride "
+                         f"{x.stride(0)} must be multiples of 4 floats (the "
+                         f"kernel reads 16-byte vectors)")
+    for name, t in (("x", x), ("y", y), ("z", z), ("molid_row", molid_row)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                             f"kernel reads 16-byte vectors); it starts at "
+                             f"{t.data_ptr() % 16} bytes past one")
 
 
 def delta_energy(x, y, z, mx, my, mz, box, m, eps, sig2, q8, has_lj, has_q,
@@ -80,7 +90,9 @@ def delta_energy(x, y, z, mx, my, mz, box, m, eps, sig2, q8, has_lj, has_q,
     the global index).
 
     x/y/z (C, A_pad) coordinate planes (views of one (C, 3, A_pad) tensor
-    do: a shared row stride, unit lane stride); mx/my/mz (C, R) moved
+    do: a shared row stride, unit lane stride; the bases and molid_row
+    16-byte aligned, A_pad and the row stride multiples of 4, else it
+    raises on every device); mx/my/mz (C, R) moved
     rows; box (C,); eps/sig2 (R, T) per-row LJ parameters by neighbour
     type; q8 (R,) row charges; has_lj/has_q (R,) int32 row flags;
     tid_row/molid_row (A_pad,) int32 (pads -1), q_row (A_pad,); f32
@@ -97,12 +109,27 @@ def delta_energy(x, y, z, mx, my, mz, box, m, eps, sig2, q8, has_lj, has_q,
                                   params)
     if x.device.type != "cuda":
         raise ValueError(f"no delta_energy for device {x.device}")
-    lib = _library()
-    C, A_pad = x.shape
-    R, T = eps.shape
+    C, R = mx.shape
     outs = tuple(torch.empty((C, R), dtype=torch.float32, device=x.device)
                  for _ in range(3))
-    ptrs = [t.data_ptr() for t in args + outs]
+    _launch(args, m, params, outs)
+    delta_energy.launches += 1
+    return outs
+
+
+delta_energy.launches = 0
+
+
+def _launch(args, m, params, outs):
+    """One kernel launch on the current CUDA stream, on checked arguments
+    (delta_energy's tensors in its order, without m and params) into
+    outs; raises on a refused launch.  Counts nothing: delta_energy counts
+    its launches."""
+    lib = _library()
+    x, eps = args[0], args[7]
+    C, A_pad = x.shape
+    R, T = eps.shape
+    ptrs = [t.data_ptr() for t in tuple(args) + tuple(outs)]
     err = lib.mmc_delta_energy_launch(
         *ptrs[:3], x.stride(0), *ptrs[3:], C, A_pad, R, T, int(m),
         COULOMB_CODES[params.coulomb], THREADS, params.rc2, params.qrc2,
@@ -112,11 +139,6 @@ def delta_energy(x, y, z, mx, my, mz, box, m, eps, sig2, q8, has_lj, has_q,
         msg = lib.mmc_delta_error_string(err).decode()
         raise RuntimeError(f"delta_energy launch failed: CUDA error {err} "
                            f"({msg})")
-    delta_energy.launches += 1
-    return outs
-
-
-delta_energy.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,14 +155,37 @@ def _library():
     lib.mmc_delta_energy_launch.restype = ci
     lib.mmc_delta_error_string.argtypes = [ci]
     lib.mmc_delta_error_string.restype = ctypes.c_char_p
-    for fn in (lib.mmc_delta_max_rows, lib.mmc_delta_max_types):
+    for fn in (lib.mmc_delta_max_rows, lib.mmc_delta_max_types,
+               lib.mmc_delta_init):
         fn.argtypes = []
         fn.restype = ci
+    lib.mmc_delta_smem_bytes.argtypes = [ci, ci, ci]
+    lib.mmc_delta_smem_bytes.restype = ctypes.c_size_t
+    lib.mmc_delta_occupancy.argtypes = [ci] * 4 + [ctypes.POINTER(ci)]
+    lib.mmc_delta_occupancy.restype = ci
     if (lib.mmc_delta_max_rows(), lib.mmc_delta_max_types()) != \
             (MAX_ROWS, MAX_TYPES):
         raise RuntimeError("csrc/delta_energy.cu and ops/cuda/delta_energy"
                            ".py disagree on the row and type limits")
+    err = lib.mmc_delta_init()
+    if err != 0:
+        raise RuntimeError(f"delta_energy: setting the shared-memory limit "
+                           f"failed: CUDA error {err} "
+                           f"({lib.mmc_delta_error_string(err).decode()})")
     return lib
+
+
+def occupancy(coulomb, R, T):
+    """(registers, local memory bytes, blocks per SM) of the kernel's
+    instantiation for `coulomb` (a COULOMB_CODES key) at R rows and T
+    types, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 3)()
+    err = _library().mmc_delta_occupancy(COULOMB_CODES[coulomb], R, T,
+                                         THREADS, out)
+    if err != 0:
+        raise RuntimeError(f"delta_energy occupancy query failed: CUDA "
+                           f"error {err}")
+    return tuple(out)
 
 
 def delta_energy_plain(x, y, z, mx, my, mz, box, m, eps, sig2, q8, has_lj,
