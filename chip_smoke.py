@@ -164,6 +164,25 @@ Phase 17 docs/validation/run_binary_co2_n2.py through
          difference| < 0.1 per species, selectivity S > 1, S(k) error <
          1e-4, drift < 1e-2 and full fractions < 0.02 on every production
          block.
+Phase 18 the run surface: main() of the port's run.py on the card, on
+         three committed configs written to a temporary directory with
+         their depth cut: configs/spce_750.json at full width (750 SPC/E,
+         Ewald K 337, 512 chains) from a lattice start at its box 28.24 A
+         (the NIST file is not in the repo), 3 blocks of 10 sweeps (1 of
+         them equilibration) with a checkpoint every block and the O-O
+         RDF, then a fourth block resumed from checkpoint.npz;
+         configs/gcmc_spce_mega.json (1024 chains, cap 128, 2 blocks) and
+         configs/gibbs_spce_mega.json (512 chains, 2 blocks).  Each run
+         timed; its metrics.jsonl (one line per block, finite values,
+         drift <= 2e-3, sfac_err_max < 1e-4 on the muVT and Gibbs lines,
+         the flagship's carried S(k) within 1e-4 of each chain's S(k)
+         norm, acceptances in (0.05, 0.95) after adjustment, insert,
+         delete and transfer acceptances above 0), its output files and
+         its kernel's launch count (above 0) checked.
+Phase 19 `python -m metropolismontecarlo_tpu_torch.bench` for BENCH_CONFIG
+         spce and gcmc at their defaults, each in a subprocess: the last
+         line is JSON with bench.py's fields (read from bench.py), the line
+         before it the run_block wall; both printed.
 
 Phase 2 also holds the sweep kernel's queues of live pair terms against
 sweep_plain (`phase2_compaction`, 64 chains, the gates above): SPC/E-64
@@ -242,6 +261,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3876,10 +3896,267 @@ def phase17(dev, chains=256, equil=8, prod=8, steps=1500, nvt_chains=256):
     return launches
 
 
+# ---------------- the run surface: the CLI and the benchmark ----------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _cli_config(tmp, name, run=None, output=None, ensemble=None, **top):
+    """configs/<name>.json with entries of its run section (and of run's
+    output and ensemble sections) replaced, written into tmp; returns the
+    path."""
+    with open(os.path.join(REPO, "configs", f"{name}.json")) as f:
+        cfg = json.load(f)
+    cfg.update(top)
+    cfg["run"].update(run or {})
+    cfg["run"]["output"] = dict(cfg["run"].get("output", {}), **(output or {}))
+    if ensemble:
+        cfg["run"]["ensemble"].update(ensemble)
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _n_blocks(path):
+    with open(path) as f:
+        return json.load(f)["run"]["n_blocks"]
+
+
+class _SfacProbe:
+    """Records, inside MonteCarlo.run_block, the difference between the
+    carried S(k) and the block-end recompute (the NVT path reports no
+    sfac_err_max; the muVT and Gibbs apps do): per block the largest
+    absolute difference (errs) and the largest per chain relative to the
+    chain's S(k) norm floored at SFAC_NORM_FLOOR (rel), phase 2's rule."""
+
+    def __init__(self):
+        from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+
+        self.errs, self.rel, self._cls = [], [], MonteCarlo
+        self._fe, self._rb = MonteCarlo.full_energy, MonteCarlo.run_block
+        probe = self
+
+        def full_energy(mc, state):
+            e, w, sfac = probe._fe(mc, state)
+            if getattr(mc, "_probe_in_block", False):
+                d = (sfac - state.sfac).abs().amax(dim=(1, 2))
+                norm = torch.linalg.vector_norm(sfac, dim=(1, 2))
+                probe.errs.append(float(d.max()))
+                probe.rel.append(float(
+                    (d / norm.clamp_min(SFAC_NORM_FLOOR)).max()))
+            return e, w, sfac
+
+        def run_block(mc, *a, **k):
+            mc._probe_in_block = True
+            try:
+                return probe._rb(mc, *a, **k)
+            finally:
+                mc._probe_in_block = False
+
+        MonteCarlo.full_energy, MonteCarlo.run_block = full_energy, run_block
+
+    def close(self):
+        self._cls.full_energy, self._cls.run_block = self._fe, self._rb
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def cli_run(tag, dev, path, counter, n_lines, files, resume=None,
+            acc_keys=(), positive_keys=()):
+    """main() of the port's run.py on a config file, timed; then its
+    metrics.jsonl (n_lines lines, every float finite, the drift and S(k)
+    gates on each, acc_keys in (0.05, 0.95) on production lines,
+    positive_keys above 0), its output files and the launch counter.
+    Returns (launches, seconds, lines)."""
+    from metropolismontecarlo_tpu_torch.run import main
+
+    with open(path) as f:
+        out = json.load(f)["run"]["output"]["dir"]
+    argv = [path, "--quiet"] + (["--resume", resume] if resume else [])
+    counter.launches = 0
+    t0 = time.perf_counter()
+    main(argv, device=dev)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = counter.launches
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    for i, ln in enumerate(lines):
+        print(f"phase18 {tag} line {i}: " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in ln.items() if k != "t"))
+    if len(lines) != n_lines:
+        raise AssertionError(f"{tag}: {len(lines)} metrics lines, expected "
+                             f"{n_lines}")
+    for ln in lines:
+        bad = [k for k, v in ln.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite {bad}: {ln}")
+        if not ln["drift_max_rel"] <= DRIFT_TOL:
+            raise AssertionError(f"{tag}: drift {ln['drift_max_rel']}")
+        if not ln.get("sfac_err_max", 0.0) < SFAC_ABS_TOL:
+            raise AssertionError(f"{tag}: S(k) error {ln['sfac_err_max']}")
+        if ln.get("phase") == "prod":
+            for k in acc_keys:
+                if not 0.05 < ln[k] < 0.95:
+                    raise AssertionError(f"{tag}: {k} = {ln[k]}")
+        for k in positive_keys:
+            if not ln[k] > 0.0:
+                raise AssertionError(f"{tag}: {k} = {ln[k]}")
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    if missing:
+        raise AssertionError(f"{tag}: output files {missing} missing")
+    if launches <= 0:
+        raise AssertionError(f"{tag}: the kernel was not launched")
+    print(f"phase18 {tag}: {seconds:.1f} s, {launches} kernel launches, "
+          f"files {sorted(os.listdir(out))}")
+    return launches, seconds, lines
+
+
+def phase18(dev, flagship=None, gcmc=None, gibbs=None):
+    """The CLI, main() of run.py, on three committed configs with their
+    depth cut (each dict updates the run section):
+    configs/spce_750.json at full width (750 SPC/E, Ewald K 337, its 512
+    chains) from a lattice start at its box 28.24 A (the NIST file is not
+    in the repo): 3 blocks of 10 sweeps, 1 of them equilibration, a
+    checkpoint every block and the O-O RDF, then a resume from
+    checkpoint.npz for a fourth block; configs/gcmc_spce_mega.json (1024
+    chains, cap 128, 2 blocks) and configs/gibbs_spce_mega.json (512
+    chains, 2 blocks).  Gates: drift <= 2e-3 and the carried S(k) against
+    its recompute on every block (sfac_err_max < 1e-4 on the muVT and Gibbs
+    lines; on the flagship, which reports none, within 1e-4 of each
+    chain's S(k) norm), acceptances after adjustment in
+    (0.05, 0.95), insert, delete and transfer acceptances above 0, one
+    metrics line per block with finite values, every output file, and
+    the kernel launched on each run.  Returns the launches of each run."""
+    import tempfile
+
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "spce_750")
+        run = dict(dict(n_blocks=3, n_steps=10, equil_blocks=1,
+                        start={"kind": "lattice", "box": 28.24}),
+                   **(flagship or {}))
+        path = _cli_config(tmp, "spce_750", run=run,
+                           output={"dir": out, "checkpoint_every": 1})
+        n = run["n_blocks"]
+        probe = _SfacProbe()
+        try:
+            l1, s1, _ = cli_run(
+                "spce_750", dev, path, op.sweep, n,
+                ("metrics.jsonl", "rdf.txt", "checkpoint.npz", "final.npz"),
+                acc_keys=("acc_trans", "acc_rot"))
+            run["n_blocks"] = n + 1
+            path = _cli_config(tmp, "spce_750", run=run,
+                               output={"dir": out, "checkpoint_every": 1})
+            l2, s2, _ = cli_run(
+                "spce_750 resumed", dev, path, op.sweep, n + 1,
+                ("metrics.jsonl", "rdf.txt", "checkpoint.npz", "final.npz"),
+                resume=os.path.join(out, "checkpoint.npz"),
+                acc_keys=("acc_trans", "acc_rot"))
+        finally:
+            probe.close()
+        print(f"phase18 spce_750 carried S(k) against the recompute, "
+              f"{len(probe.errs)} blocks: largest difference "
+              + ", ".join(f"{e:.3e}" for e in probe.errs)
+              + "; of the chain's S(k) norm "
+              + ", ".join(f"{e:.3e}" for e in probe.rel))
+        # the f32 sum of ~3,750 accepted moves' rows per 10-sweep block
+        # carries ~1e-4 of absolute residue on components of ~10 (7-9e-5
+        # with the plain twin on 4 chains on the CPU): held, as phase 2
+        # holds the kernel, to SFAC_REL_TOL of the chain's S(k) norm
+        # (~50-80 here)
+        if len(probe.rel) != n + 1 or not max(probe.rel) < SFAC_REL_TOL:
+            raise AssertionError(f"spce_750 S(k) errors {probe.rel}")
+        g = np.loadtxt(os.path.join(out, "rdf.txt"))
+        peak = float(g[np.argmax(g[:, 1]), 0])
+        print(f"phase18 spce_750 O-O g(r): peak {g[:, 1].max():.3f} at "
+              f"{peak:.3f} A")
+        res["spce_750"] = (l1 + l2, s1, s2)
+
+        out = os.path.join(tmp, "gcmc")
+        path = _cli_config(
+            tmp, "gcmc_spce_mega",
+            run=dict(dict(n_blocks=2, equil_blocks=1), **(gcmc or {})),
+            output={"dir": out, "checkpoint_every": 1})
+        res["gcmc_spce_mega"] = cli_run(
+            "gcmc_spce_mega", dev, path, op.sweep, _n_blocks(path),
+            ("metrics.jsonl", "checkpoint.npz"),
+            positive_keys=("acc_insert", "acc_delete"))[:2]
+
+        out = os.path.join(tmp, "gibbs")
+        path = _cli_config(
+            tmp, "gibbs_spce_mega",
+            run=dict(dict(n_blocks=2, equil_blocks=1), **(gibbs or {})),
+            output={"dir": out, "checkpoint_every": 1})
+        res["gibbs_spce_mega"] = cli_run(
+            "gibbs_spce_mega", dev, path, gibbs_kernel.sweep_gibbs,
+            _n_blocks(path),
+            ("metrics.jsonl", "checkpoint.npz"),
+            positive_keys=("acc_transfer",))[:2]
+    print(f"phase18 CLI: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def _bench_fields():
+    """The keys of the result record the repo's bench.py prints."""
+    import ast
+
+    with open(os.path.join(REPO, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
+                and any(getattr(t, "id", None) == "rec"
+                        for t in node.targets):
+            return {k.value for k in node.value.keys}
+    raise AssertionError("no result record in bench.py")
+
+
+def phase19(configs=("spce", "gcmc"), env=None):
+    """`python -m metropolismontecarlo_tpu_torch.bench` for BENCH_CONFIG
+    spce and gcmc at their defaults, each in a subprocess: its last line
+    is the result JSON with bench.py's fields (and mega for the ensemble
+    configs), the line before it the run_block wall."""
+    t_phase = time.perf_counter()
+    fields = _bench_fields()
+    lines = {}
+    for config in configs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "metropolismontecarlo_tpu_torch.bench"],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, BENCH_CONFIG=config, **(env or {})))
+        out = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or len(out) < 2:
+            raise AssertionError(f"bench {config}: rc {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr[-4000:]}")
+        rec, wall = json.loads(out[-1]), json.loads(out[-2])
+        want = fields | ({"mega"} if config in ("gcmc", "tmmc", "gibbs",
+                                                "semigrand") else set())
+        if set(rec) != want or rec["config"] != config \
+                or not rec["value"] > 0.0:
+            raise AssertionError(f"bench {config}: {rec} (fields {want})")
+        print(f"phase19 bench {config} ({time.perf_counter() - t0:.1f} s "
+              f"with the process start): {out[-2]}")
+        print(f"phase19 bench {config}: {out[-1]}")
+        lines[config] = (rec, wall)
+    print(f"phase19 bench: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -3943,8 +4220,12 @@ def main():
         phase16(dev)
     if 17 in want:
         phase17(dev)
+    if 18 in want:
+        cli = phase18(dev)
+    if 19 in want:
+        phase19()
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 18)):
+    if want != set(range(2, 20)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -3953,7 +4234,8 @@ def main():
                      replaces=f"{PALLAS}/sweep_kernel.py:903",
                      library_ms=None)
     print(json.dumps({"kernels": [
-        dict(sweep_row, name="sweep_kernel", launches=l3 + l12,
+        dict(sweep_row, name="sweep_kernel",
+             launches=l3 + l12 + cli["spce_750"][0],
              max_abs_err=max(err2, err2c, err3), ms=ms3, plain_ms=plain3,
              bound_ms=bound3, bound_by=by3),
         dict(sweep_row, name="sweep_kernel[species blocks]", launches=l4,
@@ -3968,7 +4250,8 @@ def main():
         dict(sweep_row, name="sweep_kernel[use_act]",
              launches=l6h + l9m + l10m, max_abs_err=max(err2x, err6h),
              ms=ms6h, plain_ms=plain6h, bound_ms=bound6h, bound_by=by6h),
-        dict(sweep_row, name="sweep_kernel[n_exch]", launches=l6 + l7 + l10g,
+        dict(sweep_row, name="sweep_kernel[n_exch]",
+             launches=l6 + l7 + l10g + cli["gcmc_spce_mega"][0],
              max_abs_err=max(err2x, err6), ms=ms6, plain_ms=plain6,
              bound_ms=bound6, bound_by=by6),
         dict(sweep_row, name="sweep_kernel[n_widom]", launches=l8,
@@ -3990,7 +4273,8 @@ def main():
         # transfers per launch
         {"name": "sweep_gibbs_kernel", "route": "cuda",
          "source": f"{SRC}/gibbs_kernel.cu",
-         "replaces": f"{PALLAS}/gibbs_kernel.py:714", "launches": l13,
+         "replaces": f"{PALLAS}/gibbs_kernel.py:714",
+         "launches": l13 + cli["gibbs_spce_mega"][0],
          "max_abs_err": max(err2gb, err13), "ms": ms13, "plain_ms": plain13,
          "bound_ms": bound13, "bound_by": by13, "library_ms": None},
         # the cap-64 + 64 SPC/E semigrand cell: 55 flips per launch

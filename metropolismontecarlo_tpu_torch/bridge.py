@@ -141,6 +141,21 @@ def binary_gcmc_state_to_numpy(state):
             for f in _BINARY_FIELDS}
 
 
+def ensemble_state_from_numpy(state_cls, arrays, device):
+    """Any ensemble state of this package (GCMCState, MolGCMCState,
+    GibbsState, MolGibbsState, SemigrandState, BinaryGCMCState) as
+    state_cls on `device`, from a mapping of field name to numpy array (a
+    JAX state's `key` is ignored).  dtypes are kept."""
+    names = tuple(f.name for f in dataclasses.fields(state_cls))
+    return _from_numpy(state_cls, names, arrays, device)
+
+
+def ensemble_state_to_numpy(state):
+    """{field: numpy array} for every field of an ensemble state."""
+    return {f.name: getattr(state, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(state)}
+
+
 def tmmc_estimator_to_numpy(t):
     """{cmat, uhist, eta}: the pooled float64 estimator state of a TMMC or
     TMMCMol object (of either package: both keep numpy arrays)."""

@@ -458,13 +458,14 @@ class MonteCarlo:
         state = self.run_steps(state, n_steps, False)
         return self.resync(dataclasses.replace(state, temp=t0))
 
-    def widom(self, state, n_insertions=64, species=0):
+    def widom(self, state, n_insertions=64, species=0, generator=None):
         """Widom test-particle insertion (mc/widom.py): n_insertions
         uniform ghost poses of the given species per chain, drawn from
-        this object's generator.  Returns a dict with boltzmann_mean (C,),
-        <exp(-beta dU)> over this sample (the quantity to average over a
-        run, then pass to mu_excess), and mu_ex (C,), -kT ln of this
-        sample's mean (diagnostic: the log of a noisy mean is biased)."""
+        `generator` (this object's when None).  Returns a dict with
+        boltzmann_mean (C,), <exp(-beta dU)> over this sample (the
+        quantity to average over a run, then pass to mu_excess), and mu_ex
+        (C,), -kT ln of this sample's mean (diagnostic: the log of a noisy
+        mean is biased)."""
         entry = self._widom_fns.get(species)
         if entry is None:
             _, entry = make_widom_fn(
@@ -472,7 +473,8 @@ class MonteCarlo:
                 self.device, dtype=self.dtype, species=species,
                 chunk=self.recompute_chunk)
             self._widom_fns[species] = entry
-        b = entry(state, self.generator, int(n_insertions))
+        b = entry(state, self.generator if generator is None else generator,
+                  int(n_insertions))
         return {"boltzmann_mean": b, "mu_ex": mu_excess(b, state.temp)}
 
     def widom_mega(self, state, n_per_sweep=64):

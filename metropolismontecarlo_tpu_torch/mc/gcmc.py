@@ -36,7 +36,11 @@ from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
 from metropolismontecarlo_tpu_torch.ops import tail as tail_ops
 from metropolismontecarlo_tpu_torch.ops.lj import _shift_coeffs
 from metropolismontecarlo_tpu_torch.ops.pbc import min_image
-from metropolismontecarlo_tpu_torch.utils.activity import clear_slot, set_slot
+from metropolismontecarlo_tpu_torch.utils.activity import (
+    clear_slot,
+    set_slot,
+    zero_empty,
+)
 
 
 @dataclasses.dataclass
@@ -338,7 +342,8 @@ def _make_muvt(system, params, activity, capacity, dtype, mega, device,
                 com, _, _, active, _, d_e, acc4, att4 = out[:8]
                 sel = [0, 2, 3]      # [trans, rot, ins, del] -> (C, 3)
                 st = dataclasses.replace(
-                    state, com=com, active=active, energy=state.energy + d_e,
+                    state, com=com, active=active,
+                    energy=zero_empty(state.energy + d_e, None, active)[0],
                     acc=state.acc + acc4[:, sel].to(torch.int32),
                     att=state.att + att4[:, sel].to(torch.int32))
                 return (st,) + tuple(out[8:10]) if tmmc else st

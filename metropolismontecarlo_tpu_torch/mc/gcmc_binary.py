@@ -52,7 +52,11 @@ from metropolismontecarlo_tpu_torch.mc.widom import make_pose_eval
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops import tail as tail_ops
 from metropolismontecarlo_tpu_torch.ops.quaternions import rotate_quaternion
-from metropolismontecarlo_tpu_torch.utils.activity import clear_slot, set_slot
+from metropolismontecarlo_tpu_torch.utils.activity import (
+    clear_slot,
+    set_slot,
+    zero_empty,
+)
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
 
 
@@ -569,11 +573,13 @@ def make_gcmc_binary(system, params, activities, p_exchange=0.4,
             com, quat, coords, active_o, sfac_o, d_e, acc6, att6 = sweep_x(
                 state.com, state.quat, state.coords, active, state.box,
                 state.sfac, generator, z_b, si_b, wc_b, lrc_cross=lrc_cross)
+            energy, sfac_o = zero_empty(
+                state.energy + d_e, sfac_o if use_ewald else state.sfac,
+                active_o)
             return dataclasses.replace(
                 state, com=com, quat=quat, coords=coords,
                 active0=active_o[:, :caps[0]], active1=active_o[:, caps[0]:],
-                sfac=sfac_o if use_ewald else state.sfac,
-                energy=state.energy + d_e,
+                sfac=sfac_o, energy=energy,
                 acc=state.acc + acc6.to(torch.int32),
                 att=state.att + att6.to(torch.int32))
 

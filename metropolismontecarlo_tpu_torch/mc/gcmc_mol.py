@@ -44,7 +44,11 @@ from metropolismontecarlo_tpu_torch.ops.quaternions import (
     random_quaternion,
     random_rotate_quaternion,
 )
-from metropolismontecarlo_tpu_torch.utils.activity import clear_slot, set_slot
+from metropolismontecarlo_tpu_torch.utils.activity import (
+    clear_slot,
+    set_slot,
+    zero_empty,
+)
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
 
 
@@ -522,10 +526,12 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                     state.box, state.sfac, generator, _z_of(state), si_c,
                     wc_c, energy=state.energy, eta=eta)
                 com, quat, coords, active, sfac_o, d_e, acc4, att4 = out[:8]
+                energy, sfac_o = zero_empty(
+                    state.energy + d_e,
+                    sfac_o if use_ewald else state.sfac, active)
                 st = dataclasses.replace(
                     state, com=com, quat=quat, coords=coords, active=active,
-                    sfac=sfac_o if use_ewald else state.sfac,
-                    energy=state.energy + d_e,
+                    sfac=sfac_o, energy=energy,
                     acc=state.acc + acc4.to(torch.int32),
                     att=state.att + att4.to(torch.int32))
                 return (st,) + tuple(out[8:10]) if tmmc else st

@@ -48,6 +48,7 @@ from metropolismontecarlo_tpu_torch.ops.quaternions import rotate_quaternion
 from metropolismontecarlo_tpu_torch.utils.activity import (
     clear_slot2,
     set_slot2,
+    zero_empty,
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
 
@@ -442,11 +443,13 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
             zc = torch.zeros_like(acc3[:, 0])
             acc4 = torch.stack([acc3[:, 0], acc3[:, 1], zc, acc3[:, 2]], 1)
             att4 = torch.stack([att3[:, 0], att3[:, 1], zc, att3[:, 2]], 1)
+            energy, sfac_o = zero_empty(
+                state.energy + d_e.to(dtype),
+                sfac_o.to(dtype) if use_ewald else state.sfac, active)
             return dataclasses.replace(
                 state, com=com.to(dtype), quat=quat.to(dtype),
-                coords=coords.to(dtype), active=active,
-                sfac=sfac_o.to(dtype) if use_ewald else state.sfac,
-                energy=state.energy + d_e.to(dtype),
+                coords=coords.to(dtype), active=active, sfac=sfac_o,
+                energy=energy,
                 acc=state.acc + acc4.to(torch.int32),
                 att=state.att + att4.to(torch.int32))
 

@@ -317,3 +317,9 @@ def energy_breakdown_tiled(system, params, coords, com, box, kvecs=None,
     out["w_ref"] = 0.5 * w + w_lrc_ref + w_ref
     out["sfac"] = sfac
     return out
+
+
+def pressure(params, n_mol, volume, w):
+    """P / kB = rho T + w / (3 V), the tail folded into w by
+    energy_breakdown (the reference's `Pressure`)."""
+    return n_mol / volume * params.temperature + w / (3.0 * volume)

@@ -1,10 +1,12 @@
-"""Rigid 3-site water builders: SPC/E and TIP3P (counterpart of
+"""Rigid 3-site water builders: SPC/E and TIP3P, and the NIST SPC/E
+sample reader spce_from_nist (counterpart of
 metropolismontecarlo_tpu/models/water.py)."""
 
 import functools
 
 import numpy as np
 
+from metropolismontecarlo_tpu_torch.io.configs import read_nist
 from metropolismontecarlo_tpu_torch.models.system import System
 
 # SPC/E (Berendsen et al. 1987; NIST SRSW constants)
@@ -64,6 +66,24 @@ def spce_system(n_mol):
 def tip3p_system(n_mol):
     return _water_system(n_mol, TIP3P_SIGMA_OO, TIP3P_EPS_OO, TIP3P_Q_O,
                          TIP3P_Q_H, TIP3P_R_OH, TIP3P_THETA, "tip3p")
+
+
+def spce_from_nist(path):
+    """A NIST SPC/E sample configuration as (system, coords, com, box):
+    coords (A, 3) and com (M, 3) float64 numpy, the COMs computed after
+    healing molecules split by the periodic boundary (minimum image
+    relative to each O)."""
+    coords, species, box = read_nist(path)
+    if species[:2] != ["O", "H"]:
+        raise ValueError(f"{path}: expected O, H, H molecules, got "
+                         f"{species[:3]}")
+    n_mol = len(species) // 3
+    mp = coords.reshape(n_mol, 3, 3)
+    rel = mp - mp[:, :1, :]
+    rel = rel - box * np.round(rel / box)
+    m = np.array([MASS_O, MASS_H, MASS_H])
+    com = mp[:, 0, :] + (rel * m[None, :, None]).sum(1) / m.sum()
+    return spce_system(n_mol), coords, com, box
 
 
 # TraPPE united-atom methane (Martin & Siepmann 1998)

@@ -1,6 +1,7 @@
 """LJ long-range tail corrections (counterpart of
-metropolismontecarlo_tpu/ops/tail.py, energy and pressure terms and the
-species-level coefficient of the fluctuating-N ensembles):
+metropolismontecarlo_tpu/ops/tail.py, energy and pressure terms, the
+species-level coefficient of the fluctuating-N ensembles and the
+impulsive pressure of cut-unshifted LJ):
 
   U_lrc = (8 pi / 3V) sum_ab N_a N_b eps sig^3 [(sig/rc)^9/3 - (sig/rc)^3]
   P_lrc = (16 pi / 3V^2) sum_ab N_a N_b eps sig^3 [2(sig/rc)^9/3 - (sig/rc)^3]
@@ -9,6 +10,7 @@ species-level coefficient of the fluctuating-N ensembles):
 import math
 
 import numpy as np
+import torch
 
 LRC_PREFACTOR = 8.0 * math.pi / 3.0
 
@@ -48,3 +50,23 @@ def lrc_pressure(counts, eps_table, sig_table, r_cut, volume):
     """Tail pressure (energy/volume units)."""
     _, p_term = _species_sum(counts, eps_table, sig_table, r_cut)
     return (16.0 * math.pi / (3.0 * volume**2)) * p_term
+
+
+def impulsive_pressure(counts, eps_table, sig_table, r_cut, volume):
+    """Impulsive (truncation) pressure of cut-unshifted LJ in the
+    g(r_cut) ~ 1 approximation,
+
+      P_imp = (2 pi / 3 V^2) r_cut^3 sum_ab N_a N_b u_ab(r_cut):
+
+    a pair crossing the cutoff jumps the energy by -u(r_cut), so the
+    mechanical pressure differs from the virial pressure between crossings
+    (energy_breakdown's "w") by this term; zero for the linear shift.
+    counts (T,) atoms of each type; eps_table, sig_table (T, T) tensors,
+    whose dtype the sum takes."""
+    sc6 = (sig_table / r_cut) ** 6
+    u_rc = 4.0 * eps_table * (sc6 * sc6 - sc6)
+    counts = torch.as_tensor(np.asarray(counts), dtype=eps_table.dtype,
+                             device=eps_table.device)
+    nn = counts[:, None] * counts[None, :]
+    return (2.0 * math.pi / (3.0 * volume**2)) * r_cut**3 \
+        * torch.sum(nn * u_rc)

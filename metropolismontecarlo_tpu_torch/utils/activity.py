@@ -46,3 +46,18 @@ def clear_slot2(active, b, i, off):
     """active[..., b, i] &= ~off for a (..., boxes, cap) activity mask."""
     off = torch.as_tensor(off, device=active.device)[..., None, None]
     return torch.where(_mask2(active, b, i), active & ~off, active)
+
+
+def zero_empty(energy, sfac, active):
+    """The carried energy and S(k) of every chain (or box) whose mask
+    `active` (..., cap) holds no molecule, set to their exact value 0: an
+    empty box has no pair, self or tail term and no charge.  The f32
+    kernel routes carry sums of exchange deltas, whose rounding residue
+    (~1e-3 K after a few hundred exchanges) would otherwise outlive the
+    molecules.  energy (...), sfac (..., K, 2) or None."""
+    empty = ~active.any(-1)
+    energy = torch.where(empty, torch.zeros_like(energy), energy)
+    if sfac is None:
+        return energy, None
+    return energy, torch.where(empty[..., None, None],
+                               torch.zeros_like(sfac), sfac)
