@@ -184,6 +184,37 @@ Phase 19 `python -m metropolismontecarlo_tpu_torch.bench` for BENCH_CONFIG
          line is JSON with bench.py's fields (read from bench.py), the line
          before it the run_block wall; both printed.
 
+Phase 20 binary Gibbs CO2/N2 at docs/validation/run_gibbs_co2_n2.py's
+         model and state point (co2_n2_system(96, 16), boxes 17 / 28 A,
+         72 + 18 CO2 and 2 + 8 N2, 240 K, r_cut 7.5, no tail, Ewald tuned
+         at 33 A to 5e-3: kappa L 10.13, nk 8, K 1152; p_transfer 0.35,
+         p_volume 0.01, dv_max 0.04), 1024 chains through
+         BinaryGibbsEnsemble(mega="full"): a 2-cycle warm-up and two
+         2-cycle blocks (per cycle one Gibbs launch per species block, 224
+         moves + 2 x 60 transfers, and 3 volume moves; drift < 2e-3, S(k)
+         error < 1e-4, each species' N conserved on every chain, transfers
+         of both species attempted with acceptances in (0, 1), acc_vol in
+         (0, 1)); one cycle on the main path's arguments against
+         sweep_gibbs_plain, each species launch timed and bounded; the
+         volume attempt timed with the eik-recurrence S(k) and with the
+         direct sum, and its share of a whole cycle; then one NPT-Gibbs
+         cycle at run_gibbs_npt_co2_n2.py's bath (27.3 bar) and Ewald
+         (kappa L 13.25, nk 12, K 3796) from the end state (drift gate,
+         acc_vol > 0) with the kernel's occupancy at that shape.
+Phase 21 osmotic MC at configs/osmotic_mea.json's state point with the MEA
+         solute replaced by TraPPE CH4 (the topology is not in the repo):
+         spce_methane_system(240, 16), 19.5 A, 313.15 K, r_cut 9, Ewald
+         (K 337), z 1e-4, p_exchange 0.3, 4 solutes at the start, 1024
+         chains through OsmoticGCMC(mega="full"): two 2-cycle blocks (the
+         solvent block's sweep launch and the solute block's launch with
+         110 exchange attempts per cycle; drift, S(k), every acceptance
+         in (0, 1)), then one mega=True block from the end state; one full cycle on the main path's arguments against
+         sweep_plain with the solvent plane unchanged, each launch timed.
+Phases 20 and 21 print their launches on lines of their own (the kernels
+line keeps phase 13's Gibbs row and the earlier sweep rows).  Phase 13
+also times one volume attempt on its main path's state with the
+eik-recurrence S(k) and with the direct sum in its place.
+
 Phase 2 also holds the sweep kernel's queues of live pair terms against
 sweep_plain (`phase2_compaction`, 64 chains, the gates above): SPC/E-64
 with Wolf at r_cut above L sqrt(3) / 2 (every site pair inside the
@@ -210,7 +241,10 @@ CO2/N2 case (24 + 8) through m_start / a_start, and SPC/E cap 32 with the
 linear LJ shift under Ewald and Wolf and with bare Coulomb with and
 without it (every instantiation of the kernel runs); at most 2 of 64 chains
 may differ, energies within 1e-5 of the cycle's term magnitudes, S(k)
-within 1e-5 of its norm, N conserved on every chain.
+within 1e-5 of its norm, N conserved on every chain.  And one binary
+cycle through mc/moves.make_mega_gibbs_binary_fn (`phase2_gibbs_binary`,
+CO2/N2 24 + 8, one launch per species block with the planes threaded)
+against the same cycle with sweep_gibbs_plain, by the same gates.
 
 Phase 2 also holds both kernels against their twins on stress cases
 (`phase2_gibbs_stress`, `phase2_flip_stress`, 64 chains each, the gates
@@ -1843,8 +1877,9 @@ def _active_cutoff_fraction(state, P, r_cut, n=8):
 
 
 def muvt_blocks(tag, g, st, cycles, apc, launches_per_cycle):
-    """run_blocks of a MolGCMC with the S(k), drift and acceptance gates
-    and the launch count; returns (state, launches, [(N mean, s.e.)])."""
+    """run_blocks of a muVT app (MolGCMC, OsmoticGCMC) with the S(k),
+    drift and acceptance gates and the launch count; returns (state,
+    launches, [(N mean, s.e.)])."""
     from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
 
     op.sweep.launches = 0
@@ -1875,12 +1910,13 @@ def muvt_blocks(tag, g, st, cycles, apc, launches_per_cycle):
 
 def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
                  z_val, consts, tmmc=None, plain=True):
-    """One launch of the sweep kernel with the activity planes of `st` (a
-    MolGCMCState or a SimState with every slot active) and n_exch attempts
-    and n_widom ghosts (with tmmc = (eta, e_in) depositing): held against
-    sweep_plain, then both timed, with the bound of this run's work.
-    plain=False times the kernel alone and returns (None, ms, None, bound
-    ms, bound_by)."""
+    """One launch of the sweep kernel per species block of `mc_tables` with
+    the activity planes of `st` (a MolGCMCState, a SimState with every
+    slot active, or any object with those fields and `active` (C, M)) and
+    n_exch attempts and n_widom ghosts (ints, or one count per block; with
+    tmmc = (eta, e_in) depositing): held against sweep_plain, then both
+    timed, with the bound of this run's work.  plain=False times the
+    kernel alone and returns (None, ms, None, bound ms, bound_by)."""
     from metropolismontecarlo_tpu_torch.mc.moves import (
         activity_planes,
         draw_exchange_uniforms,
@@ -1900,8 +1936,13 @@ def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
                                              st.sfac, st.box)] + [
         params.temperature * ones, params.dr_max * ones,
         params.dphi_max * ones, draw_uniforms(C, M, gen, dev)]
-    uxs = [draw_exchange_uniforms(C, n_exch + n_widom, gen, dev)]
-    rest = (mc_tables, act, actm, (n_exch,), (n_widom,), uxs, z_val * ones,
+    nb = len(mc_tables)
+    n_exchs = tuple(n_exch) if isinstance(n_exch, tuple) else (n_exch,) * nb
+    n_widoms = tuple(n_widom) if isinstance(n_widom, tuple) \
+        else (n_widom,) * nb
+    uxs = [draw_exchange_uniforms(C, x + w, gen, dev)
+           for x, w in zip(n_exchs, n_widoms)]
+    rest = (mc_tables, act, actm, n_exchs, n_widoms, uxs, z_val * ones,
             consts, 77)
     err = plain_ms = None
     if plain:
@@ -1912,20 +1953,24 @@ def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
     if plain:
         plain_ms = _time_ms(lambda: run_variant(op.sweep_plain, args, *rest,
                                                 tmmc=tmmc), 1)
-    n_del = n_exch - float(out[4][:, 7].mean())
+    n_del = sum(n_exchs) - float(out[4][:, 7].mean())
     view = SimpleNamespace(active=active, coords=st.coords, box=st.box,
                            com=st.com, sfac=st.sfac)
     frac = _active_cutoff_fraction(view, mc_tables[0].P, params.r_cut)
     near = _system_reach(system, params, view, mc_tables, active, n=8)
-    n_act = float(actm.sum(1).mean())
+    n_acts = tuple(float(actm[:, t.m_start:t.m_start + t.M].sum(1).mean())
+                   for t in mc_tables)
+    n_act = sum(n_acts)
     bound_ms, bound_by = sweep_bound(
-        system, mc_tables, view, frac, near, (n_act,), (n_exch,), (n_widom,),
-        n_exch if tmmc is not None else n_del, tmmc=tmmc is not None,
-        n_sq=float((actm.sum(1) ** 2).mean()))
+        system, mc_tables, view, frac, near, n_acts, n_exchs, n_widoms,
+        sum(n_exchs) if tmmc is not None else n_del, tmmc=tmmc is not None,
+        n_sq=float((actm.sum(1) ** 2).mean()) if nb == 1 else None)
     plain_txt = f"{plain_ms:.3f} ms" if plain else "not run"
-    print(f"phase{tag} one launch{' (tmmc)' if tmmc is not None else ''}, "
+    print(f"phase{tag} one launch{' (tmmc)' if tmmc is not None else ''}"
+          f"{' per species block' if nb > 1 else ''}, "
           f"{C} chains, {n_act:.1f} of {M} slots active, {M} moves + "
-          f"{n_exch} attempts ({n_del:.1f} deletions) + {n_widom} ghosts: "
+          f"{sum(n_exchs)} attempts ({n_del:.1f} deletions) + "
+          f"{sum(n_widoms)} ghosts: "
           f"kernel {ms:.3f} ms, sweep_plain {plain_txt}, bound "
           f"{bound_ms:.3f} ms ({bound_by}; {frac:.4f} of active pairs "
           f"within the cutoff, {near[0]:.4f} of active atoms within a "
@@ -3065,7 +3110,8 @@ def _gibbs_cutoff_fraction(system, coords, active, box2, r_cut, n=4):
     return out
 
 
-def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, near, n_exch):
+def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, near, n_exch,
+                n_move=None):
     """The least time (ms) of one Gibbs launch, and what sets it: the
     chain state in and out once, the uniforms and constants read once,
     against the operations the pair and k-space sums need (OPS_*): each
@@ -3077,7 +3123,9 @@ def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, near, n_exch):
     Per atom lane and pose one centre distance, the site distances for the
     share near[b] within reach (_reach_fraction) and the terms for the
     share frac[b] inside the cutoff.  n_box (C, 2) this run's active
-    counts."""
+    counts; n_move (C, 2) those of the launch's species block when the
+    boxes hold other species too (default n_box): its slots move and are
+    the transfer candidates, every active atom is a partner."""
     lj = t.has_lj.sum().item()
     qf = t.has_q.sum().item() if t.coulomb != "none" else 0
     ewald = t.coulomb == "ewald"
@@ -3086,21 +3134,22 @@ def gibbs_bound(t, C, A_off, m_off, K, n_box, frac, near, n_exch):
     state = 8 * A_off + 16 * m_off + 4 * K
     nbytes = 4 * C * (2 * state + 2 * t.M * 10 + 8 * n_exch + 4 + 4 + 8)
     n = n_box.double()
+    nm = n if n_move is None else n_move.double()
     ops = 0.0
     for b in range(2):
         c_pair = OPS_GEOMETRY + near[b] * t.P * OPS_GEOMETRY + frac[b] * (
             lj * OPS_LJ + qf * OPS_COULOMB)
-        pairs = float((n[:, b] * (n[:, b] - 1.0)).sum()) * t.P * c_pair
+        pairs = float((nm[:, b] * (n[:, b] - 1.0)).sum()) * t.P * c_pair
         k_move = 2 * k_pose_ops(K, t.nk, qf) + K * OPS_K_MOVE if ewald \
             else 0
-        ops += 2 * pairs + float(n[:, b].sum()) * k_move
+        ops += 2 * pairs + float(nm[:, b].sum()) * k_move
     f_mix, n_mix = 0.5 * (frac[0] + frac[1]), 0.5 * (near[0] + near[1])
     c_pair = OPS_GEOMETRY + n_mix * t.P * OPS_GEOMETRY + f_mix * (
         lj * OPS_LJ + qf * OPS_COULOMB)
     k_pose = k_pose_ops(K, t.nk, qf) + K * OPS_K_MOVE if ewald else 0
     n_tot = float(n.sum(1).mean())
     ops += C * n_exch * ((n_tot - 1.0) * t.P * c_pair + 2 * k_pose
-                         + 0.5 * n_tot * OPS_PHILOX)
+                         + 0.5 * float(nm.sum(1).mean()) * OPS_PHILOX)
     return _bound(nbytes, ops)
 
 
@@ -3226,6 +3275,13 @@ def phase13(dev, chains=1024, blocks=(2, 2), melt=2, chunk=128,
           f"{bound_ms:.3f} ms ({bound_by}; {frac[0]:.4f} / {frac[1]:.4f} "
           f"of active pairs within the cutoff, {near[0]:.4f} / "
           f"{near[1]:.4f} of active atoms within a pose's reach)")
+
+    # one volume attempt, with the eik recurrence and with the direct sum
+    g_p = MolGibbsEnsemble(system, params, dv_max=0.03, p_transfer=px,
+                           dtype=torch.float32, chunk=chunk, device=dev,
+                           generator=gen)
+    volume_attempt_ms("13", lambda s, a, b, _: g_p.run_steps.volume_step(
+        s, a, b), st, gen)
 
     # the volume move's share of a cycle
     walls = {}
@@ -4153,10 +4209,472 @@ def phase19(configs=("spce", "gcmc"), env=None):
     return lines
 
 
+# ---------------- binary Gibbs, osmotic ------------------------------------
+
+GIBBS_CO2_N2 = dict(T=240.0, boxes=(17.0, 28.0), caps=(96, 16),
+                    n_init=[[72, 18], [2, 8]], r_cut=7.5, p_transfer=0.35,
+                    dv_max=0.04, p_bath_bar=27.3)
+
+
+def _co2_n2_params(tune_box, tol, p_volume=0.01):
+    """docs/validation/run_gibbs_co2_n2.py's model parameters (TraPPE, 240
+    K, r_cut 7.5 A, site cutoff, no tail), the Ewald parameters tuned at
+    tune_box to tol."""
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
+
+    kl, nk, ksq = tune_parameters(tune_box, GIBBS_CO2_N2["r_cut"], tol)
+    return RunParams(strict_min_image=False,
+                     temperature=GIBBS_CO2_N2["T"],
+                     r_cut=GIBBS_CO2_N2["r_cut"], cutoff_mode="site",
+                     coulomb="ewald", use_lrc=False, p_translate=0.5,
+                     dr_max=0.9, dphi_max=0.9, p_volume=p_volume,
+                     kappa_L=kl, nk=nk, ksq_max=ksq)
+
+
+def phase2_gibbs_binary(dev, chains=64, n_exch=10):
+    """One binary Gibbs cycle through mc/moves.make_mega_gibbs_binary_fn
+    (CO2/N2 24 + 8 slots per box, one Gibbs launch per species block, the
+    state and activity planes of the first feeding the second) with the
+    kernel against the same cycle with sweep_gibbs_plain in the op's
+    place, on shared uniforms and Philox scores (one generator seed, a
+    fresh launch counter each): at most GIBBS_MAX_DIFFERING chains differ;
+    on the others positions within POS_TOL, energies within
+    ENERGY_REL_TOL of the cycle's term magnitudes, S(k) within
+    GIBBS_SFAC_TOL of its norm, equal activities; each species' N
+    conserved on every chain."""
+    from metropolismontecarlo_tpu_torch.mc import moves
+    from metropolismontecarlo_tpu_torch.mc.gibbs_binary import (
+        BinaryGibbsEnsemble,
+    )
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t0 = time.perf_counter()
+    system = co2_n2_system(24, 8)
+    params = dataclasses.replace(_co2_n2_params(24.0, 1e-3), dr_max=0.5,
+                                 dphi_max=0.4, temperature=300.0)
+    gen = torch.Generator(device=dev).manual_seed(3300)
+    g = BinaryGibbsEnsemble(system, params, p_transfer=0.3,
+                            dtype=torch.float32, mega="full", device=dev,
+                            generator=gen)
+    st = g.init(boxes=(18.0, 24.0), n_init=[[16, 6], [3, 2]],
+                n_chains=chains)
+    kv, kw = make_kvectors(params.nk, params.ksq_max)
+    consts = gibbs_consts(system, params, kv, kw, st.box.float())
+    si2s, wc2s = tuple(c[0] for c in consts), tuple(c[1] for c in consts)
+
+    def cycle(op_fn):
+        fn = moves.make_mega_gibbs_binary_fn(system, params, kv, kw, dev,
+                                             n_exch=(n_exch, n_exch))
+        stats = []
+
+        def spy(*a, **k):
+            out = op_fn(*a, **k)
+            stats.append(out[4])
+            return out
+
+        # the cycle reaches the op through moves.gibbs_op: a stand-in
+        # module there leaves the op's own launch counter in place
+        moves.gibbs_op = SimpleNamespace(sweep_gibbs=spy)
+        try:
+            out = fn(st.com, st.quat, st.coords, st.active0, st.active1,
+                     st.box, st.sfac,
+                     torch.Generator(device=dev).manual_seed(77), si2s,
+                     wc2s)
+        finally:
+            moves.gibbs_op = op
+        return out, stats
+
+    k, st_k = cycle(op.sweep_gibbs)
+    p, st_p = cycle(functools.partial(op.sweep_gibbs_plain, magnitude=True))
+    torch.cuda.synchronize()
+    same = torch.stack([(a[:, 2:8] == b[:, 2:8]).all(1)
+                        for a, b in zip(st_k, st_p)]).all(0)
+    n_diff = int((~same).sum())
+    mag = sum(x[:, op.N_STATS] for x in st_p).clamp_min(1.0)
+    pos = max(float((k[i] - p[i])[same].abs().max()) for i in (0, 1, 2))
+    e_rel = float(((k[6] - p[6]).abs() / mag[:, None])[same].max())
+    s_norm = torch.clamp_min(torch.linalg.vector_norm(p[5].flatten(2),
+                                                      dim=2),
+                             SFAC_NORM_FLOOR)
+    s_rel = float(((k[5] - p[5]).flatten(2).abs().max(dim=2).values
+                   / s_norm)[same].max())
+    acts = all(torch.equal(k[i][same], p[i][same]) for i in (3, 4))
+    conserved = all(torch.equal(out[3 + s].sum((1, 2)),
+                                a.sum((1, 2)))
+                    for out in (k, p)
+                    for s, a in enumerate((st.active0, st.active1)))
+    print(f"phase 2g binary cycle co2/n2 24+8 (make_mega_gibbs_binary_fn, "
+          f"2 launches): chains {chains}, differing {n_diff}, acc/att "
+          f"moves {k[7][:, :2].sum(0).tolist()}/"
+          f"{k[8][:, :2].sum(0).tolist()}, transfers accepted "
+          f"{k[7][:, 2:].sum(0).tolist()} of {chains * n_exch} each; "
+          f"coord/com/quat err {pos:.3e}, energy err {e_rel:.3e} of the "
+          f"cycle's energy scale, S(k) err {s_rel:.3e} of its norm, "
+          f"activities equal {acts}, N conserved {conserved}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (n_diff <= GIBBS_MAX_DIFFERING and conserved and acts
+            and pos <= POS_TOL and e_rel <= ENERGY_REL_TOL
+            and s_rel <= GIBBS_SFAC_TOL
+            and all(bool(torch.isfinite(x).all()) for x in k)):
+        raise AssertionError("binary cycle: the kernel and its plain "
+                             "version disagree")
+    return max(pos, e_rel, s_rel)
+
+
+def volume_attempt_ms(tag, vol_step, st, gen, reps=3):
+    """ms per volume attempt of vol_step(st, u_dv, u_acc, bit) (every
+    chain, both boxes recomputed) on the main path's state, with every
+    ops/ewald.structure_factor call sent to the eik recurrence
+    (structure_factor_recurrence) and to the direct sum
+    (structure_factor_direct), in turns (recurrence, direct, direct,
+    recurrence; reps attempts each, the host clock varies between calls);
+    the two take the same decisions on >= 98% of chains, on which their
+    S(k) rows agree within SFAC_REL_TOL of the row's largest |S(k)| and
+    their box energies within DRIFT_TOL of max(|E|, 1), the drift gate's
+    scale (two float32 routes: a near-empty box's energy is a small
+    remainder of large terms).  Returns the means (recurrence ms, direct
+    ms, the ms of the route structure_factor takes at this K by
+    itself)."""
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+
+    C, K = st.box.shape[0], st.sfac.shape[2]
+    u = torch.rand((3, C), generator=gen, device=st.box.device,
+                   dtype=st.box.dtype)
+    real = ewald_ops.structure_factor
+
+    def direct(coords, charges, kvecs, box, bounds=None):
+        return ewald_ops.structure_factor_direct(coords, charges, kvecs, box)
+
+    def call():
+        return vol_step(st, u[0], u[1], u[2] < 0.5)
+
+    def timed(sfac_fn):
+        ewald_ops.structure_factor = sfac_fn
+        try:
+            return call(), _time_ms(call, reps)
+        finally:
+            ewald_ops.structure_factor = real
+
+    rec = ewald_ops.structure_factor_recurrence
+    timed(rec)                                                      # warm
+    turns = [timed(fn) for fn in (rec, direct, direct, rec)]
+    out, out_d = turns[0][0], turns[1][0]
+    ms = 0.5 * (turns[0][1] + turns[3][1])
+    ms_d = 0.5 * (turns[1][1] + turns[2][1])
+    same = (out.acc == out_d.acc).all(1)
+    rel = float(((out.energy - out_d.energy).abs()
+                 / out.energy.abs().clamp_min(1.0))[same].max())
+    s_rel = float(((out.sfac - out_d.sfac).abs().amax((-1, -2))
+                   / out_d.sfac.abs().amax((-1, -2)).clamp_min(
+                       SFAC_NORM_FLOOR))[same].max())
+    frac = float(same.float().mean())
+    use_rec = K >= ewald_ops.RECURRENCE_MIN_K
+    print(f"phase{tag} volume attempt ({C} chains, K {K}): {ms:.3f} ms with "
+          f"the eik recurrence, {ms_d:.3f} ms with the direct sum (in "
+          f"turns: " + ", ".join(f"{t[1]:.3f}" for t in turns)
+          + f"); structure_factor takes the "
+          f"{'recurrence' if use_rec else 'direct sum'} at this K; same "
+          f"decision on {frac:.4f} of chains, energies within {rel:.2e}, "
+          f"S(k) within {s_rel:.2e}")
+    if not (frac >= MATCH_FRACTION and rel <= DRIFT_TOL
+            and s_rel <= SFAC_REL_TOL):
+        raise AssertionError(f"{tag}: the recurrence and the direct sum "
+                             f"disagree")
+    return ms, ms_d, (ms if use_rec else ms_d)
+
+
+def binary_gibbs_blocks(tag, g, st, blocks, att_pc, n_tot, gated=True,
+                        gate_vol="both"):
+    """BinaryGibbsEnsemble.run_blocks of `blocks` cycles each with the
+    drift, S(k), per-species N conservation (n_tot per species) and
+    transfer gates (both species attempted, both acceptances in (0, 1);
+    gate_vol "both": acc_vol in (0, 1), "positive": acc_vol > 0) and the
+    launch count, one Gibbs launch per species block per cycle; gated=False
+    prints only.  Returns (state, launches)."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+
+    launches0 = op.sweep_gibbs.launches
+    for n_cyc in blocks:
+        att0 = st.att.clone()
+        t0 = time.perf_counter()
+        st, stats = g.run_block(st, n_cyc * att_pc)
+        torch.cuda.synchronize()
+        print(f"phase{tag} run_block({n_cyc} cycles): "
+              f"{time.perf_counter() - t0:.2f} s, " + ", ".join(
+                  f"{k} {v}" if isinstance(v, list) else f"{k} {v:.6g}"
+                  for k, v in stats.items()))
+        for s, a in enumerate((st.active0, st.active1)):
+            n_chain = a.sum((1, 2))
+            if not bool((n_chain == n_tot[s]).all()):
+                raise AssertionError(f"species {s}: N not conserved: "
+                                     f"{n_chain.unique()}")
+        att = (st.att - att0).sum(0)
+        vol_ok = 0.0 < stats["acc_vol"] < 1.0 if gate_vol == "both" \
+            else stats["acc_vol"] > 0.0
+        if gated and not (stats["drift_max_rel"] < DRIFT_TOL
+                          and stats["sfac_err_max"] < SFAC_ABS_TOL
+                          and int(att[3]) > 0 and int(att[4]) > 0
+                          and 0.0 < stats["acc_transfer0"] < 1.0
+                          and 0.0 < stats["acc_transfer1"] < 1.0
+                          and vol_ok):
+            raise AssertionError(f"phase{tag}: a gate failed: {stats}")
+    launches = op.sweep_gibbs.launches - launches0
+    if launches != 2 * sum(blocks):
+        raise AssertionError(f"{launches} launches for {sum(blocks)} cycles")
+    return st, launches
+
+
+def phase20(dev, chains=1024, warm=2, blocks=(2, 2), chunk=128,
+            npt_cycles=1):
+    """Binary Gibbs CO2/N2 at docs/validation/run_gibbs_co2_n2.py's model
+    and state point (caps 96 + 16 per box, boxes 17 / 28 A, 72 + 18 CO2
+    and 2 + 8 N2, 240 K, Ewald tuned at 33 A to 5e-3, p_transfer 0.35,
+    p_volume 0.01, dv_max 0.04), 1024 chains through
+    BinaryGibbsEnsemble(mega="full"): a 2-cycle warm-up and two 2-cycle
+    blocks (two Gibbs launches per cycle, one per species block, and 3
+    volume moves); one cycle on the main path's arguments against
+    sweep_gibbs_plain and each species launch timed; the volume attempt
+    timed with the eik recurrence and with the direct sum, and its share
+    of a cycle on the route structure_factor takes by itself; then one
+    NPT-Gibbs block at run_gibbs_npt_co2_n2.py's bath (27.3 bar) and
+    Ewald (tuned at 37.8 A to 1e-3) from the end state, with the kernel's
+    occupancy and the volume attempt's two routes at that shape.  Returns
+    the launches."""
+    from metropolismontecarlo_tpu_torch.mc.gibbs_binary import (
+        BinaryGibbsEnsemble,
+    )
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+        sweep_tables,
+    )
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t_phase = time.perf_counter()
+    cfg = GIBBS_CO2_N2
+    system = co2_n2_system(*cfg["caps"])
+    M = system.n_mol
+    params = _co2_n2_params(33.0, 5e-3)
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    common = dict(dv_max=cfg["dv_max"], p_transfer=cfg["p_transfer"],
+                  dtype=torch.float32, chunk=chunk, device=dev,
+                  generator=gen)
+    g = BinaryGibbsEnsemble(system, params, mega="full", **common)
+    x_half = g.run_steps.x_half
+    att_pc = 2 * M + 2 * x_half
+    k_vol = max(1, int(round(params.p_volume * att_pc)))
+    n_tot = [sum(row) for row in cfg["n_init"]]
+    t0 = time.perf_counter()
+    st = g.init(boxes=cfg["boxes"], n_init=cfg["n_init"], n_chains=chains)
+    torch.cuda.synchronize()
+    print(f"phase20 init: {time.perf_counter() - t0:.2f} s; co2_n2_system"
+          f"{cfg['caps']}, boxes {cfg['boxes']}, n_init {cfg['n_init']}, "
+          f"kappa_L {params.kappa_L:.2f}, nk {params.nk}, ksq_max "
+          f"{params.ksq_max}, K {st.sfac.shape[2]}, A_pad "
+          f"{st.coords.shape[-1]}, x_half {x_half} (a cycle: {2 * M} moves "
+          f"+ 2 x {x_half} transfers, {k_vol} volume moves), {chains} chains")
+    op.sweep_gibbs.launches = 0
+    st, _ = binary_gibbs_blocks("20 warm-up", g, st, (warm,), att_pc, n_tot,
+                                gated=False)
+    st, _ = binary_gibbs_blocks("20", g, st, blocks, att_pc, n_tot)
+    launches = op.sweep_gibbs.launches
+    print(f"phase20 sweep_gibbs_kernel launches on the binary Gibbs main "
+          f"path: {launches} ({warm + sum(blocks)} cycles, 2 per cycle)")
+
+    # one cycle on the main path's arguments, held to the twin and timed
+    kv, kw = make_kvectors(params.nk, params.ksq_max)
+    tables = sweep_tables(system, params, kv, kw, dev)
+    A_off, K = st.coords.shape[-1], st.sfac.shape[2]
+    t0_ = tables[0]
+    regs, local, per_sm = op.occupancy(t0_, M, A_off, K)
+    smem = op.gibbs_smem_bytes(M, t0_.P, A_off, K, t0_.eps.shape[1], t0_.nk)
+    print(f"phase20 gibbs_kernel at K {K}: {regs} registers, {local} B "
+          f"local, {per_sm} blocks per SM ({smem} B of shared memory)")
+    active = torch.cat([st.active0, st.active1], 2)
+    act, actm = activity_planes(system, active.reshape(2 * chains, M))
+    act, actm = act.reshape(chains, 2, -1), actm.reshape(chains, 2, M)
+    ones = torch.ones((chains,), device=dev)
+    args = [x.float().contiguous() for x in (st.coords, st.com, st.quat,
+                                             st.sfac, st.box)] + [
+        params.temperature * ones, params.dr_max * ones,
+        params.dphi_max * ones]
+    us = [draw_uniforms(chains, 2 * t.M, gen, dev) for t in tables]
+    uxs = [draw_exchange_uniforms(chains, x_half, gen, dev) for _ in tables]
+    consts = gibbs_consts(system, params, kv, kw, args[4])
+    rest = (us, tables, act, actm, [x_half] * 2, uxs, consts, 97)
+    err, out = compare_gibbs("20 cycle vs plain", args, *rest)
+    ms_blk = [_time_ms(lambda b=b: run_gibbs(
+        op.sweep_gibbs, args, [us[b]], [tables[b]], act, actm, [x_half],
+        [uxs[b]], [consts[b]], 97 + b), 3) for b in range(2)]
+    ms = _time_ms(lambda: run_gibbs(op.sweep_gibbs, args, *rest), 3)
+    plain_ms = _time_ms(lambda: run_gibbs(op.sweep_gibbs_plain, args,
+                                          *rest), 1)
+    frac = _gibbs_cutoff_fraction(system, st.coords, active, st.box,
+                                  params.r_cut)
+    ranges = [(t.m_start, t.M) for t in tables]
+    near = [_reach_fraction(st.coords[:, b], st.com[:, b],
+                            system.atom_mol_slot[0], st.box[:, b],
+                            params.r_cut, active[:, b], m_ranges=ranges)
+            for b in range(2)]
+    n_box = active.sum(2)
+    bounds = [gibbs_bound(t, chains, A_off, M, K, n_box, frac,
+                          [near[0][s], near[1][s]], x_half,
+                          n_move=a.sum(2))
+              for s, (t, a) in enumerate(zip(tables, (st.active0,
+                                                      st.active1)))]
+    print(f"phase20 one cycle, {chains} chains, N per box "
+          f"{float(n_box[:, 0].float().mean()):.1f} / "
+          f"{float(n_box[:, 1].float().mean()):.1f}: CO2 launch "
+          f"{ms_blk[0]:.3f} ms ({2 * tables[0].M} moves + {x_half} "
+          f"transfers; bound {bounds[0][0]:.3f} ms, {bounds[0][1]}), N2 "
+          f"launch {ms_blk[1]:.3f} ms ({2 * tables[1].M} moves + {x_half} "
+          f"transfers; bound {bounds[1][0]:.3f} ms, {bounds[1][1]}), both "
+          f"{ms:.3f} ms, sweep_gibbs_plain {plain_ms:.3f} ms; "
+          f"{frac[0]:.4f} / {frac[1]:.4f} of active pairs within the "
+          f"cutoff")
+
+    # the volume attempt, with the recurrence and with the direct sum
+    g_p = BinaryGibbsEnsemble(system, params, **common)
+    vol_ms = volume_attempt_ms("20", g_p.run_steps.volume_step, st, gen)[2]
+    cyc = ms + k_vol * vol_ms
+    print(f"phase20 a cycle, the two launches and {k_vol} volume attempts: "
+          f"{cyc:.3f} ms, the volume attempts' share "
+          f"{100.0 * k_vol * vol_ms / cyc:.1f}%")
+
+    # NPT-Gibbs at the measured bubble pressure, from the end state
+    params_n = _co2_n2_params(1.35 * max(cfg["boxes"]), 1e-3)
+    g_n = BinaryGibbsEnsemble(system, params_n, mega="full",
+                              npt_pressure=cfg["p_bath_bar"] * P_BAR,
+                              **common)
+    st_n = dataclasses.replace(st, sfac=torch.zeros(
+        (chains, 2, len(make_kvectors(params_n.nk, params_n.ksq_max)[0]), 2),
+        device=dev))
+    e_n, sf_n = g_n.full_energy(st_n)
+    st_n = dataclasses.replace(st_n, energy=e_n, sfac=sf_n)
+    t_n = sweep_tables(system, params_n, *make_kvectors(params_n.nk,
+                                                        params_n.ksq_max),
+                       dev)[0]
+    K_n = st_n.sfac.shape[2]
+    regs, local, per_sm = op.occupancy(t_n, M, A_off, K_n)
+    print(f"phase20 NPT-Gibbs: P_bath {cfg['p_bath_bar']} bar, kappa_L "
+          f"{params_n.kappa_L:.2f}, nk {params_n.nk}, ksq_max "
+          f"{params_n.ksq_max}, K {K_n}; gibbs_kernel {regs} registers, "
+          f"{local} B local, {per_sm} blocks per SM "
+          f"({op.gibbs_smem_bytes(M, t_n.P, A_off, K_n, t_n.eps.shape[1],
+                                   t_n.nk)} B of shared memory)")
+    st_n, l_n = binary_gibbs_blocks("20 npt", g_n, st_n, (npt_cycles,),
+                                    att_pc, n_tot, gate_vol="positive")
+    g_np = BinaryGibbsEnsemble(system, params_n,
+                               npt_pressure=cfg["p_bath_bar"] * P_BAR,
+                               **common)
+    volume_attempt_ms("20 NPT-Gibbs", g_np.run_steps.volume_step, st_n, gen)
+    print(f"phase20 sweep_gibbs_kernel launches on the NPT-Gibbs path: "
+          f"{l_n}; boxes {st_n.box.mean(0).tolist()} A; phase total "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches + l_n, err, ms, plain_ms
+
+
+def phase21(dev, chains=1024, blocks=(2, 2), hybrid_cycles=1, chunk=64):
+    """Osmotic MC at configs/osmotic_mea.json's state point with the MEA
+    solute replaced by TraPPE CH4 (MEA needs the absent topology):
+    spce_methane_system(240, 16), box 19.5 A, 313.15 K, r_cut 9, Ewald
+    (kappa L 5.6, nk 5, K 337), no tail, activity 1e-4, p_exchange 0.3,
+    4 solutes at the start; 1024 chains through OsmoticGCMC(mega="full"):
+    two 2-cycle blocks (per cycle the solvent block's sweep launch and the
+    solute block's launch with 110 exchange attempts), then one mega=True
+    block (both sweep launches + 110 plain exchange steps per cycle) from
+    the end state.  Gates (muvt_blocks): drift, S(k), every acceptance
+    in (0, 1); one full cycle on the main path's arguments against
+    sweep_plain, its solvent plane unchanged, each launch timed.  Returns
+    the launches."""
+    from metropolismontecarlo_tpu_torch.mc.gcmc_osmotic import OsmoticGCMC
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+        sweep_tables,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import (
+        spce_methane_system,
+    )
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t_phase = time.perf_counter()
+    z, px, ns = 1e-4, 0.3, 240
+    params = RunParams(temperature=313.15, r_cut=9.0, cutoff_mode="site",
+                       coulomb="ewald", p_translate=0.5, dr_max=0.3,
+                       dphi_max=0.3, use_lrc=False)
+    system = spce_methane_system(ns, 16)
+    M = system.n_mol
+    gen = torch.Generator(device=dev).manual_seed(2121)
+
+    def build(mega):
+        return OsmoticGCMC(system, params, activity=z, p_exchange=px,
+                           dtype=torch.float32, chunk=chunk, mega=mega,
+                           device=dev, generator=gen)
+
+    g = build("full")
+    x_per = g.run_steps.x_per
+    apc = M + x_per
+    t0 = time.perf_counter()
+    st = g.init(box=19.5, n_init=4, n_chains=chains)
+    torch.cuda.synchronize()
+    print(f"phase21 init: {time.perf_counter() - t0:.2f} s; "
+          f"spce_methane_system({ns}, 16), 19.5 A, A_pad "
+          f"{st.coords.shape[-1]}, K {st.sfac.shape[1]}, x_per {x_per} (a "
+          f"cycle: {M} moves + {x_per} solute attempts), {chains} chains")
+
+    st, l_full, _ = muvt_blocks("21 full", g, st, blocks, apc, 2)
+    _, l_hyb, _ = muvt_blocks("21 hybrid", build(True), st,
+                              (hybrid_cycles,), apc, 2)
+    print(f"phase21 sweep_kernel launches on the osmotic paths: {l_full} "
+          f"full, {l_hyb} hybrid (2 per cycle)")
+
+    # one full cycle on the main path's arguments against the twin, timed
+    kv, kw = make_kvectors(params.nk, params.ksq_max)
+    tables = sweep_tables(system, params, kv, kw, dev)
+    consts = _exchange_consts(system, params, kv, kw, st.box.float())
+    full = torch.cat([torch.ones((chains, ns), dtype=torch.bool,
+                                 device=dev), st.active], 1)
+    view = SimpleNamespace(com=st.com, quat=st.quat, coords=st.coords,
+                           sfac=st.sfac, box=st.box, active=full)
+    err, ms, plain_ms, bound_ms, bound_by = time_variant(
+        "21 full cycle", system, params, tables, view, gen, (0, x_per),
+        (0, 0), z, consts)
+    act, actm = activity_planes(system, full)
+    ones = torch.ones((chains,), device=dev)
+    args = [x.float().contiguous() for x in (st.coords, st.com, st.quat,
+                                             st.sfac, st.box)] + [
+        params.temperature * ones, params.dr_max * ones,
+        params.dphi_max * ones, draw_uniforms(chains, M, gen, dev)]
+    uxs = [draw_exchange_uniforms(chains, n, gen, dev) for n in (0, x_per)]
+    rest = (act, actm, (0, x_per), (0, 0), uxs, z * ones, consts, 79)
+    out = run_variant(op.sweep, args, tables, *rest)
+    solvent_on = bool((out[6][:, :ns] == 1.0).all())
+    ms_blk = [_time_ms(lambda b=b: run_variant(
+        op.sweep, args, [tables[b]], act, actm, (rest[2][b],), (0,),
+        [uxs[b]], z * ones, [consts[b]], 79), 3) for b in range(2)]
+    print(f"phase21 the solvent launch ({ns} moves) {ms_blk[0]:.3f} ms, the "
+          f"solute launch (16 moves + {x_per} attempts) {ms_blk[1]:.3f} ms; "
+          f"solvent plane unchanged {solvent_on}; phase total "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not solvent_on:
+        raise AssertionError("phase21: a solvent slot changed activity")
+    return l_full + l_hyb, err, ms, plain_ms, bound_ms, bound_by
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
+                    default=",".join(str(i) for i in range(2, 22)),
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -4175,7 +4693,8 @@ def main():
         err2g, _ = phase2_global(dev)
         print(f"phase 2 global layout and slab cases: "
               f"{time.perf_counter() - t0:.1f} s")
-        err2gb = max(phase2_gibbs(dev), phase2_gibbs_stress(dev))
+        err2gb = max(phase2_gibbs(dev), phase2_gibbs_stress(dev),
+                     phase2_gibbs_binary(dev))
         err2f = max(phase2_flip(dev), phase2_flip_stress(dev))
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
@@ -4224,8 +4743,19 @@ def main():
         cli = phase18(dev)
     if 19 in want:
         phase19()
+    if 20 in want:
+        t0 = time.perf_counter()
+        l20 = phase20(dev)[0]
+        print(f"phase20: {l20} Gibbs kernel launches on the binary and "
+              f"NPT-Gibbs paths (not in the kernels line); "
+              f"{time.perf_counter() - t0:.1f} s")
+    if 21 in want:
+        t0 = time.perf_counter()
+        l21 = phase21(dev)[0]
+        print(f"phase21: {l21} sweep kernel launches on the osmotic paths "
+              f"(not in the kernels line); {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 20)):
+    if want != set(range(2, 22)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)

@@ -14,7 +14,9 @@ import torch
 from metropolismontecarlo_tpu_torch.mc.gcmc import GCMCState
 from metropolismontecarlo_tpu_torch.mc.gcmc_binary import BinaryGCMCState
 from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMCState
+from metropolismontecarlo_tpu_torch.mc.gcmc_osmotic import OsmoticState
 from metropolismontecarlo_tpu_torch.mc.gibbs import GibbsState
+from metropolismontecarlo_tpu_torch.mc.gibbs_binary import BinaryGibbsState
 from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsState
 from metropolismontecarlo_tpu_torch.mc.semigrand import SemigrandState
 from metropolismontecarlo_tpu_torch.models.system import SimState, System
@@ -27,6 +29,9 @@ _GIBBS_FIELDS = tuple(f.name for f in dataclasses.fields(GibbsState))
 _MOL_GIBBS_FIELDS = tuple(f.name for f in dataclasses.fields(MolGibbsState))
 _SEMIGRAND_FIELDS = tuple(f.name for f in dataclasses.fields(SemigrandState))
 _BINARY_FIELDS = tuple(f.name for f in dataclasses.fields(BinaryGCMCState))
+_OSMOTIC_FIELDS = tuple(f.name for f in dataclasses.fields(OsmoticState))
+_BINARY_GIBBS_FIELDS = tuple(f.name
+                             for f in dataclasses.fields(BinaryGibbsState))
 _TMMC_FIELDS = ("cmat", "uhist", "eta")
 
 
@@ -141,9 +146,37 @@ def binary_gcmc_state_to_numpy(state):
             for f in _BINARY_FIELDS}
 
 
+def osmotic_state_from_numpy(arrays, device):
+    """OsmoticState on `device` from a mapping of field name to numpy array
+    (the JAX OsmoticState's fields; its `key` is ignored).  dtypes are
+    kept."""
+    return _from_numpy(OsmoticState, _OSMOTIC_FIELDS, arrays, device)
+
+
+def osmotic_state_to_numpy(state):
+    """{field: numpy array} for every OsmoticState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _OSMOTIC_FIELDS}
+
+
+def binary_gibbs_state_from_numpy(arrays, device):
+    """BinaryGibbsState on `device` from a mapping of field name to numpy
+    array (the JAX BinaryGibbsState's fields; its `key` is ignored).
+    dtypes are kept."""
+    return _from_numpy(BinaryGibbsState, _BINARY_GIBBS_FIELDS, arrays,
+                       device)
+
+
+def binary_gibbs_state_to_numpy(state):
+    """{field: numpy array} for every BinaryGibbsState field."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _BINARY_GIBBS_FIELDS}
+
+
 def ensemble_state_from_numpy(state_cls, arrays, device):
     """Any ensemble state of this package (GCMCState, MolGCMCState,
-    GibbsState, MolGibbsState, SemigrandState, BinaryGCMCState) as
+    GibbsState, MolGibbsState, SemigrandState, BinaryGCMCState,
+    OsmoticState, BinaryGibbsState) as
     state_cls on `device`, from a mapping of field name to numpy array (a
     JAX state's `key` is ignored).  dtypes are kept."""
     names = tuple(f.name for f in dataclasses.fields(state_cls))

@@ -159,6 +159,7 @@ def make_binary_slots(system, params, device="cuda", dtype=torch.float64,
     K = len(kvecs) if use_ewald else 1
     kv = None if kvecs is None else torch.tensor(kvecs, dtype=torch.int32,
                                                  device=device)
+    kb = None if kvecs is None else ewald_ops.k_bounds(kvecs)
     kw = None if kweights is None else torch.tensor(kweights, dtype=dtype,
                                                     device=device)
     trial_quats = tuple(make_trial_quats(P, dtype) for P in Ps)
@@ -242,7 +243,7 @@ def make_binary_slots(system, params, device="cuda", dtype=torch.float64,
             cf = ewald_ops.cfac_coeffs(kv, kw, params.kappa_L / box, box)
             q_eff = torch.where(a_ok, evs[0].charges_flat, 0.0)
             sf = ewald_ops.structure_factor(coords.transpose(1, 2), q_eff,
-                                            kv, box)
+                                            kv, box, kb)
             e = e + ewald_ops.recip_energy(sf, cf)
         else:
             sf = torch.zeros((com.shape[0], K, 2), dtype=dtype,

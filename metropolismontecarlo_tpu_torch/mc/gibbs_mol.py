@@ -79,6 +79,90 @@ def _unfold(x):
     return x.reshape((x.shape[0] // 2, 2) + tuple(x.shape[1:]))
 
 
+def ewald_consistency_check(params, use_ewald):
+    """check_ewald_consistency(boxes, tol=5e-3) of a two-box ensemble.
+
+    Transfers need both boxes to sample the same model, which for Ewald
+    means converged truncation tails: under kappa = kappa_L / box,
+    erfc(kappa qq_cut) differs between boxes, and a truncated model that
+    is merely self-consistent drains molecules into the box whose
+    electrostatics are softer.  The check raises when the real-space tail
+    erfc(kappa qq_cut) of the largest box exceeds tol; set kappa_L / nk /
+    ksq_max from ops.ewald.tune_parameters(max_box, r_cut, tol)."""
+
+    def check_ewald_consistency(boxes, tol=5e-3):
+        if not use_ewald:
+            return
+        boxes = np.asarray(boxes, np.float64)
+        worst = float(np.max(torch.special.erfc(torch.as_tensor(
+            params.kappa_L / boxes * params.qq_cut)).numpy()))
+        if worst > tol:
+            raise ValueError(
+                f"Ewald real-space truncation erfc(kappa*qq_cut) = "
+                f"{worst:.2e} in the {float(np.max(boxes)):.1f} A box "
+                f"exceeds {tol:g}: the two boxes would sample different "
+                "truncated models and transfers drain into the softer one. "
+                "Set kappa_L/nk/ksq_max from ops.ewald.tune_parameters("
+                "max_box, r_cut, tol) for the largest box this run can "
+                "reach")
+
+    return check_ewald_consistency
+
+
+def volume_step(state, u_dv, u_acc, nf, rebuild, full_energy, dv_max, beta,
+                wall, npt_pressure=None, bit=None):
+    """One volume attempt of every chain of a two-box state on the uniforms
+    u_dv, u_acc (C,): the COMs rescaled with the orientations fixed, the
+    atoms rebuilt (rebuild(com, quat) -> coords), both boxes recomputed
+    (full_energy(state) -> (energy (C, 2), sfac)); nf (C, 2) the molecules
+    per box.  The state needs the fields com, quat, box, sfac, energy, acc
+    and att (column 2 counts volume moves).
+
+    npt_pressure None (Gibbs at fixed total volume): dV = (2 u_dv - 1)
+    dv_max (V_0 + V_1) moves from box 1 to box 0, and the rule is
+    min[1, prod_b (V_b'/V_b)^N_b exp(-beta dU)].  npt_pressure P (K/A^3):
+    the box `bit` (C,) bool (True: box 1) takes ln V' = ln V + (2 u_dv -
+    1) dv_max against the bath, min[1, (V'/V)^(N + 1) exp(-beta dU -
+    beta P dV)].  A proposal that shrinks a box below `wall` or to V <= 0
+    is refused."""
+    box, e = state.box, state.energy
+    tiny = torch.finfo(box.dtype).tiny
+    v = box ** 3
+    if npt_pressure is None:
+        dv = (u_dv - 0.5) * 2.0 * dv_max * v.sum(1)
+        v_new = v + torch.stack([dv, -dv], 1)
+        bath = torch.zeros_like(dv)
+    else:
+        pick = torch.stack([~bit, bit], 1)
+        dlnv = (2.0 * u_dv - 1.0) * dv_max
+        v_b = torch.where(bit, v[:, 1], v[:, 0])
+        v_b_new = v_b * torch.exp(dlnv)
+        v_new = torch.where(pick, v_b_new[:, None], v)
+        bath = beta * npt_pressure * (v_b_new - v_b) - dlnv
+    box_new = torch.sign(v_new) * v_new.abs() ** (1.0 / 3.0)
+    legal = ((box_new > wall) & (v_new > 0.0)).all(1)
+    box_t = torch.where(legal[:, None], box_new, box)
+    scale = torch.where(legal[:, None], box_new / box, 1.0)
+    com_v = state.com * scale[:, :, None, None]
+    coords_v = rebuild(com_v, state.quat)
+    e_v, sf_v = full_energy(dataclasses.replace(
+        state, com=com_v, coords=coords_v, box=box_t))
+    log_a = (nf * torch.log(torch.where(legal[:, None], v_new / v,
+                                        1.0))).sum(1) \
+        - beta * (e_v - e).sum(1) - torch.where(legal, bath, 0.0)
+    ok = legal & (torch.log(torch.clamp_min(u_acc, tiny)) < log_a)
+    okc = ok[:, None]
+    acc, att = state.acc.clone(), state.att.clone()
+    acc[:, 2] += ok.to(torch.int32)
+    att[:, 2] += 1
+    return dataclasses.replace(
+        state, com=torch.where(okc[..., None, None], com_v, state.com),
+        coords=torch.where(okc[..., None, None], coords_v, state.coords),
+        box=torch.where(okc, box_new, box),
+        sfac=torch.where(okc[..., None, None], sf_v, state.sfac),
+        energy=torch.where(okc, e_v, e), acc=acc, att=att)
+
+
 def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
                    dtype=torch.float64, n_orient=1, chunk=8, mega=None,
                    device="cuda", generator=None):
@@ -128,29 +212,7 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         if params.strict_min_image else 0.0
     tiny = torch.finfo(dtype).tiny
 
-    def check_ewald_consistency(boxes, tol=5e-3):
-        """Transfers need both boxes to sample the same model, which for
-        Ewald means converged truncation tails: under kappa = kappa_L /
-        box, erfc(kappa qq_cut) differs between boxes, and a truncated
-        model that is merely self-consistent drains molecules into the
-        box whose electrostatics are softer.  Raises when the real-space
-        tail erfc(kappa qq_cut) of the largest box exceeds tol; set
-        kappa_L / nk / ksq_max from ops.ewald.tune_parameters(max_box,
-        r_cut, tol)."""
-        if not use_ewald:
-            return
-        boxes = np.asarray(boxes, np.float64)
-        worst = float(np.max(torch.special.erfc(torch.as_tensor(
-            params.kappa_L / boxes * params.qq_cut)).numpy()))
-        if worst > tol:
-            raise ValueError(
-                f"Ewald real-space truncation erfc(kappa*qq_cut) = "
-                f"{worst:.2e} in the {float(np.max(boxes)):.1f} A box "
-                f"exceeds {tol:g}: the two boxes would sample different "
-                "truncated models and transfers drain into the softer one. "
-                "Set kappa_L/nk/ksq_max from ops.ewald.tune_parameters("
-                "max_box, r_cut, tol) for the largest box this run can "
-                "reach")
+    check_ewald_consistency = ewald_consistency_check(params, use_ewald)
 
     def rand(*shape):
         return torch.rand(shape, generator=generator, dtype=dtype,
@@ -335,36 +397,9 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         return torch.nn.functional.pad(coords, (0, ms.A_pad - ms.A))
 
     def _vol_step(state, u_dv, u_acc):
-        """Volume transfer on the uniforms u_dv, u_acc (C,): rescale the
-        COMs (orientations fixed), rebuild the atoms, recompute both boxes
-        (energies and S(k))."""
-        box, e = state.box, state.energy
-        nf = state.active.sum(2).to(dtype)
-        v = box ** 3
-        dv = (u_dv - 0.5) * 2.0 * dv_max * v.sum(1)
-        v_new = v + torch.stack([dv, -dv], 1)
-        box_new = torch.sign(v_new) * v_new.abs() ** (1.0 / 3.0)
-        legal = ((box_new > wall) & (v_new > 0.0)).all(1)
-        box_t = torch.where(legal[:, None], box_new, box)
-        scale = torch.where(legal[:, None], box_new / box, 1.0)
-        com_v = state.com * scale[:, :, None, None]
-        coords_v = rebuild_two(com_v, state.quat)
-        e_v, sf_v = full_energy(dataclasses.replace(
-            state, com=com_v, coords=coords_v, box=box_t))
-        log_a = (nf * torch.log(torch.where(legal[:, None], v_new / v,
-                                            1.0))).sum(1) \
-            - beta * (e_v - e).sum(1)
-        ok = legal & (torch.log(torch.clamp_min(u_acc, tiny)) < log_a)
-        okc = ok[:, None]
-        acc, att = state.acc.clone(), state.att.clone()
-        acc[:, 2] += ok.to(torch.int32)
-        att[:, 2] += 1
-        return dataclasses.replace(
-            state, com=torch.where(okc[..., None, None], com_v, state.com),
-            coords=torch.where(okc[..., None, None], coords_v, state.coords),
-            box=torch.where(okc, box_new, box),
-            sfac=torch.where(okc[..., None, None], sf_v, state.sfac),
-            energy=torch.where(okc, e_v, e), acc=acc, att=att)
+        """Volume transfer on the uniforms u_dv, u_acc (C,)."""
+        return volume_step(state, u_dv, u_acc, state.active.sum(2).to(dtype),
+                           rebuild_two, full_energy, dv_max, beta, wall)
 
     def _vol_state(state):
         u = rand(state.com.shape[0], 2)

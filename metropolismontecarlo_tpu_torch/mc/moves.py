@@ -556,6 +556,67 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
     return sweep_x
 
 
+def _gibbs_block_launches(system, params, tables, n_exchs):
+    """launch(com, quat, coords, active, box, sfac, generator, si2s, wc2s,
+    lrc_cross=None): one Gibbs-op launch per species block of `tables` on
+    the two-box layout (com (C, 2, M, 3), quat (C, 2, M, 4), coords (C, 2,
+    3, A_pad), active (C, 2, M) bool, box (C, 2), sfac (C, 2, K, 2)), each
+    = [2 M_b moves + n_exchs[b] transfer attempts of block b], the state
+    and activity planes of one launch feeding the next; si2s / wc2s per
+    block the (C, 2) per-box exchange constants, lrc_cross per block the
+    (C, 2) cross-species tail coefficient g_bo, folded into si as 2 g_bo
+    N_o from the live other-block counts.  Uniforms come from the
+    generator, the deletion scores from one seed per launch.  Returns
+    (com, quat, coords, active, sfac, d_e (C, 2), acc (C, 2 + n_blocks)
+    [trans, rot, transfers of each block], att likewise), in f32; each
+    block's transfer counters are its own launch's stats column."""
+    M = system.n_mol
+    f32 = torch.float32
+    launch = [0]
+
+    def run(com, quat, coords, active, box, sfac, generator, si2s, wc2s,
+            lrc_cross=None):
+        C = com.shape[0]
+        dev = com.device
+        act, actm = activity_planes(system, active.reshape(2 * C, M))
+        act, actm = act.reshape(C, 2, -1), actm.reshape(C, 2, M)
+        ones = torch.ones((C,), dtype=f32, device=dev)
+        args = [x.to(f32).contiguous() for x in (coords, com, quat, sfac,
+                                                 box)]
+        d_e = torch.zeros((C, 2), dtype=f32, device=dev)
+        acc, att, xacc = 0.0, 0.0, []
+        for b, t in enumerate(tables):
+            si_eff = si2s[b].to(f32)
+            if lrc_cross is not None:
+                n_oth = actm.sum(2) - actm[:, :, t.m_start:t.m_start
+                                           + t.M].sum(2)
+                si_eff = si_eff + 2.0 * lrc_cross[b].to(f32) * n_oth
+            # the deletion scores' stream: one seed per launch
+            seed = (generator.initial_seed() * 0x9E3779B1 + launch[0]) \
+                & 0xFFFFFFFF
+            launch[0] += 1
+            u = draw_uniforms(C, 2 * t.M, generator, dev)
+            ux = draw_exchange_uniforms(C, n_exchs[b], generator, dev)
+            out = gibbs_op.sweep_gibbs(
+                *args, params.temperature * ones, params.dr_max * ones,
+                params.dphi_max * ones, u, t, act, actm, n_exch=n_exchs[b],
+                ux=ux, si2=si_eff.contiguous(),
+                wc2=wc2s[b].to(f32).contiguous(), seed=seed)
+            args[:4], (st, act, actm) = list(out[:4]), out[4:]
+            d_e = d_e + st[:, 0:2]
+            acc = acc + st[:, 2:4]
+            att = att + st[:, 4:6]
+            xacc.append(st[:, 6])
+        coords_o, com_o, quat_o, sfac_o = args[:4]
+        return (com_o, quat_o, coords_o, actm > 0.5, sfac_o, d_e,
+                torch.cat([acc, torch.stack(xacc, 1)], 1),
+                torch.cat([att, torch.tensor([n_exchs], dtype=f32,
+                                             device=dev).expand(C, -1)], 1))
+
+    run.tables = tables
+    return run
+
+
 def make_mega_gibbs_fn(system, params, kvecs, kweights, device, n_exch=1):
     """The in-kernel Gibbs cycle: returns `sweep_gibbs(com, quat, coords,
     active, box, sfac, generator, si2, wc2)` running [2 cap moves + n_exch
@@ -576,39 +637,60 @@ def make_mega_gibbs_fn(system, params, kvecs, kweights, device, n_exch=1):
             or params.lj_shift not in ("none", "linear"):
         raise ValueError("mega Gibbs requires a uniform single-species "
                          "system and site cutoff")
-    (tables,) = sweep_tables(system, params, kvecs, kweights, device)
-    cap = system.n_mol
-    f32 = torch.float32
-    launch = [0]
+    launch = _gibbs_block_launches(
+        system, params, sweep_tables(system, params, kvecs, kweights,
+                                     device), (n_exch,))
 
     def sweep_gibbs(com, quat, coords, active, box, sfac, generator, si2,
                     wc2):
-        C = com.shape[0]
-        dev = com.device
-        act, actm = activity_planes(system, active.reshape(2 * C, cap))
-        ones = torch.ones((C,), dtype=f32, device=dev)
-        # the deletion scores' stream: one seed per launch
-        seed = (generator.initial_seed() * 0x9E3779B1 + launch[0]) \
-            & 0xFFFFFFFF
-        launch[0] += 1
-        u = draw_uniforms(C, 2 * cap, generator, dev)
-        ux = draw_exchange_uniforms(C, n_exch, generator, dev)
-        out = gibbs_op.sweep_gibbs(
-            *(x.to(f32).contiguous() for x in (coords, com, quat, sfac,
-                                               box)),
-            params.temperature * ones, params.dr_max * ones,
-            params.dphi_max * ones, u, tables,
-            act.reshape(C, 2, -1), actm.reshape(C, 2, cap), n_exch=n_exch,
-            ux=ux, si2=si2.to(f32).contiguous(),
-            wc2=wc2.to(f32).contiguous(), seed=seed)
-        coords_o, com_o, quat_o, sfac_o, stats, _, actm_o = out
-        acc = torch.stack([stats[:, 2], stats[:, 3], stats[:, 6]], 1)
-        att = torch.stack([stats[:, 4], stats[:, 5],
-                           torch.full_like(stats[:, 6], float(n_exch))], 1)
-        return (com_o, quat_o, coords_o, actm_o > 0.5, sfac_o, stats[:, 0:2],
-                acc, att)
+        return launch(com, quat, coords, active, box, sfac, generator,
+                      (si2,), (wc2,))
 
     return sweep_gibbs
+
+
+def make_mega_gibbs_binary_fn(system, params, kvecs, kweights, device,
+                              n_exch=(1, 1)):
+    """The in-kernel binary Gibbs cycle: returns `sweep_gibbs_b(com, quat,
+    coords, active0, active1, box, sfac, generator, si2s, wc2s,
+    lrc_cross=None)` on the BinaryGibbsState layout (mc/gibbs_binary.py):
+    com (C, 2, M, 3) with M = cap0 + cap1 slots per box, quat (C, 2, M,
+    4), coords (C, 2, 3, A_pad), active0 (C, 2, cap0), active1 (C, 2,
+    cap1) bool, box (C, 2), sfac (C, 2, K, 2); si2s / wc2s per species a
+    (C, 2) per-box self + intra constant and quadratic-in-N coefficient;
+    lrc_cross per species the (C, 2) cross-species tail coefficient g_so,
+    folded into si as 2 g_so N_o from the live other-species counts.
+
+    One Gibbs-op launch per species block (its SweepTables address the
+    block through m_start / a_start / M) = [2 cap_s moves + n_exch[s]
+    transfer attempts of species s]; the state and the activity planes
+    of one launch feed the next.  Requires two internally uniform species
+    blocks, site cutoff and lj_shift none; computes in f32.
+
+    Returns (com, quat, coords, active0, active1, sfac, d_e (C, 2), acc
+    (C, 4) [trans, rot, transfer0, transfer1], att (C, 4)); each
+    species' transfer counters are its own launch's stats column."""
+    slices = system.species_slices
+    if len(slices) != 2 or not system.species_uniform:
+        raise ValueError("mega binary Gibbs requires exactly two internally "
+                         "uniform species blocks")
+    if params.cutoff_mode != "site" or params.lj_shift != "none":
+        raise ValueError("mega binary Gibbs requires site cutoff and "
+                         "lj_shift='none'")
+    tables = sweep_tables(system, params, kvecs, kweights, device)
+    launch = _gibbs_block_launches(system, params, tables,
+                                   tuple(int(x) for x in n_exch))
+    cap0 = tables[0].M
+
+    def sweep_gibbs_b(com, quat, coords, active0, active1, box, sfac,
+                      generator, si2s, wc2s, lrc_cross=None):
+        out = launch(com, quat, coords, torch.cat([active0, active1], dim=2),
+                     box, sfac, generator, si2s, wc2s, lrc_cross)
+        on = out[3]
+        return out[:3] + (on[:, :, :cap0], on[:, :, cap0:]) + out[4:]
+
+    sweep_gibbs_b.tables = tables
+    return sweep_gibbs_b
 
 
 def make_mega_flip_fn(system, params, kvecs, kweights, device,

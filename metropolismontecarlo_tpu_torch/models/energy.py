@@ -108,7 +108,8 @@ def energy_breakdown(system, params, coords, com, box, kvecs=None,
             kv, kw = t(kvecs, torch.int32), t(kweights)
             e_real = 0.5 * ewald_ops.real_space_sum(d2, qq, mask_qq, kappa)
             cf = ewald_ops.cfac_coeffs(kv, kw, kappa, box)
-            sfac = ewald_ops.structure_factor(coords, charges, kv, box)
+            sfac = ewald_ops.structure_factor(coords, charges, kv, box,
+                                              ewald_ops.k_bounds(kvecs))
             e_four = ewald_ops.recip_energy(sfac, cf)
             e_self = ewald_ops.ewald_self(charges, kappa)
             e_intra, w_intra = _intra_terms(system, coords, kappa, box)
@@ -284,7 +285,8 @@ def energy_breakdown_tiled(system, params, coords, com, box, kvecs=None,
         if params.coulomb == "ewald":
             kv, kw = t(kvecs, torch.int32), t(kweights)
             cf = ewald_ops.cfac_coeffs(kv, kw, kappa, box)
-            sfac = ewald_ops.structure_factor(coords, charges, kv, box)
+            sfac = ewald_ops.structure_factor(coords, charges, kv, box,
+                                              ewald_ops.k_bounds(kvecs))
             w_recip = ewald_ops.recip_virial(sfac, cf, coords, com_of_col,
                                              charges, kv, box)
             e_four = ewald_ops.recip_energy(sfac, cf)

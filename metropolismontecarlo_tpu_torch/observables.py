@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from metropolismontecarlo_tpu_torch.ops.ewald import (
+    k_bounds,
     make_kvectors,
     structure_factor,
     surface_dipole,
@@ -297,8 +298,7 @@ class StructureFactorAccumulator:
         S(k) = <|sum_j exp(i k.r_j)|^2> / N_sel,   k = (2 pi / L) n,
 
     averaged over the shells |n|^2 <= n_max^2 with every |n_i| <= n_max,
-    through ops/ewald.py structure_factor (the direct sum) with unit
-    weights.  The reported k uses the running mean box edge."""
+    through ops/ewald.py structure_factor with unit weights.  The reported k uses the running mean box edge."""
 
     def __init__(self, system, type_sel=None, n_max=6, chunk=8):
         tid = np.asarray(system.flat(system.type_ids))
@@ -311,6 +311,7 @@ class StructureFactorAccumulator:
         kvecs, kw = make_kvectors(n_max, n_max * n_max, strict=False)
         keep = np.max(np.abs(kvecs), axis=1) <= n_max
         self._kvecs, self._kw = kvecs[keep], kw[keep]
+        self._bounds = k_bounds(self._kvecs)
         self.ksq = np.sum(self._kvecs.astype(np.int64) ** 2, axis=1)
         self.shells = np.unique(self.ksq)
         self._sel = sel
@@ -331,7 +332,7 @@ class StructureFactorAccumulator:
             r = state.coords[sl][:, :, idx].transpose(1, 2)
             s = structure_factor(r, torch.ones((), dtype=r.dtype,
                                                device=r.device),
-                                 kv, state.box[sl])
+                                 kv, state.box[sl], self._bounds)
             acc = acc + torch.sum(torch.sum(s * s, -1), 0,
                                   dtype=torch.float64)
         self.rho2_sum += np.asarray(acc.cpu())

@@ -1,12 +1,10 @@
 """Ewald summation (counterpart of metropolismontecarlo_tpu/ops/ewald.py).
 
 k-vector table and coefficients, the accuracy-targeted parameter choice
-(`tune_parameters`), the direct structure factor, the reciprocal energy,
+(`tune_parameters`), the structure factor (the eik recurrence, with the
+direct sum for pose rows and short k lists), the reciprocal energy,
 real-space sum, self and intramolecular terms, and the exact molecular
-virials.  The JAX package's eik-recurrence
-structure_factor is a later port; `structure_factor` here is the direct
-form (structure_factor_direct there), which the recurrence is gated to
-equal.
+virials.
 
 Conventions: kappa = kappa_L / box; 0 < |k|^2 < ksq_max in integer
 units; energies in Kelvin via COULOMB_FACTOR.  `box` and `kappa` are
@@ -88,14 +86,88 @@ def _phases(coords, kvecs, box):
         * torch.einsum("...ad,kd->...ak", coords, kmat)
 
 
-def structure_factor(coords, charges, kvecs, box):
-    """S(k) = sum_i q_i exp(i k~ . r_i) as (..., K, 2) [re, im].
-    coords (..., A, 3); charges (A,) or (..., A)."""
+def structure_factor_direct(coords, charges, kvecs, box):
+    """S(k) = sum_i q_i exp(i k~ . r_i) as (..., K, 2) [re, im], one cos
+    and one sin per atom and k-vector.  coords (..., A, 3); charges (A,)
+    or (..., A)."""
     phase = _phases(coords, kvecs, box)
     q = torch.broadcast_to(charges.to(coords.dtype), phase.shape[:-1])
     re = torch.einsum("...a,...ak->...k", q, torch.cos(phase))
     im = torch.einsum("...a,...ak->...k", q, torch.sin(phase))
     return torch.stack([re, im], dim=-1)
+
+
+def _axis_powers(ang, n):
+    """exp(i m a) for m = -n..n of every angle a of ang (..., A, 3) as
+    (..., A, 3, 2 n + 1) complex, by complex multiplication from
+    exp(i a): powers k + 1..2k are powers 1..k times power k, so each
+    power is at most ~log2(n) + 1 products away from the one angle (and
+    the three axes take ~log2(n) elementwise launches); the negative powers
+    are the conjugates."""
+    base = torch.polar(torch.ones_like(ang), ang)
+    pows = base[..., None]                                  # powers 1..k
+    while pows.shape[-1] < n:
+        pows = torch.cat([pows, pows * pows[..., -1:]], dim=-1)
+    pows = torch.cat([torch.ones_like(base)[..., None], pows[..., :n]],
+                     dim=-1)                                # powers 0..n
+    m = torch.arange(-n, n + 1, device=ang.device)
+    tab = pows[..., m.abs()]
+    return torch.where(m < 0, tab.conj(), tab)
+
+
+# Below this many k-vectors the direct sum's few large launches beat the
+# recurrence's ~25 small ones on an H100 (the recurrence is host-launch-
+# bound there): scripts/time_structure_factor.py times both on the card,
+# in turns, from K 337 (the flagship) to K 3796; they cross between K
+# 1152 and 1661 at the recompute chunks' shapes.
+RECURRENCE_MIN_K = 1600
+
+
+def k_bounds(kvecs):
+    """(lo, hi) of a host (K, 3) k-vector table: per axis its least and
+    largest index, the box of indices the recurrence contracts over."""
+    kv = np.asarray(kvecs)
+    return tuple(kv.min(0).tolist()), tuple(kv.max(0).tolist())
+
+
+def structure_factor_recurrence(coords, charges, kvecs, box, bounds=None):
+    """S(k) = sum_i q_i exp(i k~ . r_i) as (..., K, 2) [re, im] by the eik
+    recurrence: exp(i k~ . r) = ex[kx] ey[ky] ez[kz] with per-axis tables
+    of powers of one angle per atom and axis (3 A transcendentals in place
+    of K A).  The atom axis is contracted first, per (kx, ky) pair, over
+    the whole (kx, ky, kz) box of indices, as one batched product; the K
+    k-vectors are then picked from that grid by an index gather.  bounds:
+    k_bounds of the host table; without it they are read from kvecs,
+    which costs a host sync for a table on the card."""
+    require_full_f32_matmul(coords)
+    if bounds is None:
+        bounds = k_bounds(kvecs.cpu().numpy())
+    lo, hi = bounds
+    n = max(max(abs(x) for x in lo), max(abs(x) for x in hi))
+    ny, nz = hi[1] - lo[1] + 1, hi[2] - lo[2] + 1
+    kv = kvecs.to(device=coords.device, dtype=torch.long)
+    flat = (kv[:, 0] * ny + kv[:, 1]) * nz + kv[:, 2] \
+        - ((lo[0] * ny + lo[1]) * nz + lo[2])
+    tab = _axis_powers((2.0 * math.pi / batch_view(box, 2)) * coords, n)
+    ex, ey, ez = (tab[..., d, lo[d] + n:hi[d] + n + 1] for d in range(3))
+    q = torch.broadcast_to(charges.to(coords.dtype), coords.shape[:-1])
+    w = (q[..., None] * ex)[..., :, :, None] * ey[..., :, None, :]
+    grid = torch.einsum("...axy,...az->...xyz", w, ez)
+    s = grid.flatten(-3)[..., flat]
+    return torch.stack([s.real, s.imag], dim=-1)
+
+
+def structure_factor(coords, charges, kvecs, box, bounds=None):
+    """S(k) = sum_i q_i exp(i k~ . r_i) as (..., K, 2) [re, im].
+    coords (..., A, 3); charges (A,) or (..., A); kvecs a (K, 3) integer
+    tensor; bounds as structure_factor_recurrence.  The recurrence for
+    long k lists (K >= RECURRENCE_MIN_K); the direct sum for pose rows
+    (A < 32), which the tables would not repay, and for shorter lists,
+    where it is the faster on the card."""
+    A, K = coords.shape[-2], kvecs.shape[0]
+    if A < 32 or K < RECURRENCE_MIN_K:
+        return structure_factor_direct(coords, charges, kvecs, box)
+    return structure_factor_recurrence(coords, charges, kvecs, box, bounds)
 
 
 def delta_structure_factor(ra_old, ra_new, charges, kvecs, box):

@@ -15,9 +15,8 @@ is saved in every checkpoint, so a resume continues the exact
 trajectory); replica exchanges and Widom insertions draw from generators
 seeded per block from seed + 7919 and seed + 104729.
 
-The ensemble kinds "osmotic" and "gibbs_binary" and the model kinds of
-utils/config.NOT_PORTED_MODELS are not ported yet and raise
-NotImplementedError.
+The model kinds of utils/config.NOT_PORTED_MODELS are not ported yet and
+raise NotImplementedError.
 """
 
 import argparse
@@ -55,10 +54,6 @@ from metropolismontecarlo_tpu_torch.utils.logging import (
 
 REMC_SEED_OFFSET = 7919
 WIDOM_SEED_OFFSET = 104729
-NOT_PORTED_ENSEMBLES = {
-    "osmotic": "mc/gcmc_osmotic.py (ROADMAP queue 1 step 3)",
-    "gibbs_binary": "mc/gibbs_binary.py (ROADMAP queue 1 step 4)",
-}
 
 
 def seeded_generator(device, seed, fold=None):
@@ -175,7 +170,11 @@ def _run_gcmc(cfg, system, params, dtype, args, device):
     systems: mc/gcmc.py GCMC; rigid molecules: mc/gcmc_mol.py MolGCMC,
     whose capacity is the model's n_mol), or `{"kind": "binary",
     "activities": [z0, z1], "box", "n_init": [n0, n1], "p_exchange",
-    "n_orient", "mega"}` on a two-species-block system."""
+    "n_orient", "mega"}` on a two-species-block system, or `{"kind":
+    "osmotic", "activity", "box", "n_init", "p_exchange", "n_orient",
+    "mega"}` (mc/gcmc_osmotic.py OsmoticGCMC: solute exchange in a fixed
+    solvent; the model's first species block is the solvent, the second
+    the solute slots)."""
     r = _Run(cfg, args, device, 1000)
     ens = r.ens
     common = dict(dtype=dtype, mega=ens.get("mega"), device=device,
@@ -197,7 +196,18 @@ def _run_gcmc(cfg, system, params, dtype, args, device):
                 f"drift {s['drift_max_rel']:.2e}"))
         r.say("done.")
         return state
-    if system.atoms_per_mol > 1:
+    if ens.get("kind") == "osmotic":
+        from metropolismontecarlo_tpu_torch.mc.gcmc_osmotic import (
+            OsmoticGCMC,
+        )
+        if "bias" in ens:
+            raise ValueError("ensemble.bias applies only to molecular GCMC "
+                             "(mc/gcmc_mol.py); the osmotic app does not "
+                             "support cavity bias yet")
+        g = OsmoticGCMC(system, params, activity=float(ens["activity"]),
+                        p_exchange=float(ens.get("p_exchange", 0.3)),
+                        n_orient=int(ens.get("n_orient", 1)), **common)
+    elif system.atoms_per_mol > 1:
         from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMC
         if int(ens["capacity"]) != system.n_mol:
             raise ValueError(
@@ -367,12 +377,26 @@ def _run_gibbs(cfg, system, params, dtype, args, device):
     "n_init": [n1, n2], "capacity", "dv_max", "p_transfer", "n_orient",
     "mega"}` (monatomic: mc/gibbs.py GibbsEnsemble; rigid molecules:
     mc/gibbs_mol.py MolGibbsEnsemble, whose per-box capacity is the
-    model's n_mol)."""
+    model's n_mol), or `{"kind": "gibbs_binary", "boxes", "n_init": [[n0
+    box 1, n0 box 2], [n1 box 1, n1 box 2]], "dv_max", "p_transfer",
+    "n_orient", "mega", "pressure"}` on a two-species-block model
+    (mc/gibbs_binary.py BinaryGibbsEnsemble; a "pressure" in K/A^3 runs
+    constant-pressure Gibbs)."""
     r = _Run(cfg, args, device, 10000)
     ens = r.ens
     common = dict(dv_max=float(ens.get("dv_max", 0.03)), dtype=dtype,
                   mega=ens.get("mega"), device=device, generator=r.generator)
-    if system.atoms_per_mol > 1:
+    binary = ens.get("kind") == "gibbs_binary"
+    if binary:
+        from metropolismontecarlo_tpu_torch.mc.gibbs_binary import (
+            BinaryGibbsEnsemble,
+        )
+        npt_p = ens.get("pressure")
+        g = BinaryGibbsEnsemble(
+            system, params, p_transfer=float(ens.get("p_transfer", 0.3)),
+            n_orient=int(ens.get("n_orient", 1)),
+            npt_pressure=None if npt_p is None else float(npt_p), **common)
+    elif system.atoms_per_mol > 1:
         from metropolismontecarlo_tpu_torch.mc.gibbs_mol import (
             MolGibbsEnsemble,
         )
@@ -394,13 +418,25 @@ def _run_gibbs(cfg, system, params, dtype, args, device):
                 "by params.p_translate and needs no orientations")
         g = GibbsEnsemble(system, params, capacity=int(ens["capacity"]),
                           **common)
+    n_init = [tuple(int(n) for n in row) for row in ens["n_init"]] \
+        if binary else tuple(int(n) for n in ens["n_init"])
     state = g.init(boxes=tuple(float(b) for b in ens["boxes"]),
-                   n_init=tuple(int(n) for n in ens["n_init"]),
-                   n_chains=r.n_chains)
-    state, averages = _ensemble_blocks(r, g, state, line=lambda b, s: (
-        f"blk {b:4d}  rho_l {s['rho_liq']:.4f}  rho_v {s['rho_vap']:.4f}  "
-        f"accX {s['acc_transfer']:.3f}  accV {s['acc_vol']:.3f}  "
-        f"full {s['full_frac']:.3f}  drift {s['drift_max_rel']:.2e}"))
+                   n_init=n_init, n_chains=r.n_chains)
+
+    def line(b, s):
+        head = f"blk {b:4d}  rho_l {s['rho_liq']:.4f}  " \
+            f"rho_v {s['rho_vap']:.4f}  "
+        if binary:
+            return head + (f"x0_l {s['x0_liq']:.3f}  x0_v {s['x0_vap']:.3f}  "
+                           f"accX {s['acc_transfer0']:.3f}/"
+                           f"{s['acc_transfer1']:.3f}  "
+                           f"accV {s['acc_vol']:.3f}  "
+                           f"drift {s['drift_max_rel']:.2e}")
+        return head + (f"accX {s['acc_transfer']:.3f}  "
+                       f"accV {s['acc_vol']:.3f}  full {s['full_frac']:.3f}  "
+                       f"drift {s['drift_max_rel']:.2e}")
+
+    state, averages = _ensemble_blocks(r, g, state, line=line)
     if averages.blocks:
         r.say(f"production averages over {len(averages.blocks)} blocks: "
               f"rho_liq = {averages.mean('rho_liq'):.4f} "
@@ -453,10 +489,6 @@ def main(argv=None, device="cuda"):
         os.makedirs(out_dir, exist_ok=True)
     ens = run_cfg.get("ensemble")
     kind = ens.get("kind") if ens else None
-    if kind in NOT_PORTED_ENSEMBLES:
-        raise NotImplementedError(
-            f"ensemble kind {kind!r} needs {NOT_PORTED_ENSEMBLES[kind]}, "
-            "which the PyTorch port does not have yet")
     if not args.quiet:
         banner()
 
@@ -474,8 +506,10 @@ def main(argv=None, device="cuda"):
     dtype = torch.float64 if run_cfg.get("dtype") == "float64" \
         else torch.float32
 
-    runner = {"gcmc": _run_gcmc, "binary": _run_gcmc, "tmmc": _run_tmmc,
-              "gibbs": _run_gibbs, "semigrand": _run_semigrand}.get(kind)
+    runner = {"gcmc": _run_gcmc, "binary": _run_gcmc,
+              "osmotic": _run_gcmc, "tmmc": _run_tmmc, "gibbs": _run_gibbs,
+              "gibbs_binary": _run_gibbs,
+              "semigrand": _run_semigrand}.get(kind)
     if runner is not None:
         return runner(cfg, system, params, dtype, args, device)
     return _run_nvt(cfg, system, params, dtype, args, device, base_dir)

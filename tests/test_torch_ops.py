@@ -185,3 +185,110 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _sfac_inputs(nk, ksq, box, shape, seed):
+    rng = np.random.default_rng(seed)
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    kv, _ = make_kvectors(nk, ksq)
+    coords = rng.uniform(0.0, box, size=shape + (3,))
+    q = rng.normal(size=shape[-1:])
+    return kv, coords, q
+
+
+def test_structure_factor_recurrence_matches_direct_and_jax():
+    """The eik recurrence against the direct sum and against JAX's
+    recurrence in float64: within 1e-13 (JAX's own gate shape, (3, 120)
+    atoms, nk 6, ksq 36)."""
+    from metropolismontecarlo_tpu.ops import ewald as ewald_j
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_t
+
+    kv, coords, q = _sfac_inputs(6, 36, 17.0, (3, 120), 0)
+    assert len(kv) >= 16
+    t = torch.tensor
+    b = t(17.0, dtype=torch.float64)
+    got = ewald_t.structure_factor_recurrence(t(coords), t(q), t(kv), b)
+    direct = ewald_t.structure_factor_direct(t(coords), t(q), t(kv), b)
+    assert torch.equal(got, ewald_t.structure_factor_recurrence(
+        t(coords), t(q), t(kv), b, ewald_t.k_bounds(kv)))
+    want = ewald_j.structure_factor(jnp.asarray(coords), jnp.asarray(q),
+                                    jnp.asarray(kv), jnp.float64(17.0))
+    assert got.shape == direct.shape == (3, len(kv), 2)
+    np.testing.assert_allclose(got.numpy(), direct.numpy(), rtol=0,
+                               atol=1e-13)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-13)
+    # per-chain boxes and per-chain charges broadcast as the direct sum's
+    boxes = t([15.0, 17.0, 19.5], dtype=torch.float64)
+    qc = t(np.stack([q, -q, 2.0 * q]))
+    np.testing.assert_allclose(
+        ewald_t.structure_factor_recurrence(t(coords), qc, t(kv),
+                                            boxes).numpy(),
+        ewald_t.structure_factor_direct(t(coords), qc, t(kv), boxes).numpy(),
+        rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("nk,ksq,box,n_atoms", [(8, 65, 33.0, 400),
+                                                (12, 145, 33.0, 512)])
+def test_structure_factor_recurrence_float32_error(nk, ksq, box, n_atoms):
+    """float32 at the Gibbs volume-move shapes (nk 8 and nk 12): the
+    recurrence's ~3 nk complex products cost about the accuracy of the
+    direct sum's f32 phases.  Both are held to the float64 direct sum;
+    the recurrence's error stays under twice the direct sum's and under
+    1e-5 of the largest |S(k)| (the carried-S(k) gate is 1e-4).  In
+    float64 the recurrence stays within 1e-12 of the direct sum here."""
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_t
+
+    kv, coords, q = _sfac_inputs(nk, ksq, box, (2, n_atoms), 1)
+    t = torch.tensor
+    b = t(box, dtype=torch.float64)
+    ref = ewald_t.structure_factor_direct(t(coords), t(q), t(kv), b)
+    f32 = [fn(t(coords).float(), t(q).float(), t(kv), b.float())
+           for fn in (ewald_t.structure_factor_recurrence,
+                      ewald_t.structure_factor_direct)]
+    err_rec, err_dir = ((x.double() - ref).abs().max().item() for x in f32)
+    norm = ref.abs().max().item()
+    f64 = ewald_t.structure_factor_recurrence(t(coords), t(q), t(kv), b)
+    assert (f64 - ref).abs().max().item() < 1e-12
+    assert err_rec < 2.0 * err_dir and err_rec < 1e-5 * norm, \
+        (err_rec, err_dir, norm)
+
+
+def test_structure_factor_fallback_paths(monkeypatch):
+    """Pose rows (A < 32) and k lists shorter than RECURRENCE_MIN_K (JAX's
+    K < 16 among them) take the direct sum (the spy sees them) and give
+    its answer; a full-size call with a long list takes the recurrence and
+    agrees with the direct sum within 1e-12 in float64."""
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_t
+
+    calls = []
+    real_direct = ewald_t.structure_factor_direct
+
+    def spy(coords, charges, kvecs, box):
+        calls.append((coords.shape[-2], kvecs.shape[0]))
+        return real_direct(coords, charges, kvecs, box)
+
+    monkeypatch.setattr(ewald_t, "structure_factor_direct", spy)
+    kv, coords, q = _sfac_inputs(10, 101, 17.0, (2, 40), 2)
+    assert len(kv) >= ewald_t.RECURRENCE_MIN_K
+    t = torch.tensor
+    b = t(17.0, dtype=torch.float64)
+    full = ewald_t.structure_factor(t(coords), t(q), t(kv), b,
+                                    ewald_t.k_bounds(kv))
+    assert calls == []
+    np.testing.assert_allclose(
+        full.numpy(), real_direct(t(coords), t(q), t(kv), b).numpy(),
+        rtol=0, atol=1e-12)
+    pose = ewald_t.structure_factor(t(coords[:, :4]), t(q[:4]), t(kv), b)
+    assert calls == [(4, len(kv))]
+    assert torch.equal(pose, real_direct(t(coords[:, :4]), t(q[:4]), t(kv),
+                                         b))
+    for k in (12, 337, ewald_t.RECURRENCE_MIN_K - 1):
+        short = ewald_t.structure_factor(t(coords), t(q), t(kv[:k]), b)
+        assert calls[-1] == (40, k)
+        assert torch.equal(short, real_direct(t(coords), t(q), t(kv[:k]), b))
+    # delta_structure_factor's pose rows go the same way
+    ewald_t.delta_structure_factor(t(coords[0, :3]), t(coords[0, 3:6]),
+                                   t(q[:3]), t(kv), b)
+    assert calls[-2:] == [(3, len(kv))] * 2

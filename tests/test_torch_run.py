@@ -400,12 +400,23 @@ def test_cli_gibbs_and_semigrand(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_ensembles_and_missing_card(tmp_path):
-    for kind, step in (("osmotic", "step 3"), ("gibbs_binary", "step 4")):
-        cfg = {"model": {"kind": "spce", "n_mol": 8},
-               "run": {"ensemble": {"kind": kind}}}
-        p = tmp_path / f"{kind}.json"
+    # the model kinds still unported raise with their ROADMAP step; the
+    # osmotic and gibbs_binary ensembles are ported and reach their
+    # builders, which refuse a one-species model as JAX's do
+    for model, ens, exc, match in (
+            ("tip4p2005", {"kind": "gibbs", "boxes": [9.0, 9.0]},
+             NotImplementedError, "step 8"),
+            ("spce", {"kind": "osmotic", "activity": 1e-4, "box": 9.0,
+                      "n_init": 1}, ValueError, "two species"),
+            ("spce", {"kind": "gibbs_binary", "boxes": [9.0, 9.0],
+                      "n_init": [[1, 1], [1, 1]]}, ValueError,
+             "two species")):
+        cfg = {"model": {"kind": model, "n_mol": 8},
+               "params": {"strict_min_image": False},
+               "run": {"ensemble": ens}}
+        p = tmp_path / f"{ens['kind']}.json"
         p.write_text(json.dumps(cfg))
-        with pytest.raises(NotImplementedError, match=step):
+        with pytest.raises(exc, match=match):
             run_t.main([str(p), "--quiet"], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
