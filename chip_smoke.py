@@ -215,6 +215,52 @@ line keeps phase 13's Gibbs row and the earlier sweep rows).  Phase 13
 also times one volume attempt on its main path's state with the
 eik-recurrence S(k) and with the direct sum in its place.
 
+Phase 22 TIP4P/2005 (four sites, a massless, LJ-free, charged M site) at
+         full width: tip4p2005_system(750) at the flagship's box 28.24 A,
+         298.15 K, r_cut 10, Ewald (K 337), 2048 chains on the whole-sweep
+         route: 10 sweeps with step-size adaptation and run_block(2)
+         (drift <= 2e-3, carried S(k) within 1e-4 of each chain's norm,
+         acceptance in (0.05, 0.95)), the kernel against sweep_plain
+         (timed), one sweep timed beside its bound with A_pad, shared
+         bytes and blocks per SM; one block of the per-move route at P = 4 on its CUDA
+         graph (750 delta_energy launches of R = 8 rows per sweep) and
+         delta_energy on its main-path arguments against its plain
+         version, timed; docs/validation/run_tip4p_density.py's state
+         point (216 waters, 128 chains, 1 bar, r_cut 9, p_volume 0.2),
+         melted at fixed volume (500 sweeps at 600 K, 500 at 298.15 K),
+         for 5 adjusting and 5 production blocks of 50 sweeps: the production
+         density within 0.97-1.03 g/cc (loose: it catches a misplaced M
+         charge, not a converged number), acc_vol in (0, 1); the CLI on a
+         tip4p2005 config (216 waters, 64 chains, 2 blocks).
+Phase 23 the topology front end on stand-in files that the phase writes
+         (write_topology_files: TIP3P from the port's constants in an
+         #include'd .itp with its [settles] branch, TraPPE-UA CH4 as a
+         one-site MEA_DUMMY; the reference's topol.top, mea.pdb and
+         tip3p.pdb are not in the repo): the CLI on configs/mea_tip3p.json's
+         model and run sections with those paths (100 + 1900 molecules,
+         64 chains, 2 blocks of 4 sweeps after 2 quench sweeps);
+         bench.py's "mixture" setup with bench.REF pointed at them (256
+         chains, 5800 atoms, two species-block launches per sweep): the
+         layout, an adjust block and run_block(2) with the drift and S(k)
+         gates, the sweep against sweep_plain (timed), each species-block
+         launch timed, the sweep beside its bound, its System
+         equal field by field to the config kind's from the same files;
+         Verlet neighbour lists on 64 chains of that state: one block of
+         one sweep on the list route (plain tensor code) against one on
+         the dense plain route on the same uniforms (walls, the needed
+         width, >= 98% of chains with equal decisions, energies within
+         1e-5, drift), then nlist_width 2, which must raise RuntimeError.
+
+Phase 2 also runs every kernel at P = 4 (`phase2_tip4p`, TIP4P/2005, 64
+chains, the gates above): the sweep kernel's fixed-N instantiation
+(translations and rotations), its activity instantiation with 8 exchange
+attempts and 4 ghosts, its tmmc instantiation (and eta = 0 against
+n_exch); delta_energy at R = 8 rows; one Gibbs cycle of TIP4P/2005 cap 48
+x 2 (K 1152); one flip launch between a TIP4P/2005 and a TIP4P/Ice block
+(32 + 32).  The Gibbs cycle and the flip launch are then timed at 1024
+chains beside their plain versions and bounds, with their registers,
+local memory and blocks per SM.
+
 Phase 2 also holds the sweep kernel's queues of live pair terms against
 sweep_plain (`phase2_compaction`, 64 chains, the gates above): SPC/E-64
 with Wolf at r_cut above L sqrt(3) / 2 (every site pair inside the
@@ -426,7 +472,13 @@ def phase1():
             ("muVT cap 512", (512, 3, 1536, 337, 2, True, False, "shared")),
             ("tmmc cap 512", (512, 3, 1536, 337, 2, True, True, "shared")),
             ("6859 waters global", (6859, 3, 33408, 2874, 2, False, False,
-                                    "global"))):
+                                    "global")),
+            ("tip4p2005-750 fixed N (P 4)", (750, 4, 3072, 337, 2, False,
+                                             False, "shared")),
+            ("tip4p2005-64 tmmc (P 4)", (64, 4, 256, 337, 2, True, True,
+                                        "shared")),
+            ("topology mixture 100 + 1900", (2000, 3, 5888, 337, 4, False,
+                                             False, "shared"))):
         nbytes = sweep_kernel.smem_bytes(*shape)
         print(f"phase1 occupancy sweep_kernel {tag}: {nbytes} B of shared "
               f"memory, {sweep_kernel.blocks_per_sm(*shape)} blocks per SM")
@@ -1194,21 +1246,24 @@ def _slab_args(mc, state, u):
 def compare_tables(tag, args, tables, layout="auto"):
     """One launch per table of the kernel and of sweep_plain on the same
     arguments; the shared tolerance test.  Returns (largest coordinate
-    difference on matched chains, kernel outputs)."""
+    difference on matched chains, kernel outputs, ms of the sweep_plain
+    calls, with their magnitude column)."""
     from metropolismontecarlo_tpu_torch.mc.moves import sweep_blocks
     from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
 
     C = args[0].shape[0]
     k = sweep_blocks(functools.partial(op.sweep, layout=layout), *args,
                      tables)
-    p = sweep_blocks(functools.partial(op.sweep_plain, magnitude=True),
-                     *args, tables)
-    torch.cuda.synchronize()
+    out = []
+    plain_ms = _time_ms(lambda: out.append(sweep_blocks(
+        functools.partial(op.sweep_plain, magnitude=True), *args, tables)),
+        1)
+    p = out[0]
     same = (k[4][:, 1:] == p[4][:, 1:op.N_STATS]).all(dim=1)
     print(f"phase {tag}: acc/att {k[4][:, 1:5].sum(0).tolist()}")
     err = _check_match(tag, C, same, (k[0], k[1], k[3], k[4]),
                        (p[0], p[1], p[3], p[4]), p[4][:, op.N_STATS])
-    return err, k
+    return err, k, plain_ms
 
 
 def check_halo(tag, planes, system, cfg):
@@ -1265,7 +1320,7 @@ def phase2_global(dev, chains=64):
         args = _sweep_args(state, u)
         ks = sweep_blocks(functools.partial(op.sweep, layout="shared"),
                           *args, mc.tables)
-        e, kg = compare_tables(tag + " global", args, mc.tables,
+        e, kg, _ = compare_tables(tag + " global", args, mc.tables,
                                layout="global")
         err = max(err, e)
         diff = torch.zeros(chains, dtype=torch.bool, device=dev)
@@ -1306,7 +1361,7 @@ def phase2_global(dev, chains=64):
               f"A_store {cfg['A_store']}, {len(mc.tables)} launches")
         u = draw_uniforms(chains, system.n_mol, gen, dev)
         state, args = _slab_args(mc, state, u)
-        e, k = compare_tables(tag, args, mc.tables)
+        e, k, _ = compare_tables(tag, args, mc.tables)
         check_halo(tag, k[0], system, cfg)
         err = max(err, e)
     return err, n_unequal
@@ -1560,9 +1615,11 @@ def main_path(tag, mc, state, blocks, launches_per_sweep, counter,
     return state, launches
 
 
-def time_sweep(tag, mc, state, gen, system):
+def time_sweep(tag, mc, state, gen, system, plain_ms=None):
     """One sweep of the kernel (all blocks) and of sweep_plain, timed on
-    the same uniforms, with the bound of the work."""
+    the same uniforms, with the bound of the work; plain_ms: the plain
+    version's time already taken on this state (compare_tables), which
+    is then not taken again."""
     from metropolismontecarlo_tpu_torch.mc.moves import (
         draw_uniforms,
         sweep_blocks,
@@ -1574,8 +1631,9 @@ def time_sweep(tag, mc, state, gen, system):
     args = _sweep_args(state, u)
     sweep_blocks(op.sweep, *args, mc.tables)                    # warm
     ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, mc.tables), 3)
-    plain_ms = _time_ms(
-        lambda: sweep_blocks(op.sweep_plain, *args, mc.tables), 1)
+    if plain_ms is None:
+        plain_ms = _time_ms(
+            lambda: sweep_blocks(op.sweep_plain, *args, mc.tables), 1)
     frac = _cutoff_fraction(system, state, mc.params.r_cut)
     near = _system_reach(system, mc.params, state, mc.tables)
     bound_ms, bound_by = sweep_bound(system, mc.tables, state, frac, near)
@@ -2636,9 +2694,9 @@ def phase11(dev, n_mol=6859, box=59.056, chains=256, r_cut=10.0, nk=11,
     # (their windows wrap through the ghost halo)
     part = [dataclasses.replace(t, M=twin_moves) for t in mc.tables]
     part_d = [dataclasses.replace(t, M=twin_moves) for t in dense]
-    err, k = compare_tables("11 slab kernel vs plain", args, part)
+    err, k, _ = compare_tables("11 slab kernel vs plain", args, part)
     check_halo("11", k[0], system, cfg)
-    err_d, _ = compare_tables("11 dense global kernel vs plain", args_d,
+    err_d, _, _ = compare_tables("11 dense global kernel vs plain", args_d,
                               part_d)
     t_ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, part), 1)
     t_plain = _time_ms(lambda: sweep_blocks(op.sweep_plain, *args, part), 1)
@@ -3590,6 +3648,205 @@ def phase2_flip(dev, chains=64, n_flip=24):
     return err
 
 
+def tip4p_two_blocks(cap_a, cap_b):
+    """Two TIP4P-shaped species blocks, cap_a TIP4P/2005 then cap_b
+    TIP4P/Ice slots (four sites each, their own O-O LJ, charges and M
+    site; Lorentz-Berthelot O-O cross terms): phase 2's flip case at
+    P = 4."""
+    from metropolismontecarlo_tpu_torch.models.system import System
+    from metropolismontecarlo_tpu_torch.models.water import (
+        tip4p2005_system,
+        tip4pice_system,
+    )
+
+    a, b = tip4p2005_system(cap_a), tip4pice_system(cap_b)
+    eps = np.array([a.eps_table[0, 0], 0.0, b.eps_table[0, 0]])
+    sig = np.array([a.sig_table[0, 0], 1.0, b.sig_table[0, 0]])
+    eps_t = np.sqrt(eps[:, None] * eps[None, :])
+    sig_t = np.where(eps_t > 0.0, 0.5 * (sig[:, None] + sig[None, :]), 1.0)
+    tb = np.array(b.type_ids)
+    tb[:, 0] = 2
+    return System(
+        n_mol=cap_a + cap_b, atoms_per_mol=4,
+        body=np.concatenate([a.body, b.body]),
+        masses=np.concatenate([a.masses, b.masses]),
+        charges=np.concatenate([a.charges, b.charges]),
+        type_ids=np.concatenate([a.type_ids, tb]), eps_table=eps_t,
+        sig_table=sig_t, name="tip4p2005+tip4pice",
+        species=(("tip4p2005", cap_a, 4), ("tip4pice", cap_b, 4)))
+
+
+def _tip4p_gibbs_params():
+    """Phase 2's TIP4P/2005 Gibbs case: cap 48 x 2 at 500 K in boxes of 12
+    and 16 A (phase 14's [2] shape), r_cut 5 A, Ewald tuned at 16 A."""
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
+
+    kl, nk, ksq = tune_parameters(16.0, 5.0, 1e-3)
+    return RunParams(temperature=500.0, r_cut=5.0, cutoff_mode="site",
+                     coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
+                     p_translate=0.5, dr_max=0.3, dphi_max=0.4,
+                     use_lrc=False, strict_min_image=False)
+
+
+def phase2_tip4p(dev, chains=64, timed_chains=1024):
+    """Every kernel at P = 4 (TIP4P/2005: a massless, LJ-free, charged M
+    site) against its plain version, 64 chains each, at the gates above:
+    the sweep kernel's fixed-N instantiation (translations, and
+    rotations), its activity instantiation with exchange attempts and
+    ghosts, its tmmc instantiation (and eta = 0 against n_exch);
+    delta_energy at R = 8 rows (2 P, no padding rows); one Gibbs cycle of
+    TIP4P/2005 cap 48 x 2; one flip launch between a TIP4P/2005 and a
+    TIP4P/Ice block (32 + 32).  The Gibbs cycle and the flip launch are
+    then timed at 1024 chains of the same shapes beside their plain
+    versions and bounds, with their occupancy.  Returns (sweep err,
+    delta err, Gibbs (err, ms, plain_ms, bound_ms, bound_by), flip (err,
+    ms, plain_ms, bound_ms, bound_by))."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        draw_exchange_uniforms,
+        make_sweep_fn,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import tip4p2005_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as dop
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as fop
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as gop
+
+    t0 = time.perf_counter()
+    water = tip4p2005_system(64)
+    box_w = 28.24 * (64 / 750) ** (1 / 3)      # the flagship's density
+    err = 0.0
+    for i, pt in enumerate((0.5, 0.0)):
+        params = RunParams(temperature=298.15, r_cut=6.0, coulomb="ewald",
+                           p_translate=pt, dr_max=0.3, dphi_max=0.3)
+        gen = torch.Generator(device=dev).manual_seed(5100 + i)
+        mc = MonteCarlo(water, params, device=dev, generator=gen,
+                        kernel="sweep")
+        state = mc.init_state(cubic_lattice(64, box_w), box=box_w,
+                              n_chains=chains)
+        err = max(err, compare(f"2 tip4p2005-64 ewald pt={pt}", mc, state,
+                               gen))
+    box_v, _, wparams, _ = _variant_params()
+    mc, state, args, act, actm, uxs, z, consts = _variant_inputs(
+        dev, 5110, "n_exch+n_widom tip4p2005-64", water, box_v, wparams(),
+        (8,), (4,), C=chains)
+    err = max(err, compare_variant(
+        "2 n_exch+n_widom tip4p2005-64 ewald", water, args, mc.tables, act,
+        actm, (8,), (4,), uxs, z, consts, 5111))
+    mc, state, args, act, actm, uxs, z, consts = _variant_inputs(
+        dev, 5112, "tmmc tip4p2005-64", water, box_v, wparams(), (16,),
+        (0,), C=chains)
+    eta = 0.35 * torch.arange(65, dtype=torch.float32, device=dev)
+    e_in = state.energy.float().contiguous()
+    err = max(err, compare_variant(
+        "2 tmmc tip4p2005-64 ewald", water, args, mc.tables, act, actm,
+        (16,), (0,), uxs, z, consts, 5113, tmmc=(eta, e_in)))
+    tmmc_identity("2 tmmc tip4p2005-64 ewald", args, mc.tables, act, actm,
+                  16, uxs[0], z, consts, 5113, e_in)
+
+    # delta_energy at R = 2 P = 8 rows: no padding row
+    params = RunParams(temperature=298.15, r_cut=6.0, coulomb="ewald",
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3)
+    gen = torch.Generator(device=dev).manual_seed(5120)
+    mc = MonteCarlo(water, params, device=dev, generator=gen, kernel="move")
+    state = mc.init_state(cubic_lattice(64, box_w), box=box_w,
+                          n_chains=chains)
+    body = make_sweep_fn(water, params, mc.kvecs, mc.kweights, dev,
+                         use_kernel=True)
+    if body.n_rows != 8:
+        raise AssertionError(f"TIP4P delta_energy rows {body.n_rows}, not 8")
+    err_d = 0.0
+    for m in (0, 63):
+        err_d = max(err_d, delta_compare(
+            f"2 delta_energy tip4p2005-64 R=8 m={m}", body, state, gen, m))
+    for style in ("ewald", "wolf"):
+        regs, local, blocks = dop.occupancy(style, 8, 2)
+        print(f"phase2 tip4p occupancy delta_energy <{style}> R 8, T 2: "
+              f"{regs} registers, {local} B local, "
+              f"{dop._library().mmc_delta_smem_bytes(8, 2, dop.THREADS)} B "
+              f"of shared memory, {blocks} blocks per SM")
+
+    # one Gibbs cycle of TIP4P/2005 cap 48 x 2, then timed at 1024 chains
+    gparams, boxes, n_exch = _tip4p_gibbs_params(), (12.0, 16.0), 24
+    cap = 48
+    system = tip4p2005_system(cap)
+    inputs = _gibbs_case(dev, system, gparams, boxes, chains, 5130, n_exch)
+    e_g, _ = compare_gibbs("2g tip4p2005 cap 48x2 ewald", *inputs, seed=93,
+                           max_differing=GIBBS_MAX_DIFFERING)
+    args, us, tables, act, actm, n_exchs, uxs, consts = _gibbs_case(
+        dev, system, gparams, boxes, timed_chains, 5131, n_exch)
+    rest = (us, tables, act, actm, n_exchs, uxs, consts, 94)
+    (t,) = tables
+    A_off, K = args[0].shape[-1], args[3].shape[2]
+    regs, local, per_sm = gop.occupancy(t, cap, A_off, K)
+    nbytes = gop.gibbs_smem_bytes(cap, t.P, A_off, K, t.eps.shape[1], t.nk)
+    run_gibbs(gop.sweep_gibbs, args, *rest)                      # warm
+    g_ms = _time_ms(lambda: run_gibbs(gop.sweep_gibbs, args, *rest), 3)
+    g_plain = _time_ms(lambda: run_gibbs(gop.sweep_gibbs_plain, args,
+                                         *rest), 1)
+    active = actm > 0.0
+    frac = _gibbs_cutoff_fraction(system, args[0], active, args[4],
+                                  gparams.r_cut)
+    near = [_reach_fraction(args[0][:, b], args[1][:, b],
+                            system.atom_mol_slot[0], args[4][:, b],
+                            gparams.qq_cut, active[:, b])[0]
+            for b in range(2)]
+    g_bound, g_by = gibbs_bound(t, timed_chains, A_off, cap, K,
+                                active.sum(2), frac, near, n_exch)
+    print(f"phase2 tip4p gibbs_kernel cap {cap} x 2 at P 4, K {K}: {regs} "
+          f"registers, {local} B local, {per_sm} blocks per SM ({nbytes} B "
+          f"of shared memory); one cycle of {timed_chains} chains "
+          f"({2 * cap} moves + {n_exch} transfers): kernel {g_ms:.3f} ms, "
+          f"sweep_gibbs_plain {g_plain:.3f} ms, bound {g_bound:.3f} ms "
+          f"({g_by})")
+
+    # one flip launch between a TIP4P/2005 and a TIP4P/Ice block
+    fsys = tip4p_two_blocks(32, 32)
+    fparams = _semigrand_water(r_cut=6.0)
+    f_err, f_times = 0.0, None
+    for c, timed in ((chains, False), (timed_chains, True)):
+        gen = torch.Generator(device=dev).manual_seed(5140 + c)
+        rng = np.random.default_rng(5140 + c)
+        n_act = rng.integers(0, 33, (c, 2))
+        n_act[0], n_act[1] = 0, 32
+        fargs, ftables, si2, lrc3 = flip_inputs(
+            fsys, fparams, 16.0, 2.0, torch.tensor(n_act), gen, dev)
+        ux = draw_exchange_uniforms(c, 24, gen, dev)
+        if not timed:
+            f_err, _, _ = compare_flip(
+                "2f tip4p2005+tip4pice 32+32 ewald", fargs, ux, ftables,
+                si2, lrc3, seed=75, max_differing=FLIP_MAX_DIFFERING)
+            continue
+        A_pad, K = fargs[0].shape[-1], fargs[3].shape[1]
+        regs, local, per_sm = fop.occupancy(ftables, 64, A_pad, K)
+        nbytes = fop.flip_smem_bytes(64, 4, 4, A_pad, K,
+                                     ftables.a.eps.shape[1], ftables.a.nk)
+        fop.flip(*fargs, ux, ftables, si2, lrc3, seed=75)        # warm
+        f_ms = _time_ms(lambda: fop.flip(*fargs, ux, ftables, si2, lrc3,
+                                         seed=75), 5)
+        f_plain = _time_ms(lambda: fop.flip_plain(*fargs, ux, ftables, si2,
+                                                  lrc3, seed=75), 1)
+        view = SimpleNamespace(active=fargs[7] > 0.0, coords=fargs[0],
+                               box=fargs[4], com=fargs[1])
+        frac = _active_cutoff_fraction(view, 4, fparams.r_cut)
+        near = _reach_fraction(fargs[0], fargs[1], fsys.atom_mol_slot[0],
+                               fargs[4], fparams.qq_cut, view.active,
+                               n=8)[0]
+        f_bound, f_by = flip_bound(ftables, c, A_pad, 64, K,
+                                   view.active.sum(1), frac, near, 24)
+        f_times = (f_ms, f_plain, f_bound, f_by)
+        print(f"phase2 tip4p flip_kernel 32 + 32 at P 4: {regs} registers, "
+              f"{local} B local, {per_sm} blocks per SM ({nbytes} B of "
+              f"shared memory); one launch of {c} chains x 24 flips: kernel "
+              f"{f_ms:.3f} ms, flip_plain {f_plain:.3f} ms, bound "
+              f"{f_bound:.3f} ms ({f_by})")
+    print(f"phase 2 TIP4P (P = 4) cases: {time.perf_counter() - t0:.1f} s")
+    return (err, err_d, (e_g, g_ms, g_plain, g_bound, g_by),
+            (f_err,) + f_times)
+
+
 def flip_stress_cases():
     """Phase 2's stress cases for the flip kernel's queues and picks,
     identical SPC/E blocks 32 + 32: (tag, system, params, box, xi,
@@ -4022,7 +4279,7 @@ def _sync(dev):
 
 
 def cli_run(tag, dev, path, counter, n_lines, files, resume=None,
-            acc_keys=(), positive_keys=()):
+            acc_keys=(), positive_keys=(), phase="18"):
     """main() of the port's run.py on a config file, timed; then its
     metrics.jsonl (n_lines lines, every float finite, the drift and S(k)
     gates on each, acc_keys in (0.05, 0.95) on production lines,
@@ -4042,7 +4299,7 @@ def cli_run(tag, dev, path, counter, n_lines, files, resume=None,
     with open(os.path.join(out, "metrics.jsonl")) as f:
         lines = [json.loads(ln) for ln in f]
     for i, ln in enumerate(lines):
-        print(f"phase18 {tag} line {i}: " + ", ".join(
+        print(f"phase{phase} {tag} line {i}: " + ", ".join(
             f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
             for k, v in ln.items() if k != "t"))
     if len(lines) != n_lines:
@@ -4069,7 +4326,7 @@ def cli_run(tag, dev, path, counter, n_lines, files, resume=None,
         raise AssertionError(f"{tag}: output files {missing} missing")
     if launches <= 0:
         raise AssertionError(f"{tag}: the kernel was not launched")
-    print(f"phase18 {tag}: {seconds:.1f} s, {launches} kernel launches, "
+    print(f"phase{phase} {tag}: {seconds:.1f} s, {launches} kernel launches, "
           f"files {sorted(os.listdir(out))}")
     return launches, seconds, lines
 
@@ -4670,11 +4927,472 @@ def phase21(dev, chains=1024, blocks=(2, 2), hybrid_cycles=1, chunk=64):
         raise AssertionError("phase21: a solvent slot changed activity")
     return l_full + l_hyb, err, ms, plain_ms, bound_ms, bound_by
 
+# ---------------- phases 22-23: TIP4P and the topology front end --------
+
+
+def _pdb_atom(i, name, res, xyz):
+    """One ATOM record in the PDB columns io/pdb.py read_pdb reads."""
+    return (f"ATOM  {i:5d} {name:<4s} {res:<3s} A{1:4d}    "
+            f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00\n")
+
+
+def write_topology_files(directory, comb_rule=2):
+    """A stand-in for the reference's MEA/TIP3P input (topol.top, mea.pdb,
+    tip3p.pdb, which the repo does not hold), written into `directory`
+    from the port's own constants: TIP3P (models/water.py) as the
+    moleculetype SOL in an #include'd tip3p.itp whose #ifdef FLEXIBLE
+    branch holds bonds and angles and whose #else branch the rigid
+    [settles] and [exclusions], and TraPPE-UA CH4 as a one-site
+    MEA_DUMMY.  comb_rule 2 (Lorentz-Berthelot) or 3 (geometric).
+    Returns {"top", "mea", "tip3p"} -> path."""
+    from metropolismontecarlo_tpu_torch.models import water
+    from metropolismontecarlo_tpu_torch.utils.constants import (
+        KJ_PER_MOL_TO_K,
+    )
+
+    def kj(eps_k):
+        return repr(eps_k / KJ_PER_MOL_TO_K)
+
+    def nm(sig_a):
+        return repr(sig_a / 10.0)
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {k: os.path.join(directory, f) for k, f in (
+        ("top", "topol.top"), ("mea", "mea.pdb"), ("tip3p", "tip3p.pdb"))}
+    q_o, q_h = water.TIP3P_Q_O, water.TIP3P_Q_H
+    with open(os.path.join(directory, "tip3p.itp"), "w") as f:
+        f.write(f"""; TIP3P water, rigid unless FLEXIBLE is defined
+[ moleculetype ]
+; molname  nrexcl
+SOL        2
+
+[ atoms ]
+; nr type resnr residue atom cgnr charge mass
+1  OW  1  SOL  OW   1  {q_o!r}  {water.MASS_O!r}
+2  HW  1  SOL  HW1  1  {q_h!r}  {water.MASS_H!r}
+3  HW  1  SOL  HW2  1  {q_h!r}  {water.MASS_H!r}
+
+#ifdef FLEXIBLE
+[ bonds ]
+1  2  1  0.09572  502416.0
+1  3  1  0.09572  502416.0
+
+[ angles ]
+2  1  3  1  104.52  628.02
+#else
+[ settles ]
+; OW  funct  doh  dhh
+1  1  0.09572  0.15139
+
+[ exclusions ]
+1  2  3
+2  1  3
+3  1  2
+#endif
+""")
+    atomtypes = "\n".join(
+        f"{name}  {num}  {mass!r}  0.0  A  {sig}  {eps}"
+        for name, num, mass, sig, eps in (
+            ("OW", 8, water.MASS_O, nm(water.TIP3P_SIGMA_OO),
+             kj(water.TIP3P_EPS_OO)),
+            ("HW", 1, water.MASS_H, "0.0", "0.0"),
+            ("CH4", 6, water.MASS_CH4, nm(water.CH4_SIGMA),
+             kj(water.CH4_EPS))))
+    with open(paths["top"], "w") as f:
+        f.write(f"""; stand-in MEA/TIP3P topology: TIP3P water and TraPPE-UA
+; methane in the place of MEA
+[ defaults ]
+; nbfunc  comb-rule  gen-pairs  fudgeLJ  fudgeQQ
+1  {comb_rule}  yes  0.5  0.8333
+
+[ atomtypes ]
+; name  at.num  mass  charge  ptype  sigma  epsilon
+{atomtypes}
+
+#include "tip3p.itp"
+
+[ moleculetype ]
+MEA_DUMMY  3
+
+[ atoms ]
+1  CH4  1  MEA  C1  1  0.0  {water.MASS_CH4!r}
+
+[ system ]
+MEA in water (stand-in)
+
+[ molecules ]
+MEA_DUMMY  1
+SOL        1000
+""")
+    body = water.water_body_frame(water.TIP3P_R_OH, water.TIP3P_THETA)
+    with open(paths["tip3p"], "w") as f:
+        for i, (name, xyz) in enumerate(zip(("OW", "HW1", "HW2"),
+                                            body + 1.5), start=1):
+            f.write(_pdb_atom(i, name, "SOL", xyz))
+        f.write("END\n")
+    with open(paths["mea"], "w") as f:
+        f.write("CRYST1   28.650   28.650   28.650  90.00  90.00  90.00 "
+                "P 1           1\n")
+        f.write(_pdb_atom(1, "C1", "MEA", (14.325, 14.325, 14.325)))
+        f.write("END\n")
+    return paths
+
+
+def phase22(dev, n_mol=750, box=28.24, chains=2048, r_cut=10.0,
+            adjust=10, steps=2, density=(216, 128, 10, 50), melt=500,
+            cli_chains=64):
+    """TIP4P/2005 at full width.  tip4p2005_system(750) at the flagship's
+    box (28.24 A), 298.15 K, r_cut 10, Ewald (K 337), 2048 chains on the
+    whole-sweep route: `adjust` sweeps with step-size adaptation and
+    run_block(steps) (drift <= 2e-3 of the energy carried since init, the
+    carried S(k) within 1e-4 of each chain's norm, acceptance in (0.05,
+    0.95)); the kernel against sweep_plain (its time is the plain
+    version's); one sweep timed beside its bound, with A_pad, shared
+    bytes and blocks per SM.
+    Then one block of the per-move route at P = 4 on its CUDA graph (750
+    delta_energy launches of R = 8 rows per sweep) from that state, and
+    delta_energy on its arguments against its plain version, timed.  Then
+    docs/validation/run_tip4p_density.py's state point (216 waters, 128
+    chains, 1 bar, r_cut 9, p_volume 0.2, dv_max 0.02), melted at the
+    start's volume (`melt` sweeps at 600 K, then at 298.15 K), for
+    `density`[2] blocks of [3] sweeps, half of them adjusting: the
+    density of the last half within 0.97-1.03 g/cc (a loose gate: a
+    misplaced M charge moves it far; not a converged number).  Then the CLI on a tip4p2005 config
+    (64 chains, 2 blocks).  Returns ((launches, err, ms, plain_ms,
+    bound_ms, bound_by) of the sweep kernel, (launches, err, ms,
+    device_ms, plain_ms, bound_ms, bound_by) of delta_energy)."""
+    import tempfile
+
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import draw_uniforms
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import tip4p2005_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as dop
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    t_phase = time.perf_counter()
+    params = RunParams(temperature=298.15, r_cut=r_cut, coulomb="ewald",
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3)
+    system = tip4p2005_system(n_mol)
+    gen = torch.Generator(device=dev).manual_seed(2222)
+    mc = MonteCarlo(system, params, device=dev, generator=gen)
+    if mc.route != "sweep":
+        raise AssertionError(f"TIP4P took route {mc.route}")
+    t0 = time.perf_counter()
+    state = mc.init_state(cubic_lattice(n_mol, box), box=box,
+                          n_chains=chains)
+    torch.cuda.synchronize()
+    A_pad, K = state.coords.shape[-1], state.sfac.shape[1]
+    shape = (n_mol, 4, A_pad, K, system.eps_table.shape[0])
+    print(f"phase22 init_state: {time.perf_counter() - t0:.2f} s, P 4, "
+          f"A_pad {A_pad}, K {K}, {op.smem_bytes(*shape)} B of shared "
+          f"memory, {op.blocks_per_sm(*shape)} blocks per SM, layout "
+          f"{op.choose_layout(*shape)}")
+    # the adjust sweeps without a block-end recompute (~9 s here): the
+    # run_block after them checks the energy carried since init_state
+    t0 = time.perf_counter()
+    state = mc.run_steps(state, adjust, adjust=True)
+    torch.cuda.synchronize()
+    print(f"phase22 run_steps({adjust}, adjust=True): "
+          f"{time.perf_counter() - t0:.2f} s")
+    probe = _SfacProbe()
+    try:
+        state, launches = main_path("22", mc, state, ((steps, False),), 1,
+                                    op.sweep)
+    finally:
+        probe.close()
+    print(f"phase22 carried S(k) against the recompute: "
+          + ", ".join(f"{e:.3e}" for e in probe.rel) + " of the chain's norm")
+    if not max(probe.rel) < SFAC_REL_TOL:
+        raise AssertionError(f"TIP4P S(k) errors {probe.rel}")
+    C, M = state.com.shape[:2]
+    args = _sweep_args(state, draw_uniforms(C, M, gen, dev))
+    err, _, plain_ms = compare_tables("22 tip4p2005-750 kernel vs plain",
+                                      args, mc.tables)
+    sweep_row = (launches, err) + time_sweep("22", mc, state, gen, system,
+                                             plain_ms=plain_ms)
+
+    # the per-move route at P = 4: the first run_block captures the sweep
+    # graph (one warm-up launch), the sweep replays it
+    mc_m = MonteCarlo(system, params, device=dev, generator=gen,
+                      kernel="move")
+    t0 = time.perf_counter()
+    state_m, l_m = main_path("22 per-move", mc_m, state, ((1, False),),
+                             n_mol, dop.delta_energy,
+                             extra=len(mc_m.move_bodies))
+    print(f"phase22 per-move block on the sweep graph (capture included): "
+          f"{time.perf_counter() - t0:.2f} s")
+    _, _, body = mc_m.move_bodies[0]
+    m = n_mol // 2
+    u = draw_uniforms(chains, 1, gen, dev)[:, 0]
+    pr = body.propose(state_m.com, state_m.quat, state_m.coords,
+                      state_m.box, u, state_m.dr_max, state_m.dphi_max, m)
+    args = body.delta_args(pr, state_m.coords, state_m.box, m)
+    err_d = check_delta(f"22 delta_energy R=8 main path m={m}", args,
+                        body.P)
+    R = args[3].shape[1]
+    tensors = tuple(args[:7]) + tuple(args[8:16])
+    outs = tuple(torch.empty((chains, R), device=dev) for _ in range(3))
+    d_dev = _graph_ms(lambda: dop._launch(tensors, m, args[16], outs), 20)
+    d_ms = _time_ms(lambda: dop.delta_energy(*args), 20)
+    d_plain = _time_ms(lambda: dop.delta_energy_plain(*args), 3)
+    frac = _cutoff_fraction(system, state_m, r_cut)
+    near = _reach_fraction(state_m.coords, state_m.com,
+                           system.atom_mol_slot[0], state_m.box, r_cut,
+                           n=64, m_ranges=[(m, 1)])[0]
+    d_bound, d_by = delta_bound(args, body.P, frac, near)
+    print(f"phase22 one delta_energy launch, {chains} chains x {A_pad} "
+          f"lanes x {R} rows: wrapper call {d_ms * 1e3:.3f} us, device time "
+          f"{d_dev * 1e3:.3f} us, plain {d_plain * 1e3:.3f} us, bound "
+          f"{d_bound * 1e3:.3f} us ({d_by}; {near:.4f} of atoms within the "
+          f"moved molecule's reach)")
+    delta_row = (l_m, err_d, d_ms, d_dev, d_plain, d_bound, d_by)
+
+    # run_tip4p_density.py's state point, at reduced depth
+    n_d, c_d, n_blocks, sweeps = density
+    box0 = (n_d / 0.0334) ** (1.0 / 3.0)
+    params_d = RunParams(temperature=298.15, r_cut=9.0, coulomb="ewald",
+                         p_translate=0.5, dr_max=0.25, dphi_max=0.3,
+                         pressure=P_BAR, p_volume=0.2, dv_max=0.02)
+    gen_d = torch.Generator(device=dev).manual_seed(42)
+    mc_d = MonteCarlo(tip4p2005_system(n_d), params_d, device=dev,
+                      generator=gen_d)
+    t0 = time.perf_counter()
+    st = mc_d.init_state(cubic_lattice(n_d, box0), box=box0, n_chains=c_d)
+    # under NPT the lattice start collapses to ~1.04 g/cc within 500
+    # sweeps and relaxes back over ~1e4 (PERF.md §6): melt it at the
+    # start's volume first, at 600 K and then at 298.15 K
+    for temp_k in (600.0, 298.15):
+        p_melt = dataclasses.replace(params_d, temperature=temp_k,
+                                     pressure=None, p_volume=0.0)
+        mc_melt = MonteCarlo(tip4p2005_system(n_d), p_melt, device=dev,
+                             generator=gen_d)
+        st = dataclasses.replace(st, temp=torch.full_like(st.temp, temp_k))
+        st, m_d = mc_melt.run_block(st, melt, adjust=True)
+        print(f"phase22 density melt at {temp_k} K, {melt} sweeps at "
+              f"fixed V: drift {m_d['drift_max_rel']:.2e}")
+    rhos, acc_vol, worst = [], [], 0.0
+    for b in range(n_blocks):
+        adjust = b < n_blocks // 2
+        st, m_d = mc_d.run_block(st, sweeps, adjust=adjust)
+        worst = max(worst, m_d["drift_max_rel"])
+        rho = float((G_CC * n_d / st.box.double() ** 3).mean())
+        if not adjust:
+            rhos.append(rho)
+            acc_vol.append(m_d["acc_vol"])
+        print(f"phase22 density block {b} ({'adjust' if adjust else 'prod'})"
+              f": rho {rho:.4f} g/cc, drift {m_d['drift_max_rel']:.2e}"
+              + (f", acc_vol {m_d['acc_vol']:.3f}" if not adjust else ""))
+    rho = sum(rhos) / len(rhos)
+    print(f"phase22 TIP4P/2005 216 x {c_d} chains at 1 bar: rho {rho:.4f} "
+          f"g/cc over the last {len(rhos)} blocks of {sweeps} sweeps, "
+          f"acc_vol {sum(acc_vol) / len(acc_vol):.3f}, worst drift "
+          f"{worst:.2e}, {time.perf_counter() - t0:.1f} s (the JAX record "
+          f"on a TPU v5 lite, 50 + 40 blocks of 250 sweeps: 0.9987)")
+    if not (0.97 < rho < 1.03 and worst <= DRIFT_TOL
+            and 0.0 < min(acc_vol) and max(acc_vol) < 1.0):
+        raise AssertionError(f"TIP4P density {rho} g/cc, drift {worst}, "
+                             f"acc_vol {acc_vol}")
+
+    # the CLI on a tip4p2005 config
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "tip4p")
+        cfg = {"model": {"kind": "tip4p2005", "n_mol": n_d},
+               "params": {"temperature": 298.15, "r_cut": 9.0,
+                          "cutoff_mode": "site", "coulomb": "ewald",
+                          "p_translate": 0.5, "dr_max": 0.25,
+                          "dphi_max": 0.3},
+               "run": {"n_chains": cli_chains, "n_blocks": 2, "n_steps": 10,
+                       "equil_blocks": 1, "seed": 0, "dtype": "float32",
+                       "start": {"kind": "lattice", "density": 0.0334},
+                       "output": {"dir": out}}}
+        path = os.path.join(tmp, "tip4p2005.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        cli_run("tip4p2005", dev, path, op.sweep, 2, ("metrics.jsonl",),
+                acc_keys=("acc_trans", "acc_rot"), phase="22")
+    print(f"phase22: {time.perf_counter() - t_phase:.1f} s")
+    return sweep_row, delta_row
+
+
+def phase23(dev, cli=(64, 2, 4, 2), bench_chains=256, nlist_chains=64,
+            nlist_width=96):
+    """The topology front end on stand-in files (write_topology_files):
+    the CLI on configs/mea_tip3p.json's model and run sections with those
+    paths (100 MEA_DUMMY + 1900 SOL, `cli` = (chains, blocks, sweeps per
+    block, quench sweeps)); bench.py's "mixture" setup with bench.REF
+    pointed at them (256 chains, two species-block launches per sweep):
+    the layout, run_block(2) with the drift and S(k) gates, each
+    species-block launch timed, the sweep against sweep_plain and its
+    bound; its System equal field by field to the one the config kind
+    builds from the same files.  Then Verlet neighbour lists on 64 chains
+    of the bench state: one sweep on the list route (plain tensor code)
+    against one on the dense plain route from the same state and
+    uniforms (walls, needed width, drift), and nlist_width 2, which must
+    raise RuntimeError at the block's end.  Returns (launches, err, ms,
+    plain_ms, bound_ms, bound_by) of the mixture's main path."""
+    import tempfile
+
+    from metropolismontecarlo_tpu_torch import bench
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        draw_uniforms,
+        nlist_radius,
+        sweep_blocks,
+    )
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.utils import config
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_topology_files(tmp)
+        out = os.path.join(tmp, "mea_tip3p")
+        chains, n_blocks, n_steps, quench = cli
+        model = {"kind": "topology", "top": paths["top"],
+                 "templates": {"MEA_DUMMY": paths["mea"],
+                               "SOL": paths["tip3p"]},
+                 "molecules": [["MEA_DUMMY", 100], ["SOL", 1900]]}
+        path = _cli_config(tmp, "mea_tip3p", model=model,
+                           run={"n_chains": chains, "n_blocks": n_blocks,
+                                "n_steps": n_steps, "equil_blocks": 1,
+                                "quench_steps": quench},
+                           output={"dir": out, "checkpoint_every": 1})
+        cli_run("mea_tip3p", dev, path, op.sweep, n_blocks,
+                ("metrics.jsonl", "checkpoint.npz", "final.npz"),
+                phase="23")
+
+        old_ref = bench.REF
+        bench.REF = tmp
+        try:
+            gen = torch.Generator(device=dev).manual_seed(2323)
+            t0 = time.perf_counter()
+            mc, state, label, _ = bench._setup_nvt("mixture", bench_chains,
+                                                   dev, gen)
+            torch.cuda.synchronize()
+        finally:
+            bench.REF = old_ref
+        system = mc.system
+        built = config.build_system({"model": model})
+        for f in dataclasses.fields(system):
+            a, b = getattr(system, f.name), getattr(built, f.name)
+            same = np.array_equal(a, b) if isinstance(a, np.ndarray) \
+                else a == b
+            if not same:
+                raise AssertionError(f"bench's mixture System and the "
+                                     f"config kind's differ in {f.name}")
+    layout = "slabs" if mc._slab_cfg is not None else op.choose_layout(
+        system.n_mol, system.atoms_per_mol, state.coords.shape[-1],
+        state.sfac.shape[1], system.eps_table.shape[0])
+    print(f"phase23 bench mixture ({label}): setup {time.perf_counter() - t0:.2f}"
+          f" s, {system.n_atoms} atoms, A_pad {state.coords.shape[-1]}, K "
+          f"{state.sfac.shape[1]}, route {mc.route}, layout {layout}, blocks "
+          f"{[(t.m_start, t.M, t.a_start, t.P) for t in mc.tables]}, "
+          f"System equal to the config kind's")
+    if mc.route != "sweep" or len(mc.tables) != 2:
+        raise AssertionError(f"mixture route {mc.route}, {len(mc.tables)} "
+                             f"blocks")
+    probe = _SfacProbe()
+    try:
+        t0 = time.perf_counter()
+        state, launches = main_path("23", mc, state, ((2, True), (2, False)),
+                                    2, op.sweep)
+        print(f"phase23 bench mixture run_blocks: "
+              f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        probe.close()
+    print(f"phase23 carried S(k) against the recompute: "
+          + ", ".join(f"{e:.3e}" for e in probe.rel) + " of the chain's norm")
+    if not max(probe.rel) < SFAC_REL_TOL:
+        raise AssertionError(f"mixture S(k) errors {probe.rel}")
+    # one sweep on the main path's arguments (the sorted, halo-filled
+    # planes where the route took slabs): against sweep_plain, each
+    # species-block launch timed, both together beside the plain version
+    # and the bound
+    C, M = state.com.shape[:2]
+    u = draw_uniforms(C, M, gen, dev)
+    cfg = mc._slab_cfg
+    if cfg is not None:
+        state_s, args = _slab_args(mc, state, u)
+    else:
+        state_s, args = state, _sweep_args(state, u)
+    err, _, plain_ms = compare_tables("23 mixture kernel vs plain", args,
+                                      mc.tables)
+    for t in mc.tables:
+        sweep_blocks(op.sweep, *args, [t])                       # warm
+        t_ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, [t]), 3)
+        print(f"phase23 species block {t.m_start}..{t.m_start + t.M} (P "
+              f"{t.P}, W {t.W}): one launch {t_ms:.3f} ms")
+    ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, mc.tables), 3)
+    frac = _cutoff_fraction_tiled(system, state_s, mc.params.r_cut)
+    near = _system_reach(system, mc.params, state_s, mc.tables, n=1)
+    kw = {} if cfg is None else dict(
+        lanes=[slab_lanes(system, t) for t in mc.tables],
+        A_plane=cfg["A_store"])
+    bound_ms, bound_by = sweep_bound(system, mc.tables, state_s, frac, near,
+                                     **kw)
+    print(f"phase23 one sweep of {C} chains x {M} moves (2 launches): "
+          f"kernel {ms:.3f} ms, sweep_plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}; {frac:.5f} of pairs within the "
+          f"cutoff, {' / '.join(f'{v:.4f}' for v in near)} of atoms within "
+          f"a pose's reach)")
+
+    # Verlet neighbour lists on the first nlist_chains chains (the slab
+    # windows' coverage count, which shares nbr_needed, starts afresh)
+    sub = dataclasses.replace(state, **{
+        f.name: getattr(state, f.name)[:nlist_chains].contiguous()
+        for f in dataclasses.fields(state) if f.name != "step"})
+    sub = dataclasses.replace(sub, nbr_needed=torch.zeros_like(
+        sub.nbr_needed))
+    runs = {}
+    for width in (nlist_width, 0):
+        p = dataclasses.replace(mc.params, nlist_width=width)
+        mc_p = MonteCarlo(system, p, device=dev, kernel="plain",
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(2324))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_p, m_p = mc_p.run_block(sub, 1)
+        torch.cuda.synchronize()
+        runs[width] = (s_p, m_p, time.perf_counter() - t0)
+    (s_l, m_l, w_l), (s_d, m_d, w_d) = runs[nlist_width], runs[0]
+    r_list = nlist_radius(system, dataclasses.replace(
+        mc.params, nlist_width=nlist_width))
+    same = (s_l.acc == s_d.acc).all(dim=1)
+    pos = float((s_l.com - s_d.com)[same].abs().max())
+    e_rel = float(((s_l.energy - s_d.energy).abs()
+                   / s_d.energy.abs().clamp_min(1.0))[same].max())
+    print(f"phase23 one sweep of {nlist_chains} chains x {M} moves on the "
+          f"plain route: with lists (width {nlist_width}, needed "
+          f"{int(s_l.nbr_needed.max())} within {r_list:.2f} A) "
+          f"{w_l:.2f} s, dense {w_d:.2f} s (block walls, recompute "
+          f"included); {int((~same).sum())} chains differ; on the others "
+          f"COMs {pos:.3e} A and recomputed energies {e_rel:.3e} apart; "
+          f"drift {m_l['drift_max_rel']:.2e} / {m_d['drift_max_rel']:.2e}")
+    if not (float(same.float().mean()) >= MATCH_FRACTION
+            and pos <= POS_TOL and e_rel <= ENERGY_REL_TOL
+            and m_l["drift_max_rel"] <= DRIFT_TOL
+            and int(s_l.nbr_needed.max()) <= nlist_width):
+        raise AssertionError("the list route and the dense route disagree")
+    p = dataclasses.replace(mc.params, nlist_width=2)
+    mc_o = MonteCarlo(system, p, device=dev, kernel="plain")
+    small = dataclasses.replace(sub, **{
+        f.name: getattr(sub, f.name)[:4].contiguous()
+        for f in dataclasses.fields(sub) if f.name != "step"})
+    try:
+        mc_o.run_block(small, 1)
+    except RuntimeError as exc:
+        print(f"phase23 nlist_width 2 raised as it must: {exc}")
+    else:
+        raise AssertionError("nlist_width 2 did not raise")
+    print(f"phase23: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err, ms, plain_ms, bound_ms, bound_by
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(2, 22)),
+                    default=",".join(str(i) for i in range(2, 24)),
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -4696,6 +5414,7 @@ def main():
         err2gb = max(phase2_gibbs(dev), phase2_gibbs_stress(dev),
                      phase2_gibbs_binary(dev))
         err2f = max(phase2_flip(dev), phase2_flip_stress(dev))
+        err2p4, err_d4, _, _ = phase2_tip4p(dev)
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
         # the new phases (phase 3 keeps its 10-sweep adjust block, which
@@ -4754,8 +5473,14 @@ def main():
         l21 = phase21(dev)[0]
         print(f"phase21: {l21} sweep kernel launches on the osmotic paths "
               f"(not in the kernels line); {time.perf_counter() - t0:.1f} s")
+    if 22 in want:
+        ((l22, err22, ms22, plain22, bound22, by22),
+         (l22d, err22d, ms22d, dev_ms22d, plain22d, bound22d,
+          by22d)) = phase22(dev)
+    if 23 in want:
+        l23, err23, ms23, plain23, bound23, by23 = phase23(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 22)):
+    if want != set(range(2, 24)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -4812,7 +5537,23 @@ def main():
          "source": f"{SRC}/flip_kernel.cu",
          "replaces": f"{PALLAS}/flip_kernel.py:395", "launches": l15,
          "max_abs_err": max(err2f, err15), "ms": ms15, "plain_ms": plain15,
-         "bound_ms": bound15, "bound_by": by15, "library_ms": None}]}))
+         "bound_ms": bound15, "bound_by": by15, "library_ms": None},
+        # TIP4P/2005-750 at P = 4, one launch per sweep
+        dict(sweep_row, name="sweep_kernel[P=4 tip4p2005]", launches=l22,
+             max_abs_err=max(err2p4, err22), ms=ms22, plain_ms=plain22,
+             bound_ms=bound22, bound_by=by22),
+        # the per-move route at P = 4: R = 8 rows per launch
+        {"name": "delta_energy[R=8 tip4p2005]", "route": "cuda",
+         "source": f"{SRC}/delta_energy.cu",
+         "replaces": f"{PALLAS}/delta_energy.py:159", "launches": l22d,
+         "max_abs_err": max(err_d4, err22d), "ms": ms22d,
+         "device_ms": dev_ms22d, "plain_ms": plain22d, "bound_ms": bound22d, "bound_by": by22d,
+         "library_ms": None},
+        # the topology mixture (bench mixture on stand-in files): two
+        # species-block launches per sweep
+        dict(sweep_row, name="sweep_kernel[topology species blocks]",
+             launches=l23, max_abs_err=err23, ms=ms23, plain_ms=plain23,
+             bound_ms=bound23, bound_by=by23)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -12,9 +12,11 @@ line before it is one JSON object with the wall time of one `run_block`
 of the same length from the timed call's end state (the sweeps plus the
 block-end recompute, which `value` leaves out).
 
-BENCH_CONFIG: spce (default) | wolf | npt | lj | triatomic | gcmc | tmmc
-| gibbs | semigrand (| mixture, which needs topology files the port
-cannot read yet: it exits non-zero and prints no number).  BENCH_CHAINS
+BENCH_CONFIG: spce (default) | wolf | npt | lj | triatomic | mixture |
+gcmc | tmmc | gibbs | semigrand.  mixture reads the MEA/TIP3P topology
+and templates (topol.top, mea.pdb, tip3p.pdb) from the directory REF, as
+bench.py does; without one of them it exits non-zero, naming the file,
+and prints no number.  BENCH_CHAINS
 and BENCH_STEPS set the scale (defaults as bench.py's); the ensemble
 configs time cycles (cap moves + exchange attempts) and count their
 sweep-equivalents, BENCH_MEGA=full (default) or hybrid picks their route.
@@ -24,7 +26,9 @@ and npt and a CNF file for triatomic; neither file is in the repo.  Here
 spce, wolf and npt start from cubic_lattice(750, 28.24) with random
 orientations and triatomic from an aligned simple-cubic lattice of 256
 molecules in a TRIATOMIC_BOX box; each then runs MELT_SWEEPS untimed
-sweeps with step-size adaptation, and the metric label says so.
+sweeps with step-size adaptation, and the metric label says so; so does
+mixture (100 MEA + 1900 TIP3P on a lattice at 0.004 molecules per A^3,
+as bench.py).
 
 The card is synchronised before every clock read; first_call_s is the
 cold start, the first call of the timed length (a kernel build not yet
@@ -44,6 +48,8 @@ import torch
 BASELINE_SWEEPS_PER_SEC = 2.8   # serial Julia, one CPU core
 MELT_SWEEPS = 10                # untimed, adaptive, after a lattice start
 TRIATOMIC_BOX = 9.42953251      # 256 molecules: 0.3053 per sigma^3
+# the reference's data directory, as bench.py's REF
+REF = os.path.join(os.sep, "root", "reference")
 ENSEMBLES = ("gcmc", "tmmc", "gibbs", "semigrand")
 DEFAULT_CHAINS = {"mixture": 256, "gcmc": 1024, "tmmc": 1024,
                   "gibbs": 1024, "semigrand": 1024}
@@ -105,10 +111,29 @@ def _setup_nvt(config, n_chains, device, gen):
         label = (f"256-triatomic Mossa LJ NVT, aligned {melt}, "
                  f"rho {256 / TRIATOMIC_BOX ** 3:.4f}")
     elif config == "mixture":
-        raise SystemExit(
-            "BENCH_CONFIG=mixture needs the MEA/TIP3P topology and templates "
-            "(topol.top, mea.pdb, tip3p.pdb), which the port cannot read "
-            "yet (io/topology.py, ROADMAP queue 1 step 8); no number")
+        from metropolismontecarlo_tpu_torch.io.topology import read_top
+        from metropolismontecarlo_tpu_torch.models.from_topology import (
+            system_from_topology,
+            templates_from_pdbs,
+        )
+        top_path, mea, tip3p = (os.path.join(REF, f) for f in (
+            "topol.top", "mea.pdb", "tip3p.pdb"))
+        for path in (top_path, mea, tip3p):
+            if not os.path.isfile(path):
+                raise SystemExit(f"BENCH_CONFIG=mixture reads {path}, "
+                                 "which is missing; no number")
+        top = read_top(top_path)
+        system = system_from_topology(
+            top, templates_from_pdbs(top, {"MEA_DUMMY": mea, "SOL": tip3p}),
+            molecules=[("MEA_DUMMY", 100), ("SOL", 1900)])
+        params = RunParams(temperature=298.15, r_cut=10.0,
+                           cutoff_mode="site", coulomb="ewald",
+                           p_translate=0.5, dr_max=0.25, dphi_max=0.25)
+        box = (system.n_mol / 0.004) ** (1.0 / 3.0)
+        mc = MonteCarlo(system, params, **mc_kw)
+        state = mc.init_state(cubic_lattice(system.n_mol, box), box=box,
+                              n_chains=n_chains)
+        label = f"MEA+TIP3P 2000-molecule Ewald NVT, {melt}"
     else:
         raise SystemExit(f"unknown BENCH_CONFIG {config!r}")
     return mc, state, label, True

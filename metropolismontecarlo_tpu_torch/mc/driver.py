@@ -26,8 +26,14 @@ near-zero-temperature descent.
 `widom` samples ghost insertions in plain tensor code, `widom_mega` runs
 a sweep and the ghosts inside one sweep-kernel launch (mc/widom.py).
 
-Not ported yet, and refused when asked for: neighbour lists and
-tensor-parallel recomputes.
+Verlet neighbour lists (params.nlist_width > 0, off by default) run on
+the "plain" route, as the JAX package runs them on its jnp path only:
+every sweep first rebuilds each chain's lists (mc/moves.py
+rebuild_nlist) and folds the width they needed into state.nbr_needed;
+adaptation caps dr_max at nlist_skin / 2, and run_block raises when a
+block needed more than nlist_width.
+
+Not ported yet, and refused when asked for: tensor-parallel recomputes.
 """
 
 import dataclasses
@@ -46,6 +52,8 @@ from metropolismontecarlo_tpu_torch.mc.moves import (
     make_sweep_fn,
     mega_supported,
     move_graph_key,
+    nlist_radius,
+    rebuild_nlist,
     slab_config,
 )
 from metropolismontecarlo_tpu_torch.mc.npt import make_volume_move_fn
@@ -94,7 +102,14 @@ def choose_route(system, params, dtype, kernel):
     as the JAX driver picks between "mega", "tpu" and jnp: "auto" takes
     the whole sweep for species-uniform systems, else the per-move kernel
     where it runs the conventions, else plain.  A forced kernel route that
-    cannot run the configuration raises."""
+    cannot run the configuration raises.  Neighbour lists run on the
+    plain route only."""
+    if params.nlist_width > 0:
+        if kernel not in ("auto", "plain"):
+            raise ValueError(
+                "neighbor lists run on the jnp move path; they cannot be "
+                "combined with an explicitly requested Pallas mode")
+        return "plain"
     sweep_ok = mega_supported(system, params, dtype)
     move_ok = delta_kernel_supported(params, dtype)
     if kernel == "auto":
@@ -157,8 +172,6 @@ class MonteCarlo:
                 "pressure_ladder requires params.p_volume > 0: with no "
                 "volume moves every chain would sample the same fixed-V "
                 "ensemble instead of its isobar")
-        if params.nlist_width > 0:
-            raise NotImplementedError("neighbour lists are not ported yet")
         self.system = system
         self.params = params
         self.dtype = dtype
@@ -275,8 +288,15 @@ class MonteCarlo:
             dr_max=full(p.dr_max), dphi_max=full(p.dphi_max),
             dv_max=full(p.dv_max), acc=zeros(C, 3, dtype=torch.int32),
             att=zeros(C, 3, dtype=torch.int32),
-            nbr=zeros(C, 1, 1, dtype=torch.int32),
-            nbr_needed=zeros(C, dtype=torch.int32))
+            nbr=self._init_nbr(C), nbr_needed=zeros(C, dtype=torch.int32))
+
+    def _init_nbr(self, n_chains):
+        """The neighbour-list buffer (C, M, NB), rebuilt at every sweep;
+        (C, 1, 1) without lists."""
+        nb = self.params.nlist_width
+        shape = (n_chains, self.system.n_mol, nb) if nb > 0 \
+            else (n_chains, 1, 1)
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
 
     def init_state(self, com, quat=None, box=None, n_chains=None):
         """SimState from com (M, 3) or (C, M, 3); quat likewise, or None
@@ -362,7 +382,16 @@ class MonteCarlo:
         routes hand molecule m its row u[:, m]); under NPT then a volume
         move of every chain on every round(1/p_volume)-th sweep (step is
         a pure molecule-move counter, so step // n_mol is the 1-based
-        sweep index)."""
+        sweep index).  With neighbour lists every sweep first rebuilds
+        them and folds the width they needed into state.nbr_needed (a
+        running maximum, checked by run_block)."""
+        if self.params.nlist_width > 0:
+            nbr, needed = rebuild_nlist(
+                state.com, state.box, self.params,
+                nlist_radius(self.system, self.params))
+            state = dataclasses.replace(
+                state, nbr=nbr,
+                nbr_needed=torch.maximum(state.nbr_needed, needed))
         state = self._sweep_moves(state)
         if self._volume_move is not None:
             period = max(1, int(round(1.0 / self.params.p_volume)))
@@ -405,7 +434,8 @@ class MonteCarlo:
                             device=state.com.device)
             sweeper = MoveSweepGraph(
                 self.move_bodies, state, u,
-                graph=self.route == "move" and self.device.type == "cuda")
+                graph=self.route == "move" and self.device.type == "cuda",
+                nlist=self.params.nlist_width > 0)
             self._move_graphs[key] = sweeper
         return sweeper
 
@@ -416,9 +446,14 @@ class MonteCarlo:
         for _ in range(n_steps):
             state = self.sweep(state)
             if adjust:
-                # sorted-slab windows need dr_max <= slab_skin
-                dr_hi = state.box / 2.0 if self._slab_cfg is None \
-                    else torch.clamp_max(state.box / 2.0, p.slab_skin)
+                # exact lists need dr_max <= nlist_skin / 2 (proposals
+                # move +-dr_max / 2 per axis), sorted-slab windows
+                # dr_max <= slab_skin
+                dr_hi = state.box / 2.0
+                if p.nlist_width > 0:
+                    dr_hi = torch.clamp_max(dr_hi, p.nlist_skin / 2.0)
+                if self._slab_cfg is not None:
+                    dr_hi = torch.clamp_max(dr_hi, p.slab_skin)
                 dr = adjust_dmax(state.dr_max, state.acc[:, 0],
                                  state.att[:, 0], p.move_accept, dr_hi)
                 dphi = adjust_dmax(state.dphi_max, state.acc[:, 1],
@@ -509,6 +544,13 @@ class MonteCarlo:
         e, w, sfac = self.full_energy(state)
         drift = torch.max(torch.abs(e - state.energy)
                           / torch.clamp_min(torch.abs(e), 1.0))
+        if self.params.nlist_width > 0:
+            needed = int(torch.max(state.nbr_needed))
+            if needed > self.params.nlist_width:
+                raise RuntimeError(
+                    f"neighbor-list overflow: up to {needed} molecules fell "
+                    f"within the list radius during this block but "
+                    f"nlist_width={self.params.nlist_width}; increase it")
         if self._slab_cfg is not None:
             needed = int(torch.max(state.nbr_needed))
             if needed > self._slab_cfg["W"]:

@@ -29,10 +29,13 @@
   comes from the delta-energy op (kernel branch: site cutoff, unshifted
   LJ, f32, no Ewald surface term) or from plain tensor code
   (`pair_energy_rows`: every cutoff mode, the linear shift, the surface
-  term, float64).  `run_moves` runs a sweep's moves through the bodies;
-  `MoveSweepGraph` runs them as one captured CUDA graph on the card.
-
-Not ported yet, and refused rather than skipped: neighbour lists.
+  term, float64; with Verlet neighbour lists, `pair_energy_nlist`: the
+  moved molecule against its listed neighbours' atoms only).
+  `run_moves` runs a sweep's moves through the bodies; `MoveSweepGraph`
+  runs them as one captured CUDA graph on the card.
+* Verlet neighbour lists, `nlist_radius` and `rebuild_nlist`: for every
+  molecule the nlist_width nearest other molecules within the list
+  radius, rebuilt by the driver at every sweep.
 """
 
 import dataclasses
@@ -749,6 +752,46 @@ def make_mega_flip_fn(system, params, kvecs, kweights, device,
 # ---------------- per-move route ----------------------------------------
 
 
+def nlist_radius(system, params):
+    """The COM-based list radius: the larger cutoff, plus the skin, plus
+    twice the largest atom-to-COM distance (atoms of two molecules can be
+    closer than their COMs by up to 2 r_body)."""
+    r_body = float(np.max(np.linalg.norm(np.asarray(system.body), axis=-1)))
+    return max(params.r_cut, params.qq_cut) + params.nlist_skin \
+        + 2.0 * r_body
+
+
+def rebuild_nlist(com, box, params, r_list, chunk=8):
+    """Molecule-level Verlet lists: for every molecule the indices of its
+    params.nlist_width nearest other molecules, kept where within r_list
+    (nlist_radius); the out-of-range and padding slots hold the
+    molecule's own index, which every pair mask excludes.
+
+    com (C, M, 3), box (C,) -> (lists (C, M, NB) int32, needed (C,)
+    int32: the most molecules any molecule has within r_list), from the
+    (M, M) minimum-image distances of `chunk` chains at a time (torch.topk
+    of the negated squared distances; nlist_width <= M).  Exact while no
+    molecule pair closes in by more than nlist_skin between rebuilds."""
+    C, M, _ = com.shape
+    nb = params.nlist_width
+    r2 = r_list * r_list
+    self_idx = torch.arange(M, dtype=torch.int32, device=com.device)
+    eye = torch.eye(M, dtype=com.dtype, device=com.device) * 1e12
+    lists = torch.empty((C, M, nb), dtype=torch.int32, device=com.device)
+    needed = torch.empty(C, dtype=torch.int32, device=com.device)
+    for c0 in range(0, C, chunk):
+        c1 = min(c0 + chunk, C)
+        dr = min_image(com[c0:c1, :, None, :] - com[c0:c1, None, :, :],
+                       box[c0:c1, None, None, None])
+        d2 = torch.sum(dr * dr, dim=-1) + eye       # self excluded
+        needed[c0:c1] = torch.sum(d2 < r2, dim=-1).max(dim=-1).values.to(
+            torch.int32)
+        neg, idx = torch.topk(-d2, nb, dim=-1)
+        lists[c0:c1] = torch.where(-neg < r2, idx.to(torch.int32),
+                                   self_idx[:, None])
+    return lists, needed
+
+
 def _coulomb_pair(qq, r, kappa, params):
     """Per-pair Coulomb energies of the plain branch (the reference Wolf
     convention's global constant cancels in per-move deltas)."""
@@ -786,8 +829,11 @@ class _MoveBody:
             raise ValueError("the delta-energy kernel requires site cutoff, "
                              "unshifted LJ, float32 and no Ewald surface "
                              "term")
-        if params.nlist_width > 0:
-            raise NotImplementedError("neighbour lists are not ported yet")
+        self.use_nlist = params.nlist_width > 0
+        if self.use_nlist and use_kernel:
+            raise ValueError("neighbour lists run on the plain branch only")
+        if self.use_nlist and params.cutoff_mode != "site":
+            raise NotImplementedError("neighbor lists require site cutoff")
         self.params, self.dtype, self.use_kernel = params, dtype, use_kernel
         self.M, self.m0, self.m1, self.P = M, m0, m1, P
         self.off0 = a0 - m0 * P       # first atom of molecule m: off0 + m P
@@ -807,6 +853,11 @@ class _MoveBody:
         self.eps_t = t(system.eps_table)
         self.sig2_t = t(system.sig_table) ** 2
         self.tid_mp = t(np.asarray(system.type_ids)[:, :P], torch.long)
+        # the neighbour gather: molecule j owns mol_p[j] atom columns from
+        # mol_a0[j]; the gather is P_max wide, the slots past mol_p[j]
+        # masked
+        self.nl_p = system.atoms_per_mol
+        self.mol_p = t(system.mol_p, torch.long)
         self.kv = None if kvecs is None else t(kvecs, torch.int32)
         self.kw = None if kweights is None else t(kweights)
         self.use_rot = P > 1 and params.p_translate < 1.0
@@ -937,6 +988,57 @@ class _MoveBody:
             overlap = bad[:, P:].flatten(1).any(-1)
         return d_e, overlap
 
+    def pair_energy_nlist(self, ra2p, nbr_row, coords, m, box, kappa):
+        """Plain branch with neighbour lists: the stacked old/new pair
+        energies against the listed molecules' atoms only.  ra2p
+        (C, 2P, 3), nbr_row (C, NB) neighbour molecule indices (padded
+        with m itself), coords (C, 3, A_pad), box/kappa (C,).  Returns
+        (d_e (C,), overlap (C,) bool), as pair_energy_rows."""
+        p, P = self.params, self.P
+        C = ra2p.shape[0]
+        slots = torch.arange(self.nl_p, device=nbr_row.device)
+        nbr = nbr_row.long()
+        valid = (slots < self.mol_p[nbr][..., None]).reshape(C, -1)
+        atom = torch.where(
+            valid, (self.first_atom[nbr][..., None] + slots).reshape(C, -1),
+            0)                                                 # (C, G)
+        g = torch.gather(coords, 2, atom[:, None, :].expand(C, 3, -1))
+        mol_g = nbr.repeat_interleave(self.nl_p, dim=1)         # (C, G)
+        dr = min_image(ra2p.transpose(1, 2)[:, :, :, None]
+                       - g[:, :, None, :], box[:, None, None, None])
+        d2 = torch.clamp_min(torch.sum(dr * dr, dim=1), 1e-4)  # (C, 2P, G)
+        other = ((mol_g != m) & valid)[:, None, :]
+        mask_lj = other & (d2 < p.r_cut ** 2)
+        mask_qq = mask_lj if p.qq_r_cut is None \
+            else other & (d2 < p.qq_cut ** 2)
+        d2s = torch.where(mask_lj | mask_qq, d2, torch.ones(
+            (), dtype=d2.dtype, device=d2.device))
+        tid_g = self.tid_safe[atom]                             # (C, G)
+        tm = self.tid_mp[m]
+        eps2 = self.eps_t[tm][:, tid_g].transpose(0, 1).repeat(1, 2, 1)
+        sig2 = self.sig2_t[tm][:, tid_g].transpose(0, 1).repeat(1, 2, 1)
+        s2 = sig2 / d2s
+        s6 = s2 * s2 * s2
+        pot = 4.0 * eps2 * (s6 * s6 - s6)
+        if p.lj_shift == "linear":
+            sig = torch.sqrt(sig2)
+            lam1, lam2 = _shift_coeffs(p.r_cut / sig)
+            pot = pot + eps2 * (lam1 + lam2 * torch.sqrt(d2s) / sig)
+        e_lj = torch.sum(torch.where(mask_lj, pot, 0.0), dim=-1)   # (C, 2P)
+        d_e = e_lj[:, P:].sum(-1) - e_lj[:, :P].sum(-1)
+        overlap = torch.zeros_like(d_e, dtype=torch.bool)
+        if p.coulomb != "none":
+            qq2 = (self.charges_mp[m][None, :, None]
+                   * self.charges_flat[atom][:, None, :]).repeat(1, 2, 1)
+            cpair = _coulomb_pair(qq2, torch.sqrt(d2s), kappa[:, None, None],
+                                  p)
+            e_coul = COULOMB_FACTOR * torch.sum(
+                torch.where(mask_qq, cpair, 0.0), dim=-1)
+            d_e = d_e + e_coul[:, P:].sum(-1) - e_coul[:, :P].sum(-1)
+            bad = (d2 < p.d2_overlap) & (qq2 < 0.0) & mask_qq
+            overlap = bad[:, P:].flatten(1).any(-1)
+        return d_e, overlap
+
     def delta_args(self, pr, coords, box, m):
         """The delta-energy op's arguments for the move of molecule m:
         rows [P old; P new; pad] of the proposal as (C, R) planes, the
@@ -1018,6 +1120,11 @@ class _MoveBody:
                           state.dr_max, state.dphi_max, m)
         if self.use_kernel:
             d_e, ovr = self.kernel_delta(pr, state.coords, state.box, m)
+        elif self.use_nlist:
+            d_e, ovr = self.pair_energy_nlist(
+                torch.cat([pr["ra_old"], pr["ra_new"]], dim=1),
+                state.nbr[:, m], state.coords, m, state.box,
+                self.params.kappa_L / state.box)
         else:
             first = self.params.cutoff_mode == "first"
             key_old = pr["ra_old"][:, 0] if first else pr["com_m"]
@@ -1044,10 +1151,11 @@ def make_sweep_fn(system, params, kvecs, kweights, device,
     """The per-move route of one species block (a System.species_slices
     entry; None: the whole uniform-width system as one block), called as
     body(state, m, u_m) -> (state, accept) for m in [m0, m1); its methods
-    propose, delta_args, kernel_delta, pair_energy_rows and finalize are
-    the steps of a move.
+    propose, delta_args, kernel_delta, pair_energy_rows, pair_energy_nlist
+    and finalize are the steps of a move.
     use_kernel takes the delta-energy op for the pair sums (raising where
-    delta_kernel_supported is false), else the plain pair_energy_rows."""
+    delta_kernel_supported is false), else the plain pair_energy_rows, or
+    with params.nlist_width > 0 pair_energy_nlist on state.nbr."""
     return _MoveBody(system, params, kvecs, kweights, device, dtype,
                      use_kernel, species)
 
@@ -1055,9 +1163,11 @@ def make_sweep_fn(system, params, kvecs, kweights, device,
 # ---------------- the per-move route's sweep ----------------------------
 
 # The SimState fields the move bodies read or write: a sweep's graph holds
-# a static buffer of each (MoveSweepGraph).
+# a static buffer of each (MoveSweepGraph); with neighbour lists they also
+# read the sweep's lists, NLIST_FIELDS.
 MOVE_FIELDS = ("com", "quat", "coords", "sfac", "energy", "box", "temp",
                "dr_max", "dphi_max", "step", "att", "acc")
+NLIST_FIELDS = ("nbr",)
 
 
 def run_moves(bodies, state, u):
@@ -1079,7 +1189,8 @@ def move_graph_key(state):
 
 class MoveSweepGraph:
     """run_moves over `bodies` on static buffers, for states shaped like
-    `state`: one buffer per MOVE_FIELDS field and one for the uniforms.
+    `state`: one buffer per MOVE_FIELDS field (and NLIST_FIELDS field,
+    with nlist) and one for the uniforms.
     A call copies the state and u (C, M, 10) into them, runs the moves and
     returns the state with those fields cloned out of them.
 
@@ -1093,9 +1204,9 @@ class MoveSweepGraph:
     replays is the captured count times n.  With graph=False every call
     runs the bodies on the buffers (run_moves)."""
 
-    def __init__(self, bodies, state, u, graph):
+    def __init__(self, bodies, state, u, graph, nlist=False):
         self.bodies = bodies
-        self.fields = MOVE_FIELDS
+        self.fields = MOVE_FIELDS + (NLIST_FIELDS if nlist else ())
         self.static = {f: getattr(state, f).clone() for f in self.fields}
         self.u = u.clone()
         # the moves read the buffers, and the state's other fields as they

@@ -1,6 +1,6 @@
-"""Rigid 3-site water builders: SPC/E and TIP3P, and the NIST SPC/E
-sample reader spce_from_nist (counterpart of
-metropolismontecarlo_tpu/models/water.py)."""
+"""Rigid water builders: SPC/E, TIP3P and the four-site TIP4P family
+(TIP4P/2005, TIP4P-Ew, TIP4P/Ice), and the NIST SPC/E sample reader
+spce_from_nist (counterpart of metropolismontecarlo_tpu/models/water.py)."""
 
 import functools
 
@@ -66,6 +66,79 @@ def spce_system(n_mol):
 def tip3p_system(n_mol):
     return _water_system(n_mol, TIP3P_SIGMA_OO, TIP3P_EPS_OO, TIP3P_Q_O,
                          TIP3P_Q_H, TIP3P_R_OH, TIP3P_THETA, "tip3p")
+
+
+# TIP4P/2005 (Abascal & Vega, J. Chem. Phys. 123, 234505 (2005)): the
+# negative charge sits on a massless, LJ-free site M on the HOH bisector.
+# A zero mass gives M no weight in the centre of mass or the Kabsch fit;
+# its charge takes part in every Coulomb sum.
+TIP4P2005_SIGMA_OO = 3.1589
+TIP4P2005_EPS_OO = 93.2         # K
+TIP4P2005_Q_H = 0.5564
+TIP4P2005_Q_M = -2.0 * TIP4P2005_Q_H
+TIP4P2005_R_OH = 0.9572
+TIP4P2005_THETA = 104.52
+TIP4P2005_R_OM = 0.1546
+
+# TIP4P-Ew (Horn et al. 2004) and TIP4P/Ice (Abascal et al. 2005): the same
+# four sites, refitted for Ewald liquids and for ice (eps in K = kJ/mol x
+# 120.272...)
+TIP4PEW_SIGMA_OO = 3.16435
+TIP4PEW_EPS_OO = 0.680946 * 120.272236695
+TIP4PEW_Q_H = 0.52422
+TIP4PEW_R_OM = 0.125
+
+TIP4PICE_SIGMA_OO = 3.1668
+TIP4PICE_EPS_OO = 0.882169 * 120.272236695
+TIP4PICE_Q_H = 0.5897
+TIP4PICE_R_OM = 0.1577
+
+
+def tip4p_body_frame(r_oh, theta_deg, r_om):
+    """(O, H, H, M) template with the centre of mass at the origin; M on
+    the HOH bisector at r_om from O, on the hydrogens' side."""
+    th = np.deg2rad(theta_deg) / 2.0
+    pts = np.stack([np.zeros(3),
+                    np.array([r_oh * np.sin(th), 0.0, r_oh * np.cos(th)]),
+                    np.array([-r_oh * np.sin(th), 0.0, r_oh * np.cos(th)]),
+                    np.array([0.0, 0.0, r_om])])
+    m = np.array([MASS_O, MASS_H, MASS_H, 0.0])
+    return pts - (pts * m[:, None]).sum(0) / m.sum()
+
+
+def _tip4p_system(n_mol, sigma, eps, q_h, r_om, name):
+    def rows(v, dtype=None):
+        return np.broadcast_to(np.asarray(v, dtype), (n_mol,)
+                               + np.shape(v)).copy()
+
+    return System(
+        n_mol=n_mol, atoms_per_mol=4,
+        body=rows(tip4p_body_frame(TIP4P2005_R_OH, TIP4P2005_THETA, r_om)),
+        masses=rows([MASS_O, MASS_H, MASS_H, 0.0]),
+        charges=rows([0.0, q_h, q_h, -2.0 * q_h]),
+        type_ids=rows([0, 1, 1, 1], np.int32),
+        eps_table=np.array([[eps, 0.0], [0.0, 0.0]]),
+        sig_table=np.array([[sigma, 1.0], [1.0, 1.0]]),
+        name=name,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def tip4p2005_system(n_mol):
+    return _tip4p_system(n_mol, TIP4P2005_SIGMA_OO, TIP4P2005_EPS_OO,
+                         TIP4P2005_Q_H, TIP4P2005_R_OM, "tip4p2005")
+
+
+@functools.lru_cache(maxsize=None)
+def tip4pew_system(n_mol):
+    return _tip4p_system(n_mol, TIP4PEW_SIGMA_OO, TIP4PEW_EPS_OO,
+                         TIP4PEW_Q_H, TIP4PEW_R_OM, "tip4pew")
+
+
+@functools.lru_cache(maxsize=None)
+def tip4pice_system(n_mol):
+    return _tip4p_system(n_mol, TIP4PICE_SIGMA_OO, TIP4PICE_EPS_OO,
+                         TIP4PICE_Q_H, TIP4PICE_R_OM, "tip4pice")
 
 
 def spce_from_nist(path):

@@ -55,6 +55,13 @@ def quat_mul(a, b):
     )
 
 
+def random_unit_vector(generator, shape=(), dtype=torch.float32):
+    """Uniform random unit 3-vectors, (*shape, 3), on the generator's
+    device: normalised standard Gaussians (no rejection sampling)."""
+    return normalize(torch.randn(tuple(shape) + (3,), generator=generator,
+                                 dtype=dtype, device=generator.device))
+
+
 def random_quaternion(generator, shape=(), dtype=torch.float32):
     """Uniform random unit quaternions on S^3 (Shoemake), (*shape, 4), on
     the generator's device."""
@@ -72,8 +79,7 @@ def random_rotate_quaternion(generator, q, dphi_max):
     """q (..., 4) turned by a uniform random angle in [-dphi_max, dphi_max]
     about a uniform random axis (a symmetric proposal), renormalised."""
     shape = tuple(q.shape[:-1])
-    axis = normalize(torch.randn(shape + (3,), generator=generator,
-                                 dtype=q.dtype, device=generator.device))
+    axis = random_unit_vector(generator, shape, q.dtype)
     u = torch.rand(shape, generator=generator, dtype=q.dtype,
                    device=generator.device)
     return rotate_quaternion(q, axis, u, dphi_max)
@@ -124,3 +130,24 @@ def fit_quaternions(body, rel_coords):
         d = np.sign(np.linalg.det(vt.T @ u.T))
         quats[m] = rot_to_quat(vt.T @ np.diag([1.0, 1.0, d]) @ u.T)
     return quats
+
+
+def center_of_mass(coords, masses):
+    """Mass-weighted centre: coords (..., P, 3), masses broadcastable to
+    (..., P); tensors or numpy arrays (numpy in, numpy out)."""
+    if not isinstance(coords, torch.Tensor):
+        m = np.broadcast_to(np.asarray(masses, np.float64),
+                            np.shape(coords)[:-1])
+        return (np.asarray(coords) * m[..., None]).sum(-2) \
+            / m.sum(-1)[..., None]
+    m = torch.broadcast_to(torch.as_tensor(masses, dtype=coords.dtype,
+                                           device=coords.device),
+                           coords.shape[:-1])
+    return torch.sum(coords * m[..., None], dim=-2) \
+        / torch.sum(m, dim=-1)[..., None]
+
+
+def body_frame_from_template(coords, masses):
+    """A molecule template (P, 3) shifted so that its centre of mass is
+    the origin (the reference's BodyFixed + Shift_COM_to_Zero!)."""
+    return coords - center_of_mass(coords, masses)[..., None, :]

@@ -14,9 +14,6 @@ Randomness: one torch.Generator seeded with run.seed drives the moves (and
 is saved in every checkpoint, so a resume continues the exact
 trajectory); replica exchanges and Widom insertions draw from generators
 seeded per block from seed + 7919 and seed + 104729.
-
-The model kinds of utils/config.NOT_PORTED_MODELS are not ported yet and
-raise NotImplementedError.
 """
 
 import argparse

@@ -2,31 +2,26 @@
 metropolismontecarlo_tpu/utils/config.py, same schema): one document
 describes the model, the RunParams and the run schedule.
 
-    {"model":  {"kind": "spce" | "tip3p" | "co2" | "n2" | "lj" |
-                        "triatomic", "n_mol": 750, ...},
+    {"model":  {"kind": "spce" | "tip3p" | "tip4p2005" | "tip4pew" |
+                        "tip4pice" | "co2" | "n2" | "lj" | "triatomic" |
+                        "topology", "n_mol": 750, ...},
      "params": {... RunParams fields ..., "ewald_tol": 1e-5},
      "run":    {"n_chains", "n_blocks", "n_steps", "equil_blocks", "seed",
                 "dtype", "recompute_chunk", "pressure_ladder", "remc",
                 "quench_steps", "anneal", "ensemble", "start", "output"}}
 
-See the JAX module's docstring for every key of "run".  The model kinds
-"tip4p2005", "tip4pew", "tip4pice" and "topology" are not ported yet and
-raise NotImplementedError.
+The topology kind reads a GROMACS topology and PDB templates, paths
+relative to the configuration's directory: {"kind": "topology", "top":
+"topol.top", "defines": [...], "templates": {"SOL": "tip3p.pdb", ...},
+"molecules": [["SOL", 100], ...]} ("defines" and "molecules" optional).
+See the JAX module's docstring for every key of "run".
 """
 
 import dataclasses
 import json
+import os
 
 from metropolismontecarlo_tpu_torch.models.system import RunParams
-
-NOT_PORTED_MODELS = {
-    "tip4p2005": "the TIP4P family (ROADMAP queue 1 step 8)",
-    "tip4pew": "the TIP4P family (ROADMAP queue 1 step 8)",
-    "tip4pice": "the TIP4P family (ROADMAP queue 1 step 8)",
-    "topology": "io/topology.py and models/from_topology.py (ROADMAP "
-                "queue 1 step 8)",
-}
-
 
 def load_config(path):
     with open(path) as f:
@@ -46,14 +41,25 @@ def build_params(cfg):
 
 
 def build_system(cfg, base_dir="."):
-    """The System of the "model" section.  base_dir is where a model's
-    files would be read from (the topology kind, not ported yet)."""
+    """The System of the "model" section; the topology kind reads its
+    files relative to base_dir."""
     model = cfg["model"]
     kind = model["kind"].lower()
-    if kind in NOT_PORTED_MODELS:
-        raise NotImplementedError(
-            f"model kind {kind!r} needs {NOT_PORTED_MODELS[kind]}, which "
-            "the PyTorch port does not have yet")
+    if kind == "topology":
+        from metropolismontecarlo_tpu_torch.io.topology import read_top
+        from metropolismontecarlo_tpu_torch.models.from_topology import (
+            system_from_topology,
+            templates_from_pdbs,
+        )
+        top = read_top(os.path.join(base_dir, model["top"]),
+                       defines=model.get("defines", ()))
+        templates = templates_from_pdbs(top, {
+            k: os.path.join(base_dir, v)
+            for k, v in model["templates"].items()})
+        molecules = [tuple(x) for x in model["molecules"]] \
+            if "molecules" in model else None
+        return system_from_topology(top, templates, molecules=molecules,
+                                    name=kind)
     n = int(model["n_mol"])
     if kind == "spce":
         from metropolismontecarlo_tpu_torch.models.water import spce_system
@@ -61,6 +67,11 @@ def build_system(cfg, base_dir="."):
     if kind == "tip3p":
         from metropolismontecarlo_tpu_torch.models.water import tip3p_system
         return tip3p_system(n)
+    if kind in ("tip4p2005", "tip4pew", "tip4pice"):
+        from metropolismontecarlo_tpu_torch.models import water
+        return {"tip4p2005": water.tip4p2005_system,
+                "tip4pew": water.tip4pew_system,
+                "tip4pice": water.tip4pice_system}[kind](n)
     if kind in ("co2", "n2"):
         from metropolismontecarlo_tpu_torch.models import linear
         return {"co2": linear.co2_system, "n2": linear.n2_system}[kind](n)

@@ -3,15 +3,16 @@ bench.py, parallel/remc.py, utils/validate.py and utils/profiling.py,
 against the JAX package; and the import check (no module of the port
 imports jax or the JAX package).
 
-* build_system / build_params of every configs/*.json whose model kind is
-  ported give the JAX package's System arrays and RunParams; the other
-  kinds raise NotImplementedError.
+* build_system / build_params of every configs/*.json give the JAX
+  package's System arrays and RunParams; a topology config whose files
+  are absent raises FileNotFoundError in both packages.
 * _start_box and the ewald_tol-tuned kappa_L, nk, ksq_max agree.
 * The CLI (device="cpu") runs ports of the JAX CLI tests, and on each run
   every metrics.jsonl line has the keys of the JAX CLI's line on the same
   configuration; both write the same files.
 * bench runs every config at 2 chains and 1 step and prints bench.py's
-  JSON fields; mixture exits non-zero and prints no number.
+  JSON fields; mixture without its files exits non-zero and prints no
+  number (tests/test_torch_topology.py runs it on written files).
 * temperature_ladder agrees with JAX; exchange's swaps equal a numpy
   rendering of min(1, exp((1/T_i - 1/T_j)(E_i - E_j))) on the same
   uniforms.
@@ -77,9 +78,12 @@ def test_build_system_and_params_match_jax(path):
     p_t, p_j = config_t.build_params(cfg), config_j.build_params(cfg)
     assert dataclasses.asdict(p_t) == {
         f.name: getattr(p_j, f.name) for f in dataclasses.fields(p_t)}
-    if _config_kind(path) in config_t.NOT_PORTED_MODELS:
-        with pytest.raises(NotImplementedError, match="step 8"):
-            config_t.build_system(cfg)
+    if _config_kind(path) == "topology" and not os.path.isfile(
+            cfg["model"]["top"]):
+        # the reference's topology files are not in the repo
+        for build in (config_t.build_system, config_j.build_system):
+            with pytest.raises(FileNotFoundError, match="topol.top"):
+                build(cfg)
         return
     s_t, s_j = config_t.build_system(cfg), config_j.build_system(cfg)
     for f in dataclasses.fields(s_t):
@@ -94,9 +98,13 @@ def test_build_params_refuses_unknown_fields_and_kinds():
     cfg = {"model": {"kind": "lj", "n_mol": 4}, "params": {"r_cutt": 2.0}}
     with pytest.raises(ValueError, match="r_cutt"):
         config_t.build_params(cfg)
-    for kind in ("tip4p2005", "tip4pew", "tip4pice", "topology"):
-        with pytest.raises(NotImplementedError, match="step 8"):
-            config_t.build_system({"model": {"kind": kind, "n_mol": 4}})
+    for kind in ("tip4p2005", "tip4pew", "tip4pice"):
+        model = {"model": {"kind": kind, "n_mol": 4}}
+        s_t, s_j = config_t.build_system(model), config_j.build_system(model)
+        assert s_t.name == s_j.name == kind
+        np.testing.assert_array_equal(s_t.charges, np.asarray(s_j.charges))
+    with pytest.raises(KeyError, match="top"):
+        config_t.build_system({"model": {"kind": "topology"}})
     with pytest.raises(ValueError, match="unknown model kind"):
         config_t.build_system({"model": {"kind": "argon", "n_mol": 4}})
 
@@ -400,12 +408,11 @@ def test_cli_gibbs_and_semigrand(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_ensembles_and_missing_card(tmp_path):
-    # the model kinds still unported raise with their ROADMAP step; the
-    # osmotic and gibbs_binary ensembles are ported and reach their
-    # builders, which refuse a one-species model as JAX's do
+    # every model kind is ported; the osmotic and gibbs_binary ensembles
+    # reach their builders, which refuse a one-species model as JAX's do
     for model, ens, exc, match in (
-            ("tip4p2005", {"kind": "gibbs", "boxes": [9.0, 9.0]},
-             NotImplementedError, "step 8"),
+            ("tip4p2005", {"kind": "osmotic", "activity": 1e-4, "box": 9.0,
+                           "n_init": 1}, ValueError, "two species"),
             ("spce", {"kind": "osmotic", "activity": 1e-4, "box": 9.0,
                       "n_init": 1}, ValueError, "two species"),
             ("spce", {"kind": "gibbs_binary", "boxes": [9.0, 9.0],
@@ -440,7 +447,7 @@ def _bench_fields():
     raise AssertionError("no result record in bench.py")
 
 
-def test_bench_every_config_on_the_cpu(monkeypatch, capsys):
+def test_bench_every_config_on_the_cpu(monkeypatch, capsys, tmp_path):
     fields = _bench_fields()
     assert {"metric", "value", "first_call_s", "command"} <= fields
     monkeypatch.setattr(bench, "MELT_SWEEPS", 0)
@@ -460,6 +467,7 @@ def test_bench_every_config_on_the_cpu(monkeypatch, capsys):
         assert rec["value"] > 0.0 and rec["config"] == config
         assert rec["chains"] == 2 and rec["steps"] == 1
     monkeypatch.setenv("BENCH_CONFIG", "mixture")
+    monkeypatch.setattr(bench, "REF", str(tmp_path))       # no files there
     capsys.readouterr()
     with pytest.raises(SystemExit) as exc:
         bench.main(device="cpu")

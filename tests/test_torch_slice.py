@@ -115,12 +115,16 @@ def test_lj256_acceptance_anchor():
 
 
 def test_unported_routes_raise():
-    """Neighbour lists and tensor-parallel recomputes are refused; NPT,
-    pressure_fd, Widom and sorted slabs run (tests/test_torch_npt.py,
+    """Tensor-parallel recomputes are refused, and neighbour lists on a
+    kernel route; lists on the plain route, NPT, pressure_fd, Widom and
+    sorted slabs run (tests/test_torch_nlist.py, test_torch_npt.py,
     test_torch_widom.py and test_torch_slabs.py hold them against JAX)."""
     system = spce_system(8)
-    with pytest.raises(NotImplementedError):
-        MonteCarlo(system, RunParams(nlist_width=8), device="cpu")
+    with pytest.raises(ValueError, match="jnp move path"):
+        MonteCarlo(system, RunParams(nlist_width=8), device="cpu",
+                   kernel="sweep")
+    assert MonteCarlo(system, RunParams(nlist_width=8),
+                      device="cpu").route == "plain"
     with pytest.raises(NotImplementedError):
         MonteCarlo(system, RunParams(), device="cpu", tp_mesh=object())
     npt = MonteCarlo(system, RunParams(coulomb="wolf", pressure=1e-5,
