@@ -8,9 +8,13 @@ Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu,
          all at once (cached by a hash of each source under
          metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
          of each instantiation (a spill of any instantiation of any kernel
-         fails the run); the sweep kernel's blocks per SM at the main
-         paths' shapes, and the delta-energy kernel's registers, local
-         memory and blocks per SM at the per-move path's.
+         fails the run) and nvcc's seconds per source; the sweep kernel's
+         blocks per SM at the main paths' shapes, and the delta-energy
+         kernel's registers, local memory and blocks per SM at the
+         per-move path's; registers, local memory and blocks per SM of
+         every layout of the sweep, Gibbs and flip kernels (the global
+         layouts at phase 24's shapes), each kernel's byte count held to
+         its wrapper's.
 Phase 2  each kernel against its plain PyTorch version on the card, on the
          same inputs.  The sweep kernel, one sweep on shared uniforms:
          SPC/E-64 (ewald, wolf, none; p_translate 0.5 and 0.0), LJ-256,
@@ -308,6 +312,54 @@ the sweep: LJ-640 in a 32 box from a stratified start (W 512 < 640),
 SPC/E-512 at r_cut 4.5 from a z-sheared lattice and CO2 + N2 64 + 576 with
 the N2 block sorted.
 
+Phase 2 also holds the global layouts against the shared one
+(`phase2_layouts`, 64 chains, forced layouts, every output compared bit
+for bit, each launch timed in each layout in turns): the sweep kernel's
+activity, exchange and Widom cases above, its tmmc cases (SPC/E and LJ,
+eta 0.35 N and 0, cmat and uhist included; and eta = 0 against the n_exch
+instantiation on each global layout), the Gibbs kernel on bench's cap-128
+x 2 shape and the TIP4P/2005 cap 48 x 2 case, the flip kernel on bench's
+64 + 64 shape and the TIP4P/2005 + TIP4P/Ice 32 + 32 case; and
+`phase2_global` compares global_k with the shared layout (fixed N) and
+with the global layout (slabs).  Phase 20 times the NPT-Gibbs cycle's two
+launches (K 3796) in each layout, in turns, with the same bit-for-bit
+check.
+
+Phase 24 the states that fit no shared layout (the JAX kernels run them),
+         each through its driver's entry point with mega="full", each
+         block gated (drift <= 2e-3, the carried S(k) within 1e-4 of the
+         smallest chain S(k) norm, move acceptance in (0.05, 0.95),
+         exchange, transfer, volume and flip acceptance in (0, 1)), one
+         launch held to its plain version (>= 98% of chains with its
+         decisions) and timed beside it and its bound, the whole-width
+         launch timed with its bound.  The held launches: (a), (b) all
+         moves and 219 attempts on the first 128 chains (the plain
+         version steps through every slot and attempt: ~16-18 s so),
+         (c) the whole cycle and (d) the whole launch on the
+         first 128 chains, (e) the first 512 moves of every chain,
+         Widom the first 512 moves and 64 ghosts of every chain:
+         (a) capacity-4096 SPC/E muVT, 50 A, 500 K, z 2.2e-4, r_cut 10,
+         Ewald to 1e-3 (kappa L 13.14, nk 11, K 2975), p_exchange 0.3
+         (1755 attempts per cycle), 1024 molecules at the start, 256
+         chains through MolGCMC: a melt cycle and two 1-cycle blocks on
+         the activity instantiation's global layout; one
+         MonteCarlo.widom_mega(state, 64) on 4096 waters from a lattice in
+         the same box (64 chains) and its drift;  (b) TMMCMol at (a)'s shape, one block of one cycle on
+         the tmmc global layout, every attempt deposited;  (c) bench's
+         Gibbs recipe at cap 1024 (682 + 170 molecules, 29.45 / 36.0 A,
+         450 K, r_cut 7.5, Ewald to 1e-3 at 41.64 A: nk 13, K 4849,
+         p_transfer 0.3, p_volume 0.002), 256 chains through
+         MolGibbsEnsemble, two 1-cycle blocks on the Gibbs global layout,
+         N conserved;  (d) bench's semigrand recipe at 16x the volume
+         (1024 + 1024 slots, 512 + 512 molecules, 50.4 A, 600 K, r_cut 8,
+         Ewald to 1e-3: nk 14, K 6062), xi 2, p_flip 0.3, 256 chains
+         through Semigrand, two 1-cycle blocks (the flips on the flip
+         global layout, the sweeps on the activity global layout);  (e)
+         phase 11's 6859 waters at tol 1e-5 (kappa L 20.04, nk 22, K
+         22,994), slabs on, 64 chains through MonteCarlo (recompute_chunk
+         2), one block of one sweep on the fixed-N global_k layout.  The
+         kernels line gains a row per new layout.
+
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
 by equal acc/att counts and an equal decision fingerprint (the sum of
@@ -337,6 +389,7 @@ last line of a passing run is the device JSON.
 
 import argparse
 import concurrent.futures
+import ctypes
 import dataclasses
 import functools
 import json
@@ -421,24 +474,31 @@ def phase1():
     names = ("sweep_kernel", "delta_energy", "gibbs_kernel", "flip_kernel")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
-    # the sweep kernel's template instantiations <kAct, kTmmc, kGlobal> by
-    # mangled name
-    labels = {"ILb0ELb0ELb0E": "<false, false, false> fixed N",
-              "ILb1ELb0ELb0E": "<true, false, false> activity",
-              "ILb1ELb1ELb0E": "<true, true, false> tmmc",
-              "ILb0ELb0ELb1E": "<false, false, true> global layout"}
-    # the Gibbs kernel's <Coulomb form, linear LJ shift> and the flip
-    # kernel's <Coulomb form> instantiations
-    # (the delta-energy kernel's <Coulomb form> too)
+    # the sweep kernel's template instantiations <kAct, kTmmc, kLayout> by
+    # mangled name (the template's arguments end in "EE")
+    labels = {}
+    for a, t, kind in ((0, 0, "fixed N"), (1, 0, "activity"),
+                       (1, 1, "tmmc")):
+        for lay, layout in enumerate(sweep_kernel.LAYOUTS):
+            labels[f"ILb{a}ELb{t}ELi{lay}EE"] = \
+                f"<{bool(a)}, {bool(t)}, {layout}> {kind}".lower()
+    # the Gibbs kernel's <Coulomb form, linear LJ shift, global> and the
+    # flip kernel's <Coulomb form, global> instantiations (the global ones
+    # serve the global and global_k layouts), and the delta-energy
+    # kernel's <Coulomb form>
     for q, form in enumerate(("none", "erfc", "wolf", "bare")):
-        labels[f"12gibbs_kernelILi{q}ELb0E"] = f"two-box Gibbs <{form}>"
-        labels[f"12gibbs_kernelILi{q}ELb1E"] = \
-            f"two-box Gibbs <{form}, linear LJ>"
-        labels[f"11flip_kernelILi{q}E"] = f"semigrand flips <{form}>"
+        for g, where in ((0, ""), (1, ", global")):
+            labels[f"12gibbs_kernelILi{q}ELb0ELb{g}EE"] = \
+                f"two-box Gibbs <{form}{where}>"
+            labels[f"12gibbs_kernelILi{q}ELb1ELb{g}EE"] = \
+                f"two-box Gibbs <{form}, linear LJ{where}>"
+            labels[f"11flip_kernelILi{q}ELb{g}EE"] = \
+                f"semigrand flips <{form}{where}>"
         labels[f"19delta_energy_kernelILi{q}E"] = f"delta energy <{form}>"
     spills = []
     for name, (path, seconds, log) in zip(names, builds):
-        print(f"phase1 built {path.name} in {seconds:.2f} s")
+        print(f"phase1 built {path.name} in {seconds:.2f} s (nvcc, all "
+              f"four sources at once)")
         entry = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -485,12 +545,96 @@ def phase1():
         M, P, A_pad, K, T, use_act, tmmc, layout = shape
         kernel_bytes = sweep_kernel._library().mmc_sweep_smem_bytes(
             M, P, A_pad, K, T, int(use_act), int(tmmc),
-            int(layout == "global"))
+            sweep_kernel.LAYOUT_CODES[layout])
         if kernel_bytes != nbytes:
             raise AssertionError(f"{tag}: csrc/sweep_kernel.cu counts "
                                  f"{kernel_bytes} B, smem_bytes {nbytes} B")
+    phase1_layouts()
     if spills:
         raise AssertionError(f"a kernel instantiation spills: {spills}")
+
+
+# phase 24's states: capacity-4096 SPC/E muVT and TMMC in a 50 A box
+# (r_cut 10, Ewald to 1e-3), 6859 waters at tol 1e-5, bench's Gibbs recipe
+# at cap 1024 (tuned at the 41.64 A box a volume move reaches), its
+# semigrand recipe at 16x the volume (50.4 A, r_cut 8)
+BIG_EWALD = {"muvt": (50.0, 10.0, 1e-3), "bulk": (59.056, 10.0, 1e-5),
+             "gibbs": (41.64, 7.5, 1e-3), "semigrand": (50.4, 8.0, 1e-3)}
+
+
+def big_k(name):
+    """(kappa_L, nk, ksq_max, K) of a BIG_EWALD state."""
+    from metropolismontecarlo_tpu_torch.ops.ewald import (
+        make_kvectors,
+        tune_parameters,
+    )
+
+    kl, nk, ksq = tune_parameters(*BIG_EWALD[name])
+    return kl, nk, ksq, len(make_kvectors(nk, ksq)[0])
+
+
+def phase1_layouts():
+    """Registers, local memory and blocks per SM of every layout of the
+    sweep, Gibbs and flip kernels, at phase 24's shapes for the global
+    layouts (and forced global_k at the same shapes) and phase 2's for the
+    shared ones, the byte counts of the kernels against the wrappers'."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import (
+        flip_kernel,
+        gibbs_kernel,
+        sweep_kernel,
+    )
+
+    K_m, K_b = big_k("muvt")[3], big_k("bulk")[3]
+    _, nk_g, _, K_g = big_k("gibbs")
+    _, nk_s, _, K_s = big_k("semigrand")
+    for kind, use_act, tmmc in (("fixed N", False, False),
+                                ("activity", True, False),
+                                ("tmmc", True, True)):
+        for layout in sweep_kernel.LAYOUTS:
+            shape = (750, 3, 2304, 337, 2) if layout == "shared" else \
+                (6859, 3, 33408, K_b if layout == "global_k" else 2874, 2) \
+                if kind == "fixed N" else (4096, 3, 12288, K_m, 2)
+            if layout == "shared" and use_act:
+                shape = (512, 3, 1536, 337, 2)
+            regs, local, per_sm = sweep_kernel.occupancy(
+                *shape, use_act, tmmc, layout)
+            nbytes = sweep_kernel.smem_bytes(*shape, use_act, tmmc, layout)
+            print(f"phase1 occupancy sweep_kernel <{kind}, {layout}> at "
+                  f"M {shape[0]}, A_pad {shape[2]}, K {shape[3]}: {regs} "
+                  f"registers, {local} B local, {nbytes} B of shared "
+                  f"memory, {per_sm} blocks per SM")
+    out = (ctypes.c_int * 3)()
+    for q, form in ((0, "none"), (1, "ewald"), (2, "wolf"), (4, "bare")):
+        for lin in (0, 1):
+            for layout in gibbs_kernel.LAYOUTS:
+                shape = (128, 3, 512, 783, 2, 7) if layout == "shared" \
+                    else (1024, 3, 3072, K_g, 2, nk_g)
+                err = gibbs_kernel._library().mmc_gibbs_occupancy(
+                    q, lin, *shape, gibbs_kernel.LAYOUT_CODES[layout], out)
+                nbytes = gibbs_kernel.gibbs_smem_bytes(*shape, layout)
+                if err or gibbs_kernel._library().mmc_gibbs_smem_bytes(
+                        *shape, gibbs_kernel.LAYOUT_CODES[layout]) != nbytes:
+                    raise AssertionError(f"gibbs occupancy query: error "
+                                         f"{err} or a byte count differs")
+                print(f"phase1 occupancy gibbs_kernel <{form}"
+                      f"{', linear LJ' if lin else ''}, {layout}> at m_off "
+                      f"{shape[0]}, K {shape[3]}: {out[0]} registers, "
+                      f"{out[1]} B local, {nbytes} B of shared memory, "
+                      f"{out[2]} blocks per SM")
+        for layout in flip_kernel.LAYOUTS:
+            shape = (128, 3, 3, 512, 337, 2, 5) if layout == "shared" \
+                else (2048, 3, 3, 6144, K_s, 2, nk_s)
+            err = flip_kernel._library().mmc_flip_occupancy(
+                q, *shape, flip_kernel.LAYOUT_CODES[layout], out)
+            nbytes = flip_kernel.flip_smem_bytes(*shape, layout)
+            if err or flip_kernel._library().mmc_flip_smem_bytes(
+                    *shape, flip_kernel.LAYOUT_CODES[layout]) != nbytes:
+                raise AssertionError(f"flip occupancy query: error {err} "
+                                     f"or a byte count differs")
+            print(f"phase1 occupancy flip_kernel <{form}, {layout}> at M "
+                  f"{shape[0]}, K {shape[4]}: {out[0]} registers, {out[1]} "
+                  f"B local, {nbytes} B of shared memory, {out[2]} blocks "
+                  f"per SM")
 
 
 def _sweep_args(state, u):
@@ -594,17 +738,22 @@ def run_variant(op_fn, args, tables, act, actm, n_exchs, n_widoms, uxs, z,
 
 
 def compare_variant(tag, system, args, tables, act, actm, n_exchs, n_widoms,
-                    uxs, z, consts, seed, tmmc=None):
+                    uxs, z, consts, seed, tmmc=None, plain_ms=None):
     """The kernel against sweep_plain on the same arguments with activity
     planes, exchange attempts and ghosts (and with tmmc = (eta, e_in) the
     deposits); returns the largest coordinate difference on matched
-    chains."""
+    chains.  plain_ms: a list that receives the plain call's ms."""
     from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
 
     rest = (tables, act, actm, n_exchs, n_widoms, uxs, z, consts, seed)
     k = run_variant(op.sweep, args, *rest, tmmc=tmmc)
-    p = run_variant(functools.partial(op.sweep_plain, magnitude=True), args,
-                    *rest, tmmc=tmmc)
+    out = []
+    ms = _time_ms(lambda: out.append(run_variant(
+        functools.partial(op.sweep_plain, magnitude=True), args, *rest,
+        tmmc=tmmc)), 1)
+    p = out[0]
+    if plain_ms is not None:
+        plain_ms.append(ms)
     torch.cuda.synchronize()
     C = act.shape[0]
     same = (k[4][:, 1:] == p[4][:, 1:op.N_STATS]).all(dim=1)
@@ -727,9 +876,9 @@ def _variant_inputs(dev, seed, tag, system, box, params, n_exchs, n_widoms,
     return mc, state, args, act, actm, uxs, z.contiguous(), consts
 
 
-def phase2_variants(dev):
-    """The activity, exchange and Widom arguments of the sweep kernel
-    against sweep_plain, 64 chains each."""
+def variant_cases():
+    """Phase 2's muVT cases: (tag, system, box, params, n_exch per block,
+    n_widom per block)."""
     from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
     from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
     from metropolismontecarlo_tpu_torch.models.polyatomic import (
@@ -762,8 +911,15 @@ def phase2_variants(dev):
         ("n_widom spce64 ewald", spce_system(64), box_w, water(), (0,), (6,)),
         ("n_widom lj256 lrc", lj_system(256), box_lj, lj, (0,), (6,)),
     ]
+    return cases
+
+
+def phase2_variants(dev):
+    """The activity, exchange and Widom arguments of the sweep kernel
+    against sweep_plain, 64 chains each."""
     err = 0.0
-    for i, (tag, system, box, params, n_exchs, n_widoms) in enumerate(cases):
+    for i, (tag, system, box, params, n_exchs, n_widoms) in enumerate(
+            variant_cases()):
         mc, _, args, act, actm, uxs, z, consts = _variant_inputs(
             dev, 300 + i, tag, system, box, params, n_exchs, n_widoms)
         err = max(err, compare_variant(
@@ -1323,16 +1479,14 @@ def phase2_global(dev, chains=64):
         e, kg, _ = compare_tables(tag + " global", args, mc.tables,
                                layout="global")
         err = max(err, e)
-        diff = torch.zeros(chains, dtype=torch.bool, device=dev)
-        big = 0.0
-        for a, b in zip(kg, ks):
-            d = (a != b).flatten(1).any(dim=1)
-            diff |= d
-            big = max(big, float((a - b).abs().max()))
-        n_unequal += int(diff.sum())
-        print(f"phase {tag}: global vs shared layout: {int(diff.sum())} of "
-              f"{chains} chains differ in any output, largest difference "
-              f"{big:.3e}")
+        kk = sweep_blocks(functools.partial(op.sweep, layout="global_k"),
+                          *args, mc.tables)
+        for name, out in (("global", kg), ("global_k", kk)):
+            n, big = _differing(out, ks)
+            n_unequal += n
+            print(f"phase {tag}: {name} vs shared layout: {n} of {chains} "
+                  f"chains differ in any output, largest difference "
+                  f"{big:.3e}")
 
     mix = dict(temperature=240.0, r_cut=7.0, coulomb="ewald", nk=5,
                ksq_max=27, p_translate=0.5, dr_max=0.3, dphi_max=0.3,
@@ -1364,7 +1518,144 @@ def phase2_global(dev, chains=64):
         e, k, _ = compare_tables(tag, args, mc.tables)
         check_halo(tag, k[0], system, cfg)
         err = max(err, e)
+        kk = sweep_blocks(functools.partial(op.sweep, layout="global_k"),
+                          *args, mc.tables)
+        n, big = _differing(kk, k)
+        n_unequal += n
+        print(f"phase {tag}: slabs on the global_k layout vs the global "
+              f"layout: {n} of {chains} chains differ in any output, "
+              f"largest difference {big:.3e}")
+    if n_unequal:
+        raise AssertionError(f"the layouts differ on {n_unequal} chains")
     return err, n_unequal
+
+
+def _differing(a, b):
+    """(chains that differ in any output, largest difference) of two
+    tuples of per-chain outputs (chain axis first)."""
+    diff = torch.zeros(a[0].shape[0], dtype=torch.bool, device=a[0].device)
+    big = 0.0
+    for x, y in zip(a, b):
+        diff |= (x != y).flatten(1).any(dim=1)
+        big = max(big, float((x - y).abs().max()))
+    return int(diff.sum()), big
+
+
+def layouts_equal(tag, run):
+    """run(layout) -> per-chain outputs, for each of LAYOUTS: the global
+    layouts against the shared one, every output bit for bit (raises on a
+    difference), and each layout's launch timed with CUDA events in turns
+    (shared, global, global_k, global_k, global, shared).  Returns
+    {layout: ms}."""
+    from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import LAYOUTS
+
+    outs = {lay: run(lay) for lay in LAYOUTS}
+    times = {lay: [] for lay in LAYOUTS}
+    for lay in LAYOUTS + LAYOUTS[::-1]:
+        times[lay].append(_time_ms(lambda: run(lay), 1))
+    ms = {lay: sum(v) / len(v) for lay, v in times.items()}
+    bad = 0
+    for lay in LAYOUTS[1:]:
+        n, big = _differing(outs[lay], outs["shared"])
+        bad += n
+        print(f"phase {tag}: {lay} vs shared layout: {n} of "
+              f"{outs['shared'][0].shape[0]} chains differ in any output, "
+              f"largest difference {big:.3e}")
+    print(f"phase {tag}: launch ms shared {ms['shared']:.3f}, global "
+          f"{ms['global']:.3f} ({ms['global'] / ms['shared'] - 1:+.1%}), "
+          f"global_k {ms['global_k']:.3f} "
+          f"({ms['global_k'] / ms['shared'] - 1:+.1%})")
+    if bad:
+        raise AssertionError(f"{tag}: the layouts differ")
+    return ms
+
+
+def phase2_layouts(dev, chains=64):
+    """The global layouts against the shared one on states that fit all
+    three, with forced layouts, every output compared bit for bit (layouts
+    differ only in where the words live): the sweep kernel's activity,
+    exchange and Widom cases of phase2_variants; its tmmc cases (cmat and
+    uhist included; and eta = 0 against the n_exch instantiation on each
+    global layout); the Gibbs kernel on bench's cap-128 x 2 shape and the
+    TIP4P/2005 cap 48 x 2 case; the flip kernel on bench's 64 + 64 shape
+    and the TIP4P/2005 + TIP4P/Ice 32 + 32 case.  Each launch is timed in
+    each layout.  Returns {case: {layout: ms}}."""
+    from metropolismontecarlo_tpu_torch.mc.moves import draw_exchange_uniforms
+    from metropolismontecarlo_tpu_torch.models.water import (
+        spce_system,
+        spce_two_blocks,
+        tip4p2005_system,
+    )
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as fop
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as gop
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    t0 = time.perf_counter()
+    times = {}
+    for i, (tag, system, box, params, n_exchs, n_widoms) in enumerate(
+            variant_cases()):
+        mc, _, args, act, actm, uxs, z, consts = _variant_inputs(
+            dev, 600 + i, tag, system, box, params, n_exchs, n_widoms,
+            C=chains)
+        times[tag] = layouts_equal(f"2l {tag}", lambda lay: run_variant(
+            functools.partial(op.sweep, layout=lay), args, mc.tables, act,
+            actm, n_exchs, n_widoms, uxs, z, consts, 1600 + i))
+    box_w, box_lj, water, lj = _variant_params()
+    from metropolismontecarlo_tpu_torch.models.monatomic import lj_system
+    for i, (tag, system, box, params) in enumerate((
+            ("tmmc spce64 ewald", spce_system(64), box_w, water()),
+            ("tmmc lj256 lrc", lj_system(256), box_lj, lj))):
+        mc, state, args, act, actm, uxs, z, consts = _variant_inputs(
+            dev, 700 + i, tag, system, box, params, (16,), (0,), C=chains)
+        e_in = state.energy.float().contiguous()
+        rest = (mc.tables, act, actm, (16,), (0,), uxs, z, consts, 1700 + i)
+        for eta, what in ((0.35 * torch.arange(system.n_mol + 1,
+                                               dtype=torch.float32,
+                                               device=dev), "eta 0.35 N"),
+                          (torch.zeros(system.n_mol + 1, device=dev),
+                           "eta 0")):
+            times[f"{tag} {what}"] = layouts_equal(
+                f"2l {tag} {what}", lambda lay: run_variant(
+                    functools.partial(op.sweep, layout=lay), args, *rest,
+                    tmmc=(eta, e_in)))
+        # eta = 0 takes the n_exch instantiation's decisions, layout by
+        # layout
+        for lay in op.LAYOUTS[1:]:
+            fn = functools.partial(op.sweep, layout=lay)
+            a = run_variant(fn, args, *rest)
+            b = run_variant(fn, args, *rest, tmmc=(eta, e_in))
+            n, big = _differing(a[:8], b[:8])
+            print(f"phase 2l {tag}: eta = 0 tmmc vs n_exch, {lay} layout: "
+                  f"{n} of {chains} chains differ, largest difference "
+                  f"{big:.3e}")
+            if n:
+                raise AssertionError(f"{tag}: eta = 0 changed the "
+                                     f"trajectory on the {lay} layout")
+    params, boxes, _ = _gibbs_flagship(cap=128)
+    for i, (tag, system, gparams, gboxes, n_exch) in enumerate((
+            ("gibbs spce cap 128x2", spce_system(128), params, boxes, 110),
+            ("gibbs tip4p2005 cap 48x2", tip4p2005_system(48),
+             _tip4p_gibbs_params(), (12.0, 16.0), 24))):
+        inputs = _gibbs_case(dev, system, gparams, gboxes, chains, 800 + i,
+                             n_exch)
+        times[tag] = layouts_equal(f"2l {tag}", lambda lay: run_gibbs(
+            functools.partial(gop.sweep_gibbs, layout=lay), *inputs,
+            1800 + i))
+    for i, (tag, system, fparams, box, cap, n_flip) in enumerate((
+            ("flip spce 64+64", spce_two_blocks(64, 64), _semigrand_water(),
+             20.0, 64, 55),
+            ("flip tip4p2005+tip4pice 32+32", tip4p_two_blocks(32, 32),
+             _semigrand_water(r_cut=6.0), 16.0, 32, 24))):
+        gen = torch.Generator(device=dev).manual_seed(900 + i)
+        rng = np.random.default_rng(900 + i)
+        n_act = rng.integers(0, cap + 1, (chains, 2))
+        fargs, ftables, si2, lrc3 = flip_inputs(
+            system, fparams, box, 2.0, torch.tensor(n_act), gen, dev)
+        ux = draw_exchange_uniforms(chains, n_flip, gen, dev)
+        times[tag] = layouts_equal(f"2l {tag}", lambda lay: fop.flip(
+            *fargs, ux, ftables, si2, lrc3, seed=1900 + i, layout=lay))
+    print(f"phase 2 layout cases: {time.perf_counter() - t0:.1f} s")
+    return times
 
 
 def _cutoff_fraction_tiled(system, state, r_cut, rows=512):
@@ -1972,9 +2263,10 @@ def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
     the activity planes of `st` (a MolGCMCState, a SimState with every
     slot active, or any object with those fields and `active` (C, M)) and
     n_exch attempts and n_widom ghosts (ints, or one count per block; with
-    tmmc = (eta, e_in) depositing): held against sweep_plain, then both
-    timed, with the bound of this run's work.  plain=False times the
-    kernel alone and returns (None, ms, None, bound ms, bound_by)."""
+    tmmc = (eta, e_in) depositing): held against sweep_plain (the plain
+    call timed), then the kernel timed, with the bound of this run's
+    work.  plain=False times the kernel alone and returns (None, ms,
+    None, bound ms, bound_by)."""
     from metropolismontecarlo_tpu_torch.mc.moves import (
         activity_planes,
         draw_exchange_uniforms,
@@ -2004,13 +2296,12 @@ def time_variant(tag, system, params, mc_tables, st, gen, n_exch, n_widom,
             consts, 77)
     err = plain_ms = None
     if plain:
+        held = []
         err = compare_variant(f"{tag} kernel vs plain", system, args, *rest,
-                              tmmc=tmmc)
+                              tmmc=tmmc, plain_ms=held)
+        plain_ms = held[0]
     out = run_variant(op.sweep, args, *rest, tmmc=tmmc)             # warm
     ms = _time_ms(lambda: run_variant(op.sweep, args, *rest, tmmc=tmmc), 3)
-    if plain:
-        plain_ms = _time_ms(lambda: run_variant(op.sweep_plain, args, *rest,
-                                                tmmc=tmmc), 1)
     n_del = sum(n_exchs) - float(out[4][:, 7].mean())
     view = SimpleNamespace(active=active, coords=st.coords, box=st.box,
                            com=st.com, sfac=st.sfac)
@@ -2876,20 +3167,25 @@ def run_gibbs(op_fn, args, us, tables, act, actm, n_exchs, uxs, consts,
 
 
 def compare_gibbs(tag, args, us, tables, act, actm, n_exchs, uxs, consts,
-                  seed, max_differing=None):
+                  seed, max_differing=None, plain_ms=None):
     """The Gibbs kernel against sweep_gibbs_plain on the same arguments:
     chains with identical decisions (equal acc/att counts, transfers and
     fingerprint) are compared field by field; N is conserved on every
     chain of both.  max_differing: the most chains allowed to differ
     (default: MATCH_FRACTION of them must agree).  Returns the largest
     absolute difference of the matched chains' outputs (A, and the
-    energy's and S(k)'s relative errors)."""
+    energy's and S(k)'s relative errors).  plain_ms: a list that receives
+    the plain call's ms."""
     from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
 
     rest = (us, tables, act, actm, n_exchs, uxs, consts, seed)
     k = run_gibbs(op.sweep_gibbs, args, *rest)
-    p = run_gibbs(functools.partial(op.sweep_gibbs_plain, magnitude=True),
-                  args, *rest)
+    out = []
+    ms = _time_ms(lambda: out.append(run_gibbs(functools.partial(
+        op.sweep_gibbs_plain, magnitude=True), args, *rest)), 1)
+    p = out[0]
+    if plain_ms is not None:
+        plain_ms.append(ms)
     torch.cuda.synchronize()
     C = act.shape[0]
     same = (k[4][:, 2:8] == p[4][:, 2:op.N_STATS]).all(dim=1)
@@ -3536,18 +3832,25 @@ def flip_inputs(system, params, box, xi, n_act, gen, dev):
             si2.contiguous(), lrc3)
 
 
-def compare_flip(tag, args, ux, tables, si2, lrc3, seed, max_differing=None):
+def compare_flip(tag, args, ux, tables, si2, lrc3, seed, max_differing=None,
+                 plain_ms=None):
     """The flip kernel against flip_plain on the same arguments: chains
     with identical decisions (equal acc/att counts and fingerprint) are
     compared field by field; N is conserved on every chain of both.
     max_differing: the most chains allowed to differ (default:
     MATCH_FRACTION of them must agree).  Returns (the largest of the
     matched chains' coordinate difference (A) and energy and S(k) relative
-    errors, the kernel's outputs, the chains that agree)."""
+    errors, the kernel's outputs, the chains that agree).  plain_ms: a
+    list that receives the plain call's ms."""
     from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as op
 
     k = op.flip(*args, ux, tables, si2, lrc3, seed=seed)
-    p = op.flip_plain(*args, ux, tables, si2, lrc3, seed=seed, magnitude=True)
+    out = []
+    ms = _time_ms(lambda: out.append(op.flip_plain(
+        *args, ux, tables, si2, lrc3, seed=seed, magnitude=True)), 1)
+    p = out[0]
+    if plain_ms is not None:
+        plain_ms.append(ms)
     torch.cuda.synchronize()
     C = args[0].shape[0]
     same = (k[4][:, 1:6] == p[4][:, 1:6]).all(dim=1)
@@ -4827,6 +5130,29 @@ def phase20(dev, chains=1024, warm=2, blocks=(2, 2), chunk=128,
                                    t_n.nk)} B of shared memory)")
     st_n, l_n = binary_gibbs_blocks("20 npt", g_n, st_n, (npt_cycles,),
                                     att_pc, n_tot, gate_vol="positive")
+    # the NPT-Gibbs cycle's two launches (K 3796: one block per SM in the
+    # shared layout) in each layout, in turns: data for when a global
+    # layout should replace a shared one
+    active_n = torch.cat([st_n.active0, st_n.active1], 2)
+    act_n, actm_n = activity_planes(system, active_n.reshape(2 * chains, M))
+    args_n = [x.float().contiguous() for x in (
+        st_n.coords, st_n.com, st_n.quat, st_n.sfac, st_n.box)] + [
+        params_n.temperature * ones, params_n.dr_max * ones,
+        params_n.dphi_max * ones]
+    kv_n, kw_n = make_kvectors(params_n.nk, params_n.ksq_max)
+    tables_n = sweep_tables(system, params_n, kv_n, kw_n, dev)
+    rest_n = ([draw_uniforms(chains, 2 * t.M, gen, dev) for t in tables_n],
+              tables_n, act_n.reshape(chains, 2, -1),
+              actm_n.reshape(chains, 2, M), [x_half] * 2,
+              [draw_exchange_uniforms(chains, x_half, gen, dev)
+               for _ in tables_n],
+              gibbs_consts(system, params_n, kv_n, kw_n, args_n[4]), 95)
+    for i, t in enumerate(tables_n):
+        print(f"phase20 NPT-Gibbs launch {i}: blocks per SM "
+              + ", ".join(f"{lay} {op.occupancy(t, M, A_off, K_n, lay)[2]}"
+                          for lay in op.LAYOUTS))
+    layouts_equal("20 NPT-Gibbs cycle, both launches", lambda lay: run_gibbs(
+        functools.partial(op.sweep_gibbs, layout=lay), args_n, *rest_n))
     g_np = BinaryGibbsEnsemble(system, params_n,
                                npt_pressure=cfg["p_bath_bar"] * P_BAR,
                                **common)
@@ -5389,10 +5715,532 @@ def phase23(dev, cli=(64, 2, 4, 2), bench_chains=256, nlist_chains=64,
     return launches, err, ms, plain_ms, bound_ms, bound_by
 
 
+# ---------------- phase 24: states over a block's shared memory -------
+
+
+def big_block(tag, app, st, n_steps, moves, others):
+    """One run_block of a phase 24 app with its gates: drift <= DRIFT_TOL,
+    the carried S(k) within SFAC_REL_TOL of the smallest chain S(k) norm
+    (sfac_err_max, the largest error over chains, over that norm), the
+    move acceptances `moves` in (0.05, 0.95) and the attempt acceptances
+    `others` in (0, 1).  Returns (state, stats)."""
+    t0 = time.perf_counter()
+    st, stats = app.run_block(st, n_steps)
+    torch.cuda.synchronize()
+    norm = torch.linalg.vector_norm(st.sfac.flatten(1).double(), dim=1)
+    s_rel = stats["sfac_err_max"] / float(norm.min().clamp_min(
+        SFAC_NORM_FLOOR))
+    print(f"phase24 {tag} run_block({n_steps}): "
+          f"{time.perf_counter() - t0:.2f} s, S(k) err {s_rel:.3e} of the "
+          f"smallest chain norm, " + ", ".join(
+              f"{k} {v}" if isinstance(v, list) else f"{k} {v:.6g}"
+              for k, v in stats.items()))
+    bad = [k for k in moves if not 0.05 < stats[k] < 0.95]
+    bad += [k for k in others if not 0.0 < stats[k] < 1.0]
+    if bad or not (stats["drift_max_rel"] <= DRIFT_TOL
+                   and s_rel < SFAC_REL_TOL):
+        raise AssertionError(f"phase24 {tag}: a gate failed {bad}: {stats}")
+    return st, stats
+
+
+def _layout_line(tag, layout, shape, occ, nbytes):
+    print(f"phase24 {tag}: layout {layout} ({nbytes} B of shared memory, "
+          f"{occ[0]} registers, {occ[1]} B local, {occ[2]} blocks per SM; "
+          f"{shape})")
+
+
+def phase24_muvt(dev, chains, n_twin, cap=4096, box=50.0, n_init=1024,
+                 widom_chains=64, widom_moves=512, x_held=219,
+                 expect="global"):
+    """(a) Capacity-4096 SPC/E muVT (50 A, 500 K, z 2.2e-4, r_cut 10,
+    Ewald to 1e-3, p_exchange 0.3: x_per 1755) through MolGCMC(mega="full")
+    from n_init molecules: a melt cycle and two 1-cycle blocks, one launch
+    each; one launch of cap moves and x_held attempts held to sweep_plain
+    on the first n_twin chains and timed (the plain version steps through
+    every slot and attempt, ~4 ms each), the whole-width cycle timed with
+    its bound; then one
+    MonteCarlo.widom_mega(state, 64) on 4096 waters from a lattice in the
+    same box (a fixed-N state on the activity instantiation) and its
+    drift, a launch of its first widom_moves moves and 64 ghosts held to
+    sweep_plain (a whole sweep of a liquid from a lattice flips ~2% of
+    the chains' decisions by f32 rounding alone).  Returns
+    ((launches, err, ms, plain_ms, bound_ms, bound_by), widom launches,
+    widom err)."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMC
+    from metropolismontecarlo_tpu_torch.mc.moves import sweep_tables
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t0 = time.perf_counter()
+    z, px = 2.2e-4, 0.3
+    kl, nk, ksq, K = big_k("muvt")
+    params = _muvt_params(r_cut=BIG_EWALD["muvt"][1], kappa_L=kl, nk=nk,
+                           ksq_max=ksq)
+    system = spce_system(cap)
+    gen = torch.Generator(device=dev).manual_seed(2401)
+    g = MolGCMC(system, params, activity=z, p_exchange=px,
+                dtype=torch.float32, chunk=2, mega="full", device=dev,
+                generator=gen)
+    x_per = max(1, int(round(cap * px / (1.0 - px))))
+    apc = cap + x_per
+    st = g.init(box=box, n_init=n_init, n_chains=chains)
+    torch.cuda.synchronize()
+    shape = (cap, 3, st.coords.shape[-1], K, 2)
+    layout = op.choose_layout(*shape, use_act=True)
+    _layout_line("(a) muVT", layout, shape, op.occupancy(
+        *shape, True, False, layout), op.smem_bytes(*shape, True, False,
+                                                     layout))
+    if layout != expect:
+        raise AssertionError(f"(a) took the {layout} layout")
+    print(f"phase24 (a) init: {time.perf_counter() - t0:.2f} s; capacity "
+          f"{cap}, box {box} A, kappa_L {kl:.3f}, nk {nk}, K {K}, x_per "
+          f"{x_per} (a cycle: {cap} moves + {x_per} attempts), {n_init} "
+          f"molecules at the start, {chains} chains")
+    keys = ("acc_trans", "acc_rot"), ("acc_insert", "acc_delete")
+    op.sweep.launches = 0
+    for tag in ("(a) melt", "(a)", "(a)"):
+        st, _ = big_block(tag, g, st, apc, *keys)
+    launches = op.sweep.launches
+    if launches != 3:
+        raise AssertionError(f"(a): {launches} launches for 3 cycles")
+    kv, kw = make_kvectors(nk, ksq)
+    tables = sweep_tables(system, params, kv, kw, dev)
+    sub = _first_chains(st, n_twin)
+    consts = _exchange_consts(system, params, kv, kw, sub.box)
+    row = time_variant(f"24 (a) muVT launch ({x_held} attempts)", system,
+                       params, tables, sub, gen, x_held, 0, z, consts)
+    consts = _exchange_consts(system, params, kv, kw, st.box)
+    full = time_variant("24 (a) muVT cycle, whole width", system, params,
+                        tables, st, gen, x_per, 0, z, consts, plain=False)
+
+    # Widom on a fixed-N state over the shared limit
+    mc = MonteCarlo(system, params, device=dev, generator=gen,
+                    kernel="sweep")
+    sw = mc.init_state(cubic_lattice(cap, box), box=box,
+                       n_chains=widom_chains)
+    op.sweep.launches = 0
+    att0 = sw.att.clone()
+    sw, out = mc.widom_mega(sw, n_per_sweep=64)
+    w_launches = op.sweep.launches
+    if w_launches != 1 or not bool(((sw.att - att0).sum(1) == cap).all()):
+        raise AssertionError(f"widom_mega: {w_launches} launches")
+    b = out["boltzmann_mean"]
+    sw, m = mc.run_block(sw, 0)
+    print(f"phase24 (a) widom_mega(64) on {cap} waters, {widom_chains} "
+          f"chains: 1 launch, beta mu_ex {float(-torch.log(b.mean())):.4f}, "
+          f"Boltzmann factors finite {bool(torch.isfinite(b).all())}, "
+          f"drift after {m['drift_max_rel']:.3e}")
+    if not (m["drift_max_rel"] <= DRIFT_TOL and bool(torch.isfinite(b).all())
+            and float(b.mean()) > 0.0):
+        raise AssertionError(f"widom_mega: {m}")
+    w_consts = _exchange_consts(system, params, kv, kw, sw.box)
+    w_err = time_variant(f"24 (a) widom launch ({widom_moves} moves)",
+                         system, params, [dataclasses.replace(
+                             t, M=widom_moves) for t in tables], sw, gen, 0,
+                         64, 1.0, w_consts)[0]
+    print(f"phase24 (a) total {time.perf_counter() - t0:.1f} s; the cycle "
+          f"at {chains} chains {full[1]:.3f} ms (bound {full[3]:.3f} ms, "
+          f"{full[4]})")
+    return (launches,) + row, w_launches, w_err, full
+
+
+def phase24_tmmc(dev, chains, n_twin, cap=4096, box=50.0, n_init=1024,
+                 x_held=219, expect="global"):
+    """(b) TMMC at (a)'s shape: TMMCMol(mega="full") from n_init
+    molecules, one block of one cycle (one launch of cap moves and x_per
+    two-branch attempts): the gates, every attempt deposited (the cmat
+    rows sum to chains x x_per, as do the uhist counts); one launch of cap
+    moves and x_held attempts held to sweep_plain on the first n_twin
+    chains and timed (as in (a)), the whole-width cycle timed."""
+    from metropolismontecarlo_tpu_torch.mc.moves import sweep_tables
+    from metropolismontecarlo_tpu_torch.mc.tmmc import TMMCMol
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t0 = time.perf_counter()
+    z, px = 2.2e-4, 0.3
+    kl, nk, ksq, K = big_k("muvt")
+    params = _muvt_params(r_cut=BIG_EWALD["muvt"][1], kappa_L=kl, nk=nk,
+                           ksq_max=ksq)
+    system = spce_system(cap)
+    gen = torch.Generator(device=dev).manual_seed(2402)
+    t = TMMCMol(system, params, activity=z, p_exchange=px,
+                dtype=torch.float32, chunk=2, mega="full", device=dev,
+                generator=gen)
+    x_per = max(1, int(round(cap * px / (1.0 - px))))
+    st = t.init(box, n_init, chains)
+    torch.cuda.synchronize()
+    shape = (cap, 3, st.coords.shape[-1], K, 2)
+    layout = op.choose_layout(*shape, use_act=True, tmmc=True)
+    _layout_line("(b) TMMC", layout, shape, op.occupancy(
+        *shape, True, True, layout), op.smem_bytes(*shape, True, True,
+                                                   layout))
+    if layout != expect:
+        raise AssertionError(f"(b) took the {layout} layout")
+    op.sweep.launches = 0
+    st, _ = big_block("(b)", t, st, cap + x_per, ("acc_trans", "acc_rot"),
+                      ("acc_insert", "acc_delete"))
+    launches = op.sweep.launches
+    deposits, counts = float(t.cmat.sum()), float(t.uhist[:, 0].sum())
+    print(f"phase24 (b) {launches} launch; cmat deposits {deposits:.1f}, "
+          f"uhist counts {counts:.0f}, attempts {chains * x_per}")
+    if launches != 1 or counts != chains * x_per \
+            or abs(deposits - chains * x_per) > 1e-3 * chains * x_per:
+        raise AssertionError("(b): the deposits do not count every attempt")
+    kv, kw = make_kvectors(nk, ksq)
+    tables = sweep_tables(system, params, kv, kw, dev)
+    sub = _first_chains(st, n_twin)
+    consts = _exchange_consts(system, params, kv, kw, sub.box)
+    eta = torch.tensor(t.eta, dtype=torch.float32, device=dev)
+    row = time_variant(f"24 (b) TMMC launch ({x_held} attempts)", system,
+                       params, tables, sub, gen, x_held, 0, z, consts,
+                       tmmc=(eta, sub.energy.float().contiguous()))
+    consts = _exchange_consts(system, params, kv, kw, st.box)
+    full = time_variant("24 (b) TMMC cycle, whole width", system, params,
+                        tables, st, gen, x_per, 0, z, consts, plain=False,
+                        tmmc=(eta, st.energy.float().contiguous()))
+    print(f"phase24 (b) total {time.perf_counter() - t0:.1f} s; the cycle "
+          f"at {chains} chains {full[1]:.3f} ms (bound {full[3]:.3f} ms, "
+          f"{full[4]})")
+    return (launches,) + row, full
+
+
+def phase24_gibbs(dev, chains, n_twin, cap=1024, blocks=2,
+                  expect="global"):
+    """(c) bench.py's Gibbs recipe at cap 1024: SPC/E, 682 + 170
+    molecules in boxes of 29.45 / 36.0 A (the vapour box scaled with the
+    cap), 450 K, r_cut 7.5, Ewald to 1e-3 at the 41.64 A box a volume move
+    can reach, p_transfer 0.3, p_volume 0.002, dv_max 0.03, through
+    MolGibbsEnsemble(mega="full"): `blocks` blocks of one cycle (one Gibbs
+    launch of 2 cap moves + x_per transfers, and the volume moves); one
+    cycle held to sweep_gibbs_plain on the first n_twin chains and timed,
+    the whole-width cycle timed with its bound."""
+    from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsEnsemble
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        draw_uniforms,
+        sweep_tables,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t0 = time.perf_counter()
+    px = 0.3
+    n_l, n_v = (2 * cap) // 3, cap // 6
+    box_l = (n_l / 0.0267) ** (1.0 / 3.0)
+    box_v = 18.0 * (cap / 128) ** (1.0 / 3.0)
+    kl, nk, ksq, K = big_k("gibbs")
+    params = RunParams(temperature=450.0, r_cut=min(7.5, 0.45 * box_l),
+                       cutoff_mode="site", coulomb="ewald", kappa_L=kl,
+                       nk=nk, ksq_max=ksq, p_translate=0.5, dr_max=0.3,
+                       dphi_max=0.4, p_volume=0.002, use_lrc=False,
+                       strict_min_image=False)
+    system = spce_system(cap)
+    gen = torch.Generator(device=dev).manual_seed(2403)
+    g = MolGibbsEnsemble(system, params, dv_max=0.03, p_transfer=px,
+                         dtype=torch.float32, chunk=16, mega="full",
+                         device=dev, generator=gen)
+    x_per = g.run_steps.x_per
+    att_pc = 2 * cap + x_per
+    st = g.init(boxes=(box_l, box_v), n_init=(n_l, n_v), n_chains=chains)
+    torch.cuda.synchronize()
+    (t,) = sweep_tables(system, params, *make_kvectors(nk, ksq), dev)
+    A_off = st.coords.shape[-1]
+    layout = op.choose_layout(cap, t.P, A_off, K, t.eps.shape[1], nk)
+    _layout_line("(c) Gibbs", layout, (cap, t.P, A_off, K, nk),
+                 op.occupancy(t, cap, A_off, K, layout),
+                 op.gibbs_smem_bytes(cap, t.P, A_off, K, t.eps.shape[1], nk,
+                                     layout))
+    if layout != expect:
+        raise AssertionError(f"(c) took the {layout} layout")
+    print(f"phase24 (c) init: {time.perf_counter() - t0:.2f} s; boxes "
+          f"{box_l:.2f} / {box_v:.2f} A, {n_l} + {n_v} molecules, r_cut "
+          f"{params.r_cut}, kappa_L {kl:.3f}, nk {nk}, K {K}, x_per {x_per} "
+          f"(a cycle: {2 * cap} moves + {x_per} transfers), {chains} "
+          f"chains")
+    op.sweep_gibbs.launches = 0
+    for _ in range(blocks):
+        st, _ = big_block("(c)", g, st, att_pc, ("acc_disp", "acc_rot"),
+                          ("acc_transfer", "acc_vol"))
+        if not bool((st.active.sum((1, 2)) == n_l + n_v).all()):
+            raise AssertionError("(c): N not conserved")
+    launches = op.sweep_gibbs.launches
+    if launches != blocks:
+        raise AssertionError(f"(c): {launches} launches for {blocks} cycles")
+    kv, kw = make_kvectors(nk, ksq)
+
+    def cycle_args(C):
+        act, actm = activity_planes(system, st.active[:C].reshape(2 * C, cap))
+        ones = torch.ones((C,), device=dev)
+        args = [x[:C].float().contiguous() for x in (
+            st.coords, st.com, st.quat, st.sfac, st.box)] + [
+            params.temperature * ones, params.dr_max * ones,
+            params.dphi_max * ones]
+        rest = ([draw_uniforms(C, 2 * cap, gen, dev)], [t],
+                act.reshape(C, 2, -1), actm.reshape(C, 2, cap), [x_per],
+                [draw_exchange_uniforms(C, x_per, gen, dev)],
+                gibbs_consts(system, params, kv, kw, args[4]), 98)
+        return args, rest
+
+    def bound(C):
+        active = st.active[:C]
+        frac = _gibbs_cutoff_fraction(system, st.coords[:C], active,
+                                      st.box[:C], params.r_cut)
+        near = [_reach_fraction(st.coords[:C, b], st.com[:C, b],
+                                system.atom_mol_slot[0], st.box[:C, b],
+                                max(params.r_cut, params.qq_cut),
+                                active[:, b])[0] for b in range(2)]
+        return gibbs_bound(t, C, A_off, cap, K, active.sum(2), frac, near,
+                           x_per)
+
+    args, rest = cycle_args(n_twin)
+    held = []
+    err, _ = compare_gibbs("24 (c) Gibbs cycle vs plain", args, *rest,
+                           plain_ms=held)
+    run_gibbs(op.sweep_gibbs, args, *rest)                         # warm
+    ms = _time_ms(lambda: run_gibbs(op.sweep_gibbs, args, *rest), 3)
+    b_ms, b_by = bound(n_twin)
+    ms_f, bf_ms, bf_by = ms, b_ms, b_by
+    if n_twin != chains:
+        args_f, rest_f = cycle_args(chains)
+        run_gibbs(op.sweep_gibbs, args_f, *rest_f)                 # warm
+        ms_f = _time_ms(lambda: run_gibbs(op.sweep_gibbs, args_f, *rest_f),
+                        3)
+        bf_ms, bf_by = bound(chains)
+    print(f"phase24 (c) one cycle, N per box "
+          f"{float(st.active[:, 0].sum(1).float().mean()):.1f} / "
+          f"{float(st.active[:, 1].sum(1).float().mean()):.1f}: {n_twin} "
+          f"chains kernel {ms:.3f} ms, sweep_gibbs_plain {held[0]:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}); {chains} chains kernel "
+          f"{ms_f:.3f} ms, bound {bf_ms:.3f} ms ({bf_by}); total "
+          f"{time.perf_counter() - t0:.1f} s")
+    return (launches, err, ms, held[0], b_ms, b_by), (None, ms_f, None,
+                                                      bf_ms, bf_by)
+
+
+def phase24_semigrand(dev, chains, n_twin, cap=1024, box=50.4, blocks=2,
+                      expect="global"):
+    """(d) bench.py's semigrand recipe at 16x the volume: identical SPC/E
+    blocks cap 1024 + 1024 with 512 + 512 molecules in 50.4 A, 600 K,
+    r_cut 8, Ewald to 1e-3, xi 2, p_flip 0.3, through
+    Semigrand(mega="full"): `blocks` blocks of one cycle (two sweep
+    launches of 1024 moves, on the sweep kernel's activity instantiation,
+    and one flip launch of x_per flips); one flip launch held to
+    flip_plain on the first n_twin chains and timed, the whole-width launch
+    timed with its bound.  Returns (flip row, whole width, sweep
+    launches)."""
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        activity_planes,
+        draw_exchange_uniforms,
+        make_mega_flip_fn,
+    )
+    from metropolismontecarlo_tpu_torch.mc.semigrand import Semigrand
+    from metropolismontecarlo_tpu_torch.mc.widom import make_pose_eval
+    from metropolismontecarlo_tpu_torch.models.water import spce_two_blocks
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sw
+    from metropolismontecarlo_tpu_torch.ops.ewald import make_kvectors
+
+    t0 = time.perf_counter()
+    px, xi = 0.3, 2.0
+    kl, nk, ksq, K = big_k("semigrand")
+    params = _semigrand_water(r_cut=BIG_EWALD["semigrand"][1], kappa_L=kl,
+                              nk=nk, ksq_max=ksq)
+    system = spce_two_blocks(cap, cap)
+    gen = torch.Generator(device=dev).manual_seed(2404)
+    g = Semigrand(system, params, fugacity_ratio=xi, p_flip=px,
+                  dtype=torch.float32, chunk=8, mega="full", device=dev,
+                  generator=gen)
+    x_per = g.run_steps.x_per
+    apc = 2 * cap + x_per
+    st = g.init(box=box, n_a=cap // 2, n_b=cap // 2, n_chains=chains)
+    torch.cuda.synchronize()
+    kv, kw = make_kvectors(nk, ksq)
+    tables = make_mega_flip_fn(system, params, kv, kw, dev, xi).tables
+    A_pad = st.coords.shape[-1]
+    T = tables.a.eps.shape[1]
+    layout = op.choose_layout(2 * cap, 3, 3, A_pad, K, T, nk)
+    _layout_line("(d) semigrand flips", layout, (2 * cap, A_pad, K, nk),
+                 op.occupancy(tables, 2 * cap, A_pad, K, layout),
+                 op.flip_smem_bytes(2 * cap, 3, 3, A_pad, K, T, nk, layout))
+    if layout != expect:
+        raise AssertionError(f"(d) took the {layout} layout")
+    sweep_layout = sw.choose_layout(2 * cap, 3, A_pad, K, T, use_act=True)
+    if sweep_layout != expect:
+        raise AssertionError(f"(d): the sweeps took the {sweep_layout} "
+                             f"layout")
+    print(f"phase24 (d) init: {time.perf_counter() - t0:.2f} s; caps {cap} "
+          f"+ {cap}, box {box} A, kappa_L {kl:.3f}, nk {nk}, K {K}, A_pad "
+          f"{A_pad}, x_per {x_per} (a cycle: {2 * cap} moves + {x_per} "
+          f"flips), {chains} chains; the sweeps take the {sweep_layout} "
+          f"layout")
+    op.flip.launches = 0
+    sw.sweep.launches = 0
+    for _ in range(blocks):
+        st, _ = big_block("(d)", g, st, apc, ("acc_trans", "acc_rot"),
+                          ("acc_flip_ab", "acc_flip_ba"))
+        if not bool((st.active.sum(1) == cap).all()):
+            raise AssertionError("(d): N_tot not conserved")
+    launches, sweeps = op.flip.launches, sw.sweep.launches
+    if launches != blocks or sweeps != 2 * blocks:
+        raise AssertionError(f"(d): {launches} flip and {sweeps} sweep "
+                             f"launches for {blocks} cycles")
+
+    def launch_args(C):
+        act, actm = activity_planes(system, st.active[:C])
+        ones = torch.ones((C,), device=dev)
+        args = [x[:C].float().contiguous() for x in (
+            st.coords, st.com, st.quat, st.sfac, st.box)] + [
+            params.temperature * ones, act, actm]
+        si2 = torch.stack([make_pose_eval(system, params, kv, kw, dev,
+                                          torch.float32, species=s)
+                           .self_intra(args[4]) for s in (0, 1)], 1)
+        return args, si2.contiguous(), draw_exchange_uniforms(C, x_per,
+                                                              gen, dev)
+
+    def bound(C):
+        sub = _first_chains(st, C)
+        frac = _active_cutoff_fraction(sub, 3, params.r_cut)
+        near = _reach_fraction(sub.coords, sub.com, system.atom_mol_slot[0],
+                               sub.box, max(params.r_cut, params.qq_cut),
+                               sub.active, n=8)[0]
+        return flip_bound(tables, C, A_pad, 2 * cap, K, sub.active.sum(1),
+                          frac, near, x_per)
+
+    args, si2, ux = launch_args(n_twin)
+    held = []
+    err, _, _ = compare_flip("24 (d) flips vs plain", args, ux, tables, si2,
+                             None, seed=99, plain_ms=held)
+    ms = _time_ms(lambda: op.flip(*args, ux, tables, si2, None, seed=99), 3)
+    b_ms, b_by = bound(n_twin)
+    args_f, si2_f, ux_f = launch_args(chains)
+    op.flip(*args_f, ux_f, tables, si2_f, None, seed=99)           # warm
+    ms_f = _time_ms(lambda: op.flip(*args_f, ux_f, tables, si2_f, None,
+                                    seed=99), 3)
+    bf_ms, bf_by = bound(chains)
+    print(f"phase24 (d) one flip launch of {x_per} flips: {n_twin} chains "
+          f"kernel {ms:.3f} ms, flip_plain {held[0]:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}); {chains} chains kernel {ms_f:.3f} ms, "
+          f"bound {bf_ms:.3f} ms ({bf_by}); total "
+          f"{time.perf_counter() - t0:.1f} s")
+    return (launches, err, ms, held[0], b_ms, b_by), (None, ms_f, None,
+                                                      bf_ms, bf_by), sweeps
+
+
+def phase24_bulk(dev, chains, n_mol=6859, box=59.056, twin_moves=512,
+                 expect="global_k", **params_kw):
+    """(e) phase 11's 6859 SPC/E waters at tol 1e-5 (Ewald to 1e-5 at
+    r_cut 10: kappa L 20.04, nk 22, K 22,994), slabs on, through
+    MonteCarlo with recompute_chunk 2 (the reciprocal virial's (A, K)
+    grids take ~15 GB per chain): init_state, one block of one sweep (one
+    launch on the global_k layout) with the drift gate, the carried S(k)
+    against the recompute, acceptance in (0.05, 0.95); the kernel held to
+    sweep_plain over the first twin_moves molecules of every chain, both
+    timed with their bound; the whole sweep timed with its bound."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.moves import (
+        draw_uniforms,
+        sweep_blocks,
+    )
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    t0 = time.perf_counter()
+    kl, nk, ksq, K = big_k("bulk")
+    system = spce_system(n_mol)
+    params = RunParams(temperature=298.15, r_cut=BIG_EWALD["bulk"][1],
+                       coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3,
+                       **params_kw)
+    gen = torch.Generator(device=dev).manual_seed(2405)
+    mc = MonteCarlo(system, params, device=dev, generator=gen,
+                    recompute_chunk=2)
+    state = mc.init_state(cubic_lattice(n_mol, box), box=box,
+                          n_chains=chains)
+    torch.cuda.synchronize()
+    cfg = mc._slab_cfg
+    if cfg is None:
+        raise AssertionError("(e): the route did not take slabs")
+    shape = (n_mol, 3, cfg["A_store"], K, system.eps_table.shape[0])
+    layout = op.choose_layout(*shape, slab=True)
+    _layout_line("(e) bulk water", layout, shape, op.occupancy(
+        *shape, False, False, layout), op.smem_bytes(*shape, False, False,
+                                                     layout))
+    if layout != expect:
+        raise AssertionError(f"(e) took the {layout} layout")
+    print(f"phase24 (e) init_state: {time.perf_counter() - t0:.2f} s; "
+          f"kappa_L {kl:.3f}, nk {nk}, K {K}, W {cfg['W']} of A_blk "
+          f"{cfg['A_blk']}, A_store {cfg['A_store']}, {chains} chains")
+    probe = _SfacProbe()
+    try:
+        state, launches = main_path("24 (e)", mc, state, ((1, False),), 1,
+                                    op.sweep)
+    finally:
+        probe.close()
+    print(f"phase24 (e) carried S(k) against the recompute: "
+          f"{probe.rel[-1]:.3e} of the chain's norm")
+    if not probe.rel[-1] < SFAC_REL_TOL:
+        raise AssertionError(f"(e): S(k) error {probe.rel}")
+    u = draw_uniforms(chains, n_mol, gen, dev)
+    state_s, args = _slab_args(mc, state, u)
+    part = [dataclasses.replace(t, M=twin_moves) for t in mc.tables]
+    err, _, plain_ms = compare_tables("24 (e) kernel vs plain", args, part)
+    sweep_blocks(op.sweep, *args, part)                            # warm
+    ms = _time_ms(lambda: sweep_blocks(op.sweep, *args, part), 3)
+    ms_f = _time_ms(lambda: sweep_blocks(op.sweep, *args, mc.tables), 1)
+    frac = _cutoff_fraction_tiled(system, state_s, params.r_cut)
+    near = _system_reach(system, params, state_s, mc.tables, n=1)
+    b_ms, b_by = sweep_bound(system, part, state_s, frac, near, lanes=[
+        slab_lanes(system, t) for t in part], A_plane=cfg["A_store"])
+    bf_ms, bf_by = sweep_bound(system, mc.tables, state_s, frac, near,
+                               lanes=[slab_lanes(system, t)
+                                      for t in mc.tables],
+                               A_plane=cfg["A_store"])
+    print(f"phase24 (e) {twin_moves} moves x {chains} chains: kernel "
+          f"{ms:.3f} ms, sweep_plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}); one sweep of {n_mol} moves {ms_f:.3f} ms, bound "
+          f"{bf_ms:.3f} ms ({bf_by}); total "
+          f"{time.perf_counter() - t0:.1f} s")
+    return (launches, err, ms, plain_ms, b_ms, b_by), (None, ms_f, None,
+                                                       bf_ms, bf_by)
+
+
+def phase24(dev, chains=256, n_twin=128, bulk_chains=64):
+    """Phase 24: full-width states that fit no shared layout, each through
+    its driver's normal entry point with mega="full" (module docstring).
+    Returns {row: (launches, err, ms, plain_ms, bound_ms, bound_by)} for
+    the kernels line, the launch counts taken on the main path with the
+    counters set to 0 just before it.  The held launches run on n_twin
+    chains: f32 rounding alone flips a decision of ~1 in 64 TMMC chains
+    over a launch, and on 128 the 98% gate leaves room for two."""
+    t0 = time.perf_counter()
+    rows = {}
+    (rows["use_act global"], w_launches, w_err,
+     _) = phase24_muvt(dev, chains, n_twin)
+    rows["tmmc global"], _ = phase24_tmmc(dev, chains, n_twin)
+    rows["gibbs global"], _ = phase24_gibbs(dev, chains, n_twin)
+    rows["flip global"], _, sweeps = phase24_semigrand(dev, chains, n_twin)
+    rows["k rows global"], _ = phase24_bulk(dev, bulk_chains)
+    row = rows["use_act global"]
+    rows["use_act global"] = (row[0] + w_launches + sweeps,
+                              max(row[1], w_err)) + row[2:]
+    print(f"phase24 total {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(2, 24)),
+                    default=",".join(str(i) for i in range(2, 25)),
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -5415,6 +6263,7 @@ def main():
                      phase2_gibbs_binary(dev))
         err2f = max(phase2_flip(dev), phase2_flip_stress(dev))
         err2p4, err_d4, _, _ = phase2_tip4p(dev)
+        phase2_layouts(dev)
     if 3 in want:
         # earlier main paths at reduced depth: the script's time goes to
         # the new phases (phase 3 keeps its 10-sweep adjust block, which
@@ -5479,8 +6328,10 @@ def main():
           by22d)) = phase22(dev)
     if 23 in want:
         l23, err23, ms23, plain23, bound23, by23 = phase23(dev)
+    if 24 in want:
+        rows24 = phase24(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 24)):
+    if want != set(range(2, 25)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -5488,6 +6339,11 @@ def main():
     sweep_row = dict(route="cuda", source=sweep_src,
                      replaces=f"{PALLAS}/sweep_kernel.py:903",
                      library_ms=None)
+    gibbs_row = dict(route="cuda", source=f"{SRC}/gibbs_kernel.cu",
+                     replaces=f"{PALLAS}/gibbs_kernel.py:714",
+                     library_ms=None)
+    flip_row = dict(route="cuda", source=f"{SRC}/flip_kernel.cu",
+                    replaces=f"{PALLAS}/flip_kernel.py:395", library_ms=None)
     print(json.dumps({"kernels": [
         dict(sweep_row, name="sweep_kernel",
              launches=l3 + l12 + cli["spce_750"][0],
@@ -5553,7 +6409,22 @@ def main():
         # species-block launches per sweep
         dict(sweep_row, name="sweep_kernel[topology species blocks]",
              launches=l23, max_abs_err=err23, ms=ms23, plain_ms=plain23,
-             bound_ms=bound23, bound_by=by23)]}))
+             bound_ms=bound23, bound_by=by23)] + [
+        # phase 24: the states over a block's shared memory; each row's
+        # times on the launch held to its plain version (first chains,
+        # or the first 512 moves of the bulk water)
+        dict(row, name=name, launches=r[0], max_abs_err=max(r[1], e2),
+             ms=r[2], plain_ms=r[3], bound_ms=r[4], bound_by=r[5])
+        for name, key, row, e2 in (
+            ("sweep_kernel[use_act global]", "use_act global", sweep_row,
+             err2x),
+            ("sweep_kernel[tmmc global]", "tmmc global", sweep_row, err2t),
+            ("sweep_kernel[k rows global]", "k rows global", sweep_row,
+             err2g),
+            ("sweep_gibbs_kernel[global]", "gibbs global", gibbs_row,
+             err2gb),
+            ("flip_kernel[global]", "flip global", flip_row, err2f))
+        for r in (rows24[key],)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -80,6 +80,23 @@
 // term) is the same for every term; only the order in which terms are
 // summed follows the queues.
 //
+// Global layouts (kGlob, their own instantiations; Layout in
+// mmc_common.cuh): for chain states that do not fit a block's shared
+// memory (bench's semigrand recipe at 16x the volume, 1024 + 1024 slots at
+// K = 6062, would need ~331 KB), the rows that grow with the state leave
+// it.  The x/y/z planes live in the chain's rows of coords_out and the
+// slot activity in its row of actm_out (copied in at entry, updated in
+// place); the active-atom list, each column's place in it and the two rows
+// of Philox scores in the chain's row of the workspace ws; the molecule
+// row is read from its global table.  The shared part keeps the queues,
+// the poses' rows and eik tables, the proposal buffers, the LJ tables, the
+// site rows and the scratch, then the 6 k rows -- or, with k_global
+// (layout kGlobalK), those follow in the workspace row too.  Every thread
+// touches only the k-vectors it owns; writes to global rows are ordered
+// before other threads' reads by the barriers that already order the
+// shared layout's.  The list keeps its order and contents: only where its
+// words live differs, as for every other row.
+//
 // Semantics kept from the TPU kernel: pair distances use the minimum image
 // rounded to nearest (ties to even, on the FMA pipe) with d^2 floored at
 // 1e-4; pads (molid < 0), inactive atoms and the flipped molecule's own
@@ -108,25 +125,41 @@ constexpr int kDec = 8;  // an attempt's quaternion [0, 4) and accept uniform
 // computes the same number: the warp queues; the old and new poses' site
 // rows (2 x 4 pmax) and eik tables (2 pmax x 3 rows of 2 nk + 1 complex:
 // 12 pmax (2 nk + 1)); two proposal buffers of both species' rotated
-// templates and the attempt's scalars (2 x (3 (P0 + P1) + 8)); x/y/z, the
+// templates and the attempt's scalars (2 x (3 (P0 + P1) + 8)); both
+// species' (P, T) eps and sigma^2 tables; both species' 7 P-wide site rows
+// (body 3, charge, two flags, live cutoff^2); 33 words of warp partials,
+// statistics and the list's length.  The shared layout adds x/y/z, the
 // active-atom list, each column's place in it and the molecule row (6
-// A_pad); slot activity (M); 6 k rows (S re/im, cfac, dS re/im, the packed
-// k indices); both species' (P, T) eps and sigma^2 tables; both species' 7
-// P-wide site rows (body 3, charge, two flags, live cutoff^2); two rows of
-// Philox scores (2 M); 33 words of warp partials, statistics and the list's
-// length.
+// A_pad), slot activity (M) and two rows of Philox scores (2 M); the shared
+// and global layouts add 6 k rows (S re/im, cfac, dS re/im, the packed k
+// indices).
 __host__ __device__ inline size_t flip_smem_floats(int M, int P0, int P1,
                                                    int A_pad, int K, int T,
-                                                   int nk) {
+                                                   int nk, int layout) {
   const int pmax = P0 > P1 ? P0 : P1;
-  return kQueueWords + 8 * (size_t)pmax + 12 * (size_t)pmax * (2 * nk + 1) +
-         2 * (3 * (size_t)(P0 + P1) + kDec) + 6 * (size_t)A_pad +
-         3 * (size_t)M + 6 * (size_t)K + 2 * (size_t)(P0 + P1) * T +
-         7 * (size_t)(P0 + P1) + 33;
+  size_t n = kQueueWords + 8 * (size_t)pmax +
+             12 * (size_t)pmax * (2 * nk + 1) +
+             2 * (3 * (size_t)(P0 + P1) + kDec) + 2 * (size_t)(P0 + P1) * T +
+             7 * (size_t)(P0 + P1) + 33;
+  if (layout == kShared) n += 6 * (size_t)A_pad + 3 * (size_t)M;
+  if (layout != kGlobalK) n += 6 * (size_t)K;
+  return n;
 }
 
-template <int kQ>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) flip_kernel(
+// Words of one chain's workspace row in a global layout: the active-atom
+// list and each column's place in it (2 A_pad), two rows of Philox scores
+// (2 M) and, in kGlobalK, the 6 k rows.
+__host__ __device__ inline size_t flip_ws_floats(int M, int A_pad, int K,
+                                                 int layout) {
+  if (layout == kShared) return 0;
+  return 2 * (size_t)A_pad + 2 * (size_t)M +
+         (layout == kGlobalK ? 6 * (size_t)K : 0);
+}
+
+template <int kQ, bool kGlob>
+__global__ void __launch_bounds__(kThreads,
+                                  kGlob ? kMinBlocksGlobal : kMinBlocks)
+    flip_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
     const float* __restrict__ act_in, const float* __restrict__ actm_in,
@@ -144,10 +177,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flip_kernel(
     float* __restrict__ coords_out, float* __restrict__ com_out,
     float* __restrict__ quat_out, float* __restrict__ sfac_out,
     float* __restrict__ act_out, float* __restrict__ actm_out,
-    float* __restrict__ stats_out, int cap_a, int cap_b, int P0, int P1,
-    int a0_b, int A_pad, int K, int T, int nk, int ewald, int n_flip,
-    unsigned int seed, float rc2, float qrc2, float kappa_l, float d2_overlap,
-    float ln_xi, float factor) {
+    float* __restrict__ stats_out, float* __restrict__ ws, int cap_a,
+    int cap_b, int P0, int P1, int a0_b, int A_pad, int K, int T, int nk,
+    int ewald, int n_flip, int k_global, unsigned int seed, float rc2,
+    float qrc2, float kappa_l, float d2_overlap, float ln_xi, float factor) {
   extern __shared__ float smem[];
   const int M = cap_a + cap_b;
   const int pmax = P0 > P1 ? P0 : P1;
@@ -192,6 +225,42 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flip_kernel(
   // thread 0's statistics ([15]: a k-vector out of range)
   float* sstat = sred + 16;
   int* snl = reinterpret_cast<int*>(sstat + 16);  // the list's length
+  if constexpr (kGlob) {
+    // the fixed part follows the proposal buffers; the outputs' rows hold
+    // x/y/z and the slot activity, the chain's workspace row the list, its
+    // inverse and the scores (flip_ws_floats), the global table the
+    // molecule row; the k rows follow the fixed part or, with k_global,
+    // the workspace row's scores
+    seps = sx;
+    ssig2 = seps + PS * T;
+    sbody = ssig2 + PS * T;
+    sqp = sbody + 3 * PS;
+    slj = reinterpret_cast<int*>(sqp + PS);
+    sqf = slj + PS;
+    scut = reinterpret_cast<float*>(sqf + PS);
+    sred = scut + PS;
+    sstat = sred + 16;
+    snl = reinterpret_cast<int*>(sstat + 16);
+    int* const wrow = reinterpret_cast<int*>(ws) +
+                      (size_t)blockIdx.x *
+                          flip_ws_floats(M, A_pad, K,
+                                         k_global ? kGlobalK : kGlobal);
+    spos = wrow;
+    slist = spos + A_pad;
+    sscore = reinterpret_cast<unsigned*>(slist + A_pad);
+    sx = coords_out + (size_t)blockIdx.x * 3 * A_pad;
+    sy = sx + A_pad;
+    sz = sy + A_pad;
+    smol = const_cast<int*>(molid_row);
+    sactm = actm_out + (size_t)blockIdx.x * M;
+    ssre = k_global ? reinterpret_cast<float*>(sscore + 2 * M)
+                    : reinterpret_cast<float*>(snl + 1);
+    ssim = ssre + K;
+    scfac = ssim + K;
+    sdre = scfac + K;
+    sdim = sdre + K;
+    skidx = reinterpret_cast<int*>(sdim + K);
+  }
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -210,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flip_kernel(
     sx[j] = cin[j];
     sy[j] = cin[A_pad + j];
     sz[j] = cin[2 * A_pad + j];
-    smol[j] = molid_row[j];
+    if (!kGlob) smol[j] = molid_row[j];
   }
   if (warp == 0) {
     // the active-atom list, in column order
@@ -628,12 +697,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flip_kernel(
 
   float* cout = coords_out + (size_t)c * 3 * A_pad;
   for (int j = tid; j < A_pad; j += nt) {
-    cout[j] = sx[j];
-    cout[A_pad + j] = sy[j];
-    cout[2 * A_pad + j] = sz[j];
+    if (!kGlob) {
+      cout[j] = sx[j];
+      cout[A_pad + j] = sy[j];
+      cout[2 * A_pad + j] = sz[j];
+    }
     act_out[(size_t)c * A_pad + j] = spos[j] >= 0 ? 1.0f : 0.0f;
   }
-  for (int i = tid; i < M; i += nt) actm_out[(size_t)c * M + i] = sactm[i];
+  if (!kGlob)
+    for (int i = tid; i < M; i += nt) actm_out[(size_t)c * M + i] = sactm[i];
   for (int k = tid; k < K; k += nt) {
     sfac_out[((size_t)c * K + k) * 2] = ssre[k];
     sfac_out[((size_t)c * K + k) * 2 + 1] = ssim[k];
@@ -647,16 +719,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flip_kernel(
   }
 }
 
-using FlipKernel = decltype(&flip_kernel<kQNone>);
+using FlipKernel = decltype(&flip_kernel<kQNone, false>);
 
-// The instantiation of a Coulomb style.
-FlipKernel pick_kernel(int coulomb) {
+template <bool kGlob>
+FlipKernel pick_form(int coulomb) {
   switch (coulomb) {
-    case kNone: return flip_kernel<kQNone>;
-    case kWolf: return flip_kernel<kQWolf>;
-    case kBare: return flip_kernel<kQBare>;
-    default: return flip_kernel<kQErfc>;
+    case kNone: return flip_kernel<kQNone, kGlob>;
+    case kWolf: return flip_kernel<kQWolf, kGlob>;
+    case kBare: return flip_kernel<kQBare, kGlob>;
+    default: return flip_kernel<kQErfc, kGlob>;
   }
+}
+
+// The instantiation of a Coulomb style and layout (kGlobal and kGlobalK
+// share theirs).
+FlipKernel pick_kernel(int coulomb, int layout) {
+  return layout == kShared ? pick_form<false>(coulomb)
+                           : pick_form<true>(coulomb);
 }
 
 // Lets the instantiation take `smem` bytes of dynamic shared memory.
@@ -670,8 +749,12 @@ cudaError_t allow_smem(FlipKernel kernel, size_t smem) {
 }  // namespace
 
 extern "C" size_t mmc_flip_smem_bytes(int M, int P0, int P1, int A_pad, int K,
-                                      int T, int nk) {
-  return sizeof(float) * flip_smem_floats(M, P0, P1, A_pad, K, T, nk);
+                                      int T, int nk, int layout) {
+  return sizeof(float) * flip_smem_floats(M, P0, P1, A_pad, K, T, nk, layout);
+}
+
+extern "C" size_t mmc_flip_ws_floats(int M, int A_pad, int K, int layout) {
+  return flip_ws_floats(M, A_pad, K, layout);
 }
 
 // The instantiation's registers per thread, local memory per thread (stack
@@ -679,15 +762,16 @@ extern "C" size_t mmc_flip_smem_bytes(int M, int P0, int P1, int A_pad, int K,
 // once (the CUDA occupancy calculator) into out[0..2]; returns the CUDA
 // error code (0 on success).
 extern "C" int mmc_flip_occupancy(int coulomb, int M, int P0, int P1,
-                                  int A_pad, int K, int T, int nk, int* out) {
-  const FlipKernel kernel = pick_kernel(coulomb);
+                                  int A_pad, int K, int T, int nk, int layout,
+                                  int* out) {
+  const FlipKernel kernel = pick_kernel(coulomb, layout);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = 0;
-  const size_t smem = mmc_flip_smem_bytes(M, P0, P1, A_pad, K, T, nk);
+  const size_t smem = mmc_flip_smem_bytes(M, P0, P1, A_pad, K, T, nk, layout);
   if (smem > (size_t)kMaxSmemBytes) return 0;
   e = allow_smem(kernel, smem);
   if (e == cudaSuccess)
@@ -709,6 +793,9 @@ extern "C" const char* mmc_flip_error_string(int code) {
 // species s: body (P_s, 3), qp (P_s), eps/sig2 (P_s, T), has_lj/has_q
 // (P_s); tid/molid/q rows (A_pad), kvec (K, 3) whose integer components
 // are at most nk in magnitude (else the energy statistic is NaN), kw (K).
+// layout selects where the chain state lives (Layout); the global layouts
+// need the workspace ws, C rows of mmc_flip_ws_floats(M, A_pad, K, layout)
+// f32.
 extern "C" int mmc_flip_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* act, const void* actm, const void* box, const void* temp,
@@ -719,18 +806,20 @@ extern "C" int mmc_flip_launch(
     const void* tid_row, const void* molid_row, const void* q_row,
     const void* kvec, const void* kw, void* coords_out, void* com_out,
     void* quat_out, void* sfac_out, void* act_out, void* actm_out,
-    void* stats_out, int C, int cap_a, int cap_b, int P0, int P1, int a0_b,
-    int A_pad, int K, int T, int nk, int coulomb, int n_flip,
-    unsigned int seed, int threads, float rc2, float qrc2, float kappa_l,
-    float d2_overlap, float ln_xi, float factor, void* stream) {
+    void* stats_out, void* ws, int C, int cap_a, int cap_b, int P0, int P1,
+    int a0_b, int A_pad, int K, int T, int nk, int coulomb, int n_flip,
+    int layout, unsigned int seed, int threads, float rc2, float qrc2,
+    float kappa_l, float d2_overlap, float ln_xi, float factor,
+    void* stream) {
   const size_t smem =
-      mmc_flip_smem_bytes(cap_a + cap_b, P0, P1, A_pad, K, T, nk);
-  if (smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 ||
+      mmc_flip_smem_bytes(cap_a + cap_b, P0, P1, A_pad, K, T, nk, layout);
+  if (layout < kShared || layout > kGlobalK || (layout != kShared && !ws) ||
+      smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 ||
       cap_a < 1 || cap_b < 1 || P0 < 1 || P1 < 1 || P0 > 16 || P1 > 16 ||
       nk < 0 || nk > 127 || A_pad > kMaxColumns ||
       a0_b < cap_a * P0 || a0_b + cap_b * P1 > A_pad || n_flip < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FlipKernel kernel = pick_kernel(coulomb);
+  const FlipKernel kernel = pick_kernel(coulomb, layout);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -751,8 +840,9 @@ extern "C" int mmc_flip_launch(
       static_cast<float*>(coords_out), static_cast<float*>(com_out),
       static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
       static_cast<float*>(act_out), static_cast<float*>(actm_out),
-      static_cast<float*>(stats_out), cap_a, cap_b, P0, P1, a0_b, A_pad, K, T,
-      nk, coulomb == kEwald, n_flip, seed, rc2, qrc2, kappa_l, d2_overlap,
-      ln_xi, factor);
+      static_cast<float*>(stats_out), static_cast<float*>(ws), cap_a, cap_b,
+      P0, P1, a0_b, A_pad, K, T, nk, coulomb == kEwald, n_flip,
+      layout == kGlobalK ? 1 : 0, seed, rc2, qrc2, kappa_l, d2_overlap, ln_xi,
+      factor);
   return static_cast<int>(cudaGetLastError());
 }

@@ -102,6 +102,25 @@
 // term) is the same for every term; only the order in which terms are
 // summed follows the queues.
 //
+// Global layouts (kGlob, their own instantiations; Layout in
+// mmc_common.cuh): for chain states that do not fit a block's shared
+// memory (bench's cap-1024 Gibbs recipe at K = 4849 would need ~367 KB),
+// the rows that grow with the state leave it.  Both boxes' x/y/z rows and
+// the two rows of Philox scores live in the chain's row of the workspace
+// ws, in the shared layout's order (x/y/z copied in at entry and out at
+// the end); the activity rows live in the chain's rows of act_out and
+// actm_out (copied in at entry, updated in place); the molecule row is
+// read from its global table.  The shared part keeps the queues, the
+// proposal buffers and eik tables, the scratch, the LJ tables and the site
+// rows, then the 11 k rows -- or, with k_global (layout kGlobalK: the k
+// rows do not fit either), those follow in the chain's workspace row too.
+// Every thread touches only the k-vectors it owns (k = tid, tid + 256,
+// ...).  Writes to global rows are ordered before other threads' reads by
+// the barriers that already order the shared layout's (__syncthreads
+// orders a block's global writes too).  The arithmetic, lane order, skip
+// tests, queues and reduction order are the shared layout's; only where
+// the words live differs.
+//
 // Semantics kept from the TPU kernel: old atoms are read from the stored
 // coordinates; new atoms are the floor-wrapped new COM plus R(q_new) body;
 // pair distances use the minimum image rounded to nearest (ties to even, on
@@ -140,24 +159,39 @@ constexpr int kScratch = 2 * kDec + 32 + 16 + 8;
 // gibbs_smem_bytes computes the same number.  The warp queues and near
 // rings; two proposal buffers, each an old and a new pose of P 16-byte site
 // rows (16 P) and their eik tables (2 P x 3 rows of 2 nk + 1 complex: 24 P
-// (2 nk + 1)); x/y/z/activity over both boxes (8 A_off) and one box's
-// molecule row (A_off); slot activity over both boxes (2 m_off); 11 k rows
-// (S re/im and cfac per box, the move's or insertion's and the deletion's
-// dS re/im, the packed k-vector indices); 4 (P, T) LJ tables; 7 P-wide site
-// rows (body 3, charge, two flags, live cutoff^2); two rows of Philox
-// scores (4 m_off); 88 words of scratch (two proposals' scalars, two rows of
-// warp partials, the statistics, the box constants).
+// (2 nk + 1)); 4 (P, T) LJ tables; 7 P-wide site rows (body 3, charge, two
+// flags, live cutoff^2); 88 words of scratch (two proposals' scalars, two
+// rows of warp partials, the statistics, the box constants).  The shared
+// layout adds x/y/z/activity over both boxes (8 A_off) and one box's
+// molecule row (A_off), slot activity over both boxes (2 m_off) and two
+// rows of Philox scores (4 m_off); the shared and global layouts add 11 k
+// rows (S re/im and cfac per box, the move's or insertion's and the
+// deletion's dS re/im, the packed k-vector indices).
 __host__ __device__ inline size_t gibbs_smem_floats(int m_off, int P,
                                                     int A_off, int K, int T,
-                                                    int nk) {
-  return kQueueWords + kNearWords + 16 * (size_t)P +
-         24 * (size_t)P * (2 * nk + 1) + 9 * (size_t)A_off +
-         6 * (size_t)m_off + 11 * (size_t)K + 4 * (size_t)P * T +
-         7 * (size_t)P + kScratch;
+                                                    int nk, int layout) {
+  size_t n = kQueueWords + kNearWords + 16 * (size_t)P +
+             24 * (size_t)P * (2 * nk + 1) + 4 * (size_t)P * T +
+             7 * (size_t)P + kScratch;
+  if (layout == kShared) n += 9 * (size_t)A_off + 6 * (size_t)m_off;
+  if (layout != kGlobalK) n += 11 * (size_t)K;
+  return n;
 }
 
-template <int kQ, bool kLinear>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) gibbs_kernel(
+// Words of one chain's workspace row in a global layout: x/y/z over both
+// boxes (6 A_off), two rows of Philox scores (4 m_off) and, in kGlobalK,
+// the 11 k rows.
+__host__ __device__ inline size_t gibbs_ws_floats(int m_off, int A_off, int K,
+                                                  int layout) {
+  if (layout == kShared) return 0;
+  return 6 * (size_t)A_off + 4 * (size_t)m_off +
+         (layout == kGlobalK ? 11 * (size_t)K : 0);
+}
+
+template <int kQ, bool kLinear, bool kGlob>
+__global__ void __launch_bounds__(kThreads,
+                                  kGlob ? kMinBlocksGlobal : kMinBlocks)
+    gibbs_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
     const float* __restrict__ act_in, const float* __restrict__ actm_in,
@@ -174,9 +208,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) gibbs_kernel(
     const float* __restrict__ kw, float* __restrict__ coords_out,
     float* __restrict__ com_out, float* __restrict__ quat_out,
     float* __restrict__ sfac_out, float* __restrict__ stats_out,
-    float* __restrict__ act_out, float* __restrict__ actm_out, int M,
+    float* __restrict__ act_out, float* __restrict__ actm_out,
+    float* __restrict__ ws, int M,
     int m_off, int m_start, int a_start, int P, int A_off, int K, int T,
-    int nk, int ewald, int use_rot, int n_exch, unsigned int seed, float rc2,
+    int nk, int ewald, int use_rot, int n_exch, int k_global,
+    unsigned int seed, float rc2,
     float qrc2, float kappa_l, float d2_overlap, float p_translate,
     float factor) {
   extern __shared__ float smem[];
@@ -220,6 +256,39 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) gibbs_kernel(
   int* sqf = slj + P;
   float* scut = reinterpret_cast<float*>(sqf + P);   // (P) live cutoff^2
   unsigned* sscore = reinterpret_cast<unsigned*>(scut + P);  // 2 x (2 m_off)
+  if constexpr (kGlob) {
+    // the fixed part follows the box constants; the chain's workspace row
+    // holds x/y/z and the scores (gibbs_ws_floats), the outputs' rows the
+    // activity, the global table the molecule row; the k rows follow the
+    // fixed part or, with k_global, the workspace row's scores
+    seps = sbox + 8;
+    ssig2 = seps + P * T;
+    slam1 = ssig2 + P * T;
+    slam2 = slam1 + P * T;
+    sbody = slam2 + P * T;
+    sqp = sbody + 3 * P;
+    slj = reinterpret_cast<int*>(sqp + P);
+    sqf = slj + P;
+    scut = reinterpret_cast<float*>(sqf + P);
+    float* const wrow =
+        ws + (size_t)blockIdx.x *
+                 gibbs_ws_floats(m_off, A_off, K, k_global ? kGlobalK : kGlobal);
+    sx = wrow;
+    sy = sx + A2;
+    sz = sy + A2;
+    sscore = reinterpret_cast<unsigned*>(sz + A2);
+    sact = act_out + (size_t)blockIdx.x * A2;
+    sactm = actm_out + (size_t)blockIdx.x * M2;
+    smol = const_cast<int*>(molid_row);
+    ssre = k_global ? reinterpret_cast<float*>(sscore + 2 * M2) : scut + P;
+    ssim = ssre + 2 * K;
+    scfac = ssim + 2 * K;
+    sdre = scfac + 2 * K;
+    sdim = sdre + K;
+    sdre2 = sdim + K;
+    sdim2 = sdre2 + K;
+    skidx = reinterpret_cast<int*>(sdim2 + K);
+  }
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -240,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) gibbs_kernel(
       sy[b * A_off + j] = cin[(3 * b + 1) * A_off + j];
       sz[b * A_off + j] = cin[(3 * b + 2) * A_off + j];
     }
-    smol[j] = molid_row[j];
+    if (!kGlob) smol[j] = molid_row[j];
   }
   for (int j = tid; j < A2; j += nt) sact[j] = act_in[(size_t)c * A2 + j];
   for (int i = tid; i < M2; i += nt) sactm[i] = actm_in[(size_t)c * M2 + i];
@@ -1005,8 +1074,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) gibbs_kernel(
       cout[(3 * b + 1) * A_off + j] = sy[b * A_off + j];
       cout[(3 * b + 2) * A_off + j] = sz[b * A_off + j];
     }
-  for (int j = tid; j < A2; j += nt) act_out[(size_t)c * A2 + j] = sact[j];
-  for (int i = tid; i < M2; i += nt) actm_out[(size_t)c * M2 + i] = sactm[i];
+  if (!kGlob) {
+    for (int j = tid; j < A2; j += nt) act_out[(size_t)c * A2 + j] = sact[j];
+    for (int i = tid; i < M2; i += nt) actm_out[(size_t)c * M2 + i] = sactm[i];
+  }
   for (int k = tid; k < K; k += nt)
     for (int b = 0; b < 2; ++b) {
       sfac_out[(((size_t)c * 2 + b) * K + k) * 2] = ssre[b * K + k];
@@ -1019,24 +1090,31 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) gibbs_kernel(
   }
 }
 
-using GibbsKernel = decltype(&gibbs_kernel<kQNone, false>);
+using GibbsKernel = decltype(&gibbs_kernel<kQNone, false, false>);
 
-// The instantiation of a Coulomb style and LJ shift.
-GibbsKernel pick_kernel(int coulomb, int lj_linear) {
+template <bool kGlob>
+GibbsKernel pick_form(int q, int lj_linear) {
+  switch (2 * q + (lj_linear ? 1 : 0)) {
+    case 0: return gibbs_kernel<kQNone, false, kGlob>;
+    case 1: return gibbs_kernel<kQNone, true, kGlob>;
+    case 2: return gibbs_kernel<kQErfc, false, kGlob>;
+    case 3: return gibbs_kernel<kQErfc, true, kGlob>;
+    case 4: return gibbs_kernel<kQWolf, false, kGlob>;
+    case 5: return gibbs_kernel<kQWolf, true, kGlob>;
+    case 6: return gibbs_kernel<kQBare, false, kGlob>;
+    default: return gibbs_kernel<kQBare, true, kGlob>;
+  }
+}
+
+// The instantiation of a Coulomb style, LJ shift and layout (kGlobal and
+// kGlobalK share theirs).
+GibbsKernel pick_kernel(int coulomb, int lj_linear, int layout) {
   const int q = coulomb == kNone   ? kQNone
                 : coulomb == kWolf ? kQWolf
                 : coulomb == kBare ? kQBare
                                    : kQErfc;
-  switch (2 * q + (lj_linear ? 1 : 0)) {
-    case 0: return gibbs_kernel<kQNone, false>;
-    case 1: return gibbs_kernel<kQNone, true>;
-    case 2: return gibbs_kernel<kQErfc, false>;
-    case 3: return gibbs_kernel<kQErfc, true>;
-    case 4: return gibbs_kernel<kQWolf, false>;
-    case 5: return gibbs_kernel<kQWolf, true>;
-    case 6: return gibbs_kernel<kQBare, false>;
-    default: return gibbs_kernel<kQBare, true>;
-  }
+  return layout == kShared ? pick_form<false>(q, lj_linear)
+                           : pick_form<true>(q, lj_linear);
 }
 
 // Lets the instantiation take `smem` bytes of dynamic shared memory.
@@ -1050,8 +1128,13 @@ cudaError_t allow_smem(GibbsKernel kernel, size_t smem) {
 }  // namespace
 
 extern "C" size_t mmc_gibbs_smem_bytes(int m_off, int P, int A_off, int K,
-                                       int T, int nk) {
-  return sizeof(float) * gibbs_smem_floats(m_off, P, A_off, K, T, nk);
+                                       int T, int nk, int layout) {
+  return sizeof(float) * gibbs_smem_floats(m_off, P, A_off, K, T, nk, layout);
+}
+
+extern "C" size_t mmc_gibbs_ws_floats(int m_off, int A_off, int K,
+                                      int layout) {
+  return gibbs_ws_floats(m_off, A_off, K, layout);
 }
 
 // The instantiation's registers per thread, local memory per thread (stack
@@ -1060,15 +1143,15 @@ extern "C" size_t mmc_gibbs_smem_bytes(int m_off, int P, int A_off, int K,
 // error code (0 on success).
 extern "C" int mmc_gibbs_occupancy(int coulomb, int lj_linear, int m_off,
                                    int P, int A_off, int K, int T, int nk,
-                                   int* out) {
-  const GibbsKernel kernel = pick_kernel(coulomb, lj_linear);
+                                   int layout, int* out) {
+  const GibbsKernel kernel = pick_kernel(coulomb, lj_linear, layout);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = 0;
-  const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T, nk);
+  const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T, nk, layout);
   if (smem > (size_t)kMaxSmemBytes) return 0;
   e = allow_smem(kernel, smem);
   if (e == cudaSuccess)
@@ -1087,7 +1170,9 @@ extern "C" const char* mmc_gibbs_error_string(int code) {
 // the flag and row tables) tensors in the layout described at the top; ux,
 // si2 and wc2 are read only with n_exch > 0.  nk bounds the k-vectors'
 // integer components (|n| <= nk; a launch whose k-vectors exceed it returns
-// NaN energy statistics).
+// NaN energy statistics).  layout selects where the chain state lives
+// (Layout); the global layouts need the workspace ws, C rows of
+// mmc_gibbs_ws_floats(m_off, A_off, K, layout) f32.
 extern "C" int mmc_gibbs_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* act, const void* actm, const void* box2, const void* temp,
@@ -1098,19 +1183,20 @@ extern "C" int mmc_gibbs_launch(
     const void* tid_row, const void* molid_row, const void* q_row,
     const void* kvec, const void* kw, void* coords_out, void* com_out,
     void* quat_out, void* sfac_out, void* stats_out, void* act_out,
-    void* actm_out, int C, int M, int m_off, int m_start, int a_start, int P,
-    int A_off, int K, int T, int nk, int coulomb, int lj_linear, int use_rot,
-    int n_exch, unsigned int seed, int threads, float rc2, float qrc2,
-    float kappa_l, float d2_overlap, float p_translate, float factor,
-    void* stream) {
-  const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T, nk);
-  if (smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 || M < 1 ||
+    void* actm_out, void* ws, int C, int M, int m_off, int m_start,
+    int a_start, int P, int A_off, int K, int T, int nk, int coulomb,
+    int lj_linear, int use_rot, int n_exch, int layout, unsigned int seed,
+    int threads, float rc2, float qrc2, float kappa_l, float d2_overlap,
+    float p_translate, float factor, void* stream) {
+  const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T, nk, layout);
+  if (layout < kShared || layout > kGlobalK || (layout != kShared && !ws) ||
+      smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 || M < 1 ||
       P < 1 || P > 16 || nk < 0 || nk > 127 || 2 * A_off > kMaxColumns ||
       m_start < 0 || a_start < 0 || m_start + M > m_off ||
       a_start + M * P > A_off || n_exch < 0 ||
       (n_exch > 0 && (!ux || !si2 || !wc2)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const GibbsKernel kernel = pick_kernel(coulomb, lj_linear);
+  const GibbsKernel kernel = pick_kernel(coulomb, lj_linear, layout);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -1130,8 +1216,9 @@ extern "C" int mmc_gibbs_launch(
       static_cast<const float*>(kw), static_cast<float*>(coords_out),
       static_cast<float*>(com_out), static_cast<float*>(quat_out),
       static_cast<float*>(sfac_out), static_cast<float*>(stats_out),
-      static_cast<float*>(act_out), static_cast<float*>(actm_out), M, m_off,
-      m_start, a_start, P, A_off, K, T, nk, coulomb == kEwald, use_rot,
-      n_exch, seed, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
+      static_cast<float*>(act_out), static_cast<float*>(actm_out),
+      static_cast<float*>(ws), M, m_off, m_start, a_start, P, A_off, K, T,
+      nk, coulomb == kEwald, use_rot, n_exch, layout == kGlobalK ? 1 : 0,
+      seed, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,12 +21,22 @@ enum Coulomb { kNone = 0, kEwald = 1, kWolf = 2, kWolfRef = 3, kBare = 4 };
 // Gibbs and flip kernels): none, erfc (ewald, wolf_ref), the shifted erfc
 // (wolf) or bare.
 enum PairQ { kQNone = 0, kQErfc = 1, kQWolf = 2, kQBare = 3 };
+// Where a chain's state lives (ops/cuda/*.py LAYOUTS, in this order): all
+// of it in shared memory; the rows that grow with atoms and slots in
+// global memory; those and the k rows too.  Only where the words live
+// differs: the arithmetic, lane order and reduction order are the same.
+enum Layout { kShared = 0, kGlobal = 1, kGlobalK = 2 };
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr int kMaxSmemBytes = 232448;
 constexpr int kThreads = 256;  // one block per chain
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 3;  // blocks per SM the registers are capped for
+// The same for the global-layout instantiations: their 64-bit row
+// pointers spill under the three-block cap, and the states they serve
+// fill most of a block's shared memory (one or two blocks per SM) or run
+// fewer chains than the card has SMs.
+constexpr int kMinBlocksGlobal = 2;
 constexpr unsigned kFull = 0xffffffffu;
 // A warp's ring of live pair terms: kQueue entries of a key and a d^2.  The
 // key's low kKeySite bits hold the plane column and the bits above it the

@@ -115,18 +115,26 @@
 // ghost insertions with the same pose and energy code and no writes; wid
 // (C, 2) receives sum w and sum w^2, w = exp(-du_ins / T).
 //
-// Global layout (kGlobal, fixed N only; its own instantiation): for chain
-// states that do not fit a block's shared memory (6859 SPC/E waters with
-// K = 2874 would need ~430 KB) the chain's x/y/z planes also live in
-// global memory -- the chain's own rows of the output, copied in at entry
-// and updated in place by accepted moves -- and the molecule row is read
-// from its global table (shared by all chains, so L2 keeps it).  Shared
-// memory keeps the k-vector rows, S(k), the LJ tables, the site rows, the
-// queues and the scratch.  The writes of an
-// accepted move are ordered before every other thread's reads by the
-// barrier that ends the move.  The arithmetic, lane order, skip tests,
-// queues and reduction order are the shared layout's; only where the atom
-// words live differs.
+// Global layouts (kLayout, one instantiation each): for chain states that
+// do not fit a block's shared memory, the rows that grow with the atoms
+// and slots move to global memory (kGlobal: 6859 SPC/E waters with K =
+// 2874 would need ~435 KB, a capacity-4096 muVT chain ~369 KB).  The x/y/z
+// planes live in the chain's own rows of the output, copied in at entry
+// and updated in place by accepted moves and insertions; with activity
+// the act and actm planes likewise live in the chain's rows of act_out
+// and actm_out; the molecule row is read from its global table (shared by
+// all chains, so L2 keeps it).  Where even the k rows overflow (kGlobalK:
+// 6859 waters at tol 1e-5, K = 22,994, would need ~736 KB of them), S(k),
+// cfac and the move's dS rows (and tmmc's deletion row) live in the
+// chain's rows of the workspace kws, and the k-vectors are read from
+// their global table (L1/L2).  Every thread touches only the k-vectors it
+// owns (k = tid, tid + 256, ...), in every pass.  Shared memory keeps the
+// LJ tables, the site rows, the queues and the scratch.  The writes of an
+// accepted move or exchange are ordered before every other thread's reads
+// by the barrier that ends it (__syncthreads orders a block's global
+// writes too).  The arithmetic, lane order, skip tests, queues and
+// reduction order are the shared layout's; only where the words live
+// differs.
 //
 // Sorted slabs (W > 0, global layout): the last species block (atoms
 // [a0_w, a0_w + A_blk)) is kept z-sorted by the caller, and the planes
@@ -173,26 +181,35 @@ constexpr int kDec = 16;
 
 // Shared-memory words of one block; ops/cuda/sweep_kernel.py smem_bytes
 // computes the same number.  Every layout holds the slot-pick row (64
-// words: 32 x 8 B), the warp queues and near rings, 8 k-vector rows (K),
-// the 4 LJ tables (P T), 23 P-wide site rows (two proposal buffers of an
-// old and a new pose, each site a 16-byte row of x, y, z and its live
-// cutoff^2: 16; the body 3, charge, two flags and the live cutoff^2) and
-// 96 words of scratch (2 x 16 proposal scalars, 16 exchange uniforms, 32
-// warp partials, 16 for the chain's statistics).  The shared layout adds
-// the 4 atom rows x, y, z and molecule (A_pad; charges and types are read
-// from their global tables, the same for every chain), use_act the two
-// activity planes, tmmc a second slot-pick row (64), a second set of warp
-// queues, the deletion pose (4 P), its S(k) row (2 K) and its warp
-// partials (32).
+// words: 32 x 8 B), the warp queues and near rings, the 4 LJ tables (P T),
+// 23 P-wide site rows (two proposal buffers of an old and a new pose, each
+// site a 16-byte row of x, y, z and its live cutoff^2: 16; the body 3,
+// charge, two flags and the live cutoff^2) and 96 words of scratch (2 x 16
+// proposal scalars, 16 exchange uniforms, 32 warp partials, 16 for the
+// chain's statistics).  The shared layout adds the 4 atom rows x, y, z and
+// molecule (A_pad; charges and types are read from their global tables,
+// the same for every chain) and, with use_act, the two activity planes;
+// the shared and global layouts add the 8 k-vector rows (K); tmmc adds a
+// second slot-pick row (64), a second set of warp queues, the deletion
+// pose (4 P) and its warp partials (32), and outside kGlobalK the
+// deletion's S(k) row (2 K).
 __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
                                                     int K, int T, int use_act,
-                                                    int tmmc, int global) {
-  size_t n = 64 + kQueueWords + kNearWords + 8 * (size_t)K +
-             4 * (size_t)P * T + 23 * (size_t)P + 96;
-  if (!global) n += 4 * (size_t)A_pad;
-  if (use_act) n += (size_t)A_pad + (size_t)M;
-  if (tmmc) n += 64 + kQueueWords + 4 * (size_t)P + 2 * (size_t)K + 32;
+                                                    int tmmc, int layout) {
+  size_t n = 64 + kQueueWords + kNearWords + 4 * (size_t)P * T +
+             23 * (size_t)P + 96;
+  if (layout == kShared) n += 4 * (size_t)A_pad;
+  if (layout != kGlobalK) n += 8 * (size_t)K;
+  if (use_act && layout == kShared) n += (size_t)A_pad + (size_t)M;
+  if (tmmc) n += 64 + kQueueWords + 4 * (size_t)P + 32;
+  if (tmmc && layout != kGlobalK) n += 2 * (size_t)K;
   return n;
+}
+
+// Words of one chain's row of the k-row workspace (kGlobalK): S(k) re/im,
+// cfac and the move's dS re/im, and with tmmc the deletion's dS re/im.
+__host__ __device__ inline size_t sweep_kws_floats(int K, int tmmc) {
+  return (size_t)(tmmc ? 7 : 5) * K;
 }
 
 // kAct: the activity-mask instantiation (use_act), which alone carries the
@@ -200,10 +217,16 @@ __host__ __device__ inline size_t sweep_smem_floats(int M, int P, int A_pad,
 // inner loop and register count free of them.  kTmmc (with kAct): the
 // transition-matrix instantiation, whose attempts evaluate both branches
 // and deposit cmat/uhist; the fixed-N and muVT instantiations carry none
-// of it.  kGlobal (fixed N): the global-memory layout, which alone carries
-// the slab windows.
-template <bool kAct, bool kTmmc, bool kGlobal>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
+// of it.  kLayout: where the chain state lives (Layout); the global
+// layouts alone carry the slab windows.  The fixed-N kGlobal instantiation
+// keeps the three-block register cap of the shared ones (two blocks of
+// the 6859-water state share an SM); the other global ones take
+// kMinBlocksGlobal.
+template <bool kAct, bool kTmmc, int kLayout>
+__global__ void __launch_bounds__(
+    kThreads, kLayout == kShared || (!kAct && kLayout == kGlobal)
+                  ? kMinBlocks
+                  : kMinBlocksGlobal) sweep_kernel(
     const float* __restrict__ coords_in, const float* __restrict__ com_in,
     const float* __restrict__ quat_in, const float* __restrict__ sfac_in,
     const float* __restrict__ box_in, const float* __restrict__ temp_in,
@@ -224,7 +247,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     float* __restrict__ quat_out, float* __restrict__ sfac_out,
     float* __restrict__ stats_out, float* __restrict__ act_out,
     float* __restrict__ actm_out, float* __restrict__ wid_out,
-    float* __restrict__ cmat_out, float* __restrict__ uhist_out, int M,
+    float* __restrict__ cmat_out, float* __restrict__ uhist_out,
+    float* __restrict__ kws, int M,
     int M_total, int m_start, int a_start, int P, int A_pad, int K, int T,
     int coulomb, int lj_linear, int use_rot, int n_exch, int n_widom,
     int n_seg, int a0_w, int A_blk, int W, unsigned int seed, float rc2,
@@ -242,13 +266,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
   int* qkey2 = reinterpret_cast<int*>(squeue + kQueueWords);
   float* qd22 = squeue + kQueueWords + kWarps * kQueue;
   int* qnear = reinterpret_cast<int*>(squeue + (kTmmc ? 2 : 1) * kQueueWords);
-  // the shared layout's atom rows; the global layout points these at
-  // global memory below and starts S(k) at their place
+  constexpr bool kGlob = kLayout != kShared;  // atom rows in global memory
+  constexpr bool kGk = kLayout == kGlobalK;     // k rows too
+  // the shared layout's atom rows; the global layouts point these at
+  // global memory below and start the k rows (kGlobal) or the LJ tables
+  // (kGlobalK) at their place
   float* sx = reinterpret_cast<float*>(qnear + kNearWords);
   float* sy = sx + A_pad;
   float* sz = sy + A_pad;
   int* smol = reinterpret_cast<int*>(sz + A_pad);
-  float* ssre = kGlobal ? sx : reinterpret_cast<float*>(smol + A_pad);
+  float* ssre = kGlob ? sx : reinterpret_cast<float*>(smol + A_pad);
   float* ssim = ssre + K;
   float* scfac = ssim + K;
   float* sdre = scfac + K;
@@ -256,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
   float* skx = sdim + K;
   float* sky = skx + K;
   float* skz = sky + K;
-  float* seps = skz + K;          // (P, T)
+  float* seps = kGk ? sx : skz + K;  // (P, T)
   float* ssig2 = seps + P * T;
   float* slam1 = ssig2 + P * T;
   float* slam2 = slam1 + P * T;
@@ -281,9 +308,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
   float* scut = reinterpret_cast<float*>(sqf + P);  // (P) live cutoff^2
   float* sact = scut + P;         // (A_pad) atom activity, with use_act
   float* sactm = sact + A_pad;    // (M_total) slot activity, with use_act
-  float* sdre2 = sactm + M_total;  // (K) tmmc: the deletion's S(k) row
+  // (K) tmmc: the deletion's S(k) row
+  float* sdre2 = kGlob ? scut + P : sactm + M_total;
   float* sdim2 = sdre2 + K;
-  float* sred2 = sdim2 + K;       // tmmc: its warp partials
+  float* sred2 = kGk ? scut + P : sdim2 + K;  // tmmc: its warp partials
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -298,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
   float* const scom = com_out + (size_t)c * 3 * M_total;
   float* const squat = quat_out + (size_t)c * 4 * M_total;
   const float* cin = coords_in + (size_t)c * 3 * A_pad;
-  if constexpr (kGlobal) {
+  if constexpr (kGlob) {
     // the chain's own rows of the outputs, updated in place; the per-atom
     // rows are read (never written) from their global tables
     sx = coords_out + (size_t)c * 3 * A_pad;
@@ -306,6 +334,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     sz = sy + A_pad;
     smol = const_cast<int*>(molid_row);
     for (int j = tid; j < 3 * A_pad; j += nt) sx[j] = cin[j];
+    if constexpr (kAct) {
+      sact = act_out + (size_t)c * A_pad;
+      sactm = actm_out + (size_t)c * M_total;
+      for (int j = tid; j < A_pad; j += nt)
+        sact[j] = act_in[(size_t)c * A_pad + j];
+    }
   } else {
     for (int j = tid; j < A_pad; j += nt) {
       sx[j] = cin[j];
@@ -314,6 +348,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
       smol[j] = molid_row[j];
       if (kAct) sact[j] = act_in[(size_t)c * A_pad + j];
     }
+  }
+  if constexpr (kGk) {
+    // the chain's row of the k-row workspace (sweep_kws_floats)
+    float* const kb = kws + (size_t)c * sweep_kws_floats(K, kTmmc);
+    ssre = kb;
+    ssim = kb + K;
+    scfac = kb + 2 * K;
+    sdre = kb + 3 * K;
+    sdim = kb + 4 * K;
+    sdre2 = kb + 5 * K;
+    sdim2 = kb + 6 * K;
   }
   if (kAct)
     for (int i = tid; i < M_total; i += nt)
@@ -340,9 +385,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     ssre[k] = sfac_in[((size_t)c * K + k) * 2];
     ssim[k] = sfac_in[((size_t)c * K + k) * 2 + 1];
     const float kx = kvec[3 * k], ky = kvec[3 * k + 1], kz = kvec[3 * k + 2];
-    skx[k] = kx;
-    sky[k] = ky;
-    skz[k] = kz;
+    if constexpr (!kGk) {
+      skx[k] = kx;
+      sky[k] = ky;
+      skz[k] = kz;
+    }
     if (ewald) {
       const float tpl = kTwoPi * inv_box;
       const float kt2 = tpl * tpl * (kx * kx + ky * ky + kz * kz);
@@ -376,6 +423,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
   // the largest cutoff: a pose's reach is this plus the pose's radius
   const float rc_max = sqrtf(fmaxf(rc2, qcut2));
   const float* u_chain = u_in + ((size_t)c * M_total + m_start) * kUniforms;
+
+  // k-vector k's integer components: its shared rows or (kGlobalK) its
+  // global table
+  auto k_vec = [&](int k, float& kx, float& ky, float& kz) {
+    if constexpr (kGk) {
+      kx = __ldg(kvec + 3 * k);
+      ky = __ldg(kvec + 3 * k + 1);
+      kz = __ldg(kvec + 3 * k + 2);
+    } else {
+      kx = skx[k];
+      ky = sky[k];
+      kz = skz[k];
+    }
+  };
 
   // ---- pair terms: distances on every lane, live terms through queues ----
   auto dist2 = [&](float xj, float yj, float zj, float ax, float ay,
@@ -641,7 +702,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     Queue q{qkey + warp * kQueue, qd2 + warp * kQueue, 0, 0};
     Queue qn{qnear + warp * kNear, nullptr, 0, 0};
     bool dense = true;
-    if constexpr (kGlobal) {
+    if constexpr (kGlob) {
       if (W > 0) {
         // sorted slabs: the other blocks' column segments, then the window
         dense = false;
@@ -683,7 +744,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     if (ewald) {
       const float tpl = kTwoPi * inv_box;
       for (int k = tid; k < K; k += nt) {
-        const float kx = skx[k], ky = sky[k], kz = skz[k];
+        float kx, ky, kz;
+        k_vec(k, kx, ky, kz);
         float dre = 0.0f, dim = 0.0f;
         for (int s = 0; s < 2; ++s) {
           const float* a = pose + 4 * P * s;
@@ -733,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
         sx[a0 + tid] = sn[4 * tid];
         sy[a0 + tid] = sn[4 * tid + 1];
         sz[a0 + tid] = sn[4 * tid + 2];
-        if constexpr (kGlobal)
+        if constexpr (kGlob)
           if (W > 0 && a0 >= a0_w && a0 + tid - a0_w < W) {
             // a head molecule's ghost twin (the halo may end inside it)
             sx[a0 + A_blk + tid] = sn[4 * tid];
@@ -838,7 +900,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     // live S(k).
     const float tpl = kTwoPi * inv_box;
     auto k_row = [&](const float* a, int k, float& dre, float& dim) {
-      const float kx = skx[k], ky = sky[k], kz = skz[k];
+      float kx, ky, kz;
+      k_vec(k, kx, ky, kz);
       dre = 0.0f;
       dim = 0.0f;
       for (int p = 0; p < P; ++p) {
@@ -1122,7 +1185,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
     __syncthreads();
   }
 
-  if constexpr (!kGlobal) {
+  if constexpr (!kGlob) {
     float* cout = coords_out + (size_t)c * 3 * A_pad;
     for (int j = tid; j < A_pad; j += nt) {
       cout[j] = sx[j];
@@ -1148,13 +1211,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_kernel(
   }
 }
 
-using SweepKernel = decltype(&sweep_kernel<false, false, false>);
+using SweepKernel = decltype(&sweep_kernel<false, false, kShared>);
 
-SweepKernel pick_kernel(int use_act, int tmmc, int global) {
-  return tmmc      ? sweep_kernel<true, true, false>
-         : use_act ? sweep_kernel<true, false, false>
-         : global  ? sweep_kernel<false, false, true>
-                   : sweep_kernel<false, false, false>;
+template <bool kAct, bool kTmmc>
+SweepKernel pick_layout(int layout) {
+  return layout == kGlobalK  ? sweep_kernel<kAct, kTmmc, kGlobalK>
+         : layout == kGlobal ? sweep_kernel<kAct, kTmmc, kGlobal>
+                             : sweep_kernel<kAct, kTmmc, kShared>;
+}
+
+SweepKernel pick_kernel(int use_act, int tmmc, int layout) {
+  return tmmc      ? pick_layout<true, true>(layout)
+         : use_act ? pick_layout<true, false>(layout)
+                   : pick_layout<false, false>(layout);
 }
 
 // Lets the instantiation take `smem` bytes of dynamic shared memory.
@@ -1168,26 +1237,37 @@ cudaError_t allow_smem(SweepKernel kernel, size_t smem) {
 }  // namespace
 
 extern "C" size_t mmc_sweep_smem_bytes(int M, int P, int A_pad, int K, int T,
-                                       int use_act, int tmmc, int global) {
+                                       int use_act, int tmmc, int layout) {
   return sizeof(float) *
-         sweep_smem_floats(M, P, A_pad, K, T, use_act, tmmc, global);
+         sweep_smem_floats(M, P, A_pad, K, T, use_act, tmmc, layout);
 }
 
-// Blocks of this shape one SM holds at once (the CUDA occupancy
-// calculator: shared memory and registers); a negative CUDA error code on
-// failure.
-extern "C" int mmc_sweep_blocks_per_sm(int M, int P, int A_pad, int K, int T,
-                                       int use_act, int tmmc, int global) {
+extern "C" size_t mmc_sweep_kws_floats(int K, int tmmc) {
+  return sweep_kws_floats(K, tmmc);
+}
+
+// The instantiation's registers per thread, local memory per thread (stack
+// frame and spills, bytes) and the blocks of this shape one SM holds at
+// once (the CUDA occupancy calculator: shared memory and registers) into
+// out[0..2]; returns the CUDA error code (0 on success).
+extern "C" int mmc_sweep_occupancy(int M, int P, int A_pad, int K, int T,
+                                   int use_act, int tmmc, int layout,
+                                   int* out) {
+  const SweepKernel kernel = pick_kernel(use_act, tmmc, layout);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = 0;
   const size_t smem =
-      mmc_sweep_smem_bytes(M, P, A_pad, K, T, use_act, tmmc, global);
+      mmc_sweep_smem_bytes(M, P, A_pad, K, T, use_act, tmmc, layout);
   if (smem > (size_t)kMaxSmemBytes) return 0;
-  const SweepKernel kernel = pick_kernel(use_act, tmmc, global);
-  cudaError_t e = allow_smem(kernel, smem);
-  int n = 0;
+  e = allow_smem(kernel, smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
-                                                      smem);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      kThreads, smem);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* mmc_cuda_error_string(int code) {
@@ -1201,10 +1281,11 @@ extern "C" const char* mmc_cuda_error_string(int code) {
 // row tables) tensors; act, actm, act_out, actm_out and wid_out are read
 // and written only with use_act, ux, z, si and wc only with n_exch +
 // n_widom > 0 (which needs use_act), eta (M + 1), e_in (C), cmat_out and
-// uhist_out (C, M + 1, 3) only with tmmc (which needs n_exch > 0).  global
-// selects the global-memory layout (fixed N only); with W > 0 (which needs
-// it) wst (M_total,) and segs (n_seg, 2) int32 give the slab windows and
-// segments.
+// uhist_out (C, M + 1, 3) only with tmmc (which needs n_exch > 0).  layout
+// selects where the chain state lives (Layout); kGlobalK needs the k-row
+// workspace kws, C rows of mmc_sweep_kws_floats(K, tmmc) f32.  With W > 0
+// (a global layout without activity) wst (M_total,) and segs (n_seg, 2)
+// int32 give the slab windows and segments.
 extern "C" int mmc_sweep_launch(
     const void* coords, const void* com, const void* quat, const void* sfac,
     const void* box, const void* temp, const void* drmax, const void* dphi,
@@ -1216,24 +1297,28 @@ extern "C" int mmc_sweep_launch(
     const void* si, const void* wc, const void* eta, const void* e_in,
     const void* wst, const void* segs, void* coords_out, void* com_out,
     void* quat_out, void* sfac_out, void* stats_out, void* act_out,
-    void* actm_out, void* wid_out, void* cmat_out, void* uhist_out, int C,
-    int M, int M_total, int m_start, int a_start, int P, int A_pad, int K,
-    int T, int coulomb, int lj_linear, int use_rot, int use_act, int n_exch,
-    int n_widom, int tmmc, int global, int n_seg, int a0_w, int A_blk, int W,
-    unsigned int seed, int threads, float rc2, float qrc2, float kappa_l,
-    float d2_overlap, float p_translate, float factor, void* stream) {
+    void* actm_out, void* wid_out, void* cmat_out, void* uhist_out, void* kws,
+    int C, int M, int M_total, int m_start, int a_start, int P, int A_pad,
+    int K, int T, int coulomb, int lj_linear, int use_rot, int use_act,
+    int n_exch, int n_widom, int tmmc, int layout, int n_seg, int a0_w,
+    int A_blk, int W, unsigned int seed, int threads, float rc2, float qrc2,
+    float kappa_l, float d2_overlap, float p_translate, float factor,
+    void* stream) {
   const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T, use_act,
-                                           tmmc, global);
-  if (smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 || M < 1 ||
-      P < 1 || P > 16 || A_pad > kMaxColumns || (!global && A_pad % 4) ||
+                                           tmmc, layout);
+  if (layout < kShared || layout > kGlobalK || smem > (size_t)kMaxSmemBytes ||
+      threads != kThreads || C < 1 || M < 1 ||
+      P < 1 || P > 16 || A_pad > kMaxColumns ||
+      (layout == kShared && A_pad % 4) || (layout == kGlobalK && !kws) ||
       m_start < 0 || a_start < 0 ||
       m_start + M > M_total || a_start + M * P > A_pad || n_exch < 0 ||
       n_widom < 0 || ((n_exch > 0 || n_widom > 0) && !use_act) ||
-      (tmmc && n_exch < 1) || (global && use_act) || W < 0 ||
-      (W > 0 && (!global || !wst || (n_seg > 0 && !segs) || n_seg < 0 ||
+      (tmmc && n_exch < 1) || W < 0 ||
+      (W > 0 && (layout == kShared || use_act || !wst ||
+                 (n_seg > 0 && !segs) || n_seg < 0 ||
                  W > A_blk || a0_w < 0 || a0_w + A_blk + W > A_pad)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SweepKernel kernel = pick_kernel(use_act, tmmc, global);
+  const SweepKernel kernel = pick_kernel(use_act, tmmc, layout);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -1257,9 +1342,9 @@ extern "C" int mmc_sweep_launch(
       static_cast<float*>(quat_out), static_cast<float*>(sfac_out),
       static_cast<float*>(stats_out), static_cast<float*>(act_out),
       static_cast<float*>(actm_out), static_cast<float*>(wid_out),
-      static_cast<float*>(cmat_out), static_cast<float*>(uhist_out), M,
-      M_total, m_start, a_start, P, A_pad, K, T, coulomb, lj_linear, use_rot,
-      n_exch, n_widom, n_seg, a0_w, A_blk, W, seed, rc2, qrc2, kappa_l,
+      static_cast<float*>(cmat_out), static_cast<float*>(uhist_out),
+      static_cast<float*>(kws), M, M_total, m_start, a_start, P, A_pad, K, T,
+      coulomb, lj_linear, use_rot, n_exch, n_widom, n_seg, a0_w, A_blk, W, seed, rc2, qrc2, kappa_l,
       d2_overlap, p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

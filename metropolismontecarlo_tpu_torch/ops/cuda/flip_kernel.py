@@ -31,6 +31,13 @@ Each of the n_flip attempts of a chain, in order:
 stats (C, 8): [d_e, acc A->B, acc B->A, att A->B, att B->A, decision
 fingerprint (slot + 1 per accepted flip), 0, 0].
 
+The kernel keeps a chain's state in one thread block's shared memory
+when it fits (layout "shared"); otherwise the atom planes, the
+active-atom list, the slot activity, the scores and the molecule row stay
+in global memory (layout "global"), and where even the 6 k rows do not
+fit, those too (layout "global_k"; `choose_layout`, which layout= can
+force).  Every layout takes the same decisions bit for bit.
+
 `flip` launches the kernel (csrc/flip_kernel.cu) for CUDA tensors and runs
 `flip_plain` for CPU tensors; any other device raises.
 """
@@ -43,8 +50,9 @@ import torch
 
 from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     COULOMB_CODES,
+    LAYOUT_CODES,
+    LAYOUTS,
     MAX_SITES,
-    MAX_SMEM_BYTES,
     N_EXCH_UNIFORMS,
     QUEUE_WORDS,
     THREADS,
@@ -52,6 +60,7 @@ from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     box_constants,
     pair_terms,
     philox_scores,
+    pick_layout,
     recip_delta,
     rot_apply,
     shoemake,
@@ -83,48 +92,63 @@ class FlipTables:
             raise ValueError("the flip op runs unshifted LJ on dense planes")
 
 
-def flip_smem_bytes(M, P0, P1, A_pad, K, T, nk):
+def flip_smem_bytes(M, P0, P1, A_pad, K, T, nk, layout="shared"):
     """Dynamic shared memory of one block; must match flip_smem_floats in
-    csrc/flip_kernel.cu: the warp queues of live pair terms (QUEUE_WORDS);
-    the old and new poses' 16-byte site rows (2 x 4 max(P0, P1)) and eik
-    tables (per pose and site three rows of 2 nk + 1 complex: 12 max(P0,
-    P1) (2 nk + 1)); two proposal buffers of both species' rotated
-    templates and the attempt's quaternion and accept uniform (2 x (3 (P0 +
-    P1) + 8)); 6 atom rows (x, y, z, the list of active atom columns, each
-    column's place in it, molecule); the slot activity (M); 6 k rows (S
-    re/im, cfac, dS re/im, the packed k indices); both species' (P, T) eps
-    and sigma^2 tables; both species' 7 P-wide site rows (body 3, charge,
-    two flags, live cutoff^2); two rows of Philox scores (2 M) and 33 words
-    of warp partials, statistics and the list's length.  The
-    COM and quaternion rows and the per-atom charge and type rows stay in
-    global memory."""
+    csrc/flip_kernel.cu.  Every layout: the warp queues of live pair terms
+    (QUEUE_WORDS); the old and new poses' 16-byte site rows (2 x 4 max(P0,
+    P1)) and eik tables (per pose and site three rows of 2 nk + 1
+    complex: 12 max(P0, P1) (2 nk + 1)); two proposal buffers of both
+    species' rotated templates and the attempt's quaternion and accept
+    uniform (2 x (3 (P0 + P1) + 8)); both species' (P, T) eps and sigma^2
+    tables; both species' 7 P-wide site rows (body 3, charge, two flags,
+    live cutoff^2) and 33 words of warp partials, statistics and the
+    list's length.  The shared layout adds 6 atom rows (x, y, z, the list
+    of active atom columns, each column's place in it, molecule), the
+    slot activity (M) and two rows of Philox scores (2 M); the shared and
+    global layouts add 6 k rows (S re/im, cfac, dS re/im, the packed k
+    indices).  The COM and quaternion rows and the per-atom charge and
+    type rows stay in global memory in every layout."""
     pmax = max(P0, P1)
-    return 4 * (QUEUE_WORDS + 8 * pmax + 12 * pmax * (2 * nk + 1)
-                + 2 * (3 * (P0 + P1) + 8) + 6 * A_pad + 3 * M + 6 * K
-                + 2 * (P0 + P1) * T + 7 * (P0 + P1) + 33)
+    n = (QUEUE_WORDS + 8 * pmax + 12 * pmax * (2 * nk + 1)
+         + 2 * (3 * (P0 + P1) + 8) + 2 * (P0 + P1) * T + 7 * (P0 + P1) + 33)
+    if layout == "shared":
+        n += 6 * A_pad + 3 * M
+    if layout != "global_k":
+        n += 6 * K
+    return 4 * n
 
 
-def check_smem(M, P0, P1, A_pad, K, T, nk):
-    """Raise, with the byte count, when a chain's state does not fit one
-    block's shared memory (the flip op has no global layout)."""
-    nbytes = flip_smem_bytes(M, P0, P1, A_pad, K, T, nk)
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"the semigrand chain state needs {nbytes} B of "
-                         f"shared memory, over the {MAX_SMEM_BYTES} B a "
-                         f"block may use (M={M}, A_pad={A_pad}, K={K}, "
-                         f"P0={P0}, P1={P1}, nk={nk})")
-    return nbytes
+def ws_floats(M, A_pad, K, layout):
+    """Words of one chain's workspace row (csrc/flip_kernel.cu
+    flip_ws_floats): none in the shared layout; the active-atom list, each
+    column's place in it and two rows of Philox scores in the global ones,
+    and in global_k the 6 k rows too."""
+    if layout == "shared":
+        return 0
+    return 2 * A_pad + 2 * M + (6 * K if layout == "global_k" else 0)
 
 
-def occupancy(t, M, A_pad, K):
+def choose_layout(M, P0, P1, A_pad, K, T, nk, layout="auto"):
+    """The kernel layout of a launch: the first of "shared", "global" and
+    "global_k" that fits a block's shared memory, or the one `layout`
+    forces.  Raises, with the byte count, when the forced layout does not
+    fit, or when even global_k's (the parts that do not grow with the
+    state) does not."""
+    sizes = {lay: flip_smem_bytes(M, P0, P1, A_pad, K, T, nk, lay)
+             for lay in LAYOUTS}
+    return pick_layout(sizes, layout, f"the semigrand chain state (M={M}, "
+                       f"A_pad={A_pad}, K={K}, P0={P0}, P1={P1}, nk={nk})")
+
+
+def occupancy(t, M, A_pad, K, layout="shared"):
     """(registers per thread, local memory per thread in bytes -- stack
     frame and spills --, blocks per SM) of the kernel instantiation that
-    FlipTables t launch, at this shape, from the CUDA runtime; needs the
-    card."""
+    FlipTables t launch, at this shape and layout, from the CUDA runtime;
+    needs the card."""
     out = (ctypes.c_int * 3)()
     err = _library().mmc_flip_occupancy(
         COULOMB_CODES[t.a.coulomb], M, t.a.P, t.b.P, A_pad, K,
-        t.a.eps.shape[1], t.a.nk, out)
+        t.a.eps.shape[1], t.a.nk, LAYOUT_CODES[layout], out)
     if err != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {err}")
     return tuple(out)
@@ -179,43 +203,51 @@ def _check_inputs(coords, com, quat, sfac, box, temp, act, actm, ux, t,
             or name.startswith("has_")
         if x.dtype != (torch.int32 if int_field else torch.float32):
             raise ValueError(f"{name}: dtype {x.dtype}")
-    check_smem(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk)
 
 
 def flip(coords, com, quat, sfac, box, temp, act, actm, ux, tables, si2,
-         lrc3=None, seed=0):
+         lrc3=None, seed=0, layout="auto"):
     """ux.shape[1] flip attempts per chain (module docstring).
 
     coords (C, 3, A_pad), com (C, M, 3), quat (C, M, 4), sfac (C, K, 2),
     box/temp (C,), act (C, A_pad), actm (C, M), ux (C, n_flip, 8), si2
     (C, 2), lrc3 (C, 3) or None; tables a FlipTables; the integer seed of
     the pick scores.  All f32, contiguous, on one device.  Returns (coords,
-    com, quat, sfac, stats (C, 8), act, actm).  CUDA tensors launch the
-    kernel (and count it in flip.launches); CPU tensors run flip_plain;
-    any other device raises."""
+    com, quat, sfac, stats (C, 8), act, actm).  layout: "auto"
+    (choose_layout) or one of LAYOUTS.  CUDA tensors launch the kernel
+    (and count it in flip.launches); CPU tensors run flip_plain; any
+    other device raises."""
     _check_inputs(coords, com, quat, sfac, box, temp, act, actm, ux, tables,
                   si2, lrc3)
+    layout = choose_layout(com.shape[1], tables.a.P, tables.b.P,
+                           coords.shape[2], sfac.shape[1],
+                           tables.a.eps.shape[1], tables.a.nk, layout)
     if coords.device.type == "cpu":
         return flip_plain(coords, com, quat, sfac, box, temp, act, actm, ux,
                           tables, si2, lrc3, seed)
     if coords.device.type != "cuda":
         raise ValueError(f"no flip for device {coords.device}")
     return _launch(coords, com, quat, sfac, box, temp, act, actm, ux, tables,
-                   si2, lrc3, seed)
+                   si2, lrc3, seed, layout)
 
 
 flip.launches = 0
 
 
 def _launch(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2, lrc3,
-            seed):
+            seed, layout):
     lib = _library()
     C, _, A_pad = coords.shape
     M, K, T = com.shape[1], sfac.shape[1], t.a.eps.shape[1]
-    if lib.mmc_flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk) \
-            != flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk):
-        raise RuntimeError("csrc/flip_kernel.cu and flip_smem_bytes "
-                           "disagree on the shared-memory layout")
+    code = LAYOUT_CODES[layout]
+    n_ws = ws_floats(M, A_pad, K, layout)
+    if lib.mmc_flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk, code) \
+            != flip_smem_bytes(M, t.a.P, t.b.P, A_pad, K, T, t.a.nk, layout) \
+            or lib.mmc_flip_ws_floats(M, A_pad, K, code) != n_ws:
+        raise RuntimeError("csrc/flip_kernel.cu and flip_smem_bytes or "
+                           "ws_floats disagree on the layout")
+    ws = torch.empty((C, n_ws), dtype=torch.float32,
+                     device=coords.device) if n_ws else None
     outs = (torch.empty_like(coords), torch.empty_like(com),
             torch.empty_like(quat), torch.empty_like(sfac),
             torch.empty_like(act), torch.empty_like(actm),
@@ -231,9 +263,9 @@ def _launch(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2, lrc3,
            b.eps, b.sig2, b.has_lj, b.has_q, a.tid_row, a.molid_row, a.q_row,
            a.kvec, a.kw)
     err = lib.mmc_flip_launch(
-        *(ptr(x) for x in ins + outs), C, a.M, b.M, a.P, b.P, b.a_start,
-        A_pad, K, T, a.nk, COULOMB_CODES[a.coulomb], ux.shape[1],
-        int(seed) & 0xFFFFFFFF, THREADS, a.rc2, a.qrc2, a.kappa_l,
+        *(ptr(x) for x in ins + outs + (ws,)), C, a.M, b.M, a.P, b.P,
+        b.a_start, A_pad, K, T, a.nk, COULOMB_CODES[a.coulomb], ux.shape[1],
+        code, int(seed) & 0xFFFFFFFF, THREADS, a.rc2, a.qrc2, a.kappa_l,
         a.d2_overlap, float(t.ln_xi), COULOMB_FACTOR,
         torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
@@ -253,12 +285,14 @@ def _library():
 
     lib = load_library("flip_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_flip_launch.argtypes = [vp] * 35 + [ci] * 12 + [ctypes.c_uint] \
+    lib.mmc_flip_launch.argtypes = [vp] * 36 + [ci] * 13 + [ctypes.c_uint] \
         + [ci] + [cf] * 6 + [vp]
     lib.mmc_flip_launch.restype = ci
-    lib.mmc_flip_smem_bytes.argtypes = [ci] * 7
+    lib.mmc_flip_smem_bytes.argtypes = [ci] * 8
     lib.mmc_flip_smem_bytes.restype = ctypes.c_size_t
-    lib.mmc_flip_occupancy.argtypes = [ci] * 8 + [ctypes.c_void_p]
+    lib.mmc_flip_ws_floats.argtypes = [ci] * 4
+    lib.mmc_flip_ws_floats.restype = ctypes.c_size_t
+    lib.mmc_flip_occupancy.argtypes = [ci] * 9 + [ctypes.c_void_p]
     lib.mmc_flip_occupancy.restype = ci
     lib.mmc_flip_error_string.argtypes = [ci]
     lib.mmc_flip_error_string.restype = ctypes.c_char_p

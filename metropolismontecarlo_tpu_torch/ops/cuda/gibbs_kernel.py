@@ -44,6 +44,13 @@ att_rot, acc_transfer, decision fingerprint]; the attempts of transfers
 are n_exch; the fingerprint adds slot + 1 per accepted move and the
 deleted slot + 1 + 2 m_off per accepted transfer.
 
+The kernel keeps a chain's two-box state in one thread block's shared
+memory when it fits (layout "shared"); otherwise the atom, activity,
+score and molecule rows stay in global memory (layout "global"), and
+where even the 11 k rows do not fit, those too (layout "global_k";
+`choose_layout`, which layout= can force).  Every layout takes the same
+decisions bit for bit.
+
 `sweep_gibbs` launches the kernel (csrc/gibbs_kernel.cu) for CUDA tensors
 and runs `sweep_gibbs_plain` for CPU tensors; any other device raises.
 """
@@ -55,8 +62,9 @@ import torch
 
 from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     COULOMB_CODES,
+    LAYOUT_CODES,
+    LAYOUTS,
     MAX_SITES,
-    MAX_SMEM_BYTES,
     NEAR_WORDS,
     N_EXCH_UNIFORMS,
     N_UNIFORMS,
@@ -66,6 +74,7 @@ from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     box_constants,
     pair_terms,
     philox_scores,
+    pick_layout,
     propose_rotation,
     recip_delta,
     rot_apply,
@@ -85,46 +94,62 @@ N_STATS = 8
 GibbsTables = SweepTables
 
 
-def gibbs_smem_bytes(m_off, P, A_off, K, T, nk):
+def gibbs_smem_bytes(m_off, P, A_off, K, T, nk, layout="shared"):
     """Dynamic shared memory of one block; must match gibbs_smem_floats
-    in csrc/gibbs_kernel.cu: the warp queues of live pair terms
-    (QUEUE_WORDS) and of (atom, pose) pairs within reach (NEAR_WORDS);
-    two proposal buffers, each an old and a new pose of P 16-byte site
-    rows (16 P) and their eik tables (per pose and site three rows of 2 nk
-    + 1 complex: 24 P (2 nk + 1)); 8 two-box atom rows (x, y, z,
-    activity: 2 A_off each) and one box's molecule row; the two-box slot
-    activity (2 m_off); 11 k rows (S re/im and cfac per box, the move's
-    or insertion's and the deletion's dS re/im, the packed k indices); 4
-    (P, T) LJ tables; 7 P-wide site rows (body 3, charge, two flags, live
-    cutoff^2); two rows of Philox scores (2 x 2 m_off) and 88 words of
-    scratch (two proposals' scalars, two rows of warp partials, the
-    statistics, the box constants).  The COM and quaternion rows and the
-    per-atom charge and type rows stay in global memory."""
-    return 4 * (QUEUE_WORDS + NEAR_WORDS + 16 * P + 24 * P * (2 * nk + 1)
-                + 9 * A_off + 6 * m_off + 11 * K + 4 * P * T + 7 * P + 88)
+    in csrc/gibbs_kernel.cu.  Every layout: the warp queues of live pair
+    terms (QUEUE_WORDS) and of (atom, pose) pairs within reach
+    (NEAR_WORDS); two proposal buffers, each an old and a new pose of P
+    16-byte site rows (16 P) and their eik tables (per pose and site three
+    rows of 2 nk + 1 complex: 24 P (2 nk + 1)); 4 (P, T) LJ tables; 7
+    P-wide site rows (body 3, charge, two flags, live cutoff^2) and 88
+    words of scratch (two proposals' scalars, two rows of warp partials,
+    the statistics, the box constants).  The shared layout adds 8 two-box
+    atom rows (x, y, z, activity: 2 A_off each), one box's molecule row,
+    the two-box slot activity (2 m_off) and two rows of Philox scores (2
+    x 2 m_off); the shared and global layouts add 11 k rows (S re/im and
+    cfac per box, the move's or insertion's and the deletion's dS re/im,
+    the packed k indices).  The COM and quaternion rows and the per-atom
+    charge and type rows stay in global memory in every layout."""
+    n = (QUEUE_WORDS + NEAR_WORDS + 16 * P + 24 * P * (2 * nk + 1)
+         + 4 * P * T + 7 * P + 88)
+    if layout == "shared":
+        n += 9 * A_off + 6 * m_off
+    if layout != "global_k":
+        n += 11 * K
+    return 4 * n
 
 
-def check_smem(m_off, P, A_off, K, T, nk):
-    """Raise, with the byte count, when a chain's two-box state does not
-    fit one block's shared memory (the Gibbs op has no global layout)."""
-    nbytes = gibbs_smem_bytes(m_off, P, A_off, K, T, nk)
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"the two-box chain state needs {nbytes} B of "
-                         f"shared memory, over the {MAX_SMEM_BYTES} B a "
-                         f"block may use (m_off={m_off}, A_off={A_off}, "
-                         f"K={K}, P={P}, nk={nk})")
-    return nbytes
+def ws_floats(m_off, A_off, K, layout):
+    """Words of one chain's workspace row (csrc/gibbs_kernel.cu
+    gibbs_ws_floats): none in the shared layout; x/y/z over both boxes
+    and two rows of Philox scores in the global ones, and in global_k the
+    11 k rows too."""
+    if layout == "shared":
+        return 0
+    return 6 * A_off + 4 * m_off + (11 * K if layout == "global_k" else 0)
 
 
-def occupancy(t, m_off, A_off, K):
+def choose_layout(m_off, P, A_off, K, T, nk, layout="auto"):
+    """The kernel layout of a launch: the first of "shared", "global" and
+    "global_k" that fits a block's shared memory, or the one `layout`
+    forces.  Raises, with the byte count, when the forced layout does not
+    fit, or when even global_k's (the parts that do not grow with the
+    state) does not."""
+    sizes = {lay: gibbs_smem_bytes(m_off, P, A_off, K, T, nk, lay)
+             for lay in LAYOUTS}
+    return pick_layout(sizes, layout, f"the two-box chain state (m_off="
+                       f"{m_off}, A_off={A_off}, K={K}, P={P}, nk={nk})")
+
+
+def occupancy(t, m_off, A_off, K, layout="shared"):
     """(registers per thread, local memory per thread in bytes -- stack
     frame and spills --, blocks per SM) of the kernel instantiation that
-    tables t launch, at this shape, from the CUDA runtime; needs the
-    card."""
+    tables t launch, at this shape and layout, from the CUDA runtime;
+    needs the card."""
     out = (ctypes.c_int * 3)()
     err = _library().mmc_gibbs_occupancy(
         COULOMB_CODES[t.coulomb], int(t.lj_shift == "linear"), m_off, t.P,
-        A_off, K, t.eps.shape[1], t.nk, out)
+        A_off, K, t.eps.shape[1], t.nk, LAYOUT_CODES[layout], out)
     if err != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {err}")
     return tuple(out)
@@ -179,12 +204,11 @@ def _check_inputs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
         int_field = name in ("tid_row", "molid_row", "has_lj", "has_q")
         if x.dtype != (torch.int32 if int_field else torch.float32):
             raise ValueError(f"{name}: dtype {x.dtype}")
-    check_smem(m_off, t.P, A_off, K, T, t.nk)
 
 
 def sweep_gibbs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
                 tables, act, actm, n_exch=0, ux=None, si2=None, wc2=None,
-                seed=0):
+                seed=0, layout="auto"):
     """One Gibbs call of the species block `tables`: 2 M moves, then n_exch
     transfer attempts (module docstring).
 
@@ -193,11 +217,15 @@ def sweep_gibbs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
     10), act (C, 2, A_off), actm (C, 2, m_off); with n_exch > 0 also ux
     (C, n_exch, 8), si2/wc2 (C, 2) and the integer seed of the deletion
     scores.  All f32, contiguous, on one device.  Returns (coords, com,
-    quat, sfac, stats (C, 8), act, actm).  CUDA tensors launch the kernel
+    quat, sfac, stats (C, 8), act, actm).  layout: "auto"
+    (choose_layout) or one of LAYOUTS.  CUDA tensors launch the kernel
     (and count it in sweep_gibbs.launches); CPU tensors run
     sweep_gibbs_plain; any other device raises."""
     _check_inputs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
                   tables, act, actm, n_exch, ux, si2, wc2)
+    layout = choose_layout(com.shape[2], tables.P, coords.shape[3],
+                           sfac.shape[2], tables.eps.shape[1], tables.nk,
+                           layout)
     if coords.device.type == "cpu":
         return sweep_gibbs_plain(coords, com, quat, sfac, box2, temp, dr_max,
                                  dphi_max, u, tables, act, actm, n_exch, ux,
@@ -205,26 +233,31 @@ def sweep_gibbs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
     if coords.device.type != "cuda":
         raise ValueError(f"no sweep_gibbs for device {coords.device}")
     return _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
-                   tables, act, actm, n_exch, ux, si2, wc2, seed)
+                   tables, act, actm, n_exch, ux, si2, wc2, seed, layout)
 
 
 sweep_gibbs.launches = 0
 
 
 def _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u, t, act,
-            actm, n_exch, ux, si2, wc2, seed):
+            actm, n_exch, ux, si2, wc2, seed, layout):
     lib = _library()
     C, _, _, A_off = coords.shape
     m_off, K, T = com.shape[2], sfac.shape[2], t.eps.shape[1]
-    if lib.mmc_gibbs_smem_bytes(m_off, t.P, A_off, K, T, t.nk) \
-            != gibbs_smem_bytes(m_off, t.P, A_off, K, T, t.nk):
-        raise RuntimeError("csrc/gibbs_kernel.cu and gibbs_smem_bytes "
-                           "disagree on the shared-memory layout")
+    code = LAYOUT_CODES[layout]
+    n_ws = ws_floats(m_off, A_off, K, layout)
+    if lib.mmc_gibbs_smem_bytes(m_off, t.P, A_off, K, T, t.nk, code) \
+            != gibbs_smem_bytes(m_off, t.P, A_off, K, T, t.nk, layout) \
+            or lib.mmc_gibbs_ws_floats(m_off, A_off, K, code) != n_ws:
+        raise RuntimeError("csrc/gibbs_kernel.cu and gibbs_smem_bytes or "
+                           "ws_floats disagree on the layout")
     outs = (torch.empty_like(coords), torch.empty_like(com),
             torch.empty_like(quat), torch.empty_like(sfac),
             torch.empty((C, N_STATS), dtype=torch.float32,
                         device=coords.device),
             torch.empty_like(act), torch.empty_like(actm))
+    ws = torch.empty((C, n_ws), dtype=torch.float32,
+                     device=coords.device) if n_ws else None
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -233,9 +266,9 @@ def _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u, t, act,
            si2, wc2, u, ux, t.body, t.qp, t.eps, t.sig2, t.lam1, t.lam2,
            t.has_lj, t.has_q, t.tid_row, t.molid_row, t.q_row, t.kvec, t.kw)
     err = lib.mmc_gibbs_launch(
-        *(ptr(x) for x in ins + outs), C, t.M, m_off, t.m_start, t.a_start,
-        t.P, A_off, K, T, t.nk, COULOMB_CODES[t.coulomb],
-        int(t.lj_shift == "linear"), int(t.use_rot), int(n_exch),
+        *(ptr(x) for x in ins + outs + (ws,)), C, t.M, m_off, t.m_start,
+        t.a_start, t.P, A_off, K, T, t.nk, COULOMB_CODES[t.coulomb],
+        int(t.lj_shift == "linear"), int(t.use_rot), int(n_exch), code,
         int(seed) & 0xFFFFFFFF, THREADS, t.rc2, t.qrc2, t.kappa_l,
         t.d2_overlap, t.p_translate, COULOMB_FACTOR,
         torch.cuda.current_stream(coords.device).cuda_stream)
@@ -255,12 +288,14 @@ def _library():
 
     lib = load_library("gibbs_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_gibbs_launch.argtypes = [vp] * 34 + [ci] * 14 + [ctypes.c_uint] \
+    lib.mmc_gibbs_launch.argtypes = [vp] * 35 + [ci] * 15 + [ctypes.c_uint] \
         + [ci] + [cf] * 6 + [vp]
     lib.mmc_gibbs_launch.restype = ci
-    lib.mmc_gibbs_smem_bytes.argtypes = [ci] * 6
+    lib.mmc_gibbs_smem_bytes.argtypes = [ci] * 7
     lib.mmc_gibbs_smem_bytes.restype = ctypes.c_size_t
-    lib.mmc_gibbs_occupancy.argtypes = [ci] * 8 + [vp]
+    lib.mmc_gibbs_ws_floats.argtypes = [ci] * 4
+    lib.mmc_gibbs_ws_floats.restype = ctypes.c_size_t
+    lib.mmc_gibbs_occupancy.argtypes = [ci] * 9 + [vp]
     lib.mmc_gibbs_occupancy.restype = ci
     lib.mmc_gibbs_error_string.argtypes = [ci]
     lib.mmc_gibbs_error_string.restype = ctypes.c_char_p

@@ -35,12 +35,15 @@ the other blocks as column segments and one W-wide window of the sorted
 block at tables.wst[m], and an accepted head molecule also updates its
 ghost twin (see csrc/sweep_kernel.cu).
 
-The kernel keeps a chain's atom planes in one thread block's shared
-memory when they fit (layout "shared"); otherwise, and always with
-slabs, they stay in global memory (layout "global", fixed N only).  The
+The kernel keeps a chain's state in one thread block's shared memory
+when it fits (layout "shared").  Otherwise, and always with slabs, the
+atom planes, the activity planes and the molecule row stay in global
+memory (layout "global"), and where even the k rows (S(k), cfac, the
+moves' dS, the k-vectors) do not fit, those too (layout "global_k").  The
 COM and quaternion rows and the per-atom charge and type rows stay in
-global memory in both layouts.  `sweep` picks the layout before the
-launch; layout="global" forces it.
+global memory in every layout.  `sweep` picks the layout before the
+launch (`choose_layout`); layout= forces one.  Only where the words live
+differs: every layout takes the same decisions bit for bit.
 
 Random numbers come from outside: u (C, M_total, 10) uniforms in [0, 1),
 one row per molecule of the whole system, whose columns are [selector, dx, dy, dz, accept, e1, e2, e3, e4, angle] (the
@@ -143,7 +146,11 @@ class SweepTables:
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
 
-LAYOUTS = ("shared", "global")
+# Where a chain's state lives, in the order the choosers try them
+# (csrc/mmc_common.cuh Layout): all of it in shared memory; the rows that
+# grow with atoms and slots in global memory; those and the k rows too.
+LAYOUTS = ("shared", "global", "global_k")
+LAYOUT_CODES = {lay: i for i, lay in enumerate(LAYOUTS)}
 
 
 QUEUE_WORDS = 2 * (THREADS // 32) * 128  # the warp queues: 128 entries
@@ -155,64 +162,88 @@ def smem_bytes(M, P, A_pad, K, T, use_act=False, tmmc=False,
     """Dynamic shared memory of one block, M the molecules of the system;
     must match sweep_smem_floats in csrc/sweep_kernel.cu.  Every layout:
     the slot-pick row (64 words), the warp queues of live pair terms
-    (QUEUE_WORDS) and of (atom, pose) pairs within reach (NEAR_WORDS), 8
-    k-vector rows, 4 (P, T) LJ tables, 23 P-wide site rows (two proposal
-    buffers of an old and a new pose, each site a 16-byte row of x, y, z
-    and its live cutoff^2: 16; the body 3, charge, two flags and the live
-    cutoff^2) and 96 words of scratch (two proposals' scalars, exchange
-    uniforms, warp partials, the chain's statistics).  The shared layout
-    adds 4 atom rows (x, y, z, molecule), use_act the two activity planes
-    (A_pad + M), tmmc a second slot-pick row (64), a second set of warp
-    queues, the deletion pose (4 P), its S(k) row (2 K) and its warp
-    partials (32).  The COM and quaternion rows and the per-atom charge
-    and type rows stay in global memory in both layouts."""
-    n = 64 + QUEUE_WORDS + NEAR_WORDS + 8 * K + 4 * P * T + 23 * P + 96
-    if layout != "global":
-        n += 4 * A_pad
-    if use_act:
-        n += A_pad + M
+    (QUEUE_WORDS) and of (atom, pose) pairs within reach (NEAR_WORDS), 4
+    (P, T) LJ tables, 23 P-wide site rows (two proposal buffers of an old
+    and a new pose, each site a 16-byte row of x, y, z and its live
+    cutoff^2: 16; the body 3, charge, two flags and the live cutoff^2)
+    and 96 words of scratch (two proposals' scalars, exchange uniforms,
+    warp partials, the chain's statistics).  The shared layout adds 4 atom
+    rows (x, y, z, molecule) and, with use_act, the two activity planes
+    (A_pad + M); the shared and global layouts add 8 k-vector rows (S(k)
+    re/im, cfac, dS re/im, the k-vectors); tmmc adds a second slot-pick
+    row (64), a second set of warp queues, the deletion pose (4 P) and
+    its warp partials (32), and outside global_k the deletion's S(k) row
+    (2 K).  The COM and quaternion rows and the per-atom charge and type
+    rows stay in global memory in every layout."""
+    n = 64 + QUEUE_WORDS + NEAR_WORDS + 4 * P * T + 23 * P + 96
+    if layout == "shared":
+        n += 4 * A_pad + (A_pad + M if use_act else 0)
+    if layout != "global_k":
+        n += 8 * K + (2 * K if tmmc else 0)
     if tmmc:
-        n += 64 + QUEUE_WORDS + 4 * P + 2 * K + 32
+        n += 64 + QUEUE_WORDS + 4 * P + 32
     return 4 * n
+
+
+def kws_floats(K, tmmc=False):
+    """Words of one chain's row of the global_k layout's k-row workspace
+    (csrc/sweep_kernel.cu sweep_kws_floats): S(k) re/im, cfac and the
+    move's dS re/im, and with tmmc the deletion's dS re/im."""
+    return (7 if tmmc else 5) * K
+
+
+def occupancy(M, P, A_pad, K, T, use_act=False, tmmc=False,
+              layout="shared"):
+    """(registers per thread, local memory per thread in bytes -- stack
+    frame and spills --, blocks per SM) of the instantiation that this
+    launch shape takes, from the CUDA runtime (the occupancy calculator:
+    shared memory and registers); needs the card."""
+    out = (ctypes.c_int * 3)()
+    err = _library().mmc_sweep_occupancy(
+        M, P, A_pad, K, T, int(use_act), int(tmmc), LAYOUT_CODES[layout], out)
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return tuple(out)
 
 
 def blocks_per_sm(M, P, A_pad, K, T, use_act=False, tmmc=False,
                   layout="shared"):
-    """Blocks of this shape one SM holds at once, by the CUDA occupancy
-    calculator (shared memory and the instantiation's registers); needs
-    the card."""
-    n = _library().mmc_sweep_blocks_per_sm(
-        M, P, A_pad, K, T, int(use_act), int(tmmc), int(layout == "global"))
-    if n < 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
-    return n
+    """Blocks of this shape one SM holds at once (`occupancy`)."""
+    return occupancy(M, P, A_pad, K, T, use_act, tmmc, layout)[2]
+
+
+def pick_layout(sizes, layout, what):
+    """The first of LAYOUTS whose shared-memory bytes (sizes: layout ->
+    bytes) fit a block, or the one `layout` forces; the Gibbs and flip
+    ops choose the same way.  Raises, with the byte count, when the
+    forced layout or the last one (only the parts that do not grow with
+    the state) does not fit."""
+    if layout not in ("auto",) + LAYOUTS:
+        raise ValueError(f"layout must be auto or one of {LAYOUTS}, got "
+                         f"{layout!r}")
+    want = layout
+    if want == "auto":
+        want = next((lay for lay in sizes if sizes[lay] <= MAX_SMEM_BYTES),
+                    LAYOUTS[-1])
+    if sizes[want] > MAX_SMEM_BYTES:
+        raise ValueError(f"{what} needs {sizes[want]} B of shared memory "
+                         f"in the {want} layout, over the {MAX_SMEM_BYTES} "
+                         f"B a block may use")
+    return want
 
 
 def choose_layout(M, P, A_pad, K, T, use_act=False, tmmc=False,
                   slab=False, layout="auto"):
-    """The kernel layout of a launch: "shared" when the chain state fits
-    a block's shared memory, else "global" (fixed N only); slabs and
-    layout="global" take "global".  Raises, with the byte count, for a
-    state that fits neither."""
-    if layout not in ("auto",) + LAYOUTS:
-        raise ValueError(f"layout must be auto, shared or global, got "
-                         f"{layout!r}")
+    """The kernel layout of a launch: the first of "shared", "global" and
+    "global_k" that fits a block's shared memory ("global" or "global_k"
+    with slabs), or the one `layout` forces.  Raises, with the byte
+    count, when the forced layout does not fit, or when even global_k's
+    (the parts that do not grow with the state) does not."""
     if slab and layout == "shared":
-        raise ValueError("sorted slabs run on the global layout only")
+        raise ValueError("sorted slabs run on a global layout only")
     sizes = {lay: smem_bytes(M, P, A_pad, K, T, use_act, tmmc, lay)
-             for lay in LAYOUTS}
-    want = "global" if slab else layout
-    if want == "auto":
-        want = "shared" if sizes["shared"] <= MAX_SMEM_BYTES \
-            or use_act else "global"
-    if want == "global" and use_act:
-        raise ValueError("the global layout runs fixed-N sweeps only (no "
-                         "activity planes)")
-    if sizes[want] > MAX_SMEM_BYTES:
-        raise ValueError(f"chain state needs {sizes[want]} B of shared "
-                         f"memory in the {want} layout, over the "
-                         f"{MAX_SMEM_BYTES} B a block may use")
-    return want
+             for lay in LAYOUTS if not (slab and lay == "shared")}
+    return pick_layout(sizes, layout, "the chain state")
 
 
 def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
@@ -304,7 +335,7 @@ def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
     Returns new (coords, com, quat, sfac, stats (C, 9)); with activity
     planes also (act, actm, wid (C, 2) = [sum w, sum w^2] of the ghosts);
     with tmmc also (cmat, uhist), each (C, M + 1, 3), this call's deposits.
-    layout: "auto" (choose_layout), "shared" or "global".
+    layout: "auto" (choose_layout) or one of LAYOUTS.
     CUDA tensors launch the kernel (and count it in sweep.launches); CPU
     tensors run sweep_plain; any other device raises."""
     _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
@@ -335,12 +366,17 @@ def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
     C, _, A_pad = coords.shape
     M_total, K, T = com.shape[1], sfac.shape[1], t.eps.shape[1]
     use_act = act is not None
-    glob = layout == "global"
+    code = LAYOUT_CODES[layout]
     nbytes = smem_bytes(M_total, t.P, A_pad, K, T, use_act, tmmc, layout)
     if lib.mmc_sweep_smem_bytes(M_total, t.P, A_pad, K, T, int(use_act),
-                                int(tmmc), int(glob)) != nbytes:
-        raise RuntimeError("csrc/sweep_kernel.cu and smem_bytes disagree "
-                           "on the shared-memory layout")
+                                int(tmmc), code) != nbytes \
+            or lib.mmc_sweep_kws_floats(K, int(tmmc)) != kws_floats(K, tmmc):
+        raise RuntimeError("csrc/sweep_kernel.cu and smem_bytes or "
+                           "kws_floats disagree on the layout")
+    kws = None
+    if layout == "global_k":
+        kws = torch.empty((C, kws_floats(K, tmmc)), dtype=torch.float32,
+                          device=coords.device)
     outs = (torch.empty_like(coords), torch.empty_like(com),
             torch.empty_like(quat), torch.empty_like(sfac),
             torch.empty((C, N_STATS), dtype=torch.float32,
@@ -361,13 +397,14 @@ def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
            t.qp, t.eps, t.sig2, t.lam1, t.lam2, t.has_lj, t.has_q, t.tid_row,
            t.molid_row, t.q_row, t.kvec, t.kw, act, actm, ux, z, si, wc, eta,
            e_in, t.wst if t.W else None, t.segs if t.W else None)
-    ptrs = [ptr(x) for x in ins + outs + (None,) * (10 - len(outs))]
+    ptrs = [ptr(x) for x in ins + outs + (None,) * (10 - len(outs))
+            + (kws,)]
     n_seg = t.segs.shape[0] if t.W else 0
     err = lib.mmc_sweep_launch(
         *ptrs, C, t.M, M_total, t.m_start, t.a_start, t.P, A_pad, K, T,
         COULOMB_CODES[t.coulomb],
         int(t.lj_shift == "linear"), int(t.use_rot), int(use_act),
-        int(n_exch), int(n_widom), int(tmmc), int(glob), n_seg, t.a0_w,
+        int(n_exch), int(n_widom), int(tmmc), code, n_seg, t.a0_w,
         t.A_blk, t.W, int(seed) & 0xFFFFFFFF, THREADS,
         t.rc2, t.qrc2, t.kappa_l, t.d2_overlap, t.p_translate,
         COULOMB_FACTOR, torch.cuda.current_stream(coords.device).cuda_stream)
@@ -387,13 +424,15 @@ def _library():
 
     lib = load_library("sweep_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_sweep_launch.argtypes = [vp] * 42 + [ci] * 21 + [ctypes.c_uint] \
+    lib.mmc_sweep_launch.argtypes = [vp] * 43 + [ci] * 21 + [ctypes.c_uint] \
         + [ci] + [cf] * 6 + [vp]
     lib.mmc_sweep_launch.restype = ci
     lib.mmc_sweep_smem_bytes.argtypes = [ci] * 8
     lib.mmc_sweep_smem_bytes.restype = ctypes.c_size_t
-    lib.mmc_sweep_blocks_per_sm.argtypes = [ci] * 8
-    lib.mmc_sweep_blocks_per_sm.restype = ci
+    lib.mmc_sweep_kws_floats.argtypes = [ci] * 2
+    lib.mmc_sweep_kws_floats.restype = ctypes.c_size_t
+    lib.mmc_sweep_occupancy.argtypes = [ci] * 8 + [vp]
+    lib.mmc_sweep_occupancy.restype = ci
     lib.mmc_cuda_error_string.argtypes = [ci]
     lib.mmc_cuda_error_string.restype = ctypes.c_char_p
     return lib

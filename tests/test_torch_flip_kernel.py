@@ -350,7 +350,8 @@ def test_flip_smem_bytes_counts_every_region():
              + 2 * (3 * (P0 + P1) + 8) + 6 * A + M + 6 * K
              + 2 * P0 * T + 2 * P1 * T + 7 * P0 + 7 * P1 + 2 * M + 33)
     assert flip_op.flip_smem_bytes(M, P0, P1, A, K, T, nk) == 4 * words
-    # bench.py's "semigrand" state fits with room for several blocks per SM
-    assert flip_op.check_smem(128, 3, 3, 512, 337, 2, 5) < 40000
-    with pytest.raises(ValueError, match="shared memory"):
-        flip_op.check_smem(4096, 3, 3, 12288, 337, 2, 5)
+    # bench.py's "semigrand" state fits with room for several blocks per
+    # SM; 32x its slots take the global layout
+    assert flip_op.flip_smem_bytes(128, 3, 3, 512, 337, 2, 5) < 40000
+    assert flip_op.choose_layout(128, 3, 3, 512, 337, 2, 5) == "shared"
+    assert flip_op.choose_layout(4096, 3, 3, 12288, 337, 2, 5) == "global"

@@ -474,7 +474,7 @@ def test_gibbs_smem_bytes_counts_every_region_of_the_layout():
     """The kernel's shared-memory regions, added up; the flagship (cap 128
     SPC/E per box, A_pad 512, K 783, nk 7) leaves shared memory for three
     blocks per SM (the registers are capped for three), and a state over a
-    block's limit is refused with its byte count."""
+    block's limit takes the global layout."""
     m_off, P, A, K, T, nk = 128, 3, 512, 783, 2, 7
     W = 2 * nk + 1
     regions = (2 * 8 * 128               # warp queues: 8 x 128 (key, d^2)
@@ -494,6 +494,5 @@ def test_gibbs_smem_bytes_counts_every_region_of_the_layout():
     # three blocks and their 1 KB of reserved shared memory fit an SM's
     # 228 KB
     assert 3 * (4 * regions + 1024) <= 228 * 1024
-    assert gibbs_op.check_smem(m_off, P, A, K, T, nk) == 4 * regions
-    with pytest.raises(ValueError, match=r"needs \d+ B of shared memory"):
-        gibbs_op.check_smem(1024, 3, 3072, 2874, 2, 11)
+    assert gibbs_op.choose_layout(m_off, P, A, K, T, nk) == "shared"
+    assert gibbs_op.choose_layout(1024, 3, 3072, 2874, 2, 11) == "global"

@@ -339,18 +339,20 @@ def test_activity_sweeps_refuse_slabs():
 
 def test_layout_choice():
     """Shared memory when the chain state fits, the global layout for
-    larger fixed-N states and for slabs, a byte count when neither."""
+    larger states (activity planes too) and for slabs, the k rows in
+    global memory as well when they overflow it, a byte count when a
+    forced layout does not fit."""
     cl = sweep_op.choose_layout
     assert cl(750, 3, 2304, 337, 2) == "shared"
     assert cl(750, 3, 2304, 337, 2, layout="global") == "global"
     assert cl(750, 3, 2304, 337, 2, slab=True) == "global"
     assert cl(6859, 3, 20736, 2874, 2) == "global"
-    with pytest.raises(ValueError, match="activity"):
-        cl(6859, 3, 20736, 2874, 2, use_act=True, layout="global")
+    assert cl(6859, 3, 20736, 2874, 2, use_act=True,
+              layout="global") == "global"
+    assert cl(6859, 3, 20736, 2874, 2, use_act=True) == "global"
+    assert cl(100, 3, 512, 8000, 2) == "global_k"
     with pytest.raises(ValueError, match="B of shared"):
-        cl(6859, 3, 20736, 2874, 2, use_act=True)
-    with pytest.raises(ValueError, match="B of shared"):
-        cl(100, 3, 512, 8000, 2)
+        cl(100, 3, 512, 8000, 2, layout="global")
     with pytest.raises(ValueError, match="global layout only"):
         cl(750, 3, 2304, 337, 2, slab=True, layout="shared")
     # the 6859-water cell's shared words: k-vector rows and scratch, two

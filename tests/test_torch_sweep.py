@@ -220,8 +220,8 @@ def test_choose_layout_takes_shared_for_activity_states_that_now_fit():
     """Capacity-2048 SPC/E with its activity planes: 150 KB without the
     COM and quaternion rows and the per-atom charge and type rows (which
     stay in global memory), so the shared layout takes it; with those
-    7 M + 2 A_pad words it would not fit.  Twice that capacity fits
-    neither layout (the global one runs fixed N only)."""
+    7 M + 2 A_pad words it would not fit.  Twice that capacity takes the
+    global layout, activity planes and all."""
     shape = (2048, 3, 6144, 337, 2)
     nbytes = sweep_op.smem_bytes(*shape, use_act=True)
     assert nbytes <= sweep_op.MAX_SMEM_BYTES
@@ -229,5 +229,5 @@ def test_choose_layout_takes_shared_for_activity_states_that_now_fit():
     assert sweep_op.choose_layout(*shape, use_act=True) == "shared"
     assert sweep_op.choose_layout(*shape, use_act=True, tmmc=True) \
         == "shared"
-    with pytest.raises(ValueError, match="shared memory"):
-        sweep_op.choose_layout(4096, 3, 12288, 337, 2, use_act=True)
+    assert sweep_op.choose_layout(4096, 3, 12288, 337, 2, use_act=True) \
+        == "global"
