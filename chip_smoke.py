@@ -359,6 +359,29 @@ Phase 24 the states that fit no shared layout (the JAX kernels run them),
          22,994), slabs on, 64 chains through MonteCarlo (recompute_chunk
          2), one block of one sweep on the fixed-N global_k layout.  The
          kernels line gains a row per new layout.
+Phase 25 the parallel layer (parallel/), its ranks gloo processes on this
+         one card (NCCL refuses two ranks on one device), started by
+         parallel/mesh.py run_world after phase 1 built the kernels:
+         (a) the flagship (750 SPC/E, Ewald, 2048 chains) split over 2
+         ranks: a sharded init_state, sharded_run_steps of 2 sweeps on the
+         whole-sweep kernel, then replica exchange every sweep over a
+         250-400 K ladder for 2 rounds; every element of coords, com,
+         quat, S(k), energy, acc and att equal to the unsharded run of the
+         same 2048 chains (init_state, run_steps, run_steps(1) + exchange
+         with phases 0 and 1) and the swap fractions equal and in (0, 1);
+         (b) the sweep kernel with 8 exchange attempts, the Gibbs kernel
+         and the flip kernel at phase 2's shapes (SPC/E-64 Ewald, cap 32
+         x 2, 32 + 32; 64 chains): a launch on rows [32, 64) with chain0 =
+         32 equals those rows of the whole launch bit for bit, with
+         chain0 = 0 it differs, and the offset launch holds to its plain
+         version as in phase 2;  (c) the tensor-parallel recompute on a
+         2 x 2 (chains x atoms) mesh of 4 ranks at the flagship's width
+         (64 chains, recompute chunk 8): energies within 1e-5 (relative,
+         f32) of the unsharded recompute, MonteCarlo(tp_mesh=...)
+         .run_block(1) within the drift gate;  (d) (a) at 512 chains and
+         one TP recompute (1 x 1 mesh, 64 chains) in a world of one NCCL
+         rank.  Each part prints its wall time, per-rank sweep, exchange
+         round and recompute times; the card's name and power limit.
 
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
@@ -713,19 +736,21 @@ def _exchange_consts(system, params, kvecs, kweights, box):
 
 
 def run_variant(op_fn, args, tables, act, actm, n_exchs, n_widoms, uxs, z,
-                consts, seed, tmmc=None):
+                consts, seed, tmmc=None, chain0=0):
     """One launch per species block of the sweep op `op_fn` with the
     activity planes and each block's attempts, threading the state; returns
     (coords, com, quat, sfac, stats summed, act, actm, wid (C, blocks, 2));
     with tmmc = (eta, e_in) (one block) the attempts deposit, and the op's
-    (cmat, uhist[, umag]) follow."""
+    (cmat, uhist[, umag]) follow.  chain0: the Philox scores' global index
+    of chain 0."""
     args = list(args)
     stats, wids, deposits = None, [], ()
     for b, t in enumerate(tables):
         extra = {}
         if n_exchs[b] or n_widoms[b]:
             extra = dict(n_exch=n_exchs[b], n_widom=n_widoms[b], ux=uxs[b],
-                         z=z, si=consts[b][0], wc=consts[b][1], seed=seed + b)
+                         z=z, si=consts[b][0], wc=consts[b][1], seed=seed + b,
+                         chain0=chain0)
             if tmmc is not None:
                 extra.update(tmmc=True, eta=tmmc[0], e_in=tmmc[1])
         out = op_fn(*args, t, act=act, actm=actm, **extra)
@@ -738,7 +763,7 @@ def run_variant(op_fn, args, tables, act, actm, n_exchs, n_widoms, uxs, z,
 
 
 def compare_variant(tag, system, args, tables, act, actm, n_exchs, n_widoms,
-                    uxs, z, consts, seed, tmmc=None, plain_ms=None):
+                    uxs, z, consts, seed, tmmc=None, plain_ms=None, chain0=0):
     """The kernel against sweep_plain on the same arguments with activity
     planes, exchange attempts and ghosts (and with tmmc = (eta, e_in) the
     deposits); returns the largest coordinate difference on matched
@@ -746,11 +771,11 @@ def compare_variant(tag, system, args, tables, act, actm, n_exchs, n_widoms,
     from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
 
     rest = (tables, act, actm, n_exchs, n_widoms, uxs, z, consts, seed)
-    k = run_variant(op.sweep, args, *rest, tmmc=tmmc)
+    k = run_variant(op.sweep, args, *rest, tmmc=tmmc, chain0=chain0)
     out = []
     ms = _time_ms(lambda: out.append(run_variant(
         functools.partial(op.sweep_plain, magnitude=True), args, *rest,
-        tmmc=tmmc)), 1)
+        tmmc=tmmc, chain0=chain0)), 1)
     p = out[0]
     if plain_ms is not None:
         plain_ms.append(ms)
@@ -3152,22 +3177,23 @@ def gibbs_consts(system, params, kvecs, kweights, box2):
 
 
 def run_gibbs(op_fn, args, us, tables, act, actm, n_exchs, uxs, consts,
-              seed):
+              seed, chain0=0):
     """One Gibbs call per species block of `op_fn` (sweep_gibbs or
     sweep_gibbs_plain), threading the state and the activity planes;
-    returns (coords, com, quat, sfac, stats summed, act, actm)."""
+    returns (coords, com, quat, sfac, stats summed, act, actm).  chain0:
+    the Philox scores' global index of chain 0."""
     args, stats = list(args), None
     for b, t in enumerate(tables):
         out = op_fn(*args, us[b], t, act, actm, n_exch=n_exchs[b],
                     ux=uxs[b], si2=consts[b][0], wc2=consts[b][1],
-                    seed=seed + b)
+                    seed=seed + b, chain0=chain0)
         args[:4], (st, act, actm) = list(out[:4]), out[4:]
         stats = st if stats is None else stats + st
     return tuple(args[:4]) + (stats, act, actm)
 
 
 def compare_gibbs(tag, args, us, tables, act, actm, n_exchs, uxs, consts,
-                  seed, max_differing=None, plain_ms=None):
+                  seed, max_differing=None, plain_ms=None, chain0=0):
     """The Gibbs kernel against sweep_gibbs_plain on the same arguments:
     chains with identical decisions (equal acc/att counts, transfers and
     fingerprint) are compared field by field; N is conserved on every
@@ -3179,10 +3205,11 @@ def compare_gibbs(tag, args, us, tables, act, actm, n_exchs, uxs, consts,
     from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as op
 
     rest = (us, tables, act, actm, n_exchs, uxs, consts, seed)
-    k = run_gibbs(op.sweep_gibbs, args, *rest)
+    k = run_gibbs(op.sweep_gibbs, args, *rest, chain0=chain0)
     out = []
     ms = _time_ms(lambda: out.append(run_gibbs(functools.partial(
-        op.sweep_gibbs_plain, magnitude=True), args, *rest)), 1)
+        op.sweep_gibbs_plain, magnitude=True), args, *rest,
+        chain0=chain0)), 1)
     p = out[0]
     if plain_ms is not None:
         plain_ms.append(ms)
@@ -3268,6 +3295,18 @@ def _gibbs_case(dev, system, params, boxes, chains, seed, n_exch,
     return args, us, tables, act, actm, [n_exch] * len(tables), uxs, consts
 
 
+def gibbs_water():
+    """Phase 2's Gibbs SPC/E RunParams keywords: 500 K, site cutoff 5 A,
+    Ewald tuned to 1e-3 at the larger box (14 A)."""
+    from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
+
+    kl, nk, ksq = tune_parameters(14.0, 5.0, 1e-3)
+    return dict(temperature=500.0, r_cut=5.0, cutoff_mode="site",
+                coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
+                p_translate=0.5, dr_max=0.3, dphi_max=0.4, use_lrc=False,
+                strict_min_image=False)
+
+
 def phase2_gibbs(dev, chains=64):
     """The Gibbs kernel against sweep_gibbs_plain on shared uniforms and
     Philox scores, unequal boxes, 64 chains (one with an empty source box,
@@ -3287,11 +3326,7 @@ def phase2_gibbs(dev, chains=64):
     from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
 
     t0 = time.perf_counter()
-    kl, nk, ksq = tune_parameters(14.0, 5.0, 1e-3)
-    water = dict(temperature=500.0, r_cut=5.0, cutoff_mode="site",
-                 coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
-                 p_translate=0.5, dr_max=0.3, dphi_max=0.4, use_lrc=False,
-                 strict_min_image=False)
+    water = gibbs_water()
     kl2, nk2, ksq2 = tune_parameters(24.0, 7.0, 1e-3)
     cases = (
         ("spce-32 ewald", spce_system(32), RunParams(**water),
@@ -3347,11 +3382,7 @@ def gibbs_stress_cases():
     from metropolismontecarlo_tpu_torch.models.water import spce_system
     from metropolismontecarlo_tpu_torch.ops.ewald import tune_parameters
 
-    kl, nk, ksq = tune_parameters(14.0, 5.0, 1e-3)
-    water = dict(temperature=500.0, r_cut=5.0, cutoff_mode="site",
-                 coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
-                 p_translate=0.5, dr_max=0.3, dphi_max=0.4, use_lrc=False,
-                 strict_min_image=False)
+    water = gibbs_water()
     kl16, nk16, ksq16 = tune_parameters(16.0, 8.0, 1e-3)
     box_w = 28.24 * (32 / 750) ** (1 / 3)      # the flagship's density
     return [
@@ -3833,7 +3864,7 @@ def flip_inputs(system, params, box, xi, n_act, gen, dev):
 
 
 def compare_flip(tag, args, ux, tables, si2, lrc3, seed, max_differing=None,
-                 plain_ms=None):
+                 plain_ms=None, chain0=0):
     """The flip kernel against flip_plain on the same arguments: chains
     with identical decisions (equal acc/att counts and fingerprint) are
     compared field by field; N is conserved on every chain of both.
@@ -3844,10 +3875,11 @@ def compare_flip(tag, args, ux, tables, si2, lrc3, seed, max_differing=None,
     list that receives the plain call's ms."""
     from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as op
 
-    k = op.flip(*args, ux, tables, si2, lrc3, seed=seed)
+    k = op.flip(*args, ux, tables, si2, lrc3, seed=seed, chain0=chain0)
     out = []
     ms = _time_ms(lambda: out.append(op.flip_plain(
-        *args, ux, tables, si2, lrc3, seed=seed, magnitude=True)), 1)
+        *args, ux, tables, si2, lrc3, seed=seed, magnitude=True,
+        chain0=chain0)), 1)
     p = out[0]
     if plain_ms is not None:
         plain_ms.append(ms)
@@ -6237,10 +6269,403 @@ def phase24(dev, chains=256, n_twin=128, bulk_chains=64):
     return rows
 
 
+# phase 25: the parallel layer.  (a) the flagship split over two gloo
+# ranks on the card, (b) the kernels' chain offset in one process, (c) the
+# tensor-parallel recompute on a 2 x 2 gloo mesh, (d) a world of one NCCL
+# rank.  The ranks are fresh processes (parallel/mesh.py run_world) that
+# find the kernels phase 1 built; each checks its own gates and raises.
+FLAGSHIP_SEED = 2525
+REMC_SEED = 2526
+REMC_LADDER = (250.0, 400.0)
+TP_REL_TOL = 1e-5          # the TP recompute against the unsharded one, f32
+OFFSET_KINDS = ("sweep", "gibbs", "flip")
+
+
+FLAGSHIP = (750, 28.24, 10.0)   # waters, box (A), r_cut (A)
+
+
+def flagship_mc(dev, shape=FLAGSHIP, tp_mesh=None, recompute_chunk="auto"):
+    """Phase 3's flagship MonteCarlo (SPC/E, Ewald, the whole-sweep route)
+    at shape = (waters, box, r_cut), its generator seeded
+    FLAGSHIP_SEED."""
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+
+    params = RunParams(temperature=298.15, r_cut=shape[2], coulomb="ewald",
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3)
+    gen = torch.Generator(device=dev).manual_seed(FLAGSHIP_SEED)
+    return MonteCarlo(spce_system(shape[0]), params, device=dev,
+                      generator=gen, kernel="sweep", tp_mesh=tp_mesh,
+                      recompute_chunk=recompute_chunk)
+
+
+def flagship_init(mc, n_chains, shape=FLAGSHIP):
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+
+    return mc.init_state(cubic_lattice(shape[0], shape[1]), box=shape[1],
+                         n_chains=n_chains)
+
+
+def _rank_device(device):
+    return torch.device("cuda", torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+
+
+def _state_differences(tag, out, ref, fields):
+    """Elements of each field that differ between two states, printed;
+    returns their sum."""
+    bad = {f: int((getattr(out, f) != getattr(ref, f)).sum()) for f in fields}
+    print(f"phase25 {tag}: differing elements " + ", ".join(
+        f"{f} {n}" for f, n in bad.items()), flush=True)
+    return sum(bad.values())
+
+
+def _rank_line(rank, text):
+    print(f"phase25 rank {rank}: {text}", flush=True)
+
+
+def phase25_sharded_rank(rank, chains, steps, device="cuda",
+                         shape=FLAGSHIP):
+    """(a) and (d): this rank's shard of `chains` flagship chains, a
+    sharded init (each rank draws its rows of the chain-global
+    orientations), sharded_run_steps of `steps` sweeps, then REMC every
+    sweep over the ladder for 2 rounds; rank 0 then runs the unsharded
+    MonteCarlo from the same seed (init_state, run_steps, run_steps(1) +
+    exchange with phases 0 and 1) and counts the elements that differ;
+    last, every rank checks its sweep kernel launches.  Returns rank 0's
+    numbers."""
+    import torch.distributed as dist
+
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.parallel import mesh as pm
+    from metropolismontecarlo_tpu_torch.parallel.remc import (
+        exchange_shardlocal,
+        temperature_ladder,
+    )
+    from metropolismontecarlo_tpu_torch.utils.shard import shard_context
+
+    dev = _rank_device(device)
+    mesh = pm.make_mesh(device=dev.type, backend=dist.get_backend())
+    n = dist.get_world_size()
+    L = chains // n
+    mc = flagship_mc(dev, shape)
+    t0 = time.perf_counter()
+    with shard_context(rank * L, chains):
+        local = flagship_init(mc, L, shape)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
+    init = pm.gather_state(local, mesh)
+    op.sweep.launches = 0
+    t0 = time.perf_counter()
+    local = pm.sharded_run_steps(mc, local, mesh, steps)
+    _sync(dev)
+    t_sweep = (time.perf_counter() - t0) / steps
+    nvt = pm.gather_state(local, mesh)
+    ladder = temperature_ladder(*REMC_LADDER, chains, device=dev)
+    local = dataclasses.replace(local, temp=ladder[rank * L:(rank + 1) * L])
+    gen = torch.Generator(device=dev).manual_seed(REMC_SEED)
+    t0 = time.perf_counter()
+    local, fracs = pm.sharded_run_steps(mc, local, mesh, 2, remc_every=1,
+                                        remc_generator=gen)
+    _sync(dev)
+    t_remc = time.perf_counter() - t0
+    launches = op.sweep.launches
+    # one exchange round alone, on a throwaway generator
+    t0 = time.perf_counter()
+    exchange_shardlocal(local, torch.Generator(device=dev).manual_seed(1), 0,
+                        mesh)
+    _sync(dev)
+    t_round = time.perf_counter() - t0
+    remc = pm.gather_state(local, mesh)
+    mean_e = float(pm.pooled_mean(local.energy, mesh))
+    _rank_line(rank, f"{dist.get_backend()} world of {n}, {L} of {chains} "
+               f"chains: sharded init {t_init:.2f} s, {steps} sweeps "
+               f"{t_sweep * 1e3:.3f} ms per sweep ({launches} sweep kernel "
+               f"launches), 2 REMC rounds with their sweeps {t_remc:.3f} s, "
+               f"one exchange round {t_round * 1e3:.3f} ms, swap fractions "
+               f"{fracs.tolist()}, pooled mean energy {mean_e:.6g}")
+    out = None
+    if rank == 0:
+        out = _phase25_unsharded(dev, shape, chains, steps, init, nvt, remc,
+                                 fracs, ladder)
+        out.update(sweep_ms=t_sweep * 1e3, round_ms=t_round * 1e3)
+    if launches != steps + 2:
+        raise AssertionError(f"rank {rank}: {launches} sweep kernel launches "
+                             f"for {steps + 2} sweeps")
+    return out
+
+
+def _phase25_unsharded(dev, shape, chains, steps, init, nvt, remc, fracs,
+                       ladder):
+    """(a)'s reference in rank 0: the unsharded MonteCarlo from the same
+    seed; raises unless every compared element is equal."""
+    from metropolismontecarlo_tpu_torch.parallel.remc import exchange
+
+    ref_mc = flagship_mc(dev, shape)
+    t0 = time.perf_counter()
+    ref = flagship_init(ref_mc, chains, shape)
+    _sync(dev)
+    t_ref_init = time.perf_counter() - t0
+    bad = _state_differences("init", init, ref,
+                             ("quat", "coords", "sfac", "energy"))
+    t0 = time.perf_counter()
+    ref = ref_mc.run_steps(ref, steps)
+    _sync(dev)
+    t_ref_sweep = (time.perf_counter() - t0) / steps
+    fields = ("coords", "com", "quat", "sfac", "energy", "acc", "att")
+    bad += _state_differences(f"{steps} sweeps", nvt, ref, fields)
+    ref = dataclasses.replace(ref, temp=ladder)
+    gen = torch.Generator(device=dev).manual_seed(REMC_SEED)
+    ref_fracs = []
+    t0 = time.perf_counter()
+    for phase in (0, 1):
+        ref = ref_mc.run_steps(ref, 1)
+        ref, frac = exchange(ref, gen, phase)
+        ref_fracs.append(frac)
+    _sync(dev)
+    t_ref_remc = time.perf_counter() - t0
+    bad += _state_differences("REMC", remc, ref, fields + ("temp",))
+    ref_fracs = torch.stack(ref_fracs)
+    _rank_line(0, f"unsharded {chains} chains: init {t_ref_init:.2f} s, "
+               f"{t_ref_sweep * 1e3:.3f} ms per sweep, 2 REMC rounds with "
+               f"their sweeps {t_ref_remc:.3f} s, swap fractions "
+               f"{ref_fracs.tolist()}")
+    if bad or not torch.equal(fracs, ref_fracs) \
+            or not bool(((fracs > 0.0) & (fracs < 1.0)).all()):
+        raise AssertionError("the sharded run is not the unsharded one, or "
+                             "the swap fraction does not lie in (0, 1)")
+    return dict(ref_sweep_ms=t_ref_sweep * 1e3, fracs=fracs.tolist())
+
+
+def phase25_tp_rank(rank, n_chain_shards, n_atom_shards, chains, chunk,
+                    device="cuda", shape=FLAGSHIP):
+    """(c) and (d): the flagship's tensor-parallel recompute on a
+    (chains x atoms) mesh against the unsharded recompute, then
+    MonteCarlo(tp_mesh=...).run_block(1) with the drift gate; last, the
+    sweep kernel's launch."""
+    import torch.distributed as dist
+
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.parallel import mesh as pm
+    from metropolismontecarlo_tpu_torch.parallel.tp import make_mesh_2d
+
+    dev = _rank_device(device)
+    mesh = make_mesh_2d(n_chain_shards, n_atom_shards, device=dev.type,
+                        backend=dist.get_backend())
+    L = chains // n_chain_shards
+    mc = flagship_mc(dev, shape, tp_mesh=mesh, recompute_chunk=chunk)
+    local = flagship_init(mc, L, shape)
+    t0 = time.perf_counter()
+    e, _, _ = mc.full_energy(local)
+    _sync(dev)
+    t_tp = time.perf_counter() - t0
+    e_tp = pm.gather_state(dataclasses.replace(local, energy=e), mesh)
+    op.sweep.launches = 0
+    t0 = time.perf_counter()
+    _, m = mc.run_block(local, 1)
+    _sync(dev)
+    t_block = time.perf_counter() - t0
+    launches = op.sweep.launches
+    _rank_line(rank, f"{dist.get_backend()} {n_chain_shards} x "
+               f"{n_atom_shards} mesh, {L} of {chains} chains: TP recompute "
+               f"{t_tp:.3f} s (chunk {chunk}), run_block(1) {t_block:.3f} s "
+               f"({launches} sweep kernel launch), drift "
+               f"{m['drift_max_rel']:.3e}")
+    if not m["drift_max_rel"] <= DRIFT_TOL:
+        raise AssertionError(f"rank {rank}: drift {m['drift_max_rel']}")
+    out = None
+    if rank == 0:
+        out = _phase25_tp_reference(dev, shape, chains, e_tp)
+        out.update(tp_s=t_tp, drift=m["drift_max_rel"])
+    if launches != 1:
+        raise AssertionError(f"rank {rank}: {launches} sweep kernel launches "
+                             f"for one sweep")
+    return out
+
+
+def _phase25_tp_reference(dev, shape, chains, e_tp):
+    """(c)'s reference in rank 0: the unsharded recompute of the same
+    states (the same orientations: chain-global draws)."""
+    ref_mc = flagship_mc(dev, shape)
+    ref = flagship_init(ref_mc, chains, shape)
+    t0 = time.perf_counter()
+    e_ref, _, _ = ref_mc.full_energy(ref)
+    _sync(dev)
+    t_ref = time.perf_counter() - t0
+    rel = float(((e_tp.energy - e_ref).abs()
+                 / e_ref.abs().clamp_min(1.0)).max())
+    same_quat = torch.equal(e_tp.quat, ref.quat)
+    _rank_line(0, f"unsharded recompute of {chains} chains {t_ref:.3f} s "
+               f"(chunk {ref_mc.recompute_chunk}, dense); TP energies rel "
+               f"err {rel:.3e} (gate {TP_REL_TOL}), orientations equal "
+               f"{same_quat}")
+    if not (rel < TP_REL_TOL and same_quat):
+        raise AssertionError("the TP recompute disagrees with the unsharded "
+                             "one")
+    return dict(ref_s=t_ref, rel=rel)
+
+
+def phase25_nccl_rank(rank, chains, steps, tp_chains, chunk, device="cuda",
+                      shape=FLAGSHIP):
+    """(d): (a)'s calls and one TP recompute in a world of one NCCL rank."""
+    return (phase25_sharded_rank(rank, chains, steps, device, shape),
+            phase25_tp_rank(rank, 1, 1, tp_chains, chunk, device, shape))
+
+
+def _rows(x, sl):
+    """The rows `sl` of x (a tensor, or a list or tuple of them; None
+    stays None)."""
+    if x is None:
+        return None
+    if isinstance(x, (list, tuple)):
+        return type(x)(_rows(v, sl) for v in x)
+    return x[sl].contiguous()
+
+
+def offset_case(dev, kind, chains=64):
+    """(b)'s inputs at phase 2's shapes for one Philox-scored op: "sweep"
+    (SPC/E-64 Ewald with 8 exchange attempts), "gibbs" (SPC/E cap 32 x 2,
+    24 transfers), "flip" (SPC/E 32 + 32, 24 flips).  Returns (call,
+    compare): call(rows, chain0, plain=False) runs the op (its plain
+    version with plain) on those rows of every per-chain input with the
+    scores keyed from chain0, compare(rows, chain0, tag) holds the kernel
+    to its plain version there as phase 2 does."""
+    from metropolismontecarlo_tpu_torch.mc.moves import draw_exchange_uniforms
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import (
+        spce_system,
+        spce_two_blocks,
+    )
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as fop
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as gop
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    if kind == "sweep":
+        box_w, _, water, _ = _variant_params()
+        system = spce_system(64)
+        mc, _, args, act, actm, uxs, z, consts = _variant_inputs(
+            dev, 2501, "n_exch spce64 ewald", system, box_w, water(), (8,),
+            (0,), C=chains)
+        ins = (args, act, actm, uxs, z, consts)
+
+        def call(sl, chain0, plain=False):
+            a, ac, am, ux, zz, cs = _rows(ins, sl)
+            return run_variant(op.sweep_plain if plain else op.sweep, a,
+                               mc.tables, ac, am, (8,), (0,), ux, zz, cs,
+                               77, chain0=chain0)
+
+        def compare(sl, chain0, tag):
+            a, ac, am, ux, zz, cs = _rows(ins, sl)
+            return compare_variant(tag, system, a, mc.tables, ac, am, (8,),
+                                   (0,), ux, zz, cs, 77, chain0=chain0)
+    elif kind == "gibbs":
+        args, us, tables, act, actm, n_exchs, uxs, consts = _gibbs_case(
+            dev, spce_system(32), RunParams(**gibbs_water()), (10.5, 14.0),
+            chains, 2502, 24)
+        ins = (args, us, act, actm, uxs, consts)
+
+        def call(sl, chain0, plain=False):
+            a, u, ac, am, ux, cs = _rows(ins, sl)
+            return run_gibbs(gop.sweep_gibbs_plain if plain
+                             else gop.sweep_gibbs, a, u, tables, ac, am,
+                             n_exchs, ux, cs, 91, chain0=chain0)
+
+        def compare(sl, chain0, tag):
+            a, u, ac, am, ux, cs = _rows(ins, sl)
+            return compare_gibbs(tag, a, u, tables, ac, am, n_exchs, ux, cs,
+                                 91, max_differing=GIBBS_MAX_DIFFERING,
+                                 chain0=chain0)[0]
+    else:
+        gen = torch.Generator(device=dev).manual_seed(2503)
+        n_act = np.random.default_rng(2503).integers(0, 33, (chains, 2))
+        args, tables, si2, lrc3 = flip_inputs(
+            spce_two_blocks(32, 32), _semigrand_water(), 20.0, 2.0,
+            torch.tensor(n_act), gen, dev)
+        ins = (args, draw_exchange_uniforms(chains, 24, gen, dev), si2, lrc3)
+
+        def call(sl, chain0, plain=False):
+            a, ux, s2, l3 = _rows(ins, sl)
+            return (fop.flip_plain if plain else fop.flip)(
+                *a, ux, tables, s2, l3, seed=71, chain0=chain0)
+
+        def compare(sl, chain0, tag):
+            a, ux, s2, l3 = _rows(ins, sl)
+            return compare_flip(tag, a, ux, tables, s2, l3, 71,
+                                max_differing=FLIP_MAX_DIFFERING,
+                                chain0=chain0)[0]
+    return call, compare
+
+
+def phase25_offsets(dev, chains=64):
+    """(b) For the sweep kernel with exchange attempts, the Gibbs kernel
+    and the flip kernel: a launch on rows [c0, c0 + L) with chain0 = c0
+    equals those rows of the whole launch bit for bit, the same launch
+    with chain0 = 0 differs, and the offset launch holds to its plain
+    version with the same offset.  Returns the largest error of the three
+    comparisons."""
+    c0 = L = chains // 2
+    rows = slice(c0, c0 + L)
+    err = 0.0
+    for kind in OFFSET_KINDS:
+        call, compare = offset_case(dev, kind, chains)
+        full = call(slice(0, chains), 0)
+        part = call(rows, c0)
+        unkeyed = call(rows, 0)
+        _sync(dev)
+        n_diff = sum(int((f[rows] != p).sum()) for f, p in zip(full, part))
+        n_live = sum(int((u != p).sum()) for u, p in zip(unkeyed, part))
+        print(f"phase25 (b) {kind}: rows {c0}:{c0 + L} with chain0 {c0} "
+              f"against those rows of the whole launch: {n_diff} differing "
+              f"elements; with chain0 0: {n_live} differing elements")
+        if n_diff or not n_live:
+            raise AssertionError(f"(b) {kind}: the chain offset is not the "
+                                 f"rows' global index")
+        err = max(err, compare(rows, c0, f"25b {kind} rows {c0}:{c0 + L} "
+                                         f"chain0 {c0} vs plain"))
+    return err
+
+
+def phase25(dev, smi, chains=2048, steps=2, tp_chains=64, tp_chunk=8,
+            nccl_chains=512):
+    """The parallel layer on the card (the ranks are gloo processes on one
+    shared H100, not a multi-GPU measurement): (a) the flagship, `chains`
+    chains, over 2 gloo ranks, bit for bit against the unsharded run; (b)
+    the chain offset of the three Philox-scored kernels; (c) the TP
+    recompute on a 2 x 2 gloo mesh at tp_chains chains; (d) (a) and one
+    TP recompute in a world of one NCCL rank."""
+    from metropolismontecarlo_tpu_torch.parallel.mesh import run_world
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a = run_world(phase25_sharded_rank, 2, (chains, steps), device="cuda",
+                  backend="gloo", timeout=600)[0]
+    print(f"phase25 (a) {time.perf_counter() - t0:.1f} s: per-rank sweep "
+          f"{a['sweep_ms']:.3f} ms (2 ranks at once) against "
+          f"{a['ref_sweep_ms']:.3f} ms unsharded, exchange round "
+          f"{a['round_ms']:.3f} ms, swap fractions {a['fracs']}")
+    t1 = time.perf_counter()
+    err = phase25_offsets(dev)
+    print(f"phase25 (b) {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    c = run_world(phase25_tp_rank, 4, (2, 2, tp_chains, tp_chunk),
+                  device="cuda", backend="gloo", timeout=600)[0]
+    print(f"phase25 (c) {time.perf_counter() - t1:.1f} s: TP recompute "
+          f"{c['tp_s']:.3f} s per rank (4 ranks at once) against "
+          f"{c['ref_s']:.3f} s unsharded, rel err {c['rel']:.3e}, drift "
+          f"{c['drift']:.3e}")
+    t1 = time.perf_counter()
+    run_world(phase25_nccl_rank, 1, (nccl_chains, steps, tp_chains,
+                                     tp_chunk), device="cuda", timeout=600)
+    print(f"phase25 (d) {time.perf_counter() - t1:.1f} s (nccl)")
+    print(f"phase25 total {time.perf_counter() - t0:.1f} s; card: {smi}")
+    return err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(2, 25)),
+                    default=",".join(str(i) for i in range(2, 26)),
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -6330,8 +6755,10 @@ def main():
         l23, err23, ms23, plain23, bound23, by23 = phase23(dev)
     if 24 in want:
         rows24 = phase24(dev)
+    if 25 in want:
+        phase25(dev, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 25)):
+    if want != set(range(2, 26)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)

@@ -10,7 +10,8 @@
 // sites from column a0_b; a slot's atoms sit at slot * P0, or at a0_b +
 // (slot - cap_a) * P1).  Each attempt, in order:
 //   1. the pick: the active slot of either block with the largest
-//      Philox4x32-10 score (key (seed, chain), counter (slot, attempt, 0, 0);
+//      Philox4x32-10 score (key (seed, chain0 + chain), chain0 the global
+//      index of the launch's first chain, counter (slot, attempt, 0, 0);
 //      ties to the lower slot); with no active slot the attempt counts as an
 //      A -> B attempt (the TPU kernel's degenerate pick lands on slot 0) and
 //      nothing else happens;
@@ -179,8 +180,9 @@ __global__ void __launch_bounds__(kThreads,
     float* __restrict__ act_out, float* __restrict__ actm_out,
     float* __restrict__ stats_out, float* __restrict__ ws, int cap_a,
     int cap_b, int P0, int P1, int a0_b, int A_pad, int K, int T, int nk,
-    int ewald, int n_flip, int k_global, unsigned int seed, float rc2,
-    float qrc2, float kappa_l, float d2_overlap, float ln_xi, float factor) {
+    int ewald, int n_flip, int k_global, unsigned int seed,
+    unsigned int chain0, float rc2, float qrc2, float kappa_l,
+    float d2_overlap, float ln_xi, float factor) {
   extern __shared__ float smem[];
   const int M = cap_a + cap_b;
   const int pmax = P0 > P1 ? P0 : P1;
@@ -455,7 +457,7 @@ __global__ void __launch_bounds__(kThreads,
   auto scores = [&](int x) {
     unsigned* row = sscore + (x & 1) * M;
     for (int i = tid; i < M; i += nt)
-      row[i] = (philox_word((uint32_t)i, (uint32_t)x, seed, (uint32_t)c) >> 8) + 1u;
+      row[i] = (philox_word((uint32_t)i, (uint32_t)x, seed, chain0 + (uint32_t)c) >> 8) + 1u;
   };
   // lane i < 8 loads uniform i of attempt x (a pass ahead of its use)
   auto prefetch = [&](int x) -> float {
@@ -808,9 +810,9 @@ extern "C" int mmc_flip_launch(
     void* quat_out, void* sfac_out, void* act_out, void* actm_out,
     void* stats_out, void* ws, int C, int cap_a, int cap_b, int P0, int P1,
     int a0_b, int A_pad, int K, int T, int nk, int coulomb, int n_flip,
-    int layout, unsigned int seed, int threads, float rc2, float qrc2,
-    float kappa_l, float d2_overlap, float ln_xi, float factor,
-    void* stream) {
+    int layout, unsigned int seed, unsigned int chain0, int threads,
+    float rc2, float qrc2, float kappa_l, float d2_overlap, float ln_xi,
+    float factor, void* stream) {
   const size_t smem =
       mmc_flip_smem_bytes(cap_a + cap_b, P0, P1, A_pad, K, T, nk, layout);
   if (layout < kShared || layout > kGlobalK || (layout != kShared && !ws) ||
@@ -842,7 +844,7 @@ extern "C" int mmc_flip_launch(
       static_cast<float*>(act_out), static_cast<float*>(actm_out),
       static_cast<float*>(stats_out), static_cast<float*>(ws), cap_a, cap_b,
       P0, P1, a0_b, A_pad, K, T, nk, coulomb == kEwald, n_flip,
-      layout == kGlobalK ? 1 : 0, seed, rc2, qrc2, kappa_l, d2_overlap, ln_xi,
-      factor);
+      layout == kGlobalK ? 1 : 0, seed, chain0, rc2, qrc2, kappa_l,
+      d2_overlap, ln_xi, factor);
   return static_cast<int>(cudaGetLastError());
 }

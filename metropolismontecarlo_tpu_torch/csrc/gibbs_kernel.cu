@@ -14,7 +14,8 @@
 // reciprocal energy delta, the +1e30 overlap veto on the new pose, the
 // Metropolis test and the write-back.  Then n_exch transfer attempts: the
 // direction (ux[0] < 0.5: box 0 -> 1), the source box's active slot with the
-// largest Philox4x32-10 score (key (seed, chain), counter (plane slot id,
+// largest Philox4x32-10 score (key (seed, chain0 + chain), chain0 the
+// global index of the launch's first chain, counter (plane slot id,
 // attempt, 0, 0); ties to the lower slot), the destination box's first free
 // slot and a fresh pose uniform in the destination volume (ux[1..6]); one
 // pass over the source box's lanes with the candidate's stored pose (veto
@@ -212,7 +213,7 @@ __global__ void __launch_bounds__(kThreads,
     float* __restrict__ ws, int M,
     int m_off, int m_start, int a_start, int P, int A_off, int K, int T,
     int nk, int ewald, int use_rot, int n_exch, int k_global,
-    unsigned int seed, float rc2,
+    unsigned int seed, unsigned int chain0, float rc2,
     float qrc2, float kappa_l, float d2_overlap, float p_translate,
     float factor) {
   extern __shared__ float smem[];
@@ -823,7 +824,7 @@ __global__ void __launch_bounds__(kThreads,
       for (int i = tid; i < 2 * M; i += nt) {
         const int bx = i >= M ? 1 : 0;
         const int id = bx * m_off + m_start + i - bx * M;
-        row[i] = (philox_word((uint32_t)id, (uint32_t)x, seed, (uint32_t)c) >> 8) + 1u;
+        row[i] = (philox_word((uint32_t)id, (uint32_t)x, seed, chain0 + (uint32_t)c) >> 8) + 1u;
       }
     };
     // the proposal warp: attempt x's direction, fresh pose (uniform in the
@@ -1186,8 +1187,8 @@ extern "C" int mmc_gibbs_launch(
     void* actm_out, void* ws, int C, int M, int m_off, int m_start,
     int a_start, int P, int A_off, int K, int T, int nk, int coulomb,
     int lj_linear, int use_rot, int n_exch, int layout, unsigned int seed,
-    int threads, float rc2, float qrc2, float kappa_l, float d2_overlap,
-    float p_translate, float factor, void* stream) {
+    unsigned int chain0, int threads, float rc2, float qrc2, float kappa_l,
+    float d2_overlap, float p_translate, float factor, void* stream) {
   const size_t smem = mmc_gibbs_smem_bytes(m_off, P, A_off, K, T, nk, layout);
   if (layout < kShared || layout > kGlobalK || (layout != kShared && !ws) ||
       smem > (size_t)kMaxSmemBytes || threads != kThreads || C < 1 || M < 1 ||
@@ -1219,6 +1220,6 @@ extern "C" int mmc_gibbs_launch(
       static_cast<float*>(act_out), static_cast<float*>(actm_out),
       static_cast<float*>(ws), M, m_off, m_start, a_start, P, A_off, K, T,
       nk, coulomb == kEwald, use_rot, n_exch, layout == kGlobalK ? 1 : 0,
-      seed, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
+      seed, chain0, rc2, qrc2, kappa_l, d2_overlap, p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

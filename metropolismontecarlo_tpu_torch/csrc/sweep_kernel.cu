@@ -86,7 +86,9 @@
 // accept].  type < 0.5 inserts into the first free slot of this block at a
 // uniform position with a Shoemake quaternion, else deletes the active slot
 // of this block with the largest score (ties to the lower index); the
-// scores are Philox4x32-10 words keyed by (seed, chain) with counter (slot,
+// scores are Philox4x32-10 words keyed by (seed, chain0 + chain), chain0
+// the global index of the launch's first chain (a rank's shard of a
+// chain-sharded run keys on global chain ids), with counter (slot,
 // attempt, 0, 0), which sweep_plain reproduces bit for bit.  The TPU
 // kernel picks slots by full-row one-hot reductions; here a block max
 // reduction over 64-bit keys finds the slot and its columns are read
@@ -251,7 +253,8 @@ __global__ void __launch_bounds__(
     float* __restrict__ kws, int M,
     int M_total, int m_start, int a_start, int P, int A_pad, int K, int T,
     int coulomb, int lj_linear, int use_rot, int n_exch, int n_widom,
-    int n_seg, int a0_w, int A_blk, int W, unsigned int seed, float rc2,
+    int n_seg, int a0_w, int A_blk, int W, unsigned int seed,
+    unsigned int chain0, float rc2,
     float qrc2, float kappa_l, float d2_overlap, float p_translate,
     float factor) {
   extern __shared__ float smem[];
@@ -1033,7 +1036,7 @@ __global__ void __launch_bounds__(
             best_i = key > best_i ? key : best_i;
           }
         } else if (kTmmc || !is_ins) {
-          const uint32_t bits = philox_word((uint32_t)slot, (uint32_t)xi, seed, (uint32_t)c) >> 8;
+          const uint32_t bits = philox_word((uint32_t)slot, (uint32_t)xi, seed, chain0 + (uint32_t)c) >> 8;
           const unsigned long long key =
               ((unsigned long long)(bits + 1u) << 32) | (0xFFFFFFFFu - (uint32_t)slot);
           best_d = key > best_d ? key : best_d;
@@ -1301,7 +1304,8 @@ extern "C" int mmc_sweep_launch(
     int C, int M, int M_total, int m_start, int a_start, int P, int A_pad,
     int K, int T, int coulomb, int lj_linear, int use_rot, int use_act,
     int n_exch, int n_widom, int tmmc, int layout, int n_seg, int a0_w,
-    int A_blk, int W, unsigned int seed, int threads, float rc2, float qrc2,
+    int A_blk, int W, unsigned int seed, unsigned int chain0, int threads,
+    float rc2, float qrc2,
     float kappa_l, float d2_overlap, float p_translate, float factor,
     void* stream) {
   const size_t smem = mmc_sweep_smem_bytes(M_total, P, A_pad, K, T, use_act,
@@ -1344,7 +1348,7 @@ extern "C" int mmc_sweep_launch(
       static_cast<float*>(actm_out), static_cast<float*>(wid_out),
       static_cast<float*>(cmat_out), static_cast<float*>(uhist_out),
       static_cast<float*>(kws), M, M_total, m_start, a_start, P, A_pad, K, T,
-      coulomb, lj_linear, use_rot, n_exch, n_widom, n_seg, a0_w, A_blk, W, seed, rc2, qrc2, kappa_l,
+      coulomb, lj_linear, use_rot, n_exch, n_widom, n_seg, a0_w, A_blk, W, seed, chain0, rc2, qrc2, kappa_l,
       d2_overlap, p_translate, factor);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,9 +33,15 @@ rebuild_nlist) and folds the width they needed into state.nbr_needed;
 adaptation caps dr_max at nlist_skin / 2, and run_block raises when a
 block needed more than nlist_width.
 
-Not ported yet, and refused when asked for: tensor-parallel recomputes.
+With tp_mesh (parallel/tp.py make_mesh_2d) every state is this rank's
+shard of the chains, and every full-energy recompute (init, the drift
+check and resync, the NPT volume move, pressure_fd) goes through the
+tensor-parallel row-sharded route, split over the mesh's atoms axis; the
+sweeps stay chain-local, on chain-global draws (utils/shard.py), so the
+ranks of one atoms group sweep their shared chains alike.
 """
 
+import contextlib
 import dataclasses
 import math
 import warnings
@@ -72,10 +78,17 @@ from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import N_UNIFORMS
 from metropolismontecarlo_tpu_torch.ops.quaternions import (
     fit_quaternions,
-    random_quaternion,
     rotate_vectors,
+    shoemake_quaternion,
 )
+from metropolismontecarlo_tpu_torch.parallel.mesh import CHAINS, mesh_axis
+from metropolismontecarlo_tpu_torch.parallel.tp import tp_full_energy_fn
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    current_shard,
+    rand_chains,
+    shard_context,
+)
 
 
 def _auto_recompute_chunk(system, dtype, n_k=0, budget_bytes=8 << 30):
@@ -144,7 +157,11 @@ class MonteCarlo:
         torch.Generator (on `device`) behind every random draw; a fresh
         one seeded 0 when None.  recompute_chunk: chains per step of the
         chunked full-energy recompute ("auto": from a memory model).
-        tp_mesh (tensor-parallel recomputes) is not ported and raises.
+        tp_mesh: a 2-D ("chains", "atoms") DeviceMesh (parallel/tp.py
+        make_mesh_2d) over the initialised world: states are then this
+        rank's shard of the chains (init_state's n_chains counts the
+        rank's own), and every full recompute is split over the atoms
+        axis (site cutoff only).
         kernel: the sweep route, see choose_route; self.route holds the
         choice.  The kernel routes run float32; "plain" also float64.
         pressure_ladder: (n_chains,) per-chain pressures for NPT, every
@@ -164,9 +181,9 @@ class MonteCarlo:
         self.generator = generator
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype {dtype}: float32 or float64")
-        if tp_mesh is not None:
-            raise NotImplementedError("tensor-parallel recomputes are not "
-                                      "ported yet")
+        if tp_mesh is not None and params.cutoff_mode != "site":
+            raise NotImplementedError("the tensor-parallel recompute "
+                                      "supports site cutoff only")
         if pressure_ladder is not None and params.p_volume <= 0.0:
             raise ValueError(
                 "pressure_ladder requires params.p_volume > 0: with no "
@@ -184,6 +201,12 @@ class MonteCarlo:
             recompute_chunk = _auto_recompute_chunk(
                 system, dtype, 0 if self.kvecs is None else len(self.kvecs))
         self.recompute_chunk = recompute_chunk
+        self.tp_mesh = tp_mesh
+        self._tp_fe = None
+        if tp_mesh is not None:
+            self._tp_fe = tp_full_energy_fn(
+                system, params, tp_mesh, self.kvecs, self.kweights,
+                recompute_chunk=recompute_chunk)
         self._widom_fns, self._widom_mega_fn, self._widom_mega_n = \
             {}, None, None
         self.route = choose_route(system, params, dtype, kernel)
@@ -238,6 +261,15 @@ class MonteCarlo:
                               state.com[0, :, 2].double().cpu().numpy())
         return dataclasses.replace(
             state, nbr_needed=torch.zeros_like(state.nbr_needed))
+
+    def _chain_shard(self, n_local):
+        """With tp_mesh, the shard context of this rank's n_local chains
+        (unless the caller set one): chain-global draws for the ranks of
+        an atoms group, which hold the same chains."""
+        if self.tp_mesh is None or current_shard() is not None:
+            return contextlib.nullcontext()
+        r, n = mesh_axis(self.tp_mesh, CHAINS)
+        return shard_context(r * n_local, n * n_local)
 
     def _check_min_image(self, box):
         """r_cut <= box/2, else pair sums silently miss second images;
@@ -313,7 +345,10 @@ class MonteCarlo:
         com = com.contiguous()
         C = com.shape[0]
         if quat is None:
-            quat = random_quaternion(self.generator, (C, M), dtype=self.dtype)
+            # chain-global under a shard context (utils/shard.py)
+            with self._chain_shard(C):
+                quat = shoemake_quaternion(rand_chains(
+                    (C, M, 3), self.generator, self.dtype, self.device))
         else:
             quat = torch.as_tensor(np.asarray(quat), dtype=self.dtype,
                                    device=self.device)
@@ -351,7 +386,10 @@ class MonteCarlo:
     def _energies(self, coords, com, box):
         """Chunked full-system energy of coords (C, 3, A_pad), com
         (C, M, 3), box (C,): (C,) totals, virials and (C, K, 2) structure
-        factors ((C, 1, 2) zeros without Ewald)."""
+        factors ((C, 1, 2) zeros without Ewald); with tp_mesh split over
+        the atoms axis (parallel/tp.py)."""
+        if self._tp_fe is not None:
+            return self._tp_fe(coords, com, box)
         A = self.system.n_atoms
 
         def one(coords_t, com, box):
@@ -385,6 +423,10 @@ class MonteCarlo:
         sweep index).  With neighbour lists every sweep first rebuilds
         them and folds the width they needed into state.nbr_needed (a
         running maximum, checked by run_block)."""
+        with self._chain_shard(state.com.shape[0]):
+            return self._sweep(state)
+
+    def _sweep(self, state):
         if self.params.nlist_width > 0:
             nbr, needed = rebuild_nlist(
                 state.com, state.box, self.params,

@@ -53,6 +53,10 @@ from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sweep_op
 from metropolismontecarlo_tpu_torch.ops.lj import _shift_coeffs
 from metropolismontecarlo_tpu_torch.ops.pbc import min_image
 from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    chain_offset,
+    rand_chains,
+)
 
 
 def _round_up(x, m):
@@ -319,10 +323,11 @@ def sweep_tables(system, params, kvecs, kweights, device, cfg=None):
 
 
 def draw_uniforms(n_chains, n_moves, generator, device):
-    """The sweep's uniforms, (C, M, 10) f32 in [0, 1)."""
-    return torch.rand((n_chains, n_moves, sweep_op.N_UNIFORMS),
-                      generator=generator, dtype=torch.float32,
-                      device=device)
+    """The sweep's uniforms, (C, M, 10) f32 in [0, 1); under a shard
+    context (utils/shard.py) the rows of this process's chains of the
+    chain-global draw."""
+    return rand_chains((n_chains, n_moves, sweep_op.N_UNIFORMS), generator,
+                       torch.float32, device)
 
 
 def sweep_blocks(op, coords, com, quat, sfac, box, temp, dr_max, dphi_max,
@@ -340,10 +345,9 @@ def sweep_blocks(op, coords, com, quat, sfac, box, temp, dr_max, dphi_max,
 
 def draw_exchange_uniforms(n_chains, n_attempts, generator, device):
     """The exchange attempts' and ghosts' uniforms, (C, n, 8) f32 in
-    [0, 1)."""
-    return torch.rand((n_chains, n_attempts, sweep_op.N_EXCH_UNIFORMS),
-                      generator=generator, dtype=torch.float32,
-                      device=device)
+    [0, 1), chain-global under a shard context as draw_uniforms."""
+    return rand_chains((n_chains, n_attempts, sweep_op.N_EXCH_UNIFORMS),
+                       generator, torch.float32, device)
 
 
 def activity_planes(system, active):
@@ -526,6 +530,7 @@ def make_mega_sweep_fn(system, params, kvecs, kweights, device,
                 launch[0] += 1
                 extra = dict(
                     n_exch=n_exchs[b], n_widom=n_widoms[b], seed=seed,
+                    chain0=chain_offset(),
                     ux=draw_exchange_uniforms(C, n_exchs[b] + n_widoms[b],
                                               generator, com.device),
                     z=z_b[b].to(f32).contiguous(),
@@ -604,7 +609,8 @@ def _gibbs_block_launches(system, params, tables, n_exchs):
                 *args, params.temperature * ones, params.dr_max * ones,
                 params.dphi_max * ones, u, t, act, actm, n_exch=n_exchs[b],
                 ux=ux, si2=si_eff.contiguous(),
-                wc2=wc2s[b].to(f32).contiguous(), seed=seed)
+                wc2=wc2s[b].to(f32).contiguous(), seed=seed,
+                chain0=chain_offset())
             args[:4], (st, act, actm) = list(out[:4]), out[4:]
             d_e = d_e + st[:, 0:2]
             acc = acc + st[:, 2:4]
@@ -740,7 +746,8 @@ def make_mega_flip_fn(system, params, kvecs, kweights, device,
                                                box)),
             params.temperature * torch.ones((C,), dtype=f32, device=dev),
             act, actm, ux, tables, si2.to(f32).contiguous(),
-            None if lrc3 is None else lrc3.to(f32).contiguous(), seed=seed)
+            None if lrc3 is None else lrc3.to(f32).contiguous(), seed=seed,
+            chain0=chain_offset())
         coords_o, com_o, quat_o, sfac_o, stats, _, actm_o = out
         return (com_o, quat_o, coords_o, actm_o > 0.5, sfac_o, stats[:, 0],
                 stats[:, 1:3], stats[:, 3:5])

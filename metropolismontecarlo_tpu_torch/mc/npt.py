@@ -23,6 +23,8 @@ import dataclasses
 
 import torch
 
+from metropolismontecarlo_tpu_torch.utils.shard import rand_chains
+
 
 def make_volume_move_fn(system, params, energy_fn, build_coords,
                         pressure=None):
@@ -82,8 +84,9 @@ def make_volume_move_fn(system, params, energy_fn, build_coords,
             acc=acc, att=att)
 
     def volume_move(state, generator):
-        u = torch.rand((state.com.shape[0], 2), generator=generator,
-                       dtype=state.box.dtype, device=state.box.device)
+        # chain-global under a shard context (utils/shard.py)
+        u = rand_chains((state.com.shape[0], 2), generator, state.box.dtype,
+                        state.box.device)
         return with_uniforms(state, u[:, 0], u[:, 1])
 
     volume_move.with_uniforms = with_uniforms

@@ -4,13 +4,16 @@ metropolismontecarlo_tpu/models/energy.py).
 Batched over a leading chain axis written out (the JAX version is
 single-configuration and vmapped).  Up to DENSE_MAX_ATOMS atoms one
 function over dense masked (A, A) pair grids; above it a row-tiled scan
-of (B, A) tiles (site cutoff only), so peak memory is O(C B A).  Used at
+of (B, A) tiles (site cutoff only), so peak memory is O(C B A); the
+tiled route also splits its rows over the ranks of a process group
+(row_shard, the tensor-parallel recompute of parallel/tp.py).  Used at
 initialisation, for the block-end drift check and resync, and by the NPT
 volume move and pressure_fd.
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metropolismontecarlo_tpu_torch.ops import coulomb as coulomb_ops
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
@@ -182,14 +185,25 @@ def _lrc_terms(system, params, box):
 
 
 def energy_breakdown_tiled(system, params, coords, com, box, kvecs=None,
-                           kweights=None, row_block=ROW_BLOCK):
+                           kweights=None, row_block=ROW_BLOCK, row_shard=None):
     """energy_breakdown's row-tiled route (the JAX
-    _energy_breakdown_tiled, without its tensor-parallel row_shard): the
-    pair sums scan row blocks of `row_block` atoms against all A atoms,
-    (..., B, A) tiles, with per-pair LJ parameters gathered from the
-    (T, T) tables; the structure factor is the direct form over the
-    whole batch (the caller bounds the batch).  Site cutoff only; same
-    arguments and keys as energy_breakdown."""
+    _energy_breakdown_tiled): the pair sums scan row blocks of `row_block`
+    atoms against all A atoms, (..., B, A) tiles, with per-pair LJ
+    parameters gathered from the (T, T) tables; the structure factor is
+    structure_factor's form at this K over the whole batch (the caller
+    bounds the batch).  Site cutoff only; same arguments and keys as
+    energy_breakdown.
+
+    row_shard=(group, n_shards): the tensor-parallel mode, called by every
+    rank of the torch.distributed process group `group` (n_shards ranks,
+    parallel/tp.py) on the same configurations.  The rows, padded to a
+    multiple of row_block * n_shards so every rank scans as many blocks,
+    are split in rank order: each rank scans its own row blocks and takes
+    the S(k) and reciprocal-virial contractions over its own atom slice
+    (the O(A^2) and O(K A) work); the pair sums and the partial S(k) are
+    summed over the group by one all_reduce, the virial's T-contraction
+    by a second; the O(A) terms (self, intra, tail, surface) are computed
+    on every rank.  Every rank returns the whole breakdown."""
     if params.cutoff_mode != "site":
         raise NotImplementedError("the row-tiled recompute supports site "
                                   "cutoff only")
@@ -217,10 +231,22 @@ def energy_breakdown_tiled(system, params, coords, com, box, kvecs=None,
     wolf_ref = params.coulomb == "wolf" and params.wolf_style != "pairwise"
     c2 = ewald_ops._TWO_OVER_RTPI
 
+    # this rank's rows [lo, hi) (all of them unsharded): a span of whole
+    # blocks of the rows padded to row_block * n_shards, as the JAX
+    # route's per-shard block range
+    group, lo, hi = None, 0, A
+    if row_shard is not None:
+        group, n_sh = row_shard
+        if dist.get_world_size(group) != n_sh:
+            raise ValueError(f"row_shard names {n_sh} shards of a group of "
+                             f"{dist.get_world_size(group)} ranks")
+        span = -(-A // (row_block * n_sh)) * row_block
+        lo = dist.get_rank(group) * span
+        hi = min(A, lo + span)
     zero = torch.zeros(batch, dtype=dtype, device=dev)
     pot = w = e_real_raw = w_coul_raw = zero
-    for i0 in range(0, A, row_block):
-        rows = slice(i0, min(A, i0 + row_block))
+    for i0 in range(lo, hi, row_block):
+        rows = slice(i0, min(hi, i0 + row_block))
         dr = min_image(coords[..., rows, None, :] - coords[..., None, :, :],
                        box3)                                   # (..., B, A, 3)
         d2 = torch.clamp_min(torch.sum(dr * dr, dim=-1), 1e-4)
@@ -274,22 +300,38 @@ def energy_breakdown_tiled(system, params, coords, com, box, kvecs=None,
             w_coul_raw = w_coul_raw + torch.sum(
                 torch.where(mask_qq, wv, 0.0), dim=(-1, -2))
 
+    sfac = torch.zeros(batch + (1, 2), dtype=dtype, device=dev)
+    ewald = params.coulomb == "ewald"
+    if ewald:
+        # S(k) of this rank's atom slice, the same rows its tiles scanned
+        kv, kw = t(kvecs, torch.int32), t(kweights)
+        sfac = ewald_ops.structure_factor(
+            coords[..., lo:hi, :], charges[lo:hi], kv, box,
+            ewald_ops.k_bounds(kvecs)) if hi > lo \
+            else torch.zeros(batch + (kv.shape[0], 2), dtype=dtype,
+                             device=dev)
+    if group is not None:
+        pot, w, e_real_raw, w_coul_raw, sfac = _group_sum(
+            group, pot, w, e_real_raw, w_coul_raw, sfac)
+
     out = {"disp": 0.5 * pot}
     out["lrc"], w_lrc, w_lrc_ref = _lrc_terms(system, params, box)
     e_real = e_four = e_self = e_intra = zero
     w_ref = w_coul = zero
-    sfac = torch.zeros(batch + (1, 2), dtype=dtype, device=dev)
     if use_coul:
         e_real = 0.5 * COULOMB_FACTOR * e_real_raw
         w_coul = 0.5 * COULOMB_FACTOR * w_coul_raw
-        if params.coulomb == "ewald":
-            kv, kw = t(kvecs, torch.int32), t(kweights)
+        if ewald:
             cf = ewald_ops.cfac_coeffs(kv, kw, kappa, box)
-            sfac = ewald_ops.structure_factor(coords, charges, kv, box,
-                                              ewald_ops.k_bounds(kvecs))
-            w_recip = ewald_ops.recip_virial(sfac, cf, coords, com_of_col,
-                                             charges, kv, box)
             e_four = ewald_ops.recip_energy(sfac, cf)
+            w_recip = ewald_ops.recip_virial(
+                sfac, cf, coords[..., lo:hi, :], com_of_col[..., lo:hi, :],
+                charges[lo:hi], kv, box)
+            if group is not None:
+                # recip_virial = E_recip (from the whole S(k), the same on
+                # every rank) minus the T-contraction over this rank's
+                # atoms: sum only the latter
+                w_recip = e_four + _group_sum(group, w_recip - e_four)[0]
             e_self = ewald_ops.ewald_self(charges, kappa)
             e_intra, w_intra = _intra_terms(system, coords, kappa, box)
             w_coul = w_coul + w_recip + e_self + w_intra
@@ -318,6 +360,17 @@ def energy_breakdown_tiled(system, params, coords, com, box, kvecs=None,
     out["w"] = 0.5 * w + w_lrc + w_coul
     out["w_ref"] = 0.5 * w + w_lrc_ref + w_ref
     out["sfac"] = sfac
+    return out
+
+
+def _group_sum(group, *parts):
+    """The parts summed over the ranks of `group` in one all_reduce."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    dist.all_reduce(flat, group=group)
+    out, i = [], 0
+    for p in parts:
+        out.append(flat[i:i + p.numel()].reshape(p.shape))
+        i += p.numel()
     return out
 
 

@@ -13,7 +13,8 @@ si2 (C, 2) each species' self + intra constant, lrc3 (C, 3) the LJ tail's
 
 Each of the n_flip attempts of a chain, in order:
   the pick: the active slot of either block with the largest score, the
-      sweep kernel's Philox4x32-10 word (key (seed, chain), counter (slot,
+      sweep kernel's Philox4x32-10 word (key (seed, chain0 + chain),
+      chain0 the global index of the call's first chain, counter (slot,
       attempt, 0, 0); ties to the lower slot); with no active slot the
       attempt counts as an A -> B attempt, as the TPU kernel's degenerate
       pick (slot 0) does, and changes nothing;
@@ -58,6 +59,7 @@ from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     THREADS,
     SweepTables,
     box_constants,
+    chain0_arg,
     pair_terms,
     philox_scores,
     pick_layout,
@@ -206,13 +208,14 @@ def _check_inputs(coords, com, quat, sfac, box, temp, act, actm, ux, t,
 
 
 def flip(coords, com, quat, sfac, box, temp, act, actm, ux, tables, si2,
-         lrc3=None, seed=0, layout="auto"):
+         lrc3=None, seed=0, layout="auto", chain0=0):
     """ux.shape[1] flip attempts per chain (module docstring).
 
     coords (C, 3, A_pad), com (C, M, 3), quat (C, M, 4), sfac (C, K, 2),
     box/temp (C,), act (C, A_pad), actm (C, M), ux (C, n_flip, 8), si2
     (C, 2), lrc3 (C, 3) or None; tables a FlipTables; the integer seed of
-    the pick scores.  All f32, contiguous, on one device.  Returns (coords,
+    the pick scores and chain0, the global index of chain 0 of this call,
+    which keys them.  All f32, contiguous, on one device.  Returns (coords,
     com, quat, sfac, stats (C, 8), act, actm).  layout: "auto"
     (choose_layout) or one of LAYOUTS.  CUDA tensors launch the kernel
     (and count it in flip.launches); CPU tensors run flip_plain; any
@@ -224,18 +227,18 @@ def flip(coords, com, quat, sfac, box, temp, act, actm, ux, tables, si2,
                            tables.a.eps.shape[1], tables.a.nk, layout)
     if coords.device.type == "cpu":
         return flip_plain(coords, com, quat, sfac, box, temp, act, actm, ux,
-                          tables, si2, lrc3, seed)
+                          tables, si2, lrc3, seed, chain0=chain0)
     if coords.device.type != "cuda":
         raise ValueError(f"no flip for device {coords.device}")
     return _launch(coords, com, quat, sfac, box, temp, act, actm, ux, tables,
-                   si2, lrc3, seed, layout)
+                   si2, lrc3, seed, layout, chain0)
 
 
 flip.launches = 0
 
 
 def _launch(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2, lrc3,
-            seed, layout):
+            seed, layout, chain0):
     lib = _library()
     C, _, A_pad = coords.shape
     M, K, T = com.shape[1], sfac.shape[1], t.a.eps.shape[1]
@@ -265,7 +268,8 @@ def _launch(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2, lrc3,
     err = lib.mmc_flip_launch(
         *(ptr(x) for x in ins + outs + (ws,)), C, a.M, b.M, a.P, b.P,
         b.a_start, A_pad, K, T, a.nk, COULOMB_CODES[a.coulomb], ux.shape[1],
-        code, int(seed) & 0xFFFFFFFF, THREADS, a.rc2, a.qrc2, a.kappa_l,
+        code, int(seed) & 0xFFFFFFFF, chain0_arg(chain0), THREADS, a.rc2,
+        a.qrc2, a.kappa_l,
         a.d2_overlap, float(t.ln_xi), COULOMB_FACTOR,
         torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
@@ -285,8 +289,8 @@ def _library():
 
     lib = load_library("flip_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_flip_launch.argtypes = [vp] * 36 + [ci] * 13 + [ctypes.c_uint] \
-        + [ci] + [cf] * 6 + [vp]
+    lib.mmc_flip_launch.argtypes = [vp] * 36 + [ci] * 13 \
+        + [ctypes.c_uint] * 2 + [ci] + [cf] * 6 + [vp]
     lib.mmc_flip_launch.restype = ci
     lib.mmc_flip_smem_bytes.argtypes = [ci] * 8
     lib.mmc_flip_smem_bytes.restype = ctypes.c_size_t
@@ -300,7 +304,7 @@ def _library():
 
 
 def flip_plain(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2,
-               lrc3=None, seed=0, scores=None, magnitude=False):
+               lrc3=None, seed=0, scores=None, magnitude=False, chain0=0):
     """Plain PyTorch version of the kernel: a Python loop over the
     attempts, vectorised over chains, each direction's energies computed
     for every chain and selected by the pick's species; f32 throughout.
@@ -355,7 +359,8 @@ def flip_plain(coords, com, quat, sfac, box, temp, act, actm, ux, t, si2,
         on = actm > 0.5
         n_a = on[:, :a.M].sum(1).to(coords.dtype)
         n_b = on[:, a.M:].sum(1).to(coords.dtype)
-        sc = philox_scores(seed, C, fi, 0, M, dev) if scores is None \
+        sc = philox_scores(seed, C, fi, 0, M, dev, chain0) \
+            if scores is None \
             else scores[:, fi]
         score = torch.where(on, sc, -torch.ones_like(sc))
         smax = score.max(dim=1, keepdim=True).values

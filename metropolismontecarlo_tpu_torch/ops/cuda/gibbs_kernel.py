@@ -35,8 +35,9 @@ Random numbers come from outside: u (C, 2 M, 10) the moves' uniforms
 (box 0's M rows, then box 1's; sweep_kernel's columns), ux (C, n_exch,
 8) the attempts' [direction, x, y, z, u1, theta2, theta3, accept] (the
 trial pose as sweep_kernel.trial_pose builds it).  The deletion scores
-are the sweep kernel's Philox4x32-10 words (key (seed, chain), counter
-(plane slot id, attempt)), so the kernel and sweep_gibbs_plain pick the
+are the sweep kernel's Philox4x32-10 words (key (seed, chain0 + chain),
+chain0 the global index of the call's first chain; counter (plane slot
+id, attempt)), so the kernel and sweep_gibbs_plain pick the
 same slot; ties go to the lower slot.
 
 stats (C, 8): [d_e box 0, d_e box 1, acc_trans, acc_rot, att_trans,
@@ -72,6 +73,7 @@ from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import (
     THREADS,
     SweepTables,
     box_constants,
+    chain0_arg,
     pair_terms,
     philox_scores,
     pick_layout,
@@ -208,7 +210,7 @@ def _check_inputs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
 
 def sweep_gibbs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
                 tables, act, actm, n_exch=0, ux=None, si2=None, wc2=None,
-                seed=0, layout="auto"):
+                seed=0, layout="auto", chain0=0):
     """One Gibbs call of the species block `tables`: 2 M moves, then n_exch
     transfer attempts (module docstring).
 
@@ -216,7 +218,8 @@ def sweep_gibbs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
     sfac (C, 2, K, 2), box2 (C, 2), temp/dr_max/dphi_max (C,), u (C, 2 M,
     10), act (C, 2, A_off), actm (C, 2, m_off); with n_exch > 0 also ux
     (C, n_exch, 8), si2/wc2 (C, 2) and the integer seed of the deletion
-    scores.  All f32, contiguous, on one device.  Returns (coords, com,
+    scores; chain0 the global index of chain 0 of this call, which keys
+    its scores.  All f32, contiguous, on one device.  Returns (coords, com,
     quat, sfac, stats (C, 8), act, actm).  layout: "auto"
     (choose_layout) or one of LAYOUTS.  CUDA tensors launch the kernel
     (and count it in sweep_gibbs.launches); CPU tensors run
@@ -229,18 +232,19 @@ def sweep_gibbs(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
     if coords.device.type == "cpu":
         return sweep_gibbs_plain(coords, com, quat, sfac, box2, temp, dr_max,
                                  dphi_max, u, tables, act, actm, n_exch, ux,
-                                 si2, wc2, seed)
+                                 si2, wc2, seed, chain0=chain0)
     if coords.device.type != "cuda":
         raise ValueError(f"no sweep_gibbs for device {coords.device}")
     return _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u,
-                   tables, act, actm, n_exch, ux, si2, wc2, seed, layout)
+                   tables, act, actm, n_exch, ux, si2, wc2, seed, layout,
+                   chain0)
 
 
 sweep_gibbs.launches = 0
 
 
 def _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u, t, act,
-            actm, n_exch, ux, si2, wc2, seed, layout):
+            actm, n_exch, ux, si2, wc2, seed, layout, chain0):
     lib = _library()
     C, _, _, A_off = coords.shape
     m_off, K, T = com.shape[2], sfac.shape[2], t.eps.shape[1]
@@ -269,7 +273,8 @@ def _launch(coords, com, quat, sfac, box2, temp, dr_max, dphi_max, u, t, act,
         *(ptr(x) for x in ins + outs + (ws,)), C, t.M, m_off, t.m_start,
         t.a_start, t.P, A_off, K, T, t.nk, COULOMB_CODES[t.coulomb],
         int(t.lj_shift == "linear"), int(t.use_rot), int(n_exch), code,
-        int(seed) & 0xFFFFFFFF, THREADS, t.rc2, t.qrc2, t.kappa_l,
+        int(seed) & 0xFFFFFFFF, chain0_arg(chain0), THREADS, t.rc2, t.qrc2,
+        t.kappa_l,
         t.d2_overlap, t.p_translate, COULOMB_FACTOR,
         torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
@@ -288,8 +293,8 @@ def _library():
 
     lib = load_library("gibbs_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_gibbs_launch.argtypes = [vp] * 35 + [ci] * 15 + [ctypes.c_uint] \
-        + [ci] + [cf] * 6 + [vp]
+    lib.mmc_gibbs_launch.argtypes = [vp] * 35 + [ci] * 15 \
+        + [ctypes.c_uint] * 2 + [ci] + [cf] * 6 + [vp]
     lib.mmc_gibbs_launch.restype = ci
     lib.mmc_gibbs_smem_bytes.argtypes = [ci] * 7
     lib.mmc_gibbs_smem_bytes.restype = ctypes.c_size_t
@@ -304,7 +309,7 @@ def _library():
 
 def sweep_gibbs_plain(coords, com, quat, sfac, box2, temp, dr_max, dphi_max,
                       u, t, act, actm, n_exch=0, ux=None, si2=None, wc2=None,
-                      seed=0, magnitude=False, scores=None):
+                      seed=0, magnitude=False, scores=None, chain0=0):
     """Plain PyTorch version of the kernel: Python loops over the 2 M moves
     and the attempts, vectorised over chains, f32 throughout.  Same
     arguments and results as `sweep_gibbs`.  scores (C, n_exch, 2 m_off),
@@ -423,8 +428,9 @@ def sweep_gibbs_plain(coords, com, quat, sfac, box2, temp, dr_max, dphi_max,
         n_src, n_dst = n[ar, src], n[ar, dst]
         if scores is None:
             sc = torch.where(
-                dir01[:, None], philox_scores(seed, C, xi, m0, M, dev),
-                philox_scores(seed, C, xi, m_off + m0, M, dev))
+                dir01[:, None],
+                philox_scores(seed, C, xi, m0, M, dev, chain0),
+                philox_scores(seed, C, xi, m_off + m0, M, dev, chain0))
         else:
             sc = scores[:, xi].reshape(C, 2, m_off)[ar, src, m0:m0 + M]
         # deletion: the largest score on the source box's active slots,

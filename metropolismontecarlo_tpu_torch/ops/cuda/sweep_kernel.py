@@ -52,9 +52,12 @@ attempt, [type, x, y, z, u1, theta2, theta3, accept].  The kernel and
 sweep_plain read the same u and ux, so the two can be compared
 trajectory by trajectory.  The one exception is the deletion pick, which
 needs a score per slot and attempt: both generate it from the caller's
-seed with Philox4x32-10 (`philox_scores`; key (seed, chain), counter
-(slot, attempt, 0, 0), the top 24 bits of the first output word), the
-same integers in the kernel and here.
+seed with Philox4x32-10 (`philox_scores`; key (seed, chain0 + chain),
+counter (slot, attempt, 0, 0), the top 24 bits of the first output
+word), the same integers in the kernel and here.  chain0 (default 0) is
+the global index of the call's first chain: a rank holding rows
+[c0, c0 + L) of a chain-sharded run passes c0, so its chains draw the
+scores those chains draw in the unsharded run.
 
 `sweep` launches the kernel (csrc/sweep_kernel.cu) for CUDA tensors and
 runs `sweep_plain` for CPU tensors; there is no fallback between them.
@@ -319,7 +322,8 @@ def _check_inputs(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
 
 def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
           act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None, si=None,
-          wc=None, seed=0, tmmc=False, eta=None, e_in=None, layout="auto"):
+          wc=None, seed=0, tmmc=False, eta=None, e_in=None, layout="auto",
+          chain0=0):
     """One sweep of the species block's tables.M moves per chain, then
     n_exch exchange attempts and n_widom ghost insertions.
 
@@ -329,7 +333,8 @@ def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
     (C, M_total) f32 activity planes; with n_exch + n_widom > 0 also ux
     (C, n_exch + n_widom, 8), the per-chain activity z, the exchange
     constants si and wc (C,) (du = +-u_pair +- si + wc (2 n sgn + 1) +
-    dU_recip) and the integer seed of the deletion scores.
+    dU_recip) and the integer seed of the deletion scores; chain0 the
+    global index of chain 0 of this call, which keys its scores.
     With tmmc (needs n_exch) also the bias eta (M + 1,) and the chains'
     carried energies e_in (C,).
     Returns new (coords, com, quat, sfac, stats (C, 9)); with activity
@@ -348,12 +353,12 @@ def sweep(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, tables,
         return sweep_plain(coords, com, quat, sfac, box, temp, dr_max,
                            dphi_max, u, tables, act, actm, n_exch, n_widom,
                            ux, z, si, wc, seed, tmmc=tmmc, eta=eta,
-                           e_in=e_in)
+                           e_in=e_in, chain0=chain0)
     if coords.device.type != "cuda":
         raise ValueError(f"no sweep for device {coords.device}")
     return _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u,
                    tables, act, actm, n_exch, n_widom, ux, z, si, wc, seed,
-                   tmmc, eta, e_in, layout)
+                   tmmc, eta, e_in, layout, chain0)
 
 
 sweep.launches = 0
@@ -361,7 +366,7 @@ sweep.launches = 0
 
 def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
             actm, n_exch, n_widom, ux, z, si, wc, seed, tmmc, eta, e_in,
-            layout):
+            layout, chain0):
     lib = _library()
     C, _, A_pad = coords.shape
     M_total, K, T = com.shape[1], sfac.shape[1], t.eps.shape[1]
@@ -405,7 +410,7 @@ def _launch(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t, act,
         COULOMB_CODES[t.coulomb],
         int(t.lj_shift == "linear"), int(t.use_rot), int(use_act),
         int(n_exch), int(n_widom), int(tmmc), code, n_seg, t.a0_w,
-        t.A_blk, t.W, int(seed) & 0xFFFFFFFF, THREADS,
+        t.A_blk, t.W, int(seed) & 0xFFFFFFFF, chain0_arg(chain0), THREADS,
         t.rc2, t.qrc2, t.kappa_l, t.d2_overlap, t.p_translate,
         COULOMB_FACTOR, torch.cuda.current_stream(coords.device).cuda_stream)
     if err != 0:
@@ -424,8 +429,8 @@ def _library():
 
     lib = load_library("sweep_kernel")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mmc_sweep_launch.argtypes = [vp] * 43 + [ci] * 21 + [ctypes.c_uint] \
-        + [ci] + [cf] * 6 + [vp]
+    lib.mmc_sweep_launch.argtypes = [vp] * 43 + [ci] * 21 \
+        + [ctypes.c_uint] * 2 + [ci] + [cf] * 6 + [vp]
     lib.mmc_sweep_launch.restype = ci
     lib.mmc_sweep_smem_bytes.argtypes = [ci] * 8
     lib.mmc_sweep_smem_bytes.restype = ctypes.c_size_t
@@ -467,13 +472,24 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_scores(seed, n_chains, attempt, m_start, M, device):
+def chain0_arg(chain0):
+    """chain0 as the kernels' unsigned argument; refuses a value that
+    does not fit it."""
+    chain0 = int(chain0)
+    if not 0 <= chain0 <= _MASK32:
+        raise ValueError(f"chain0 {chain0} is not a 32-bit chain index")
+    return chain0
+
+
+def philox_scores(seed, n_chains, attempt, m_start, M, device, chain0=0):
     """The kernel's deletion scores of one attempt: (C, M) int64 in
     [0, 2^24), the top 24 bits of the first Philox word for counter
-    (slot, attempt, 0, 0) and key (seed, chain)."""
+    (slot, attempt, 0, 0) and key (seed, chain0 + chain), the chain index
+    wrapped to 32 bits as the kernel's unsigned sum wraps it."""
     i64 = dict(dtype=torch.int64, device=device)
     slot = torch.arange(m_start, m_start + M, **i64)[None, :]
-    chain = torch.arange(n_chains, **i64)[:, None]
+    chain = (torch.arange(n_chains, **i64)[:, None] + chain0_arg(chain0)) \
+        & _MASK32
     zero = torch.zeros((), **i64)
     w0 = philox4x32((slot, zero + int(attempt), zero, zero),
                     (zero + (int(seed) & _MASK32), chain))[0]
@@ -636,7 +652,7 @@ def recip_delta(ds_re, ds_im, sgn, s_re, s_im, cfac):
 def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
                 act=None, actm=None, n_exch=0, n_widom=0, ux=None, z=None,
                 si=None, wc=None, seed=0, magnitude=False, scores=None,
-                tmmc=False, eta=None, e_in=None):
+                tmmc=False, eta=None, e_in=None, chain0=0):
     """Plain PyTorch version of the kernel: a Python loop over the M
     molecules, the exchange attempts and the ghosts, vectorised over
     chains, f32 throughout.  Same arguments and results as `sweep`.
@@ -823,7 +839,7 @@ def sweep_plain(coords, com, quat, sfac, box, temp, dr_max, dphi_max, u, t,
         on = actm[:, m0:m1] > 0.5
         n = on.sum(1).to(coords.dtype)
         if scores is None:
-            sc = philox_scores(seed, C, xi, m0, t.M, dev)
+            sc = philox_scores(seed, C, xi, m0, t.M, dev, chain0)
         else:
             sc = scores[:, xi, m0:m1]
         # deletion: the largest score on the active set, the lower index

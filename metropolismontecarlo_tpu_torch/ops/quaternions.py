@@ -65,8 +65,14 @@ def random_unit_vector(generator, shape=(), dtype=torch.float32):
 def random_quaternion(generator, shape=(), dtype=torch.float32):
     """Uniform random unit quaternions on S^3 (Shoemake), (*shape, 4), on
     the generator's device."""
-    u = torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
-                   device=generator.device)
+    return shoemake_quaternion(
+        torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
+                   device=generator.device))
+
+
+def shoemake_quaternion(u):
+    """Shoemake's uniform unit quaternion of uniforms u (..., 3) in
+    [0, 1): (..., 4)."""
     u1, u2, u3 = u.unbind(-1)
     a, b = torch.sqrt(1.0 - u1), torch.sqrt(u1)
     t2, t3 = 2.0 * math.pi * u2, 2.0 * math.pi * u3

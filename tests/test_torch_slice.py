@@ -115,18 +115,21 @@ def test_lj256_acceptance_anchor():
 
 
 def test_unported_routes_raise():
-    """Tensor-parallel recomputes are refused, and neighbour lists on a
-    kernel route; lists on the plain route, NPT, pressure_fd, Widom and
-    sorted slabs run (tests/test_torch_nlist.py, test_torch_npt.py,
-    test_torch_widom.py and test_torch_slabs.py hold them against JAX)."""
+    """Tensor-parallel recomputes with a molecular cutoff are refused (the
+    site-cutoff one runs: tests/test_torch_parallel.py), and neighbour
+    lists on a kernel route; lists on the plain route, NPT, pressure_fd,
+    Widom and sorted slabs run (tests/test_torch_nlist.py,
+    test_torch_npt.py, test_torch_widom.py and test_torch_slabs.py hold
+    them against JAX)."""
     system = spce_system(8)
     with pytest.raises(ValueError, match="jnp move path"):
         MonteCarlo(system, RunParams(nlist_width=8), device="cpu",
                    kernel="sweep")
     assert MonteCarlo(system, RunParams(nlist_width=8),
                       device="cpu").route == "plain"
-    with pytest.raises(NotImplementedError):
-        MonteCarlo(system, RunParams(), device="cpu", tp_mesh=object())
+    with pytest.raises(NotImplementedError, match="site cutoff"):
+        MonteCarlo(system, RunParams(cutoff_mode="com"), device="cpu",
+                   tp_mesh=object())
     npt = MonteCarlo(system, RunParams(coulomb="wolf", pressure=1e-5,
                                        p_volume=1.0), device="cpu")
     state = npt.init_state(cubic_lattice(8, 24.0), box=24.0, n_chains=2)
