@@ -380,8 +380,16 @@ Phase 25 the parallel layer (parallel/), its ranks gloo processes on this
          f32) of the unsharded recompute, MonteCarlo(tp_mesh=...)
          .run_block(1) within the drift gate;  (d) (a) at 512 chains and
          one TP recompute (1 x 1 mesh, 64 chains) in a world of one NCCL
-         rank.  Each part prints its wall time, per-rank sweep, exchange
-         round and recompute times; the card's name and power limit.
+         rank;  (e) the ensemble drivers, 256 chains over 2 ranks: muVT
+         (mega "full" and True) and TMMC ("full", per-chain starts) at
+         phase 6's shape, bench's Gibbs with a volume move per cycle, its
+         semigrand and phase 17's CO2/N2 muVT ("full"), each init under
+         pm.chain_shard and run by pm.sharded_call: every element of every
+         state field (and TMMC's cmat and uhist) equal to the unsharded
+         run's, the kernels launched with chain0 = the rank's first
+         chain.  Each part prints its wall time, per-rank sweep, cycle,
+         exchange round and recompute times; the card's name and power
+         limit.
 
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
@@ -412,6 +420,7 @@ last line of a passing run is the device JSON.
 
 import argparse
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -6626,14 +6635,235 @@ def phase25_offsets(dev, chains=64):
     return err
 
 
+# (e): the ensemble drivers chain-sharded at PERF.md section 4's shapes
+ENSEMBLE_SEED = 2527
+ENSEMBLE_CASES = ("muvt full", "muvt hybrid", "tmmc full", "gibbs full",
+                  "semigrand full", "binary full")
+# the kernels each case launches (ops/cuda wrapper names)
+ENSEMBLE_KERNELS = {"muvt full": ("sweep",), "muvt hybrid": ("sweep",),
+                    "tmmc full": ("sweep",), "gibbs full": ("sweep_gibbs",),
+                    "semigrand full": ("sweep", "flip"),
+                    "binary full": ("sweep",)}
+
+
+def ensemble_case(name, dev, n_chains, n_global, chunk, shard, call):
+    """(e)'s case `name`: a fresh ensemble on n_chains of n_global chains
+    at its shape, its generator seeded ENSEMBLE_SEED, the init inside shard()
+    and the run through call(fn, state, *args); muVT and TMMC at phase
+    6's SPC/E cap 512 (25 A, 500 K, z 2.2e-4; "full" 2 cycles, the hybrid
+    1), TMMC from per-chain starts 1..448 with a linear bias, bench's
+    Gibbs (cap 128 x 2, K 783, p_volume 0.002: one volume move per
+    cycle), its semigrand (64 + 64, 20 A, 600 K) and phase 17's CO2/N2
+    muVT, 2 cycles each.  Returns (rows: every state field and TMMC's
+    cmat / uhist, cycles, seconds of the run after a synchronize)."""
+    from metropolismontecarlo_tpu_torch.mc.gcmc_binary import BinaryGCMC
+    from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMC
+    from metropolismontecarlo_tpu_torch.mc.gibbs_mol import MolGibbsEnsemble
+    from metropolismontecarlo_tpu_torch.mc.semigrand import Semigrand
+    from metropolismontecarlo_tpu_torch.mc.tmmc import TMMCMol
+    from metropolismontecarlo_tpu_torch.models.linear import co2_n2_system
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.models.water import (
+        spce_system,
+        spce_two_blocks,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(ENSEMBLE_SEED)
+    f32, extra = torch.float32, ()
+    if name in ("muvt full", "muvt hybrid", "tmmc full"):
+        cap, px = 512, 0.3
+        x_per = max(1, int(round(cap * px / (1.0 - px))))
+        if name == "tmmc full":
+            t = TMMCMol(spce_system(cap), _muvt_params(), activity=2.2e-4,
+                        p_exchange=px, dtype=f32, chunk=chunk, mega="full",
+                        device=dev, generator=gen)
+            init, run = t.init, t._run_steps
+            # per-chain starts of the global length: init takes its rows
+            n_init = np.linspace(1, 7 * cap // 8, n_global).astype(int)
+            extra = (np.linspace(0.0, 2.0, cap + 1),)
+        else:
+            g = MolGCMC(spce_system(cap), _muvt_params(), activity=2.2e-4,
+                        p_exchange=px, dtype=f32, chunk=chunk,
+                        mega=True if name == "muvt hybrid" else "full",
+                        device=dev, generator=gen)
+            init, run, n_init = g.init, g.run_steps, 256
+        cycles = 1 if name == "muvt hybrid" else 2
+        steps = cycles * (cap + x_per)
+        init_args = (25.0, n_init, n_chains)
+    elif name == "gibbs full":
+        params, boxes, n0 = _gibbs_flagship(p_volume=0.002)
+        g = MolGibbsEnsemble(spce_system(128), params, dv_max=0.03,
+                             p_transfer=0.3, dtype=f32, chunk=chunk,
+                             mega="full", device=dev, generator=gen)
+        init, run, cycles = g.init, g.run_steps, 2
+        steps, init_args = cycles * (256 + g.run_steps.x_per), \
+            (boxes, n0, n_chains)
+    elif name == "semigrand full":
+        g = Semigrand(spce_two_blocks(64, 64), _semigrand_water(),
+                      fugacity_ratio=2.0, p_flip=0.3, dtype=f32, chunk=chunk,
+                      mega="full", device=dev, generator=gen)
+        init, run, cycles = g.init, g.run_steps, 2
+        steps = cycles * (128 + g.run_steps.x_per)
+        init_args = (20.0, 32, 32, n_chains)
+    else:
+        params = RunParams(temperature=300.0, r_cut=10.0, cutoff_mode="site",
+                           coulomb="ewald", use_lrc=False, p_translate=0.5,
+                           dr_max=1.5, dphi_max=1.0)
+        g = BinaryGCMC(co2_n2_system(96, 96), params, activities=(5e-4, 8e-4),
+                       p_exchange=0.4, dtype=f32, chunk=chunk, mega="full",
+                       device=dev, generator=gen)
+        init, run, cycles = g.init, g.run_steps, 2
+        steps, init_args = cycles * (192 + g.run_steps.x_per), \
+            (26.0, (12, 14), n_chains)
+    with shard():
+        st = init(*init_args)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = call(run, st, *extra, steps)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    st, tm = (out[0], dict(cmat=out[1], uhist=out[2])) \
+        if isinstance(out, tuple) else (out, {})
+    rows = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}
+    rows.update(tm)
+    return rows, cycles, secs
+
+
+def _record_chain0():
+    """Wrap the three Philox-scored wrappers (ops/cuda sweep, sweep_gibbs,
+    flip) in this process so that every call records its chain0.  Each
+    module's launcher counts its launches on the module's name, so the
+    counter (.launches) moves to the wrapper.  Returns (seen: wrapper
+    name -> set of chain0 values, wrappers: name -> the wrapper)."""
+    from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as fop
+    from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as gop
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+
+    seen, wrappers = {}, {}
+    for mod, name in ((op, "sweep"), (gop, "sweep_gibbs"), (fop, "flip")):
+        fn = getattr(mod, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            if "chain0" in kw:
+                seen.setdefault(_name, set()).add(int(kw["chain0"]))
+            return _fn(*args, **kw)
+
+        wrapped.launches = fn.launches
+        setattr(mod, name, wrapped)
+        wrappers[name] = wrapped
+    return seen, wrappers
+
+
+def _rows_differences(tag, out, ref):
+    """_state_differences for dicts of per-chain rows."""
+    bad = {k: int((out[k] != v).sum()) if out[k].shape == v.shape
+           else v.numel() for k, v in ref.items()}
+    print(f"phase25 {tag}: differing elements " + ", ".join(
+        f"{k} {n}" for k, n in bad.items()), flush=True)
+    return sum(bad.values())
+
+
+def phase25_ensembles_rank(rank, chains, chunk, device="cuda",
+                           cases=ENSEMBLE_CASES):
+    """(e): this rank's shard of `chains` chains of every ensemble case
+    (the init under pm.chain_shard, the run through pm.sharded_call), the
+    chain0 of every Philox-scored wrapper call recorded; one chain-global
+    draw timed against the plain draw of the rank's rows; rank 0 then runs
+    each case unsharded from the same seed and counts each field's
+    differing elements.  Last, every rank checks that each case launched
+    its kernels, with chain0 = its first chain.  Returns the rank's ms
+    per cycle (rank 0: also the unsharded ones)."""
+    import torch.distributed as dist
+
+    from metropolismontecarlo_tpu_torch.parallel import mesh as pm
+    from metropolismontecarlo_tpu_torch.utils.shard import rand_chains
+
+    dev = _rank_device(device)
+    mesh = pm.make_mesh(device=dev.type, backend=dist.get_backend())
+    L = chains // dist.get_world_size()
+    seen, counters = _record_chain0()
+    rank_ms, gathered, faults = {}, {}, []
+    for name in cases:
+        seen.clear()
+        before = {k: f.launches for k, f in counters.items()}
+        rows, cycles, secs = ensemble_case(
+            name, dev, L, chains, chunk, lambda: pm.chain_shard(mesh, L),
+            lambda fn, st, *args: pm.sharded_call(fn, st, mesh, *args))
+        launches = {k: counters[k].launches - before[k]
+                    for k in ENSEMBLE_KERNELS[name]}
+        rank_ms[name] = secs / cycles * 1e3
+        gathered[name] = {k: pm.gather_chains(v, mesh)
+                          for k, v in rows.items()}
+        c0s = sorted(set().union(*seen.values())) if seen else []
+        _rank_line(rank, f"(e) {name}: {L} of {chains} chains, "
+                   f"{rank_ms[name]:.3f} ms per cycle over {cycles} "
+                   f"cycle(s), launches {launches}, chain0 {c0s}")
+        if any(n < cycles for n in launches.values()):
+            faults.append(f"{name}: launches {launches} for {cycles} cycles")
+        if c0s != ([] if name == "muvt hybrid" else [rank * L]):
+            faults.append(f"{name}: chain0 {c0s}, not [{rank * L}]")
+    # the draws' cost: the chain-global (chains, 4) draw keeps L rows
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draw = {}
+    for tag, ctx in (("plain", contextlib.nullcontext),
+                     ("chain-global", lambda: pm.chain_shard(mesh, L))):
+        with ctx():
+            rand_chains((L, 4), gen, device=dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(200):
+                rand_chains((L, 4), gen, device=dev)
+            _sync(dev)
+        draw[tag] = (time.perf_counter() - t0) / 200 * 1e6
+    _rank_line(rank, f"(e) one ({L}, 4) uniform draw: {draw['plain']:.2f} "
+               f"us plain, {draw['chain-global']:.2f} us chain-global "
+               f"({chains} rows drawn)")
+    out = dict(rank_ms=rank_ms, draw_us=draw)
+    if rank == 0:
+        out["ref_ms"] = _phase25_ensembles_unsharded(dev, chains, chunk,
+                                                     gathered, cases)
+    dist.barrier()          # the launch gates after the comparisons print
+    if faults:
+        raise AssertionError(f"rank {rank}: " + "; ".join(faults))
+    return out
+
+
+def _phase25_ensembles_unsharded(dev, chains, chunk, gathered, cases):
+    """(e)'s reference in rank 0: each case unsharded from the same seed;
+    raises unless every compared element is equal.  Returns its ms per
+    cycle."""
+    ref_ms, bad = {}, 0
+    for name in cases:
+        rows, cycles, secs = ensemble_case(
+            name, dev, chains, chains, chunk, contextlib.nullcontext,
+            lambda fn, st, *args: fn(st, *args))
+        ref_ms[name] = secs / cycles * 1e3
+        bad += _rows_differences(f"(e) {name}", gathered[name], rows)
+        _rank_line(0, f"(e) {name} unsharded, {chains} chains: "
+                   f"{ref_ms[name]:.3f} ms per cycle")
+        if name == "gibbs full":
+            n_vol = rows["att"][:, 2]       # [disp, rot, vol, transfer]
+            _rank_line(0, f"(e) gibbs full: {int(n_vol.min())} volume "
+                       f"moves per chain, {int(rows['acc'][:, 2].sum())} "
+                       f"accepted")
+            bad += int((n_vol == 0).sum())
+    if bad:
+        raise AssertionError("(e): a sharded ensemble run is not the "
+                             "unsharded one")
+    return ref_ms
+
+
 def phase25(dev, smi, chains=2048, steps=2, tp_chains=64, tp_chunk=8,
-            nccl_chains=512):
+            nccl_chains=512, ens_chains=256, ens_chunk=16):
     """The parallel layer on the card (the ranks are gloo processes on one
     shared H100, not a multi-GPU measurement): (a) the flagship, `chains`
     chains, over 2 gloo ranks, bit for bit against the unsharded run; (b)
     the chain offset of the three Philox-scored kernels; (c) the TP
     recompute on a 2 x 2 gloo mesh at tp_chains chains; (d) (a) and one
-    TP recompute in a world of one NCCL rank."""
+    TP recompute in a world of one NCCL rank; (e) every ensemble case of
+    ENSEMBLE_CASES, ens_chains chains over 2 gloo ranks (recompute chunks
+    of ens_chunk, a divisor of a rank's chains), init and run bit for bit
+    against the unsharded run."""
     from metropolismontecarlo_tpu_torch.parallel.mesh import run_world
 
     t0 = time.perf_counter()
@@ -6658,6 +6888,16 @@ def phase25(dev, smi, chains=2048, steps=2, tp_chains=64, tp_chunk=8,
     run_world(phase25_nccl_rank, 1, (nccl_chains, steps, tp_chains,
                                      tp_chunk), device="cuda", timeout=600)
     print(f"phase25 (d) {time.perf_counter() - t1:.1f} s (nccl)")
+    t1 = time.perf_counter()
+    e = run_world(phase25_ensembles_rank, 2, (ens_chains, ens_chunk),
+                  device="cuda", backend="gloo", timeout=600)
+    for name in ENSEMBLE_CASES:
+        print(f"phase25 (e) {name}: per-rank cycle "
+              f"{e[0]['rank_ms'][name]:.3f} / {e[1]['rank_ms'][name]:.3f} ms "
+              f"(2 ranks at once) against {e[0]['ref_ms'][name]:.3f} ms "
+              f"unsharded; card: {smi}")
+    print(f"phase25 (e) {time.perf_counter() - t1:.1f} s: 0 differing "
+          f"elements in {len(ENSEMBLE_CASES)} ensemble runs")
     print(f"phase25 total {time.perf_counter() - t0:.1f} s; card: {smi}")
     return err
 

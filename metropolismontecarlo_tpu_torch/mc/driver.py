@@ -81,13 +81,12 @@ from metropolismontecarlo_tpu_torch.ops.quaternions import (
     rotate_vectors,
     shoemake_quaternion,
 )
-from metropolismontecarlo_tpu_torch.parallel.mesh import CHAINS, mesh_axis
+from metropolismontecarlo_tpu_torch.parallel.mesh import chain_shard
 from metropolismontecarlo_tpu_torch.parallel.tp import tp_full_energy_fn
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
 from metropolismontecarlo_tpu_torch.utils.shard import (
     current_shard,
     rand_chains,
-    shard_context,
 )
 
 
@@ -268,8 +267,7 @@ class MonteCarlo:
         an atoms group, which hold the same chains."""
         if self.tp_mesh is None or current_shard() is not None:
             return contextlib.nullcontext()
-        r, n = mesh_axis(self.tp_mesh, CHAINS)
-        return shard_context(r * n_local, n * n_local)
+        return chain_shard(self.tp_mesh, n_local)
 
     def _check_min_image(self, box):
         """r_cut <= box/2, else pair sums silently miss second images;

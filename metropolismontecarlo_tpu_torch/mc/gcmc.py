@@ -41,6 +41,7 @@ from metropolismontecarlo_tpu_torch.utils.activity import (
     set_slot,
     zero_empty,
 )
+from metropolismontecarlo_tpu_torch.utils.shard import chain_rows, rand_chains
 
 
 @dataclasses.dataclass
@@ -186,8 +187,7 @@ def _make_muvt(system, params, activity, capacity, dtype, mega, device,
     move_on = p_t > 0.0
 
     def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+        return rand_chains(shape, generator, dtype, device)
 
     def _one_step(st, z, eta=None, cmat=None, uhist=None):
         """One attempt of every chain; with tmmc, deposits into cmat and
@@ -268,7 +268,9 @@ def _make_muvt(system, params, activity, capacity, dtype, mega, device,
         return full_one(state.com, state.active, state.box)
 
     def _z_of(state):
-        return torch.broadcast_to(z_arr, (state.com.shape[0],))
+        """(C,) per-chain activity: the scalar broadcast, or the ladder's
+        rows of these chains (utils/shard.py chain_rows)."""
+        return chain_rows(z_arr, state.com.shape[0], "activity ladder")
 
     def _tm_zeros(state):
         return torch.zeros((state.com.shape[0], cap + 1, 3), dtype=dtype,
@@ -337,7 +339,7 @@ def _make_muvt(system, params, activity, capacity, dtype, mega, device,
                 # the tail rides the quadratic-in-N constant lane (wc)
                 wc = lrc_g(state.box.to(f32)) if lrc_g is not None else zeros
                 out = sweep_x(*planes(state), generator,
-                              torch.broadcast_to(z_arr.to(f32), (C,)), zeros,
+                              _z_of(state).to(f32), zeros,
                               wc, energy=state.energy, eta=eta)
                 com, _, _, active, _, d_e, acc4, att4 = out[:8]
                 sel = [0, 2, 3]      # [trans, rot, ins, del] -> (C, 3)
@@ -405,12 +407,10 @@ def _make_muvt(system, params, activity, capacity, dtype, mega, device,
             raise ValueError("n_init must be a scalar")
         if np.any(n0 > cap):
             raise ValueError("n_init exceeds capacity")
-        if n0.ndim == 1 and n0.shape[0] != n_chains:
-            raise ValueError("per-chain n_init must have n_chains entries")
-        if z_arr.dim() == 1 and z_arr.shape[0] != n_chains:
-            raise ValueError(
-                f"activity ladder has {z_arr.shape[0]} rungs but "
-                f"n_chains={n_chains} (one activity per chain)")
+        if n0.ndim == 1:
+            n0 = chain_rows(n0, n_chains, "per-chain n_init")
+        if z_arr.dim() == 1:
+            chain_rows(z_arr, n_chains, "activity ladder")
         # a lattice, not uniform random positions: random placement seeds
         # overlapping pairs whose huge floored energies cancel imperfectly
         # against the carried total

@@ -58,6 +58,10 @@ from metropolismontecarlo_tpu_torch.utils.activity import (
     zero_empty,
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    rand_chains,
+    randn_chains,
+)
 
 
 @dataclasses.dataclass
@@ -325,8 +329,7 @@ def make_gcmc_binary(system, params, activities, p_exchange=0.4,
     log_k = math.log(n_or)
 
     def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+        return rand_chains(shape, generator, dtype, device)
 
     def draw(C):
         """The draws of one plain step of C chains, as the JAX step takes
@@ -334,8 +337,7 @@ def make_gcmc_binary(system, params, activities, p_exchange=0.4,
         the rotation's axis and angle, per species the insertion position,
         its trial orientations, the deletion pick, the deletion's extra
         trials and the trial pick, and the acceptance."""
-        axis = torch.randn((C, 3), generator=generator, dtype=dtype,
-                           device=device)
+        axis = randn_chains((C, 3), generator, dtype, device)
         return SimpleNamespace(
             u_move=rand(C), u_sel=rand(C), u_pos=rand(C, 3),
             axis=axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True),

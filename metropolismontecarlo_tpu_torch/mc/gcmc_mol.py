@@ -50,6 +50,7 @@ from metropolismontecarlo_tpu_torch.utils.activity import (
     zero_empty,
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.shard import chain_rows, rand_chains
 
 
 @dataclasses.dataclass
@@ -80,10 +81,11 @@ def rosenbluth(neg_beta_u):
 
 def make_trial_quats(P, dtype):
     """Uniform-orientation trial sampler of a P-site rigid species
-    (identity rows for point species): trial_quats(generator, shape)."""
-    def trial_quats(generator, shape):
+    (identity rows for point species): trial_quats(generator, shape,
+    fold=1), chain-global under a shard context (ops/quaternions.py)."""
+    def trial_quats(generator, shape, fold=1):
         if P > 1:
-            return random_quaternion(generator, shape, dtype)
+            return random_quaternion(generator, shape, dtype, fold)
         q = torch.zeros(tuple(shape) + (4,), dtype=dtype,
                         device=generator.device)
         q[..., 0] = 1.0
@@ -290,8 +292,7 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
     log_k = math.log(n_or)
 
     def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+        return rand_chains(shape, generator, dtype, device)
 
     def _one_step(st, z, eta=None, cmat=None, uhist=None):
         """One attempt of every chain: displace, rotate, insert or delete
@@ -465,8 +466,9 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                            state.coords, state.active, state.box)
 
     def _z_of(state):
-        """(C,) per-chain activity (ladder broadcast)."""
-        return torch.broadcast_to(z_arr, (state.com.shape[0],))
+        """(C,) per-chain activity: the scalar broadcast, or the ladder's
+        rows of these chains (utils/shard.py chain_rows)."""
+        return chain_rows(z_arr, state.com.shape[0], "activity ladder")
 
     def _tm_zeros(state):
         return torch.zeros((state.com.shape[0], cap + 1, 3), dtype=dtype,
@@ -609,16 +611,17 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                     return state
 
     def init(box, n_init, n_chains):
-        """n_init: a scalar, or (n_chains,) per-chain starts."""
+        """n_init: a scalar, or (n_chains,) per-chain starts.  Under a
+        shard context n_chains is this process's count, and a per-chain
+        n_init or activity ladder may have the global length: the rows
+        are the unsharded init's rows of these chains."""
         n0 = np.asarray(n_init, np.int32)
         if np.any(n0 > cap):
             raise ValueError("n_init exceeds capacity")
-        if n0.ndim == 1 and n0.shape[0] != n_chains:
-            raise ValueError("per-chain n_init must have n_chains entries")
-        if z_arr.dim() == 1 and z_arr.shape[0] != n_chains:
-            raise ValueError(
-                f"activity ladder has {z_arr.shape[0]} rungs but "
-                f"n_chains={n_chains} (one activity per chain)")
+        if n0.ndim == 1:
+            n0 = chain_rows(n0, n_chains, "per-chain n_init")
+        if z_arr.dim() == 1:
+            chain_rows(z_arr, n_chains, "activity ladder")
         if params.strict_min_image and box < 2.0 * max(params.r_cut,
                                                        params.qq_cut):
             raise ValueError(f"box {box} < 2*cutoff violates minimum-"

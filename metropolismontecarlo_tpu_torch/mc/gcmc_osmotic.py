@@ -45,6 +45,10 @@ from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.quaternions import rotate_quaternion
 from metropolismontecarlo_tpu_torch.utils.activity import clear_slot, set_slot
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    rand_chains,
+    randn_chains,
+)
 
 
 @dataclasses.dataclass
@@ -123,8 +127,7 @@ def make_gcmc_osmotic(system, params, activity, p_exchange=0.3,
     log_k = math.log(n_or)
 
     def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+        return rand_chains(shape, generator, dtype, device)
 
     def solvent_on(C):
         return torch.ones((C, ns), dtype=torch.bool, device=device)
@@ -135,8 +138,7 @@ def make_gcmc_osmotic(system, params, activity, p_exchange=0.3,
         pick), one position draw (the displacement and the insertion
         position), the rotation's axis and angle, the insertion's and the
         deletion's trial orientations, the trial pick and the acceptance."""
-        axis = torch.randn((C, 3), generator=generator, dtype=dtype,
-                           device=device)
+        axis = randn_chains((C, 3), generator, dtype, device)
         return SimpleNamespace(
             u_move=rand(C), u_sel=rand(C), u_pos=rand(C, 3),
             axis=axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True),

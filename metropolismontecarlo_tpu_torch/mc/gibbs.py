@@ -33,10 +33,12 @@ from metropolismontecarlo_tpu_torch.mc.gcmc import (
     check_device,
     make_slot_lj,
 )
+from metropolismontecarlo_tpu_torch.ops.pbc import cube_root
 from metropolismontecarlo_tpu_torch.utils.activity import (
     clear_slot2,
     set_slot2,
 )
+from metropolismontecarlo_tpu_torch.utils.shard import rand_chains
 
 
 @dataclasses.dataclass
@@ -82,9 +84,8 @@ def make_gibbs(system, params, capacity, dv_max=0.05, dtype=torch.float64,
     p_disp = p_t / (1.0 - p_v) if p_v < 1.0 else 1.0
     move_on = p_disp > 0.0
 
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+    def rand(*shape, fold=1):
+        return rand_chains(shape, generator, dtype, device, fold)
 
     def full_energy(state):
         C = state.com.shape[0]
@@ -168,7 +169,7 @@ def make_gibbs(system, params, capacity, dv_max=0.05, dtype=torch.float64,
         v = box ** 3
         dv = (u_dv - 0.5) * 2.0 * dv_max * v.sum(1)
         v_new = v + torch.stack([dv, -dv], 1)
-        box_new = torch.sign(v_new) * v_new.abs() ** (1.0 / 3.0)
+        box_new = cube_root(v_new)         # batch-invariant (ops/pbc.py)
         legal = (box_new > 2.0 * rc).all(1)
         scale = torch.where(legal[:, None], box_new / box, 1.0)
         com_v = state.com * scale[:, :, None, None]
@@ -291,7 +292,10 @@ def make_gibbs(system, params, capacity, dv_max=0.05, dtype=torch.float64,
         C = state.com.shape[0]
         n = int(n_insertions)
         B = 2 * C * n
-        pos = rand(2 * C, n, 3) * state.box.reshape(2 * C)[:, None, None]
+        # box-folded rows, two per chain (chain-global under a shard
+        # context)
+        pos = rand(2 * C, n, 3, fold=2) \
+            * state.box.reshape(2 * C)[:, None, None]
         du = site_energy(
             state.com.reshape(2 * C, 1, cap, 3).expand(2 * C, n, cap, 3)
             .reshape(B, cap, 3),

@@ -62,6 +62,10 @@ from metropolismontecarlo_tpu_torch.utils.activity import (
     zero_empty,
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    rand_chains,
+    randn_chains,
+)
 
 
 @dataclasses.dataclass
@@ -129,9 +133,8 @@ def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
     tiny = torch.finfo(dtype).tiny
     check_ewald_consistency = ewald_consistency_check(params, use_ewald)
 
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+    def rand(*shape, fold=1):
+        return rand_chains(shape, generator, dtype, device, fold)
 
     def cfac_of(box):
         return ewald_ops.cfac_coeffs(ms.kv, ms.kw, params.kappa_L / box, box)
@@ -149,8 +152,7 @@ def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
         displacement, the rotation's axis and angle, per species the
         insertion position, its trial orientations, the source pick, the
         source's extra trials and the trial pick, and the acceptance."""
-        axis = torch.randn((C, 3), generator=generator, dtype=dtype,
-                           device=device)
+        axis = randn_chains((C, 3), generator, dtype, device)
         return SimpleNamespace(
             u_move=rand(C), bit=rand(C) < 0.5, u_sel=rand(C),
             u_pos=rand(C, 3),
@@ -561,8 +563,11 @@ def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
         equality is the mixture-coexistence diagnostic."""
         s = int(species)
         C = state.com.shape[0]
-        pos = rand(2 * C, n_insertions, 3) * _fold(state.box)[:, None, None]
-        quats = ms.trial_quats[s](generator, (2 * C, n_insertions))
+        # box-folded rows, two per chain (chain-global under a shard
+        # context)
+        pos = rand(2 * C, n_insertions, 3, fold=2) \
+            * _fold(state.box)[:, None, None]
+        quats = ms.trial_quats[s](generator, (2 * C, n_insertions), fold=2)
 
         def one(com, quat, coords, active0, active1, box, sfac, pos, quats):
             ra = evs[s].pose_atoms(pos, quats)

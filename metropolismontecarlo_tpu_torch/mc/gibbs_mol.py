@@ -44,6 +44,7 @@ import torch
 from metropolismontecarlo_tpu_torch.mc.gcmc import check_device
 from metropolismontecarlo_tpu_torch.mc.gcmc_mol import make_mol_slots
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+from metropolismontecarlo_tpu_torch.ops.pbc import cube_root
 from metropolismontecarlo_tpu_torch.ops.quaternions import rotate_quaternion
 from metropolismontecarlo_tpu_torch.utils.activity import (
     clear_slot2,
@@ -51,6 +52,10 @@ from metropolismontecarlo_tpu_torch.utils.activity import (
     zero_empty,
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    rand_chains,
+    randn_chains,
+)
 
 
 @dataclasses.dataclass
@@ -139,7 +144,7 @@ def volume_step(state, u_dv, u_acc, nf, rebuild, full_energy, dv_max, beta,
         v_b_new = v_b * torch.exp(dlnv)
         v_new = torch.where(pick, v_b_new[:, None], v)
         bath = beta * npt_pressure * (v_b_new - v_b) - dlnv
-    box_new = torch.sign(v_new) * v_new.abs() ** (1.0 / 3.0)
+    box_new = cube_root(v_new)             # batch-invariant (ops/pbc.py)
     legal = ((box_new > wall) & (v_new > 0.0)).all(1)
     box_t = torch.where(legal[:, None], box_new, box)
     scale = torch.where(legal[:, None], box_new / box, 1.0)
@@ -214,9 +219,8 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
 
     check_ewald_consistency = ewald_consistency_check(params, use_ewald)
 
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+    def rand(*shape, fold=1):
+        return rand_chains(shape, generator, dtype, device, fold)
 
     def cfac_of(box):
         return ewald_ops.cfac_coeffs(ms.kv, ms.kw, params.kappa_L / box, box)
@@ -233,8 +237,7 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         position draw (the displacement and the insertion position), the
         rotation's axis and angle draws, the trial orientations, the trial
         pick and the acceptance."""
-        axis = torch.randn((C, 3), generator=generator, dtype=dtype,
-                           device=device)
+        axis = randn_chains((C, 3), generator, dtype, device)
         return SimpleNamespace(
             u_move=rand(C), bit=rand(C) < 0.5, u_sel=rand(C),
             u_pos=rand(C, 3),
@@ -599,8 +602,11 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         exchange energetics, so -ln of it is beta mu_ex in the same
         convention for both boxes (the coexistence diagnostic)."""
         C = state.com.shape[0]
-        pos = rand(2 * C, n_insertions, 3) * _fold(state.box)[:, None, None]
-        quats = ms.trial_quats(generator, (2 * C, n_insertions))
+        # box-folded rows, two per chain (chain-global under a shard
+        # context)
+        pos = rand(2 * C, n_insertions, 3, fold=2) \
+            * _fold(state.box)[:, None, None]
+        quats = ms.trial_quats(generator, (2 * C, n_insertions), fold=2)
 
         def one(com, quat, coords, active, box, sfac, pos, quats):
             du, ovr = _insertion_du(com, quat, coords, active, box, sfac,
@@ -619,9 +625,10 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         n_delete) of removing a uniformly picked active molecule (-u_exist
         + const), both with the full exchange energetics."""
         C = state.com.shape[0]
-        pos = rand(2 * C, n_insert, 3) * _fold(state.box)[:, None, None]
-        quats = ms.trial_quats(generator, (2 * C, n_insert))
-        us = rand(2 * C, n_delete)
+        pos = rand(2 * C, n_insert, 3, fold=2) \
+            * _fold(state.box)[:, None, None]
+        quats = ms.trial_quats(generator, (2 * C, n_insert), fold=2)
+        us = rand(2 * C, n_delete, fold=2)
 
         def one(com, quat, coords, active, box, sfac, pos, quats, us):
             du_i, ovr_i = _insertion_du(com, quat, coords, active, box,

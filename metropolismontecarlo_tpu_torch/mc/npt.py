@@ -23,7 +23,8 @@ import dataclasses
 
 import torch
 
-from metropolismontecarlo_tpu_torch.utils.shard import rand_chains
+from metropolismontecarlo_tpu_torch.ops.pbc import cube_root
+from metropolismontecarlo_tpu_torch.utils.shard import chain_rows, rand_chains
 
 
 def make_volume_move_fn(system, params, energy_fn, build_coords,
@@ -35,7 +36,8 @@ def make_volume_move_fn(system, params, energy_fn, build_coords,
     energy_fn(coords, com, box) -> (energy, virial, sfac) over the chain
     batch; build_coords(com, quat) -> (C, 3, A_pad) atoms.  pressure
     overrides params.pressure: a scalar, or a (C,) ladder running every
-    chain at its own pressure."""
+    chain at its own pressure (under a shard context also of the global
+    chain count: utils/shard.py chain_rows)."""
     M = system.n_mol
     pres_src = params.pressure if pressure is None else pressure
     max_cut = float(max(params.r_cut, params.qq_cut))
@@ -44,14 +46,12 @@ def make_volume_move_fn(system, params, energy_fn, build_coords,
         C = state.com.shape[0]
         pres = torch.as_tensor(pres_src, dtype=state.box.dtype,
                                device=state.box.device)
-        if pres.dim() == 1 and pres.shape[0] != C:
-            raise ValueError(
-                f"pressure ladder has {pres.shape[0]} entries but the state "
-                f"carries {C} chains: one pressure per chain (or a scalar)")
+        # a scalar, or a ladder's rows of these chains
+        pres = chain_rows(pres, C, "pressure ladder")
         dlnv = (2.0 * u_lnv - 1.0) * state.dv_max
         vol_old = state.box ** 3
         vol_new = vol_old * torch.exp(dlnv)
-        box_new = vol_new ** (1.0 / 3.0)
+        box_new = cube_root(vol_new)       # batch-invariant (ops/pbc.py)
         com_new = state.com * (box_new / state.box)[:, None, None]
         coords_new = build_coords(com_new, state.quat)
         e_new, w_new, sfac_new = energy_fn(coords_new, com_new, box_new)

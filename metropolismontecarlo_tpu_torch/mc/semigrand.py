@@ -52,6 +52,10 @@ from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.quaternions import rotate_quaternion
 from metropolismontecarlo_tpu_torch.utils.activity import clear_slot, set_slot
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    rand_chains,
+    randn_chains,
+)
 
 
 @dataclasses.dataclass
@@ -130,8 +134,7 @@ def make_semigrand(system, params, fugacity_ratio, p_flip=0.3,
         return torch.stack([g[:, 0, 0], g[:, 0, 1], g[:, 1, 1]], 1)
 
     def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
+        return rand_chains(shape, generator, dtype, device)
 
     def draw(C):
         """The draws of one plain step of C chains, as the JAX step takes
@@ -139,8 +142,7 @@ def make_semigrand(system, params, fugacity_ratio, p_flip=0.3,
         the rotation's axis and angle, the new identity's trial
         orientations, the old identity's extra trials, the trial pick and
         the acceptance."""
-        axis = torch.randn((C, 3), generator=generator, dtype=dtype,
-                           device=device)
+        axis = randn_chains((C, 3), generator, dtype, device)
         return SimpleNamespace(
             u_move=rand(C), u_sel=rand(C), u_pos=rand(C, 3),
             axis=axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True),

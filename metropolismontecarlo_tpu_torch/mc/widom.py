@@ -40,6 +40,7 @@ from metropolismontecarlo_tpu_torch.ops.quaternions import (
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
 from metropolismontecarlo_tpu_torch.utils.constants import COULOMB_FACTOR
+from metropolismontecarlo_tpu_torch.utils.shard import rand_chains
 
 
 def mu_excess(boltzmann_mean, temperature):
@@ -288,8 +289,9 @@ def make_widom_fn(system, params, kvecs, kweights, device="cuda",
 
     def widom_sample(state, generator, n_insertions):
         C = state.com.shape[0]
-        u = torch.rand((C, n_insertions, 3), generator=generator,
-                       dtype=dtype, device=generator.device)
+        # chain-global under a shard context (utils/shard.py)
+        u = rand_chains((C, n_insertions, 3), generator, dtype,
+                        generator.device)
         com_t = u * state.box.to(dtype)[:, None, None]
         if P > 1:
             quat_t = random_quaternion(generator, (C, n_insertions), dtype)

@@ -12,6 +12,7 @@ tensors of the batch shape (...) of the other arguments (0-d for one
 configuration).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -86,14 +87,28 @@ def _phases(coords, kvecs, box):
         * torch.einsum("...ad,kd->...ak", coords, kmat)
 
 
+# Fewer atoms than this are pose rows (a few molecules' sites): the direct
+# sum, summed over the atoms in order (structure_factor_direct)
+POSE_ROWS = 32
+
+
 def structure_factor_direct(coords, charges, kvecs, box):
     """S(k) = sum_i q_i exp(i k~ . r_i) as (..., K, 2) [re, im], one cos
     and one sin per atom and k-vector.  coords (..., A, 3); charges (A,)
-    or (..., A)."""
+    or (..., A).  Under POSE_ROWS atoms the atom sum is elementwise
+    additions in atom order, so each row's value does not depend on the
+    batch: the batched product of an einsum picks its algorithm, and so
+    its rounding, by the batch size on the card, and a chain-sharded
+    plain step would not equal the unsharded one."""
     phase = _phases(coords, kvecs, box)
     q = torch.broadcast_to(charges.to(coords.dtype), phase.shape[:-1])
-    re = torch.einsum("...a,...ak->...k", q, torch.cos(phase))
-    im = torch.einsum("...a,...ak->...k", q, torch.sin(phase))
+    if coords.shape[-2] < POSE_ROWS:
+        parts = [q[..., None] * torch.cos(phase),
+                 q[..., None] * torch.sin(phase)]
+        re, im = (functools.reduce(torch.add, x.unbind(-2)) for x in parts)
+    else:
+        re = torch.einsum("...a,...ak->...k", q, torch.cos(phase))
+        im = torch.einsum("...a,...ak->...k", q, torch.sin(phase))
     return torch.stack([re, im], dim=-1)
 
 
@@ -162,10 +177,10 @@ def structure_factor(coords, charges, kvecs, box, bounds=None):
     coords (..., A, 3); charges (A,) or (..., A); kvecs a (K, 3) integer
     tensor; bounds as structure_factor_recurrence.  The recurrence for
     long k lists (K >= RECURRENCE_MIN_K); the direct sum for pose rows
-    (A < 32), which the tables would not repay, and for shorter lists,
-    where it is the faster on the card."""
+    (A < POSE_ROWS), which the tables would not repay, and for shorter
+    lists, where it is the faster on the card."""
     A, K = coords.shape[-2], kvecs.shape[0]
-    if A < 32 or K < RECURRENCE_MIN_K:
+    if A < POSE_ROWS or K < RECURRENCE_MIN_K:
         return structure_factor_direct(coords, charges, kvecs, box)
     return structure_factor_recurrence(coords, charges, kvecs, box, bounds)
 

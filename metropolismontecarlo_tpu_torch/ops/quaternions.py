@@ -3,14 +3,22 @@ metropolismontecarlo_tpu/ops/quaternions.py).
 
 Convention: q = (w, x, y, z), scalar first, Hamilton product; functions
 act on the trailing axis and broadcast over leading axes.  Every random
-draw takes an explicit torch.Generator.  rot_to_quat and fit_quaternions
-are host-side numpy (used once, by MonteCarlo.init_from_coords).
+draw takes an explicit torch.Generator; the leading axis of its shape is
+the chains (`fold` rows per chain), so under a shard context it is
+chain-global (utils/shard.py) and otherwise the plain draw.  rot_to_quat
+and fit_quaternions are host-side numpy (used once, by
+MonteCarlo.init_from_coords).
 """
 
 import math
 
 import numpy as np
 import torch
+
+from metropolismontecarlo_tpu_torch.utils.shard import (
+    rand_chains,
+    randn_chains,
+)
 
 
 def normalize(q, dim=-1):
@@ -58,16 +66,15 @@ def quat_mul(a, b):
 def random_unit_vector(generator, shape=(), dtype=torch.float32):
     """Uniform random unit 3-vectors, (*shape, 3), on the generator's
     device: normalised standard Gaussians (no rejection sampling)."""
-    return normalize(torch.randn(tuple(shape) + (3,), generator=generator,
-                                 dtype=dtype, device=generator.device))
+    return normalize(randn_chains(tuple(shape) + (3,), generator, dtype,
+                                  generator.device))
 
 
-def random_quaternion(generator, shape=(), dtype=torch.float32):
+def random_quaternion(generator, shape=(), dtype=torch.float32, fold=1):
     """Uniform random unit quaternions on S^3 (Shoemake), (*shape, 4), on
     the generator's device."""
-    return shoemake_quaternion(
-        torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
-                   device=generator.device))
+    return shoemake_quaternion(rand_chains(
+        tuple(shape) + (3,), generator, dtype, generator.device, fold))
 
 
 def shoemake_quaternion(u):
@@ -86,8 +93,7 @@ def random_rotate_quaternion(generator, q, dphi_max):
     about a uniform random axis (a symmetric proposal), renormalised."""
     shape = tuple(q.shape[:-1])
     axis = random_unit_vector(generator, shape, q.dtype)
-    u = torch.rand(shape, generator=generator, dtype=q.dtype,
-                   device=generator.device)
+    u = rand_chains(shape, generator, q.dtype, generator.device)
     return rotate_quaternion(q, axis, u, dphi_max)
 
 

@@ -14,10 +14,13 @@ them, as the JAX package does over its "chains" mesh axis:
   communication at all, under a shard context (utils/shard.py) that makes
   every random draw chain-global and keys the kernels' Philox streams on
   global chain ids, so the sharded run equals the unsharded one bit for
-  bit;
-* pooled means (`pooled_mean`) and replica exchange
-  (parallel/remc.py exchange_shardlocal) are the collectives: JAX's psum
-  and ppermute become all_reduce and all_gather over the mesh's groups.
+  bit.  `sharded_call` does the same for any ensemble closure (init,
+  run_steps on every route, TMMC's (state, eta, n) form, Widom), and
+  `chain_shard` is the bare context;
+* pooled means (`pooled_mean`), pooled histograms (`pooled_histogram`)
+  and replica exchange (parallel/remc.py exchange_shardlocal) are the
+  collectives: JAX's psum and ppermute become all_reduce and all_gather
+  over the mesh's groups.
 
 `run_world` starts the ranks of one host as fresh processes joined by a
 file rendezvous (no TCP port), the way the tests run gloo worlds on the
@@ -117,22 +120,24 @@ def shard_state(state, mesh):
         for k, s in state_specs(state).items() if s == CHAINS})
 
 
+def gather_chains(x, mesh):
+    """Every rank's rows of a chain-sharded tensor x (chains leading, the
+    same shape on every rank), concatenated in rank order, on every rank:
+    one all_gather over the chains axis."""
+    n = mesh_axis(mesh, CHAINS)[1]
+    flag = x.dtype == torch.bool
+    x = x.to(torch.uint8) if flag else x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=mesh.get_group(CHAINS))
+    out = torch.cat(parts)
+    return out.bool() if flag else out
+
+
 def gather_state(state, mesh):
     """The whole state from every rank's shard (shard_state's inverse),
-    on every rank: one all_gather per chain field over the chains axis."""
-    group = mesh.get_group(CHAINS)
-    n = mesh_axis(mesh, CHAINS)[1]
-
-    def gather(x):
-        flag = x.dtype == torch.bool
-        x = x.to(torch.uint8) if flag else x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=group)
-        out = torch.cat(parts)
-        return out.bool() if flag else out
-
+    on every rank: one gather_chains per chain field."""
     return dataclasses.replace(state, **{
-        k: gather(getattr(state, k))
+        k: gather_chains(getattr(state, k), mesh)
         for k, s in state_specs(state).items() if s == CHAINS})
 
 
@@ -146,6 +151,48 @@ def pooled_mean(x, mesh, axis=0):
     s = x.sum(axis)
     dist.all_reduce(s, group=group)
     return s / (x.shape[axis] * n)
+
+
+def pooled_histogram(values, n_bins, mesh):
+    """The histogram over every rank's chains of a chain-sharded integer
+    tensor `values` (such as a muVT run's N = active.sum(-1)) in bins 0
+    .. n_bins - 1: the local counts (int64) all_reduced over the chains
+    axis, JAX's psum of the N histogram."""
+    h = torch.bincount(values.reshape(-1).long(), minlength=int(n_bins))
+    if h.shape[0] != int(n_bins):
+        raise ValueError(f"a value beyond the {n_bins} bins")
+    dist.all_reduce(h, group=mesh.get_group(CHAINS))
+    return h
+
+
+def chain_shard(mesh, n_local):
+    """The shard context (utils/shard.py) of this rank's n_local chains:
+    chains [r n_local, (r + 1) n_local) of n_local x (ranks along the
+    chains axis), r the rank's index along it.  Every draw inside is
+    chain-global; wrap an ensemble's init in it, with n_chains=n_local,
+    for the unsharded init's rows."""
+    r, n = mesh_axis(mesh, CHAINS)
+    return shard_context(r * n_local, n * n_local)
+
+
+def sharded_call(fn, state, mesh, *args, **kwargs):
+    """fn(state, *args, **kwargs) on this rank's shard `state` (from
+    shard_state) under its chain_shard: the ensembles' counterpart of
+    JAX's shard_map(lambda st: run(st, ...), in_specs=P("chains")).  fn
+    is any closure over the chains, such as an ensemble's run_steps on
+    every route (TMMC's run_steps(state, eta, n) too, whose cmat and
+    uhist come back as this rank's rows), its widom_boltzmann or a
+    volume move; it runs with no collectives and returns what fn
+    returns, each per-chain result this rank's rows of the unsharded
+    run's.  The ensemble object must be fresh or advanced as the
+    unsharded run's (the kernel routes key their Philox seeds on the
+    generator's seed and a per-closure launch count), and its generator
+    seeded as the unsharded run's.  An ensemble's run_block statistics
+    (means over chains, the drift maximum) stay per rank, as they do
+    under JAX's shard_map: pool them with pooled_mean or
+    pooled_histogram."""
+    with chain_shard(mesh, state.com.shape[0]):
+        return fn(state, *args, **kwargs)
 
 
 def sharded_run_steps(mc, state, mesh, n_steps, adjust=False,
@@ -164,13 +211,11 @@ def sharded_run_steps(mc, state, mesh, n_steps, adjust=False,
         exchange_shardlocal,
     )
 
-    r, n = mesh_axis(mesh, CHAINS)
-    L = state.com.shape[0]
     if remc_every and n_steps % remc_every:
         raise ValueError("n_steps must be a multiple of remc_every")
     if remc_every and remc_generator is None:
         raise ValueError("replica exchange needs remc_generator")
-    with shard_context(r * L, n * L):
+    with chain_shard(mesh, state.com.shape[0]):
         if not remc_every:
             return mc.run_steps(state, n_steps, adjust)
         fracs = []

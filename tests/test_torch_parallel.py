@@ -17,7 +17,17 @@ tests/test_parallel.py:
   of the unsharded driver bit for bit;
 * the three Philox-scored ops' plain versions (sweep_plain with exchange
   attempts, sweep_gibbs_plain, flip_plain) with chain0 on a row slice
-  equal those rows of the whole call, and differ with chain0 = 0.
+  equal those rows of the whole call, and differ with chain0 = 0;
+* every ensemble driver on 4 ranks x 4 chains (a sharded init, then
+  sharded_call on its closures) equals its unsharded run bit for bit in
+  every state field, TMMC's cmat and uhist rows and the Widom values:
+  muVT on every route and with an activity ladder, TMMC, molecular,
+  monatomic and NPT-binary Gibbs with volume moves, semigrand, binary
+  muVT, the osmotic ensemble, monatomic muVT and MonteCarlo.widom (the
+  counterpart of __graft_entry__.py's shard_map of the ensembles); the N
+  histogram pooled by pooled_histogram equals the unsharded one, and
+  every rank keyed as the first shard (c0 = 0) differs;
+* utils/shard.py's draws and row slices against the plain draws.
 
 One world per size (a 4-rank spawn takes ~4 s here), each rank on one
 thread; the JAX side runs in this process on conftest's 8 virtual
@@ -40,6 +50,10 @@ from metropolismontecarlo_tpu.models.water import spce_system as spce_j
 from metropolismontecarlo_tpu.parallel.tp import make_mesh_2d as mesh_2d_j
 from metropolismontecarlo_tpu.parallel.tp import tp_full_energy_fn as tp_j
 from metropolismontecarlo_tpu_torch.parallel import mesh as pm
+from metropolismontecarlo_tpu_torch.ops.quaternions import (
+    random_quaternion,
+    shoemake_quaternion,
+)
 from metropolismontecarlo_tpu_torch.parallel.remc import exchange
 from metropolismontecarlo_tpu_torch.utils import shard
 
@@ -192,6 +206,35 @@ def test_rand_chains_rows_of_the_global_draw():
     with pytest.raises(ValueError, match="outside"):
         with shard.shard_context(10, 10):
             pass
+    # the normal-draw twin, the chain-global quaternion and the
+    # box-folded draw: rows of the global draw, the plain draw unsharded
+    full = torch.randn((10, 3), generator=g.manual_seed(4))
+    with shard.shard_context(6, 10):
+        part = shard.randn_chains((4, 3), g.manual_seed(4))
+        quat = random_quaternion(g.manual_seed(4), (4, 5), torch.float64)
+        fold = shard.rand_chains((8, 5, 3), g.manual_seed(4), fold=2)
+    assert torch.equal(part, full[6:])
+    assert torch.equal(shard.randn_chains((10, 3), g.manual_seed(4)), full)
+    q_full = random_quaternion(g.manual_seed(4), (10, 5), torch.float64)
+    assert torch.equal(q_full, shoemake_quaternion(torch.rand(
+        (10, 5, 3), generator=g.manual_seed(4), dtype=torch.float64)))
+    assert torch.equal(quat, q_full[6:])
+    folded = torch.rand((20, 5, 3), generator=g.manual_seed(4))
+    assert torch.equal(shard.rand_chains((20, 5, 3), g.manual_seed(4),
+                                         fold=2), folded)
+    assert torch.equal(fold, folded[12:])
+    # the row slice of a per-chain input of the global length
+    ladder = torch.arange(10.0)
+    with shard.shard_context(6, 10):
+        assert torch.equal(shard.chain_rows(ladder, 4), ladder[6:])
+        assert torch.equal(shard.chain_rows(ladder[6:], 4), ladder[6:])
+        with pytest.raises(ValueError, match="n_chains entries"):
+            shard.chain_rows(ladder[:5], 4)
+    assert torch.equal(shard.chain_rows(ladder, 10), ladder)
+    with pytest.raises(ValueError, match="n_chains entries"):
+        shard.chain_rows(ladder, 4)
+    assert torch.equal(shard.chain_rows(torch.tensor(2.0), 3),
+                       torch.full((3,), 2.0))
 
 
 @pytest.mark.parametrize("kind", chip_smoke.OFFSET_KINDS)
@@ -207,3 +250,47 @@ def test_chain0_twins_on_row_slices(kind):
     unkeyed = call(slice(c0, c0 + L), 0)
     assert all(torch.equal(f[c0:c0 + L], p) for f, p in zip(full, part))
     assert not all(torch.equal(u, p) for u, p in zip(unkeyed, part))
+
+
+# the cases with volume moves: their att / acc column
+VOLUME_COLUMN = {"gibbs full pv0.5": 2, "gibbs plain pv0.5 widom": 2,
+                 "npt-gibbs full": 2, "lj gibbs plain widom": 1}
+
+
+@pytest.mark.parametrize("name", list(ranks.ENSEMBLES))
+def test_sharded_ensemble_matches_unsharded(world4, name):
+    """4 ranks x 4 chains of an ensemble, init and run sharded, against
+    the unsharded run of 16 chains (a fresh object, the same seed)."""
+    ref = ranks.run_ensemble(name, ranks.N_CHAINS)
+    out = world4[0][f"ens {name}"]
+    assert out.keys() == ref.keys()
+    for k, v in ref.items():
+        assert out[k].dtype == v.dtype and out[k].shape == v.shape, k
+        assert torch.equal(out[k], v), f"{k} differs"
+    if "att" in ref:
+        # the run moved: moves accepted on every shard
+        assert bool((ref["acc"].reshape(4, -1).sum(1) > 0).all())
+    if name in VOLUME_COLUMN:
+        # every chain attempted volume moves, and some were accepted
+        col = VOLUME_COLUMN[name]
+        assert bool((ref["att"][:, col] > 0).all())
+        assert int(ref["acc"][:, col].sum()) > 0
+    if name.startswith(("muvt", "tmmc")):
+        assert int(ref["acc"][:, 2:].sum()) > 0       # exchanges landed
+
+
+def test_pooled_n_histogram_matches_unsharded(world4):
+    ref = ranks.run_ensemble("muvt plain", ranks.N_CHAINS)
+    want = torch.bincount(ref["active"].sum(1), minlength=9)
+    assert torch.equal(world4[0]["n hist"], want)
+    assert int((want > 0).sum()) > 1
+
+
+def test_unkeyed_shards_differ_from_unsharded(world4):
+    """The negative control: plain muVT with every rank keyed as the
+    first shard (chain offset 0) draws the first shard's numbers on every
+    rank, the fault this layer repairs."""
+    ref = ranks.run_ensemble("muvt plain", ranks.N_CHAINS)
+    out = world4[0]["ens unkeyed"]
+    assert all(torch.equal(out[k][:4], ref[k][:4]) for k in ref)
+    assert not all(torch.equal(out[k], ref[k]) for k in ref)
