@@ -390,6 +390,14 @@ Phase 25 the parallel layer (parallel/), its ranks gloo processes on this
          chain.  Each part prints its wall time, per-rank sweep, cycle,
          exchange round and recompute times; the card's name and power
          limit.
+Phase 26 the two-particle Boltzmann density through the sweep kernel
+         (docs/validation_torch/run_mega_boltzmann.py's protocol: two LJ
+         particles, T 1.2, box 8, rc 3.9, 512 chains, 100 + 80 x 5
+         sweeps, the kernel route and the plain route on the card): the
+         pair-distance histogram against the analytic r^2 exp(-u/T)
+         (chi^2 per bin < 9, peak bin within 3), the two routes'
+         acceptance within 0.02, every run_steps call on fresh uniforms;
+         the phase's wall time.
 
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
@@ -6902,10 +6910,44 @@ def phase25(dev, smi, chains=2048, steps=2, tp_chains=64, tp_chunk=8,
     return err
 
 
+# ---------------- phase 26: the two-particle Boltzmann density ----------
+
+VALIDATION_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "docs", "validation_torch")
+
+
+def phase26(dev, smi, **depth):
+    """run_mega_boltzmann.py's protocol and gates (depth: its
+    sample_histogram's chains, rounds, gap, decorrelate; the protocol's
+    when empty): the sweep kernel's pair-distance histogram against the
+    analytic density, both routes' acceptance, fresh uniforms per
+    run_steps call.  Raises on a failed gate."""
+    if VALIDATION_DIR not in sys.path:
+        sys.path.insert(0, VALIDATION_DIR)
+    import run_mega_boltzmann as mb
+
+    t0 = time.perf_counter()
+    hist, edges, acc_k, route, (n_dist, n_draw) = mb.sample_histogram(
+        "sweep", dev, **depth)
+    _, _, acc_p, route_p, (n_dist_p, n_draw_p) = mb.sample_histogram(
+        "plain", dev, **depth)
+    chi2, zmax, peak_off, ok, *_ = mb.gates(hist, edges, acc_k, acc_p)
+    fresh = n_dist == n_draw and n_dist_p == n_draw_p
+    print(f"phase26: routes {route} / {route_p}, {int(hist.sum())} samples, "
+          f"chi2/bin {chi2:.3f} (bound 9), max |z| {zmax:.2f}, peak-bin "
+          f"offset {peak_off} (bound 3), acceptance {acc_k:.4f} kernel vs "
+          f"{acc_p:.4f} plain (bound 0.02), {n_dist} of {n_draw} / "
+          f"{n_dist_p} of {n_draw_p} uniform draws distinct; "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    if not (ok and fresh and route == "sweep" and route_p == "plain"):
+        raise AssertionError("phase26: the two-particle Boltzmann gates "
+                             "failed")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(2, 26)),
+                    default=",".join(str(i) for i in range(2, 27)),
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -6997,8 +7039,10 @@ def main():
         rows24 = phase24(dev)
     if 25 in want:
         phase25(dev, smi)
+    if 26 in want:
+        phase26(dev, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 26)):
+    if want != set(range(2, 27)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
