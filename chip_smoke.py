@@ -98,8 +98,9 @@ Phase 10 closed forms and coexistence on the tmmc kernel: the ideal gas
          (TMMC, cap 48, box 5, z 0.08) and the ideal rigid rotor (TMMCMol,
          cap 64, box 8, z 0.039), ln Pi = N ln(zV) - ln N! within 1e-3;
          SPC/E vapour-liquid coexistence at 500 K by
-         docs/validation/run_tmmc_water.py's protocol and gates (cap 80,
-         box 13 A, 128 walkers, 10 melt + 60 TMMC blocks of 2500 steps);
+         docs/validation_torch/run_tmmc_water.py's coexistence_run (the
+         JAX script's protocol and gates: cap 80, box 13 A, 128 walkers,
+         10 melt + 60 TMMC blocks of 2500 steps);
          cut LJ at T = 1.0 by the TMMC side of
          docs/validation/run_tmmc_coexistence.py (cap 192, box 6, 256
          walkers, 48 x 5000 steps) against the recorded Gibbs densities;
@@ -398,6 +399,19 @@ Phase 26 the two-particle Boltzmann density through the sweep kernel
          (chi^2 per bin < 9, peak bin within 3), the two routes'
          acceptance within 0.02, every run_steps call on fresh uniforms;
          the phase's wall time.
+Phase 27 the staged-FEP path (mc/fep.py) at
+         docs/validation_torch/run_bar_water.py's state point: the tagged
+         system tag_last_molecule(spce_system(217), 0.4, 0), whose last
+         water is a one-molecule species block, box 18.644 A, r_cut 8.4
+         A + LRC, 256 chains: init_state and one run_block of 5 sweeps
+         (route and launches printed, the drift gate); the kernel against
+         sweep_plain on shared uniforms at 64 chains (the one-molecule
+         block's launch, phase 2's gates); make_deletion_fn at the four
+         lambda-basis systems and at the rung's own, the basis identity
+         lambda_work(0.4, 0, *lambda_basis(...)) = the direct work within
+         1e-5 of the terms' magnitude; one make_decoupled_insertion_fn
+         call at lambda 0 on the same configurations, finite works
+         outside its overlap mask; the phase's wall time.
 
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
@@ -2778,93 +2792,46 @@ G_CC = 18.01528 * 1.66053907      # water molecules per A^3 -> g/cc
 def phase10_spce(dev, cap=80, box=13.0, chains=128, melt=10, blocks=60,
                  steps=2500):
     """SPC/E vapour-liquid coexistence at 500 K by the protocol of
-    docs/validation/run_tmmc_water.py (the configs/tmmc_spce.json state
-    point, n_orient 1): a fixed-N melt of stratified walkers, then TMMC
-    blocks on the kernel route with a quarter discarded, and that
-    script's gates.  Returns (tmmc launches, melt launches, results)."""
-    from metropolismontecarlo_tpu_torch.mc.gcmc_mol import MolGCMC
-    from metropolismontecarlo_tpu_torch.mc.tmmc import (
-        TMMCMol,
-        coexistence,
-        reweight_lnpi_temperature,
-        surface_tension,
-    )
-    from metropolismontecarlo_tpu_torch.models.system import RunParams
-    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    docs/validation_torch/run_tmmc_water.py (its coexistence_run: the
+    configs/tmmc_spce.json state point, n_orient 1): a fixed-N melt of
+    stratified walkers, then TMMC blocks on the kernel route with a
+    quarter discarded, and that script's gates.  Returns (tmmc launches,
+    melt launches, results)."""
+    if VALIDATION_DIR not in sys.path:
+        sys.path.insert(0, VALIDATION_DIR)
+    import run_tmmc_water
+
     from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
 
-    T, z0 = 500.0, 2e-4
-    f32 = torch.float32
-    params = RunParams(strict_min_image=False, temperature=T, r_cut=6.0,
-                       cutoff_mode="site", coulomb="ewald", use_lrc=False,
-                       p_translate=0.5, dr_max=1.0, dphi_max=0.7)
-    system = spce_system(cap)
-    gen = torch.Generator(device=dev).manual_seed(2036)
-    g = MolGCMC(system, params, activity=z0, p_exchange=0.0, dtype=f32,
-                mega=True, device=dev, generator=gen)
-    st = g.init(box, np.linspace(1, cap * 7 // 8, chains).astype(np.int64),
-                chains)
+    counts = {}
+
+    def mark(stage):
+        # the launches since the last mark, then the count from 0 again
+        counts[stage] = op.sweep.launches
+        op.sweep.launches = 0
+
     t0 = time.perf_counter()
-    op.sweep.launches = 0
-    for b in range(melt):
-        st, stats = g.run_block(st, steps, drift_tol=1e-3)
-    l_melt = op.sweep.launches
+    r = run_tmmc_water.coexistence_run(
+        dev, cap=cap, box=box, chains=chains, melt=melt, blocks=blocks,
+        steps=steps, seed=2036, mark=mark, tag="phase10 spce ")
+    l_melt, launches = counts["tmmc"], counts["end"]
     print(f"phase10 spce melt: {melt} blocks, {l_melt} launches, "
-          f"{time.perf_counter() - t0:.1f} s, <E> {stats['energy_mean']:.0f}"
-          f" K, acc {stats['acc_trans']:.3f}")
-    t = TMMCMol(system, params, activity=z0, p_exchange=0.4, dtype=f32,
-                mega="full", device=dev, generator=gen)
-    op.sweep.launches = 0
-    max_drift = max_sfac = 0.0
-    for b in range(blocks):
-        st, stats = t.run_block(st, steps)
-        max_drift = max(max_drift, stats["drift_max_rel"])
-        max_sfac = max(max_sfac, stats["sfac_err_max"])
-        if not stats["sfac_err_max"] < 1e-3:
-            raise AssertionError(f"S(k) error {stats['sfac_err_max']}")
-        if b == blocks // 4 - 1:
-            t.reset_collection()
-        if b % 10 == 0 or b == blocks - 1:
-            print(f"phase10 spce block {b}: N [{stats['n_min']},"
-                  f"{stats['n_max']}] mean {stats['n_mean']:.1f} visited "
-                  f"{stats['visited_frac']:.2f} accI "
-                  f"{stats['acc_insert']:.4f} accD {stats['acc_delete']:.4f}"
-                  f" drift {stats['drift_max_rel']:.1e} "
-                  f"({time.perf_counter() - t0:.0f} s)")
-    launches = op.sweep.launches
-    res = coexistence(t.lnpi(), z0, box ** 3)
-    gamma = surface_tension(res["lnpi_coex"], box, T) * 1.380649  # mN/m
-    rho_v, rho_l = res["rho_vap"] * G_CC, res["rho_liq"] * G_CC
-    cover = stats["visited_frac"]
-    ext = {}
-    for t_to in (480.0, 520.0):
-        lp = reweight_lnpi_temperature(t.lnpi(), t.uhist, T, t_to,
-                                       second_order=False)
-        r = coexistence(lp, z0, box ** 3)
-        ext[t_to] = (r["z_coex"], r["rho_vap"] * G_CC, r["rho_liq"] * G_CC)
-    ok = {
-        "rho bands": 0.45 < rho_l < 1.0 and rho_v < 0.05
-        and rho_v < rho_l / 5.0,
-        "gamma 2-60 mN/m": 2.0 < gamma < 60.0,
-        "residual": abs(res["dlnw"]) < 1e-6,
-        "coverage > 0.8": cover > 0.8,
-        "drift/sfac": max_drift < 0.25 and max_sfac < 1e-3,
-        "T-extension": ext[480.0][2] > rho_l > ext[520.0][2]
-        and ext[480.0][1] < rho_v < ext[520.0][1]
-        and ext[480.0][0] < res["z_coex"] < ext[520.0][0]}
+          f"{r['melt_s']:.1f} s, <E> {r['melt_energy']:.0f} K, acc "
+          f"{r['melt_acc']:.3f}")
+    ext, ok = r["ext"], r["ok"]
     print(f"phase10 spce coexistence (cap {cap}, box {box} A, {chains} "
           f"walkers, {melt} + {blocks} x {steps} steps, {launches} tmmc "
           f"launches, {time.perf_counter() - t0:.1f} s): z* = "
-          f"{res['z_coex']:.4e} A^-3, rho_v = {rho_v:.4f} g/cc, rho_l = "
-          f"{rho_l:.4f} g/cc, gamma = {gamma:.1f} mN/m, coverage "
-          f"{cover:.2f}, residual {res['dlnw']:.1e}, max drift "
-          f"{max_drift:.1e}, max sfac err {max_sfac:.1e}; 480 K: rho_v "
-          f"{ext[480.0][1]:.4f} rho_l {ext[480.0][2]:.4f}, 520 K: rho_v "
-          f"{ext[520.0][1]:.4f} rho_l {ext[520.0][2]:.4f}; gates {ok}")
+          f"{r['z_coex']:.4e} A^-3, rho_v = {r['rho_v']:.4f} g/cc, rho_l = "
+          f"{r['rho_l']:.4f} g/cc, gamma = {r['gamma']:.1f} mN/m, coverage "
+          f"{r['cover']:.2f}, residual {r['dlnw']:.1e}, max drift "
+          f"{r['max_drift']:.1e}, max sfac err {r['max_sfac']:.1e}; 480 K: "
+          f"rho_v {ext[480.0][1]:.4f} rho_l {ext[480.0][2]:.4f}, 520 K: "
+          f"rho_v {ext[520.0][1]:.4f} rho_l {ext[520.0][2]:.4f}; gates {ok}")
     if not all(ok.values()):
         raise AssertionError(f"SPC/E coexistence gates failed: {ok}")
-    return launches, l_melt, dict(z_coex=res["z_coex"], rho_v=rho_v,
-                                  rho_l=rho_l, gamma=gamma)
+    return launches, l_melt, {k: r[k] for k in ("z_coex", "rho_v", "rho_l",
+                                                "gamma")}
 
 
 # the Gibbs-ensemble densities of docs/validation/tmmc_coexistence.txt and
@@ -6944,10 +6911,159 @@ def phase26(dev, smi, **depth):
                              "failed")
 
 
+# ---------------- phase 27: the staged-FEP path ----------------
+
+FEP_RUNG = (0.4, 0.0)
+# the lambda-work basis systems of run_bar_water.py
+FEP_BASIS = ((0.5, 0.0), (1.0, 0.0), (1.0, 0.5), (1.0, 1.0))
+
+
+def fep_state_point(n):
+    """run_bar_water.py's RunParams and box for n rest waters (+ the tag):
+    0.997 g/cc, 298.15 K, Ewald, r_cut min(9, 0.45 box) + LRC."""
+    if VALIDATION_DIR not in sys.path:
+        sys.path.insert(0, VALIDATION_DIR)
+    import run_bar_water as bw
+
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+
+    box = bw.box_edge(n)
+    params = RunParams(temperature=bw.T, r_cut=min(9.0, 0.45 * box),
+                       cutoff_mode="site", coulomb="ewald", use_lrc=True,
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3,
+                       strict_min_image=n >= 100)
+    return params, box
+
+
+def fep_basis_identity(mc, state, dtype, chunk=64, rung=FEP_RUNG):
+    """The lambda-basis identity on samples of the rung `rung` (mc's
+    tagged system): the deletion works at the four basis systems (the
+    state's carried S(k) stripped of the tag at the rung's charges) give,
+    through lambda_basis / lambda_work, the rung's own deletion work.
+    Returns (the four basis works, the rung's direct work, the
+    reconstruction, the terms' magnitude), host float64 (C, 1) each; the
+    magnitude is sum_i |c_i| |w_i| + |direct| over the reconstruction's
+    coefficients c_i, the scale of its round-off."""
+    from metropolismontecarlo_tpu_torch.mc.fep import (
+        lambda_basis,
+        lambda_work,
+        make_deletion_fn,
+        tag_last_molecule,
+    )
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+
+    n_mol = mc.system.n_mol
+
+    def work(system, state_system):
+        return make_deletion_fn(
+            system, mc.params, mc.kvecs, mc.kweights, device=mc.device,
+            dtype=dtype, chunk=chunk, species=-1,
+            state_system=state_system)(state)[0].double().cpu().numpy()
+
+    works = [work(tag_last_molecule(spce_system(n_mol), lj, q), mc.system)
+             for lj, q in FEP_BASIS]
+    direct = work(mc.system, None)
+    recon = lambda_work(*rung, *lambda_basis(*works))
+    # the reconstruction's coefficient of each basis work, from a unit
+    # impulse through the same two functions
+    coef = [abs(float(lambda_work(*rung, *lambda_basis(
+        *[np.float64(i == j) for j in range(4)])))) for i in range(4)]
+    mag = sum(c * np.abs(w) for c, w in zip(coef, works)) + np.abs(direct)
+    return works, direct, recon, mag
+
+
+def _sim_rows(st, n):
+    """The first n chains of a SimState (the step counter is shared)."""
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name)[:n] for f in dataclasses.fields(st)
+        if getattr(st, f.name).dim() > 0})
+
+
+def phase27(dev, smi, n=216, chains=256, twin_chains=64, sweeps=5,
+            n_ghost=16, chunk=64, dtype=torch.float32):
+    """The staged-FEP path of docs/validation_torch/run_bar_water.py at its
+    state point (mc/fep.py; PERF.md §4): tag_last_molecule(spce_system(n +
+    1), 0.4, 0), whose last water is a species block of its own, box
+    18.644 A, r_cut 8.4 A + LRC, `chains` chains.  (a) init_state and one
+    run_block of `sweeps` sweeps on the route choose_route gives it (the
+    whole-sweep kernel: one launch per species block per sweep) with the
+    drift gate; (b) one sweep of the kernel against sweep_plain on shared
+    uniforms at twin_chains chains, the one-molecule block's launch among
+    them, under phase 2's gates; (c) make_deletion_fn at the four basis
+    systems and at the rung's own: lambda_work(0.4, 0, *lambda_basis(...))
+    equals the direct work within ENERGY_REL_TOL of the terms' magnitude;
+    (d) one make_decoupled_insertion_fn call of n_ghost poses per chain on
+    the same configurations at lambda = 0: finite works outside its
+    overlap mask.  Raises on a failed gate."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.mc.fep import (
+        make_decoupled_insertion_fn,
+        tag_last_molecule,
+    )
+    from metropolismontecarlo_tpu_torch.models.water import spce_system
+    from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as op
+    from metropolismontecarlo_tpu_torch.ops.quaternions import (
+        random_quaternion,
+    )
+
+    t0 = time.perf_counter()
+    params, box = fep_state_point(n)
+    system = tag_last_molecule(spce_system(n + 1), *FEP_RUNG)
+    gen = torch.Generator(device=dev).manual_seed(2071)
+    mc = MonteCarlo(system, params, device=dev, generator=gen, dtype=dtype)
+    state = mc.init_state(cubic_lattice(n + 1, box), box=box,
+                          n_chains=chains)
+    blocks = [b[1] for b in system.species]
+    op.sweep.launches = 0
+    state, stats = mc.run_block(state, sweeps, drift_tol=DRIFT_TOL)
+    launches = op.sweep.launches
+    print(f"phase27 (a) tagged SPC/E {n}+1 at lambda {FEP_RUNG}, box "
+          f"{box:.3f} A, r_cut {params.r_cut:.2f} A + LRC, {chains} chains: "
+          f"route {mc.route!r}, species blocks {blocks}, {launches} sweep "
+          f"launches in {sweeps} sweeps, drift {stats['drift_max_rel']:.2e},"
+          f" <E>/N {stats['energy_mean'] / n:.1f} K, acceptance "
+          f"{stats['acc_trans']:.3f} / {stats['acc_rot']:.3f}")
+    if mc.route == "sweep" and dev.type == "cuda" \
+            and launches != sweeps * len(blocks):
+        raise AssertionError(f"phase27: {launches} launches, not one per "
+                             "species block and sweep")
+    err = compare(f"27 (b) tagged spce{n}+1 {FEP_RUNG}", mc,
+                  _sim_rows(state, twin_chains), gen)
+    works, direct, recon, mag = fep_basis_identity(mc, state, dtype, chunk)
+    rel = float(np.max(np.abs(recon - direct) / np.maximum(mag, 1.0)))
+    print(f"phase27 (c) lambda basis at {FEP_RUNG} on {chains} chains: "
+          f"direct work {float(direct.mean()):+.4f} K (chain mean), largest "
+          f"|basis - direct| {float(np.abs(recon - direct).max()):.3e} K, "
+          f"{rel:.3e} of the terms' magnitude (bound {ENERGY_REL_TOL}); "
+          "basis works (chain means) " + ", ".join(
+              f"{lam}: {float(w.mean()):+.2f} K"
+              for lam, w in zip(FEP_BASIS, works)))
+    mc0 = MonteCarlo(tag_last_molecule(spce_system(n + 1), 0.0, 0.0),
+                     params, device=dev, generator=gen, dtype=dtype)
+    st0 = mc0.resync(state)
+    ghost = make_decoupled_insertion_fn(system, params, mc0.kvecs,
+                                        mc0.kweights, device=dev,
+                                        dtype=dtype, chunk=chunk)
+    com_t = torch.rand((chains, n_ghost, 3), generator=gen, dtype=dtype,
+                       device=dev) * st0.box[:, None, None]
+    du, overlap = ghost(st0, com_t, random_quaternion(gen, (chains, n_ghost),
+                                                      dtype))
+    free = ~overlap
+    finite = bool(torch.isfinite(du[free]).all())
+    print(f"phase27 (d) decoupled insertions: {n_ghost} ghosts x {chains} "
+          f"chains, {int(free.sum())} outside the overlap mask, all finite "
+          f"{finite}, min {float(du[free].min()):.1f} K; "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    if not (rel <= ENERGY_REL_TOL and finite and int(free.sum()) > 0):
+        raise AssertionError("phase27: the staged-FEP gates failed")
+    return launches, err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(2, 27)),
+                    default=",".join(str(i) for i in range(2, 28)),
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -7041,8 +7157,10 @@ def main():
         phase25(dev, smi)
     if 26 in want:
         phase26(dev, smi)
+    if 27 in want:
+        phase27(dev, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 27)):
+    if want != set(range(2, 28)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)

@@ -68,6 +68,13 @@ def generator(dev, seed):
     return torch.Generator(device=dev).manual_seed(int(seed))
 
 
+def folded_generator(dev, seed, index):
+    """A torch.Generator on dev seeded from (seed, index) (the JAX
+    scripts' fold_in(PRNGKey(seed), index))."""
+    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1)
+    return generator(dev, int(state[0]))
+
+
 class Record:
     """Collects a driver's gate lines and writes its record."""
 

@@ -31,14 +31,22 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 # (driver, record), the longest runs first
 DRIVERS = (
     ("run_spce_dielectric", "spce_dielectric.txt"),
+    ("run_co2_density", "co2_density.txt"),
     ("run_lj_phase_diagram", "lj_phase_diagram.txt"),
     ("run_gibbs_water", "gibbs_water_lrc.txt"),
     ("run_tmmc_coexistence", "tmmc_coexistence.txt"),
     ("run_spce_eos", "spce_eos.txt"),
     ("run_npt_density", "npt_density.txt"),
+    ("run_bar_water", "bar_water.txt"),
+    ("run_binary_co2_n2", "binary_co2_n2.txt"),
+    ("run_gibbs_co2_n2", "gibbs_co2_n2.txt"),
+    ("run_gibbs_npt_co2_n2", "gibbs_npt_co2_n2.txt"),
+    ("run_semigrand_binomial", "semigrand_binomial.txt"),
     ("run_gcmc_kernel_exchange", "gcmc_kernel_exchange.txt"),
+    ("run_gibbs_kernel_exchange", "gibbs_kernel_exchange.txt"),
     ("run_gcmc_water", "gcmc_water.txt"),
     ("run_widom_kernel", "widom_kernel.txt"),
+    ("run_tmmc_water", "tmmc_water.txt"),
     ("run_remc_ladder", "remc_ladder.txt"),
     ("run_gcmc_lrc", "gcmc_lrc.txt"),
     ("run_gcmc_mbar", "gcmc_mbar.txt"),
@@ -53,6 +61,8 @@ PARTS = {
     "run_lj_phase_diagram": ("0.85", "0.95", "1.0", "1.05"),
     "run_gibbs_water": ("7.5", "8.5"),
     "run_tmmc_coexistence": ("tmmc", "gibbs"),
+    "run_gibbs_kernel_exchange": ("0", "1", "2"),
+    "run_semigrand_binomial": ("plain", "kernel"),
 }
 
 # the smallest depth of each driver (a record in seconds on the CPU)
@@ -77,6 +87,16 @@ SMOKE = {
                             "--blocks 1",
     "run_gibbs_water": "--no-lrc --chains 1 --preeq 0 --equil 0 --prod 1 "
                        "--steps 1 --works 1",
+    "run_bar_water": "--n 8 --chains 4 --equil 1 --stage-equil 1 --prod 1 "
+                     "--equil-sweeps 1 --block 1 --short-ladder",
+    "run_co2_density": "--chains 1 --equil 1 --prod 1 --sweeps 1",
+    "run_gibbs_kernel_exchange": "--scale 0.001 --samples 1 --blocks 1",
+    "run_semigrand_binomial": "--chains 2 --equil 1 --prod 2 --steps 2",
+    "run_binary_co2_n2": "--chains 2 --equil 1 --prod 1 --steps 2 "
+                         "--nvt-equil 0 --nvt-blocks 1",
+    "run_gibbs_co2_n2": "--chains 1 --melt 1 --blocks 1 --steps 1",
+    "run_gibbs_npt_co2_n2": "--chains 1 --melt 1 --blocks 1 --steps 1",
+    "run_tmmc_water": "--chains 2 --melt 1 --blocks 1 --steps 1",
 }
 
 

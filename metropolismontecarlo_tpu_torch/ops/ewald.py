@@ -287,6 +287,14 @@ def ewald_intra_kappa(coords_mp, charges_mp, kappa, box,
         * torch.sum(term, dim=(-1, -2, -3))
 
 
+def overlap_any(d2, qq, mask, d2_overlap=0.5):
+    """Hard-overlap veto: any included pair closer than sqrt(d2_overlap)
+    with opposite charges (reference `Ewald/ewalds.jl:359-361`).  d2, qq,
+    mask (..., P, A) -> (...) bool."""
+    bad = (d2 < d2_overlap) & (qq < 0.0) & mask
+    return bad.flatten(-2).any(-1)
+
+
 def ewald_self(charges, kappa, factor=COULOMB_FACTOR):
     """-factor kappa/sqrt(pi) sum q_i^2."""
     return -factor * kappa / math.sqrt(math.pi) \

@@ -1,5 +1,5 @@
 """Pair masks and distance grids (counterpart of
-metropolismontecarlo_tpu/ops/pairs.py, full-system part).
+metropolismontecarlo_tpu/ops/pairs.py).
 
 Cutoff modes: "site" (atom-atom spherical cutoff), "com" / "first" (all
 atom pairs of a molecule pair kept iff the COM / first-atom distance is
@@ -13,6 +13,16 @@ from metropolismontecarlo_tpu_torch.ops.pbc import (
     min_image,
     min_image_dist2,
 )
+
+
+def molecule_key_points(coords_mpa, com, mode):
+    """Per-molecule cutoff key point: coords_mpa (..., M, P, 3), com (...,
+    M, 3) -> (..., M, 3), the COM ("com") or the first atom ("first")."""
+    if mode == "com":
+        return com
+    if mode == "first":
+        return coords_mpa[..., :, 0, :]
+    raise ValueError(f"no molecular key point for cutoff mode {mode!r}")
 
 
 def full_pair_mask(coords, com, n_mol, box, r_cut, mode, mol_id=None):
@@ -35,6 +45,37 @@ def full_pair_mask(coords, com, n_mol, box, r_cut, mode, mol_id=None):
     mcut = d2m < r_cut * r_cut
     mid = mol_id.long()
     return inter & mcut[..., mid, :][..., :, mid]
+
+
+def moved_pair_mask(ra_key, coords, com, mol_index, n_mol, box, r_cut,
+                    mode):
+    """(A,) include-mask of one moved molecule against the system (uniform
+    width, A = n_mol * P): the molecular cutoff on its key point ra_key
+    (3,) against every molecule's key point com (M, 3), the molecule's own
+    (stale) atoms excluded.  The same for every atom of the moved
+    molecule, so it broadcasts over the moved-atom axis."""
+    A = coords.shape[0]
+    P = A // n_mol
+    mol_id = torch.arange(n_mol, device=coords.device).repeat_interleave(P)
+    other = mol_id != mol_index
+    if mode == "site":
+        raise NotImplementedError(
+            "per-move site cutoff requires the moved atom coords; "
+            "use moved_pair_mask_site"
+        )
+    d2m = min_image_dist2(ra_key[None, :], com, box)          # (M,)
+    return other & (d2m < r_cut * r_cut)[mol_id]
+
+
+def moved_pair_mask_site(ra, coords, mol_index, n_mol, box, r_cut):
+    """(P, A) site-cutoff include-mask of the moved atoms ra (P, 3) against
+    coords (A, 3) (uniform width), the molecule's own atoms excluded."""
+    A = coords.shape[0]
+    P = A // n_mol
+    mol_id = torch.arange(n_mol, device=coords.device).repeat_interleave(P)
+    other = mol_id != mol_index
+    d2 = min_image_dist2(ra[:, None, :], coords[None, :, :], box)
+    return other[None, :] & (d2 < r_cut * r_cut)
 
 
 def pair_dist2(ra, rb, box):

@@ -573,3 +573,31 @@ def test_staged_bar_equals_widom_lj():
         x_tot += fep.bar_solve(w_f, w_r)
     assert t * x_tot == pytest.approx(mu_widom, abs=max(6.0 * sem, 0.2)), \
         (t * x_tot, mu_widom, sem)
+
+
+def test_phase27_basis_identity_f64_plain():
+    """chip_smoke.py phase 27's gate (c) on the CPU in float64 on the plain
+    route: at run_bar_water.py's density (8 + 1 waters, r_cut 0.45 box +
+    LRC), the deletion works at the four basis systems of states sampled
+    at lambda (0.4, 0) give, through lambda_basis / lambda_work, the rung's
+    own deletion work to round-off; JAX's lambda_basis / lambda_work on
+    the same works give the same reconstruction."""
+    import chip_smoke
+
+    params, box = chip_smoke.fep_state_point(8)
+    system = fep.tag_last_molecule(spce_system(9), *chip_smoke.FEP_RUNG)
+    mc = MonteCarlo(system, params, device="cpu", dtype=F64,
+                    kernel="plain", recompute_chunk=1,
+                    generator=torch.Generator().manual_seed(27))
+    st = mc.init_state(cubic_lattice(9, box), box=box, n_chains=3)
+    st, _ = mc.run_block(st, 2)
+    works, direct, recon, mag = chip_smoke.fep_basis_identity(
+        mc, st, F64, chunk=1)
+    assert recon.shape == direct.shape == (3, 1)
+    assert np.all(mag > np.abs(direct))
+    np.testing.assert_allclose(recon, direct, rtol=1e-10, atol=1e-9)
+    want = fep_j.lambda_work(*chip_smoke.FEP_RUNG,
+                             *fep_j.lambda_basis(*works))
+    np.testing.assert_allclose(recon, np.asarray(want), rtol=1e-14, atol=0)
+    # the rung's work is not a basis work: the identity is not trivial
+    assert all(np.abs(w - direct).max() > 1.0 for w in works)

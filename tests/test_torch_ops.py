@@ -292,3 +292,78 @@ def test_structure_factor_fallback_paths(monkeypatch):
     ewald_t.delta_structure_factor(t(coords[0, :3]), t(coords[0, 3:6]),
                                    t(q[:3]), t(kv), b)
     assert calls[-2:] == [(3, len(kv))] * 2
+
+
+def _mask_case(name, rng):
+    """(port result, JAX result) of one of the pair-mask helpers on seeded
+    float64 inputs: 6 three-site molecules in a 7 A box."""
+    from metropolismontecarlo_tpu.ops import ewald as ewald_j
+    from metropolismontecarlo_tpu.ops import pairs as pairs_j
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_t
+    from metropolismontecarlo_tpu_torch.ops import pairs as pairs_t
+
+    n_mol, P, box, r_cut = 6, 3, 7.0, 3.1
+    coords = rng.uniform(0.0, box, size=(n_mol * P, 3))
+    com = coords.reshape(n_mol, P, 3).mean(1)
+    t, j = torch.tensor, jnp.asarray
+    if name == "overlap_any":
+        d2 = rng.uniform(0.0, 2.0, size=(5, P, n_mol * P))
+        qq = rng.normal(size=(5, P, n_mol * P))
+        mask = rng.uniform(size=(5, P, n_mol * P)) < 0.7
+        d2[0] = 1.0                                 # a row without overlap
+        return (ewald_t.overlap_any(t(d2), t(qq), t(mask)),
+                ewald_j.overlap_any(j(d2), j(qq), j(mask)))
+    if name.startswith("molecule_key_points"):
+        mode = name.split(":")[1]
+        mpa = coords.reshape(n_mol, P, 3)
+        return (pairs_t.molecule_key_points(t(mpa), t(com), mode),
+                pairs_j.molecule_key_points(j(mpa), j(com), mode))
+    if name.startswith("moved_pair_mask:"):
+        mode = name.split(":")[1]
+        key = com[2] if mode == "com" else coords[2 * P]
+        keys = com if mode == "com" else coords.reshape(n_mol, P, 3)[:, 0]
+        return (pairs_t.moved_pair_mask(t(key), t(coords), t(keys), 2, n_mol,
+                                        box, r_cut, mode),
+                pairs_j.moved_pair_mask(j(key), j(coords), j(keys), 2, n_mol,
+                                        box, r_cut, mode))
+    ra = coords[2 * P:3 * P] + rng.normal(0.0, 0.3, size=(P, 3))
+    return (pairs_t.moved_pair_mask_site(t(ra), t(coords), 2, n_mol, box,
+                                         r_cut),
+            pairs_j.moved_pair_mask_site(j(ra), j(coords), 2, n_mol, box,
+                                         r_cut))
+
+
+@pytest.mark.parametrize("name", [
+    "overlap_any", "molecule_key_points:com", "molecule_key_points:first",
+    "moved_pair_mask:com", "moved_pair_mask:first", "moved_pair_mask_site",
+    "molecule_key_points:site", "moved_pair_mask:site"])
+def test_mask_helpers_match_jax(name):
+    """ops/ewald.py overlap_any and ops/pairs.py molecule_key_points,
+    moved_pair_mask, moved_pair_mask_site against JAX's on seeded float64
+    inputs: masks equal exactly, key points to 1e-12; the refusals (no key
+    point for "site", moved_pair_mask's NotImplementedError) raise the
+    same errors."""
+    rng = np.random.default_rng(7)
+    if name.endswith(":site"):
+        err = ValueError if name.startswith("molecule") else \
+            NotImplementedError
+        from metropolismontecarlo_tpu.ops import pairs as pairs_j
+        from metropolismontecarlo_tpu_torch.ops import pairs as pairs_t
+        for mod, arr in ((pairs_t, torch.zeros), (pairs_j, jnp.zeros)):
+            with pytest.raises(err):
+                if name.startswith("molecule"):
+                    mod.molecule_key_points(arr((2, 3, 3)), arr((2, 3)),
+                                            "site")
+                else:
+                    mod.moved_pair_mask(arr((3,)), arr((6, 3)), arr((2, 3)),
+                                        0, 2, 7.0, 3.0, "site")
+        return
+    port, ref = _mask_case(name, rng)
+    port, ref = port.numpy(), np.asarray(ref)
+    assert port.shape == ref.shape
+    if ref.dtype == bool:
+        assert port.dtype == bool
+        assert np.array_equal(port, ref)
+        assert port.any() and not port.all()
+    else:
+        _close(port, ref)

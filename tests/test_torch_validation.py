@@ -44,11 +44,15 @@ DRIVERS = [name for name, _ in run_all.DRIVERS]
 RECORDS = dict(run_all.DRIVERS)
 HELPERS = ["_common", "run_all"]
 
-# module constants that name files, not protocol: excluded from (b)
+# module constants that name files or hold a script's plumbing, not
+# protocol: excluded from (b)
 PATH_CONSTANTS = {
     "OUT": "the JAX script's record path; the port takes --out",
     "NIST": "the reference's data file, outside the repository; the port "
             "builds the same path without a literal and takes --nist",
+    "SMOKE": "the JAX script's MMC_SMOKE knob; the port takes --device cpu "
+             "and depth flags",
+    "LINES": "the JAX script's record buffer; the port's is _common.Record",
 }
 
 # the JAX scripts' environment knobs, unset so their defaults are read
@@ -56,7 +60,10 @@ ENV_KNOBS = ("LRC_CHAINS", "LRC_BLOCKS", "LRC_STEPS", "EOS_CHAINS_PER_P",
              "EOS_EQUIL", "EOS_PROD", "EOS_SMOKE", "GIBBS_CAP",
              "GIBBS_CHAINS", "GIBBS_EQUIL", "GIBBS_PROD", "GIBBS_STEPS",
              "GIBBS_LRC", "GIBBS_MEGA", "GIBBS_PREEQ", "GIBBS_SMOKE",
-             "LRC_SMOKE")
+             "LRC_SMOKE", "BAR_N", "BAR_CHAINS", "BAR_EQUIL",
+             "BAR_STAGE_EQUIL", "BAR_PROD", "BAR_SMOKE", "BAR_CPU",
+             "BAR_CACHE", "CO2_CHAINS", "CO2_EQUIL", "CO2_PROD",
+             "CO2_SMOKE", "MMC_SMOKE")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -240,7 +247,7 @@ def test_jax_script_import_restores_jax_settings(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["run_npt_density", "run_spce_eos",
-                                  "run_gibbs_water"])
+                                  "run_gibbs_water", "run_co2_density"])
 def test_g_per_cc_matches_jax(name, monkeypatch):
     x = np.random.default_rng(1).uniform(0.0, 0.05, 64)
     np.testing.assert_allclose(_port(name).g_per_cc(x),
@@ -286,3 +293,58 @@ def test_n_samples_matches_jax(monkeypatch):
         _FakeBlocks(4), 0, 16, 10)
     assert a[0] == b[0] == 160
     np.testing.assert_allclose(a[1], b[1], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("name", ["run_gibbs_co2_n2",
+                                  "run_gibbs_npt_co2_n2"])
+def test_mass_rho_matches_jax(name, monkeypatch):
+    rng = np.random.default_rng(5)
+    n0, n1 = rng.integers(0, 90, (2, 64, 2)).astype(np.float64)
+    v = rng.uniform(4e3, 3e4, (64, 2))
+    np.testing.assert_allclose(_port(name).mass_rho(n0, n1, v),
+                               _jax(name, monkeypatch).mass_rho(n0, n1, v),
+                               rtol=1e-12, atol=0)
+
+
+def test_box_edge_matches_jax(monkeypatch):
+    ref = _jax("run_bar_water", monkeypatch)
+    for n in (8, 64, 216, 500):
+        assert _port("run_bar_water").box_edge(n) == pytest.approx(
+            ref.box_edge(n), rel=1e-12)
+    assert _port("run_bar_water").box_edge(216) == pytest.approx(18.644,
+                                                                 abs=5e-4)
+
+
+def test_water_two_blocks_matches_jax(monkeypatch):
+    """run_semigrand_binomial.py's two-block SPC/E System equals the JAX
+    script's field by field."""
+    a = _port("run_semigrand_binomial").water_two_blocks(24, 24)
+    b = _jax("run_semigrand_binomial", monkeypatch).water_two_blocks(24, 24)
+    for f in ("n_mol", "atoms_per_mol", "name", "species"):
+        assert getattr(a, f) == getattr(b, f), f
+    for f in ("body", "masses", "charges", "type_ids", "eps_table",
+              "sig_table"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f)), err_msg=f)
+
+
+def test_bar_analysis_recovers_known_df():
+    """run_bar_water.py's staged_bar on Gaussian works of known leg free
+    energies: w_f ~ N(dF + s^2/2, s), w_r ~ N(-dF + s^2/2, s) per leg (the
+    exact pair for Gaussian work distributions); the sum of the legs comes
+    back within 3 of the chain-fold standard errors, each leg within 0.05
+    kT, and the folds average to the whole."""
+    bw = _port("run_bar_water")
+    rng = np.random.default_rng(18)
+    temp, chains, samples = 298.15, 64, 40
+    legs = [(2.5, 1.5), (-4.0, 2.0), (0.7, 0.5), (-9.1, 2.5)]   # (dF, s)
+    works = [(rng.normal(df + s * s / 2, s, (chains, samples)),
+              rng.normal(-df + s * s / 2, s, (chains, samples)))
+             for df, s in legs]
+    works[0][0][3, 5] = np.inf              # a core-vetoed ghost: zero weight
+    mu, sem, got, folds = bw.staged_bar(works, temp)
+    exact = temp * sum(df for df, _ in legs)
+    assert len(folds) == bw.N_FOLDS and 0.0 < sem < 0.5 * temp
+    assert abs(mu - exact) < 3.0 * sem, (mu, exact, sem)
+    np.testing.assert_allclose(got, [df for df, _ in legs], atol=0.05)
+    assert abs(np.mean(folds) - mu) < 3.0 * sem
