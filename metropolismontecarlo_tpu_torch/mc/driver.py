@@ -84,6 +84,7 @@ from metropolismontecarlo_tpu_torch.ops.quaternions import (
 from metropolismontecarlo_tpu_torch.parallel.mesh import chain_shard
 from metropolismontecarlo_tpu_torch.parallel.tp import tp_full_energy_fn
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.profiling import span
 from metropolismontecarlo_tpu_torch.utils.shard import (
     current_shard,
     rand_chains,
@@ -385,18 +386,20 @@ class MonteCarlo:
         """Chunked full-system energy of coords (C, 3, A_pad), com
         (C, M, 3), box (C,): (C,) totals, virials and (C, K, 2) structure
         factors ((C, 1, 2) zeros without Ewald); with tp_mesh split over
-        the atoms axis (parallel/tp.py)."""
-        if self._tp_fe is not None:
-            return self._tp_fe(coords, com, box)
-        A = self.system.n_atoms
+        the atoms axis (parallel/tp.py).  One `recompute` span of the
+        chains (utils/profiling.py)."""
+        with span("recompute", coords.shape[0]):
+            if self._tp_fe is not None:
+                return self._tp_fe(coords, com, box)
+            A = self.system.n_atoms
 
-        def one(coords_t, com, box):
-            out = energy_breakdown(self.system, self.params,
-                                   coords_t[:, :, :A].transpose(1, 2), com,
-                                   box, self.kvecs, self.kweights)
-            return out["total"], out["w"], out["sfac"]
+            def one(coords_t, com, box):
+                out = energy_breakdown(self.system, self.params,
+                                       coords_t[:, :, :A].transpose(1, 2),
+                                       com, box, self.kvecs, self.kweights)
+                return out["total"], out["w"], out["sfac"]
 
-        return chunked_map(one, self.recompute_chunk, coords, com, box)
+            return chunked_map(one, self.recompute_chunk, coords, com, box)
 
     def full_energy(self, state):
         """Chunked full-system energy over chains: (C,) totals, virials

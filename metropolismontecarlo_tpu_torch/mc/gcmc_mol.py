@@ -50,6 +50,7 @@ from metropolismontecarlo_tpu_torch.utils.activity import (
     zero_empty,
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.profiling import span
 from metropolismontecarlo_tpu_torch.utils.shard import chain_rows, rand_chains
 
 
@@ -166,23 +167,29 @@ def make_mol_slots(system, params, device="cuda", dtype=torch.float64):
 
     def full_one(com, quat, coords, active, box):
         """Half the pose pair sums over active slots + the reciprocal
-        energy of the active charges + the N-dependent constants."""
-        a_ok = atom_ok_of(active)
-        ra = ev.pose_atoms(com, quat)                          # (C, cap, P, 3)
-        e_m, _ = ev.pair_energy(com, ra, coords, com, box, a_ok, slots)
-        e = 0.5 * torch.sum(torch.where(active, e_m, 0.0), dim=1)
-        nf = active.sum(1).to(dtype)
-        e = e + nf * ev.self_intra(box)
-        if q_t2 != 0.0:
-            e = e + ev.wolf_const_coeff(box) * q_t2 * nf * nf
-        if ev.use_lrc:
-            e = e + ev.lrc_self_coeff(box) * nf * nf
+        energy of the active charges + the N-dependent constants, in the
+        spans energy.setup (masks and poses), energy.real (pair sums and
+        constants) and energy.kspace (S(k) and the reciprocal energy)."""
+        with span("energy.setup", sync=False):
+            a_ok = atom_ok_of(active)
+            ra = ev.pose_atoms(com, quat)                  # (C, cap, P, 3)
+        with span("energy.real", sync=False):
+            e_m, _ = ev.pair_energy(com, ra, coords, com, box, a_ok, slots)
+            e = 0.5 * torch.sum(torch.where(active, e_m, 0.0), dim=1)
+            nf = active.sum(1).to(dtype)
+            e = e + nf * ev.self_intra(box)
+            if q_t2 != 0.0:
+                e = e + ev.wolf_const_coeff(box) * q_t2 * nf * nf
+            if ev.use_lrc:
+                e = e + ev.lrc_self_coeff(box) * nf * nf
         if use_ewald:
-            cf = ewald_ops.cfac_coeffs(kv, kw, params.kappa_L / box, box)
-            q_eff = torch.where(a_ok, ev.charges_flat, 0.0)
-            sf = ewald_ops.structure_factor(coords.transpose(1, 2), q_eff,
-                                            kv, box, kb)
-            e = e + ewald_ops.recip_energy(sf, cf)
+            with span("energy.kspace", sync=False):
+                cf = ewald_ops.cfac_coeffs(kv, kw, params.kappa_L / box,
+                                           box)
+                q_eff = torch.where(a_ok, ev.charges_flat, 0.0)
+                sf = ewald_ops.structure_factor(coords.transpose(1, 2),
+                                                q_eff, kv, box, kb)
+                e = e + ewald_ops.recip_energy(sf, cf)
         else:
             sf = torch.zeros((com.shape[0], K, 2), dtype=dtype,
                              device=com.device)

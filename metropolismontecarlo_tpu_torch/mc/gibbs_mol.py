@@ -52,6 +52,7 @@ from metropolismontecarlo_tpu_torch.utils.activity import (
     zero_empty,
 )
 from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+from metropolismontecarlo_tpu_torch.utils.profiling import span
 from metropolismontecarlo_tpu_torch.utils.shard import (
     rand_chains,
     randn_chains,
@@ -129,43 +130,44 @@ def volume_step(state, u_dv, u_acc, nf, rebuild, full_energy, dv_max, beta,
     the box `bit` (C,) bool (True: box 1) takes ln V' = ln V + (2 u_dv -
     1) dv_max against the bath, min[1, (V'/V)^(N + 1) exp(-beta dU -
     beta P dV)].  A proposal that shrinks a box below `wall` or to V <= 0
-    is refused."""
-    box, e = state.box, state.energy
-    tiny = torch.finfo(box.dtype).tiny
-    v = box ** 3
-    if npt_pressure is None:
-        dv = (u_dv - 0.5) * 2.0 * dv_max * v.sum(1)
-        v_new = v + torch.stack([dv, -dv], 1)
-        bath = torch.zeros_like(dv)
-    else:
-        pick = torch.stack([~bit, bit], 1)
-        dlnv = (2.0 * u_dv - 1.0) * dv_max
-        v_b = torch.where(bit, v[:, 1], v[:, 0])
-        v_b_new = v_b * torch.exp(dlnv)
-        v_new = torch.where(pick, v_b_new[:, None], v)
-        bath = beta * npt_pressure * (v_b_new - v_b) - dlnv
-    box_new = cube_root(v_new)             # batch-invariant (ops/pbc.py)
-    legal = ((box_new > wall) & (v_new > 0.0)).all(1)
-    box_t = torch.where(legal[:, None], box_new, box)
-    scale = torch.where(legal[:, None], box_new / box, 1.0)
-    com_v = state.com * scale[:, :, None, None]
-    coords_v = rebuild(com_v, state.quat)
-    e_v, sf_v = full_energy(dataclasses.replace(
-        state, com=com_v, coords=coords_v, box=box_t))
-    log_a = (nf * torch.log(torch.where(legal[:, None], v_new / v,
-                                        1.0))).sum(1) \
-        - beta * (e_v - e).sum(1) - torch.where(legal, bath, 0.0)
-    ok = legal & (torch.log(torch.clamp_min(u_acc, tiny)) < log_a)
-    okc = ok[:, None]
-    acc, att = state.acc.clone(), state.att.clone()
-    acc[:, 2] += ok.to(torch.int32)
-    att[:, 2] += 1
-    return dataclasses.replace(
-        state, com=torch.where(okc[..., None, None], com_v, state.com),
-        coords=torch.where(okc[..., None, None], coords_v, state.coords),
-        box=torch.where(okc, box_new, box),
-        sfac=torch.where(okc[..., None, None], sf_v, state.sfac),
-        energy=torch.where(okc, e_v, e), acc=acc, att=att)
+    is refused.  Inside a `volume_move` span (utils/profiling.py)."""
+    with span("volume_move"):
+        box, e = state.box, state.energy
+        tiny = torch.finfo(box.dtype).tiny
+        v = box ** 3
+        if npt_pressure is None:
+            dv = (u_dv - 0.5) * 2.0 * dv_max * v.sum(1)
+            v_new = v + torch.stack([dv, -dv], 1)
+            bath = torch.zeros_like(dv)
+        else:
+            pick = torch.stack([~bit, bit], 1)
+            dlnv = (2.0 * u_dv - 1.0) * dv_max
+            v_b = torch.where(bit, v[:, 1], v[:, 0])
+            v_b_new = v_b * torch.exp(dlnv)
+            v_new = torch.where(pick, v_b_new[:, None], v)
+            bath = beta * npt_pressure * (v_b_new - v_b) - dlnv
+        box_new = cube_root(v_new)             # batch-invariant (ops/pbc.py)
+        legal = ((box_new > wall) & (v_new > 0.0)).all(1)
+        box_t = torch.where(legal[:, None], box_new, box)
+        scale = torch.where(legal[:, None], box_new / box, 1.0)
+        com_v = state.com * scale[:, :, None, None]
+        coords_v = rebuild(com_v, state.quat)
+        e_v, sf_v = full_energy(dataclasses.replace(
+            state, com=com_v, coords=coords_v, box=box_t))
+        log_a = (nf * torch.log(torch.where(legal[:, None], v_new / v,
+                                            1.0))).sum(1) \
+            - beta * (e_v - e).sum(1) - torch.where(legal, bath, 0.0)
+        ok = legal & (torch.log(torch.clamp_min(u_acc, tiny)) < log_a)
+        okc = ok[:, None]
+        acc, att = state.acc.clone(), state.att.clone()
+        acc[:, 2] += ok.to(torch.int32)
+        att[:, 2] += 1
+        return dataclasses.replace(
+            state, com=torch.where(okc[..., None, None], com_v, state.com),
+            coords=torch.where(okc[..., None, None], coords_v, state.coords),
+            box=torch.where(okc, box_new, box),
+            sfac=torch.where(okc[..., None, None], sf_v, state.sfac),
+            energy=torch.where(okc, e_v, e), acc=acc, att=att)
 
 
 def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
@@ -226,10 +228,11 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         return ewald_ops.cfac_coeffs(ms.kv, ms.kw, params.kappa_L / box, box)
 
     def full_energy(state):
-        e, sf = chunked_map(ms.full_one, chunk, _fold(state.com),
-                            _fold(state.quat), _fold(state.coords),
-                            _fold(state.active), _fold(state.box))
-        return _unfold(e), _unfold(sf)
+        with span("recompute", 2 * state.com.shape[0]):
+            e, sf = chunked_map(ms.full_one, chunk, _fold(state.com),
+                                _fold(state.quat), _fold(state.coords),
+                                _fold(state.active), _fold(state.box))
+            return _unfold(e), _unfold(sf)
 
     def draw_cheap(C):
         """The draws of one cheap step of C chains, as the JAX step takes

@@ -24,6 +24,7 @@ import dataclasses
 import torch
 
 from metropolismontecarlo_tpu_torch.ops.pbc import cube_root
+from metropolismontecarlo_tpu_torch.utils.profiling import span
 from metropolismontecarlo_tpu_torch.utils.shard import chain_rows, rand_chains
 
 
@@ -42,7 +43,7 @@ def make_volume_move_fn(system, params, energy_fn, build_coords,
     pres_src = params.pressure if pressure is None else pressure
     max_cut = float(max(params.r_cut, params.qq_cut))
 
-    def with_uniforms(state, u_lnv, u_acc):
+    def move(state, u_lnv, u_acc):
         C = state.com.shape[0]
         pres = torch.as_tensor(pres_src, dtype=state.box.dtype,
                                device=state.box.device)
@@ -82,6 +83,10 @@ def make_volume_move_fn(system, params, energy_fn, build_coords,
             sfac=sel(sfac_new, state.sfac) if params.coulomb == "ewald"
             else state.sfac,
             acc=acc, att=att)
+
+    def with_uniforms(state, u_lnv, u_acc):
+        with span("volume_move"):
+            return move(state, u_lnv, u_acc)
 
     def volume_move(state, generator):
         # chain-global under a shard context (utils/shard.py)

@@ -1,31 +1,60 @@
-"""Profiling helpers (counterpart of
-metropolismontecarlo_tpu/utils/profiling.py): a torch.profiler trace and
-steady-state timers that synchronise the card before reading the clock."""
+"""Spans inside the port, off unless a sink is attached, and steady-state
+timers that synchronise the card before reading the clock.
+
+The port marks where its work happens with `span(name, units, sync)`:
+`volume_move` around each volume move, `recompute` around each chunked
+full-energy recompute, `chunk` around each group of rows of a chunked
+map, and `energy.setup` / `energy.real` / `energy.kspace` around the
+phases of one chunk of the dense energy.  With no sink attached (every
+run that does not trace) `span` hands back one preallocated
+`contextlib.nullcontext()`: it allocates nothing, calls nothing and never
+synchronises the card.
+
+A sink is any object with a method `span(name, units, sync)` that
+returns a context manager; `attach(sink)` makes it the one sink of the
+process, `detach()` removes it.  `units` counts the work inside the
+span (1 per volume move; the chains or boxes of a recompute; the rows of
+a chunk).  `sync=True` marks a span whose time a sink may measure by
+synchronising the card at its ends (volume moves and recomputes end in
+host reads anyway); `sync=False` marks one nested in a synchronised
+span, whose own sync would serialise the launches it is timing (the
+chunks and their phases): a sink counts or annotates it, and does not
+synchronise.
+"""
 
 import contextlib
 import time
 
 import torch
 
+_NULL = contextlib.nullcontext()
+_sink = None
+
+
+def attach(sink):
+    """Make sink (sink.span(name, units, sync) -> context manager) the
+    receiver of every span of the process."""
+    global _sink
+    _sink = sink
+
+
+def detach():
+    """Remove the attached sink: spans do nothing again."""
+    global _sink
+    _sink = None
+
+
+def span(name, units=1, sync=True):
+    """The attached sink's span(name, units, sync), or a shared
+    nullcontext when none is attached."""
+    if _sink is None:
+        return _NULL
+    return _sink.span(name, units, sync)
+
 
 def _sync():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def trace(log_dir):
-    """Trace the enclosed work with torch.profiler (CPU, and CUDA when a
-    card is present) into log_dir, viewable in TensorBoard or Perfetto;
-    the profiler object is yielded (key_averages() etc.)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                str(log_dir))) as prof:
-        yield prof
 
 
 def throughput(fn, *args, warmup=1, iters=3):
