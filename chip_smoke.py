@@ -4,7 +4,8 @@
 
 Phase 0  require CUDA; print the card's name and power limit.
 Phase 1  build csrc/sweep_kernel.cu, csrc/delta_energy.cu,
-         csrc/gibbs_kernel.cu and csrc/flip_kernel.cu with nvcc for sm_90a,
+         csrc/gibbs_kernel.cu, csrc/flip_kernel.cu and
+         csrc/recompute_kernel.cu with nvcc for sm_90a,
          all at once (cached by a hash of each source under
          metropolismontecarlo_tpu_torch/_build); ptxas registers and spills
          of each instantiation (a spill of any instantiation of any kernel
@@ -412,6 +413,17 @@ Phase 27 the staged-FEP path (mc/fep.py) at
          1e-5 of the terms' magnitude; one make_decoupled_insertion_fn
          call at lambda 0 on the same configurations, finite works
          outside its overlap mask; the phase's wall time.
+Phase 28 the full-energy recompute kernel (csrc/recompute_kernel.cu) at
+         the benchmark's flagship (750 SPC/E, 2048 chains) and
+         TIP4P/2005-750 (1024 chains) shapes, chains at boxes 0.99-1.01
+         of 28.24 A: one launch per recompute, the kernel and the chunked
+         plain route timed on the same states, both against
+         energy_breakdown in float64 on 16 chains (energy and virial
+         within 2e-5 of max(|E|, |E_self|), S(k) within 1e-4 of the sum of
+         |q|, for the kernel), the kernel against the plain float32 route
+         on every chain (twice those limits), registers, shared bytes,
+         blocks per SM and its share of recompute_bound; a run_block of
+         one sweep whose recompute is one launch, counted from zero.
 
 Tolerances.  Sweep kernel vs plain (and the per-move route vs the whole
 sweep): at least 98% of chains take identical accept decisions, judged
@@ -522,10 +534,12 @@ def phase1():
         delta_energy,
         flip_kernel,
         gibbs_kernel,
+        recompute_kernel,
         sweep_kernel,
     )
 
-    names = ("sweep_kernel", "delta_energy", "gibbs_kernel", "flip_kernel")
+    names = ("sweep_kernel", "delta_energy", "gibbs_kernel", "flip_kernel",
+             "recompute_kernel")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
     # the sweep kernel's template instantiations <kAct, kTmmc, kLayout> by
@@ -549,10 +563,16 @@ def phase1():
             labels[f"11flip_kernelILi{q}ELb{g}EE"] = \
                 f"semigrand flips <{form}{where}>"
         labels[f"19delta_energy_kernelILi{q}E"] = f"delta energy <{form}>"
+    # the recompute kernel's <Ewald, linear LJ shift>
+    for e in (0, 1):
+        for lin in (0, 1):
+            labels[f"16recompute_kernelILb{e}ELb{lin}EE"] = \
+                f"recompute <{'ewald' if e else 'none'}" \
+                f"{', linear LJ' if lin else ''}>"
     spills = []
     for name, (path, seconds, log) in zip(names, builds):
         print(f"phase1 built {path.name} in {seconds:.2f} s (nvcc, all "
-              f"four sources at once)")
+              f"five sources at once)")
         entry = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -567,6 +587,7 @@ def phase1():
     delta_energy._library()
     gibbs_kernel._library()
     flip_kernel._library()
+    recompute_kernel._library()
     # the delta-energy kernel at the per-move main path's shape (R 8 rows,
     # T 4 types) as the runtime reports it
     threads = delta_energy.THREADS
@@ -6470,9 +6491,12 @@ def phase25_tp_rank(rank, n_chain_shards, n_atom_shards, chains, chunk,
 
 def _phase25_tp_reference(dev, shape, chains, e_tp):
     """(c)'s reference in rank 0: the unsharded recompute of the same
-    states (the same orientations: chain-global draws)."""
+    states (the same orientations: chain-global draws) on the plain dense
+    route, whose arithmetic the TP route's row tiles share (the recompute
+    kernel's sums round otherwise: phase 28)."""
     ref_mc = flagship_mc(dev, shape)
     ref = flagship_init(ref_mc, chains, shape)
+    ref_mc._recompute_tables = None
     t0 = time.perf_counter()
     e_ref, _, _ = ref_mc.full_energy(ref)
     _sync(dev)
@@ -7060,10 +7084,201 @@ def phase27(dev, smi, n=216, chains=256, twin_chains=64, sweeps=5,
     return launches, err
 
 
+# phase 28's shapes: (tag, builder, waters, box, r_cut, chains), the
+# benchmark's flagship and TIP4P/2005-750 cells
+RECOMPUTE_SHAPES = (("flagship SPC/E-750", "spce_system", 750, 28.24, 10.0,
+                     2048),
+                    ("TIP4P/2005-750", "tip4p2005_system", 750, 28.24, 10.0,
+                     1024))
+RECOMPUTE_TOL = 2e-5       # energy and virial over max(|E|, |E_self|)
+RECOMPUTE_SK_TOL = 1e-4    # S(k) over the sum of |q|
+RECOMPUTE_REF_CHAINS = 16  # chains of the float64 reference
+# the kernel against the plain float32 route on every chain: each route
+# within its own limit of the float64 reference, so twice the limits
+RECOMPUTE_PAIR_TOL, RECOMPUTE_PAIR_SK_TOL = 2 * RECOMPUTE_TOL, \
+    2 * RECOMPUTE_SK_TOL
+
+
+class _SpanNames:
+    """A span sink (utils/profiling.py) that keeps the names it sees."""
+
+    def __init__(self):
+        self.names = []
+
+    def span(self, name, units, sync):
+        self.names.append(name)
+        return contextlib.nullcontext()
+
+
+def recompute_bound(system, params, chains, frac, K):
+    """The least time (ms) of one recompute of `chains` chains of `system`
+    and what sets it: per chain each unordered pair of sites of different
+    molecules one distance and, for the share frac inside the cutoff, its
+    terms (LJ between LJ sites, Coulomb between charged ones); with Ewald
+    per molecule its S(k) row (k_pose_ops) and per chain the reciprocal
+    sum over the K k-vectors; each chain's atoms read and its energy and
+    S(k) written once."""
+    P, M, A = system.atoms_per_mol, system.n_mol, system.n_atoms
+    sites = np.asarray(system.type_ids[0])
+    n_lj = int(np.sum(np.any(np.asarray(system.eps_table) != 0, 1)[sites]))
+    ewald = params.coulomb == "ewald"
+    n_q = int(np.sum(np.asarray(system.charges[0]) != 0)) if ewald else 0
+    terms = frac * ((n_lj / P) ** 2 * OPS_LJ + (n_q / P) ** 2 * OPS_COULOMB)
+    ops = chains * A * (A - P) / 2.0 * (OPS_GEOMETRY + terms)
+    if ewald:
+        ops += chains * (M * k_pose_ops(K, params.nk, n_q) + K * OPS_K_MOVE)
+    return _bound(4.0 * chains * (3 * A + 1 + 2 * K), ops)
+
+
+def recompute_case(dev, tag, builder, n_mol, box, r_cut, chains, reps=5):
+    """One shape of phase 28; returns its numbers."""
+    from metropolismontecarlo_tpu_torch.io.configs import cubic_lattice
+    from metropolismontecarlo_tpu_torch.mc.driver import MonteCarlo
+    from metropolismontecarlo_tpu_torch.models import water
+    from metropolismontecarlo_tpu_torch.models.energy import energy_breakdown
+    from metropolismontecarlo_tpu_torch.models.system import RunParams
+    from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+    from metropolismontecarlo_tpu_torch.ops.cuda import recompute_kernel as rop
+    from metropolismontecarlo_tpu_torch.utils import profiling
+    from metropolismontecarlo_tpu_torch.utils.chunking import chunked_map
+
+    system = getattr(water, builder)(n_mol)
+    params = RunParams(temperature=298.15, r_cut=r_cut, coulomb="ewald",
+                       p_translate=0.5, dr_max=0.3, dphi_max=0.3)
+    gen = torch.Generator(device=dev).manual_seed(FLAGSHIP_SEED)
+    mc = MonteCarlo(system, params, device=dev, generator=gen)
+    t = mc._recompute_tables
+    if t is None:
+        raise AssertionError(f"{tag}: the gate refused the recompute kernel")
+    n0 = rop.recompute_kernel.launches
+    st = mc.init_state(cubic_lattice(n_mol, box), box=box, n_chains=chains)
+    # chains at boxes 0.99-1.01 of the lattice's, as after volume moves
+    scale = torch.linspace(0.99, 1.01, chains, device=dev)
+    com = st.com * scale[:, None, None]
+    coords = mc.build_coords(com, st.quat)
+    boxes = st.box * scale
+    args = (coords, com, boxes)
+    e, w, sk = mc._energies(*args)
+    torch.cuda.synchronize()
+    if rop.recompute_kernel.launches != n0 + 2:
+        raise AssertionError(f"{tag}: {rop.recompute_kernel.launches - n0} "
+                             f"kernel launches for 2 recomputes")
+    call_ms = _time_ms(lambda: mc._energies(*args), reps)
+    kernel_ms = _time_ms(lambda: rop._launch(t, *args), reps)
+    if rop.recompute_kernel.launches != n0 + 2 + 2 * reps:
+        raise AssertionError(f"{tag}: the launch counter missed a launch")
+    # the chunked plain route on the same states: the tables set aside
+    mc._recompute_tables = None
+    try:
+        e_p, w_p, sk_p = mc._energies(*args)
+        plain_ms = _time_ms(lambda: mc._energies(*args), 1)
+    finally:
+        mc._recompute_tables = t
+    # both against energy_breakdown in float64 on the first chains
+    n = min(RECOMPUTE_REF_CHAINS, chains)
+    A = system.n_atoms
+    cols = chunked_map(
+        lambda c, m, b: tuple(energy_breakdown(
+            system, params, c[:, :, :A].transpose(1, 2).double(), m.double(),
+            b.double(), mc.kvecs, mc.kweights)[key]
+            for key in ("total", "w", "sfac", "coul_self")),
+        2, coords[:n], com[:n], boxes[:n])
+    ref = dict(zip(("total", "w", "sfac", "coul_self"), cols))
+    scale_e = torch.maximum(ref["total"].abs(), ref["coul_self"].abs())
+    qsum = float(np.abs(system.flat(system.charges)).sum())
+
+    def err(e_, w_, s_):
+        return (float(((e_[:n].double() - ref["total"]).abs()
+                       / scale_e).max()),
+                float(((w_[:n].double() - ref["w"]).abs() / scale_e).max()),
+                float((s_[:n].double() - ref["sfac"]).abs().max()) / qsum)
+
+    k_err, p_err = err(e, w, sk), err(e_p, w_p, sk_p)
+    # every chain: the kernel against the plain float32 route
+    scale_all = torch.maximum(
+        e_p.double().abs(),
+        ewald_ops.ewald_self(t.q.double(), t.kappa_l / boxes.double()).abs())
+    vs_plain = (float(((e - e_p).double().abs() / scale_all).max()),
+                float(((w - w_p).double().abs() / scale_all).max()),
+                float((sk - sk_p).abs().max()) / qsum)
+    regs, local, blocks, smem, tile = rop.occupancy(t)
+    frac = _cutoff_fraction(system, SimpleNamespace(
+        coords=coords, box=boxes), r_cut, n=8)
+    bound_ms, bound_by = recompute_bound(system, params, chains, frac, t.K)
+    print(f"phase28 {tag}, {chains} chains, A {A}, K {t.K}: kernel "
+          f"{kernel_ms:.3f} ms a launch, {call_ms:.3f} ms a recompute with "
+          f"the tail; chunked plain route {plain_ms:.1f} ms "
+          f"({mc.recompute_chunk} chains a chunk); {regs} registers, {local} "
+          f"B local, {smem} B shared, {blocks} blocks per SM, eik tiles of "
+          f"{tile} sites; bound {bound_ms:.3f} ms ({bound_by}, cutoff "
+          f"fraction {frac:.4f}), share {100.0 * bound_ms / kernel_ms:.2f}%")
+    print(f"phase28 {tag} against float64 energy_breakdown ({n} chains; "
+          f"energy, virial over max(|E|, |E_self|), S(k) over sum |q| = "
+          f"{qsum:.1f}): kernel {k_err[0]:.3e} {k_err[1]:.3e} "
+          f"{k_err[2]:.3e}; plain f32 {p_err[0]:.3e} {p_err[1]:.3e} "
+          f"{p_err[2]:.3e}; kernel against plain f32 on all {chains} chains "
+          f"{vs_plain[0]:.3e} {vs_plain[1]:.3e} {vs_plain[2]:.3e}")
+    if not (k_err[0] <= RECOMPUTE_TOL and k_err[1] <= RECOMPUTE_TOL
+            and k_err[2] <= RECOMPUTE_SK_TOL):
+        raise AssertionError(f"{tag}: the recompute kernel is off the "
+                             f"float64 reference: {k_err}")
+    if not (vs_plain[0] <= RECOMPUTE_PAIR_TOL
+            and vs_plain[1] <= RECOMPUTE_PAIR_TOL
+            and vs_plain[2] <= RECOMPUTE_PAIR_SK_TOL):
+        raise AssertionError(f"{tag}: the recompute kernel is off the plain "
+                             f"float32 route: {vs_plain}")
+    if local:
+        raise AssertionError(f"{tag}: the recompute kernel spills "
+                             f"({local} B local)")
+    # a run_block of one sweep, the main path: its recompute is one kernel
+    # launch, counted from zero, with no chunk and no energy phase inside it
+    names = _SpanNames()
+    rop.recompute_kernel.launches = 0
+    profiling.attach(names)
+    try:
+        mc.run_block(st, 1)
+    finally:
+        profiling.detach()
+    inner = [n for n in names.names if n not in ("recompute",
+                                                 "recompute.kernel")]
+    launches = rop.recompute_kernel.launches
+    print(f"phase28 {tag} run_block(1): spans {names.names}, {launches} "
+          f"kernel launch")
+    if launches != 1 or inner \
+            or names.names != ["recompute", "recompute.kernel"]:
+        raise AssertionError(f"{tag}: run_block's recompute is not one "
+                             f"kernel launch")
+    return dict(ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms,
+                err=max(k_err), bound_ms=bound_ms, bound_by=bound_by,
+                launches=launches)
+
+
+def phase28(dev):
+    """The recompute kernel at the benchmark's flagship (750 SPC/E, 2048
+    chains) and TIP4P/2005-750 (1024 chains) shapes from a lattice start
+    with random orientations, chains at boxes 0.99-1.01 of 28.24 A: one
+    kernel launch per recompute (the launch counter read after each),
+    the kernel's time (CUDA events, 5 launches) and the recompute's with
+    its O(C) tail, the chunked plain route's on the same states; both
+    against energy_breakdown in float64 on the first 16 chains (energy
+    and virial within 2e-5 of max(|E|, |E_self|), S(k) within 1e-4 of
+    the sum of |q|, for the kernel), the kernel against the plain float32
+    route on every chain within twice those limits; registers, shared
+    bytes, blocks per SM; recompute_bound at the states' cutoff fraction
+    and the kernel's share of it; last a run_block of one sweep whose
+    recompute must be one launch (the counter set to zero before it)
+    inside its `recompute` span, with no chunk."""
+    t0 = time.perf_counter()
+    out = {tag: recompute_case(dev, tag, *rest)
+           for tag, *rest in RECOMPUTE_SHAPES}
+    print(f"phase28: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default=",".join(str(i) for i in range(2, 28)),
+                    default=",".join(str(i) for i in range(2, 29)),
                     help="comma-separated phases to run after 0 and 1 "
                          "(default: all; the result lines are printed only "
                          "when all ran)")
@@ -7159,8 +7374,10 @@ def main():
         phase26(dev, smi)
     if 27 in want:
         phase27(dev, smi)
+    if 28 in want:
+        rec28 = phase28(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
-    if want != set(range(2, 28)):
+    if want != set(range(2, 29)):
         print("chip_smoke: a partial run (--phases) prints no result",
               file=sys.stderr)
         sys.exit(1)
@@ -7253,7 +7470,15 @@ def main():
             ("sweep_gibbs_kernel[global]", "gibbs global", gibbs_row,
              err2gb),
             ("flip_kernel[global]", "flip global", flip_row, err2f))
-        for r in (rows24[key],)]}))
+        for r in (rows24[key],)] + [
+        # phase 28: one launch per recompute (no TPU kernel: the JAX
+        # package recomputes in plain jnp)
+        {"name": f"recompute_kernel[{tag}]", "route": "cuda",
+         "source": f"{SRC}/recompute_kernel.cu", "replaces": None,
+         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": None}
+        for tag, r in rec28.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,14 @@ slab windows' coverage) and resynchronises energy, virial and S(k).
 `pressure_fd` is the finite-difference pressure, `quench` a
 near-zero-temperature descent.
 
+Every full-energy recompute (init, the block end, resync, the NPT volume
+move) runs as one launch of the recompute kernel over all chains
+(ops/cuda/recompute_kernel.py) where mc/moves.py
+recompute_kernel_supported admits the run (the card, float32, site
+cutoff, none/linear LJ shift, Ewald or no Coulomb, no surface term, the
+dense route's atom counts, no tp_mesh); elsewhere models/energy.py
+energy_breakdown runs in chunks of recompute_chunk chains.
+
 `widom` samples ghost insertions in plain tensor code, `widom_mega` runs
 a sweep and the ghosts inside one sweep-kernel launch (mc/widom.py).
 
@@ -60,6 +68,7 @@ from metropolismontecarlo_tpu_torch.mc.moves import (
     move_graph_key,
     nlist_radius,
     rebuild_nlist,
+    recompute_kernel_supported,
     slab_config,
 )
 from metropolismontecarlo_tpu_torch.mc.npt import make_volume_move_fn
@@ -75,6 +84,9 @@ from metropolismontecarlo_tpu_torch.models.energy import (
 )
 from metropolismontecarlo_tpu_torch.models.system import SimState
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
+from metropolismontecarlo_tpu_torch.ops.cuda import (
+    recompute_kernel as recompute_op,
+)
 from metropolismontecarlo_tpu_torch.ops.cuda.sweep_kernel import N_UNIFORMS
 from metropolismontecarlo_tpu_torch.ops.quaternions import (
     fit_quaternions,
@@ -156,7 +168,9 @@ class MonteCarlo:
         without a CUDA device a "cuda" request raises.  generator: the
         torch.Generator (on `device`) behind every random draw; a fresh
         one seeded 0 when None.  recompute_chunk: chains per step of the
-        chunked full-energy recompute ("auto": from a memory model).
+        chunked full-energy recompute where it runs plain (energy_breakdown;
+        "auto": from a memory model); the recompute kernel takes every
+        chain in one launch.
         tp_mesh: a 2-D ("chains", "atoms") DeviceMesh (parallel/tp.py
         make_mesh_2d) over the initialised world: states are then this
         rank's shard of the chains (init_state's n_chains counts the
@@ -207,6 +221,13 @@ class MonteCarlo:
             self._tp_fe = tp_full_energy_fn(
                 system, params, tp_mesh, self.kvecs, self.kweights,
                 recompute_chunk=recompute_chunk)
+        # the full-energy recompute's kernel tables, uploaded once, where
+        # the gate admits the run (else the chunked energy_breakdown)
+        self._recompute_tables = None
+        if recompute_kernel_supported(system, params, dtype, self.device,
+                                      tp_mesh):
+            self._recompute_tables = recompute_op.recompute_tables(
+                system, params, self.kvecs, self.kweights, self.device)
         self._widom_fns, self._widom_mega_fn, self._widom_mega_n = \
             {}, None, None
         self.route = choose_route(system, params, dtype, kernel)
@@ -383,12 +404,21 @@ class MonteCarlo:
     # ---------------- full recompute / resync ----------------
 
     def _energies(self, coords, com, box):
-        """Chunked full-system energy of coords (C, 3, A_pad), com
-        (C, M, 3), box (C,): (C,) totals, virials and (C, K, 2) structure
-        factors ((C, 1, 2) zeros without Ewald); with tp_mesh split over
-        the atoms axis (parallel/tp.py).  One `recompute` span of the
-        chains (utils/profiling.py)."""
-        with span("recompute", coords.shape[0]):
+        """Full-system energy of coords (C, 3, A_pad), com (C, M, 3), box
+        (C,): (C,) totals, virials and (C, K, 2) structure factors ((C, 1,
+        2) zeros without Ewald).  Where recompute_kernel_supported admitted
+        the run, one launch of the recompute kernel over all chains
+        (ops/cuda/recompute_kernel.py); with tp_mesh split over the atoms
+        axis (parallel/tp.py); else energy_breakdown in chunks of
+        recompute_chunk chains.  One `recompute` span of the chains
+        (utils/profiling.py), the kernel's launch in a `recompute.kernel`
+        span inside it."""
+        C = coords.shape[0]
+        with span("recompute", C):
+            if self._recompute_tables is not None:
+                with span("recompute.kernel", C, sync=False):
+                    return recompute_op.recompute_kernel(
+                        self._recompute_tables, coords, com, box)
             if self._tp_fe is not None:
                 return self._tp_fe(coords, com, box)
             A = self.system.n_atoms
@@ -402,8 +432,9 @@ class MonteCarlo:
             return chunked_map(one, self.recompute_chunk, coords, com, box)
 
     def full_energy(self, state):
-        """Chunked full-system energy over chains: (C,) totals, virials
-        and (C, K, 2) structure factors ((C, 1, 2) zeros without Ewald)."""
+        """Full-system energy over chains (_energies): (C,) totals,
+        virials and (C, K, 2) structure factors ((C, 1, 2) zeros without
+        Ewald)."""
         return self._energies(state.coords, state.com, state.box)
 
     def resync(self, state):

@@ -45,10 +45,14 @@ import os
 import numpy as np
 import torch
 
+from metropolismontecarlo_tpu_torch.models.energy import DENSE_MAX_ATOMS
 from metropolismontecarlo_tpu_torch.ops import ewald as ewald_ops
 from metropolismontecarlo_tpu_torch.ops.cuda import delta_energy as delta_op
 from metropolismontecarlo_tpu_torch.ops.cuda import flip_kernel as flip_op
 from metropolismontecarlo_tpu_torch.ops.cuda import gibbs_kernel as gibbs_op
+from metropolismontecarlo_tpu_torch.ops.cuda import (
+    recompute_kernel as recompute_op,
+)
 from metropolismontecarlo_tpu_torch.ops.cuda import sweep_kernel as sweep_op
 from metropolismontecarlo_tpu_torch.ops.lj import _shift_coeffs
 from metropolismontecarlo_tpu_torch.ops.pbc import min_image
@@ -134,6 +138,26 @@ def mega_supported(system, params, dtype=torch.float32):
     return (system.species_uniform and params.cutoff_mode == "site"
             and params.lj_shift in ("none", "linear")
             and dtype == torch.float32 and not params.ewald_surface)
+
+
+def recompute_kernel_supported(system, params, dtype=torch.float32,
+                               device="cuda", tp_mesh=None):
+    """Whether the full-energy recompute runs as the CUDA kernel
+    (ops/cuda/recompute_kernel.py): on the card in float32, site cutoff,
+    none/linear LJ shift, Ewald (without the surface term) or no Coulomb,
+    the dense route's atom counts (n_atoms <= DENSE_MAX_ATOMS), no
+    tensor-parallel mesh, and within the kernel's tables (at most
+    MAX_TYPES LJ types, k indices within MAX_NK).  Every other run keeps
+    models/energy.py energy_breakdown, the kernel's plain twin."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and params.cutoff_mode == "site"
+            and params.lj_shift in ("none", "linear")
+            and params.coulomb in ("ewald", "none")
+            and not params.ewald_surface
+            and system.n_atoms <= DENSE_MAX_ATOMS and tp_mesh is None
+            and system.eps_table.shape[0] <= recompute_op.MAX_TYPES
+            and (params.coulomb != "ewald"
+                 or params.nk <= recompute_op.MAX_NK))
 
 
 def check_mega_supported(system, params):

@@ -2,10 +2,11 @@
 timers that synchronise the card before reading the clock.
 
 The port marks where its work happens with `span(name, units, sync)`:
-`volume_move` around each volume move, `recompute` around each chunked
-full-energy recompute, `chunk` around each group of rows of a chunked
-map, and `energy.setup` / `energy.real` / `energy.kspace` around the
-phases of one chunk of the dense energy.  With no sink attached (every
+`volume_move` around each volume move, `recompute` around each
+full-energy recompute, `recompute.kernel` around the recompute kernel's
+launch inside it (the kernel route), `chunk` around each group of rows
+of a chunked map, and `energy.setup` / `energy.real` / `energy.kspace`
+around the phases of one chunk of the dense energy (the plain route).  With no sink attached (every
 run that does not trace) `span` hands back one preallocated
 `contextlib.nullcontext()`: it allocates nothing, calls nothing and never
 synchronises the card.
@@ -13,13 +14,13 @@ synchronises the card.
 A sink is any object with a method `span(name, units, sync)` that
 returns a context manager; `attach(sink)` makes it the one sink of the
 process, `detach()` removes it.  `units` counts the work inside the
-span (1 per volume move; the chains or boxes of a recompute; the rows of
-a chunk).  `sync=True` marks a span whose time a sink may measure by
+span (1 per volume move; the chains or boxes of a recompute and of its
+kernel launch; the rows of a chunk).  `sync=True` marks a span whose time a sink may measure by
 synchronising the card at its ends (volume moves and recomputes end in
 host reads anyway); `sync=False` marks one nested in a synchronised
 span, whose own sync would serialise the launches it is timing (the
-chunks and their phases): a sink counts or annotates it, and does not
-synchronise.
+kernel launch, the chunks and their phases): a sink counts or annotates
+it, and does not synchronise.
 """
 
 import contextlib
