@@ -22,11 +22,13 @@ Three routes, chosen by `mega`:
           exchange-only plain steps;
   "full"  cycles of one sweep-kernel launch that runs the cap moves and
           the x_per exchange attempts.
-On CPU tensors the kernel routes run the kernel's plain version.  tmmc=True
-builds the transition-matrix variant on every route (mc/tmmc.py TMMCMol
-runs it in blocks): each exchange attempt deposits both branches' unbiased
-acceptances into a collection matrix and the bias eta enters the
-acceptance thresholds only.
+On CPU tensors the kernel routes run the kernel's plain version.  Spans
+(utils/profiling.py): `gcmc.cycle` around each kernel launch,
+`gcmc.exchange` around a hybrid cycle's exchange steps, `recompute`
+around `full_energy`.  tmmc=True builds the transition-matrix variant on
+every route (mc/tmmc.py TMMCMol runs it in blocks): each exchange attempt
+deposits both branches' unbiased acceptances into a collection matrix
+and the bias eta enters the acceptance thresholds only.
 """
 
 import dataclasses
@@ -469,8 +471,11 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
             energy=e, acc=st.acc + a_row, att=st.att + t_row)
 
     def full_energy(state):
-        return chunked_map(ms.full_one, chunk, state.com, state.quat,
-                           state.coords, state.active, state.box)
+        """The chunked recompute of every chain, in one `recompute` span
+        of the chains (utils/profiling.py)."""
+        with span("recompute", state.com.shape[0]):
+            return chunked_map(ms.full_one, chunk, state.com, state.quat,
+                               state.coords, state.active, state.box)
 
     def _z_of(state):
         """(C,) per-chain activity: the scalar broadcast, or the ladder's
@@ -523,18 +528,20 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                 with_activity=True, n_exch=x_per, tmmc_exch=tmmc)
 
             def _cycle_full(state, eta=None):
-                """One launch; with tmmc also its (cmat, uhist), the
-                carried energy going in as the deposits' e_in."""
+                """One launch, in a `gcmc.cycle` span of the chains; with
+                tmmc also its (cmat, uhist), the carried energy going in as
+                the deposits' e_in."""
                 si_c = ev.self_intra(state.box)
                 wc_c = ev.wolf_const_coeff(state.box) * ms.q_t2
                 if ev.use_lrc:
                     # the tail rides the quadratic-in-N constant:
                     # wc (2 n +- 1) is g ((N + dn)^2 - N^2) for dn = +-1
                     wc_c = wc_c + ev.lrc_self_coeff(state.box)
-                out = sweep_x(
-                    state.com, state.quat, state.coords, state.active,
-                    state.box, state.sfac, generator, _z_of(state), si_c,
-                    wc_c, energy=state.energy, eta=eta)
+                with span("gcmc.cycle", state.com.shape[0], sync=False):
+                    out = sweep_x(
+                        state.com, state.quat, state.coords, state.active,
+                        state.box, state.sfac, generator, _z_of(state), si_c,
+                        wc_c, energy=state.energy, eta=eta)
                 com, quat, coords, active, sfac_o, d_e, acc4, att4 = out[:8]
                 energy, sfac_o = zero_empty(
                     state.energy + d_e,
@@ -587,9 +594,11 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                 run_x, x_per = None, 0
 
             def _sweep_state(state):
-                com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                    state.com, state.quat, state.coords, state.active,
-                    state.box, state.sfac, generator)
+                """One launch, in a `gcmc.cycle` span of the chains."""
+                with span("gcmc.cycle", state.com.shape[0], sync=False):
+                    com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
+                        state.com, state.quat, state.coords, state.active,
+                        state.box, state.sfac, generator)
                 pad = torch.nn.functional.pad
                 return dataclasses.replace(
                     state, com=com, quat=quat, coords=coords,
@@ -601,12 +610,18 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
             def n_cycles(n_steps):
                 return max(1, int(round(n_steps / (cap + x_per))))
 
+            def exchanges(state):
+                """The span of a cycle's x_per plain exchange steps."""
+                return span("gcmc.exchange", state.com.shape[0] * x_per,
+                            sync=False)
+
             if tmmc:
                 def run_steps(state, eta, n_steps):   # noqa: F811
                     cmat, uhist = _tm_zeros(state), _tm_zeros(state)
                     for _ in range(n_cycles(n_steps)):
                         state = _sweep_state(state)
-                        state, cm, uh = run_x(state, eta, x_per)
+                        with exchanges(state):
+                            state, cm, uh = run_x(state, eta, x_per)
                         cmat, uhist = cmat + cm, uhist + uh
                     return state, cmat, uhist
             else:
@@ -614,7 +629,8 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                     for _ in range(n_cycles(n_steps)):
                         state = _sweep_state(state)
                         if run_x is not None:
-                            state = run_x(state, x_per)
+                            with exchanges(state):
+                                state = run_x(state, x_per)
                     return state
 
     def init(box, n_init, n_chains):

@@ -6,7 +6,10 @@ The port marks where its work happens with `span(name, units, sync)`:
 full-energy recompute, `recompute.kernel` around the recompute kernel's
 launch inside it (the kernel route), `chunk` around each group of rows
 of a chunked map, and `energy.setup` / `energy.real` / `energy.kspace`
-around the phases of one chunk of the dense energy (the plain route).  With no sink attached (every
+around the phases of one chunk of the dense energy (the plain route).
+The muVT app (mc/gcmc_mol.py) adds `gcmc.cycle` around each sweep-kernel
+launch of a cycle (both kernel routes) and `gcmc.exchange` around a
+hybrid cycle's plain exchange steps.  With no sink attached (every
 run that does not trace) `span` hands back one preallocated
 `contextlib.nullcontext()`: it allocates nothing, calls nothing and never
 synchronises the card.
@@ -15,12 +18,14 @@ A sink is any object with a method `span(name, units, sync)` that
 returns a context manager; `attach(sink)` makes it the one sink of the
 process, `detach()` removes it.  `units` counts the work inside the
 span (1 per volume move; the chains or boxes of a recompute and of its
-kernel launch; the rows of a chunk).  `sync=True` marks a span whose time a sink may measure by
-synchronising the card at its ends (volume moves and recomputes end in
-host reads anyway); `sync=False` marks one nested in a synchronised
-span, whose own sync would serialise the launches it is timing (the
-kernel launch, the chunks and their phases): a sink counts or annotates
-it, and does not synchronise.
+kernel launch; the rows of a chunk; the chains of a muVT cycle's launch;
+chains x exchange steps of a hybrid cycle's exchanges).  `sync=True`
+marks a span whose time a sink may measure by synchronising the card at
+its ends (volume moves and recomputes end in host reads anyway);
+`sync=False` marks one nested in a synchronised span, whose own sync
+would serialise the launches it is timing (the kernel launches, the
+chunks and their phases, the muVT cycles and exchange steps): a sink
+counts or annotates it, and does not synchronise.
 """
 
 import contextlib
